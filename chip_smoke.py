@@ -3,18 +3,41 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  1. build    - nvcc builds the flash-forward kernel library from the sources
-                in this checkout (vla_rft_tpu_torch/csrc/flash_fwd.cu);
-  2. flash    - the kernel against its plain PyTorch twin on the card over
-                masked, padded and ragged cases, and its time beside the
-                twin's, scaled_dot_product_attention's (a yardstick only: the
-                port never calls it) and the bound of the card;
-  3. serving  - the libero-width policy (SigLIP-so400m + DINOv2-L +
-                Qwen2.5-0.5B + DiT action expert, seeded random weights)
-                behind ActionServer on localhost answers 4 POST /act
-                requests; every request must launch the kernel once per Qwen
-                layer (24), and the kernel path must agree with the plain
-                path on one request;
+  1. build      - nvcc builds the kernel libraries from the sources in this
+                  checkout (vla_rft_tpu_torch/csrc/flash_fwd.cu and
+                  decode_hd.cu), one nvcc per source, started together;
+  2. flash      - the flash kernel (#1) against its plain PyTorch twin on the
+                  card over masked, padded and ragged cases and the WM's
+                  1088-token prefill, and its time at the serving and the WM
+                  prefill shapes beside the twin's, scaled_dot_product_attention's
+                  (a yardstick only: the port never calls it) and the bound;
+  3. decode     - the split-cache decode kernels (#4 with a shared prefix, #5
+                  without) against their twins over int8 and bf16 caches, Sq 1
+                  and 7, uniform and per-row prefix maps, shared_starts,
+                  kv_starts (also cutting the window to a few keys or none),
+                  ragged lengths and GQA 14/2, and their time at the WM's
+                  mid-rollout shape;
+  4. serving    - the libero-width policy (SigLIP-so400m + DINOv2-L +
+                  Qwen2.5-0.5B + DiT action expert, seeded random weights)
+                  behind ActionServer on localhost answers 4 POST /act
+                  requests; every request must launch the flash kernel once
+                  per Qwen layer (24), and the kernel path must agree with
+                  the plain path on one request;
+  5. wm_reward  - the world-model reward path at libero width (24-layer WM
+                  with an int8 KV cache, the 256 px tokenizer, VGG16 LPIPS;
+                  seeded random weights) on 2 samples with n = 4 rollouts,
+                  composed as the GRPO training step composes it: process ->
+                  one shared-prefix rollout of 8 frames over 10 rows (each
+                  sample's 4 rollouts, then its gt-action row) -> context
+                  features -> gt frames decoded once -> msp_reward; run
+                  twice, each run launching #1 exactly 24 times and #4
+                  exactly 24 x 521 times;
+  6. wm_plain   - generate_sequences without a shared prefix on 2 rows for 2
+                  frames (not 8, to keep the script short): #1 exactly 24
+                  times and #5 exactly 24 x 2 x 65 times;
+  7. wm_kernel_vs_plain - the WM's kernel path and plain path fed the same
+                  prompts and the kernel path's tokens of frame 0 must agree
+                  on the logits of every call;
 then the card's name and power limit, the kernel table as one JSON line, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no `ok` line.  It needs a CUDA device and the rest of the
@@ -22,6 +45,7 @@ repository beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -42,6 +66,16 @@ O_TOL = 2e-2  # bf16 O (2^-8 relative) and bf16 P in the P.V product
 LSE_TOL = 1e-3  # f32 LSE; scores are exact bf16 products summed in f32
 HIDDEN_TOL = 5e-2  # kernel vs plain path, relative to max|hidden|, 24 bf16 layers
 ACTION_TOL = 5e-2  # normalized actions after 10 bf16 Euler steps
+# decode kernel vs twin: both dequantise to bf16 and attend in f32 with P in
+# f32, so they differ by f32 summation order before O is rounded to bf16:
+# |dO| <= DEC_RTOL * |O| + DEC_ATOL, one bf16 ulp plus a small floor
+DEC_RTOL, DEC_ATOL = 2 ** -7, 2e-3
+# WM kernel path vs plain path, max|d logits| / max|logits|: 24 bf16 layers
+# whose int8 caches are written from each path's own hidden states
+WM_LOGIT_TOL = 5e-2
+
+WM_PREFIX = 1088  # shared prompt head: 1024 ctx tokens + the 64 dyn tokens of frame 0
+N_SAMPLES, N_ROLLOUTS = 2, 4
 
 
 def emit(obj) -> None:
@@ -62,27 +96,85 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one fn() call in ms: `iters` calls captured in a CUDA
+    graph and replayed, so the host's launch pace does not set the time
+    (back-to-back eager calls of a small kernel measure the Python wrapper)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def host_ms(fn):
+    """(fn(), its ms on the host clock, ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def bound(nbytes: int, flops: int) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the bf16 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
 def flash_work(q, k, kv_lens, kv_starts, q_offset, causal):
-    """(bytes, flops) the function needs on these inputs: each input read
-    once, each output written once; 4*D flops per valid (query, key) pair."""
+    """(bytes, flops) the function needs on these inputs: q read once, K/V
+    read once at the key positions some query of the row attends to (masked
+    positions are never needed), O and LSE written once; 4*D flops per
+    valid (query, key) pair."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    io = 2 * (B * Sq * Hq * D + 2 * B * Sk * Hkv * D) + 2 * B * Sq * Hq * D + 4 * B * Sq * Hq
     kv = torch.arange(Sk, device=q.device)[None, None, :]
     qp = torch.arange(Sq, device=q.device)[None, :, None] + q_offset[:, None, None]
     valid = (kv < kv_lens[:, None, None]) & (kv >= kv_starts[:, None, None])
     if causal:
         valid = valid & (qp >= kv)
+    keys = int(valid.any(dim=1).sum())  # sum over rows of the needed key positions
+    io = 2 * B * Sq * Hq * D + 2 * 2 * keys * Hkv * D + 2 * B * Sq * Hq * D + 4 * B * Sq * Hq
     pairs = int(valid.sum()) * Hq
     return io, 4 * D * pairs
 
 
-def phase_build(attention) -> dict:
-    info = attention.build_flash_fwd()
+def phase_build() -> dict:
+    from vla_rft_tpu_torch.ops import attention, cuda_build, decode_attention_hd
+
+    t0 = time.perf_counter()
+    infos = cuda_build.build("flash_fwd", "decode_hd")
+    wall = time.perf_counter() - t0
     attention._load()
-    ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "smem" in ln]
-    out = {"phase": "build", "seconds": round(info["seconds"], 3), "built": info["built"],
-           "library": os.path.relpath(info["path"]), "ptxas": ptxas}
+    decode_attention_hd._load()
+    libs = {}
+    for name, info in infos.items():
+        ptxas = [ln.strip() for ln in info["log"].splitlines()
+                 if "registers" in ln or "smem" in ln or "spill" in ln]
+        libs[name] = {"seconds": round(info["seconds"], 3), "built": info["built"],
+                      "library": os.path.relpath(info["path"]), "ptxas": ptxas}
+    out = {"phase": "build", "wall_seconds": round(wall, 3), "libraries": libs}
     emit(out)
     return out
 
@@ -90,9 +182,10 @@ def phase_build(attention) -> dict:
 def phase_flash(attention) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    Hq, Hkv, D = 14, 2, 64
+    D = 64
     cases = [
-        # (name, B, Sq, Sk, per-row kwargs); all causal, as the Qwen forward
+        # (name, B, Sq, Sk, per-row kwargs); all causal, as the Qwen and WM
+        # forwards; Hq/Hkv 14/2 (Qwen) unless the case is the WM's 16/16
         ("serving_b1", 1, 352, 352, {}),
         ("right_pad_b4", 4, 352, 352, {"kv_lens": [352, 300, 161, 97]}),
         ("left_pad_b4_608", 4, 608, 608, {"kv_starts": [0, 64, 100, 333]}),
@@ -100,9 +193,13 @@ def phase_flash(attention) -> dict:
         ("fully_masked_row", 4, 352, 352, {"kv_lens": [352, 0, 352, 200],
                                            "kv_starts": [0, 0, 352, 50]}),
         ("ragged_300", 4, 300, 300, {"kv_lens": [300, 299, 250, 1]}),
+        # the WM's shared-prefix prefill: 2 unique prefixes of 1088 tokens in
+        # a cache rounded up to 1152 positions
+        ("wm_prefill", 2, WM_PREFIX, 1152, {"kv_lens": [WM_PREFIX, WM_PREFIX]}),
     ]
     results, err_o, err_lse = [], 0.0, 0.0
     for name, B, Sq, Sk, kw in cases:
+        Hq, Hkv = (16, 16) if name.startswith("wm") else (14, 2)
         q = torch.randn(B, Sq, Hq, D, generator=gen, device=dev).bfloat16()
         k = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
         v = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
@@ -122,28 +219,36 @@ def phase_flash(attention) -> dict:
         results.append({"case": name, "B": B, "Sq": Sq, "Sk": Sk, "max_abs_err_o": e_o,
                         "max_abs_err_lse": e_l})
 
-    # time at the serving shape: one request, S = 96 text + 256 patches
-    B, S = 1, 352
-    q = torch.randn(B, S, Hq, D, generator=gen, device=dev).bfloat16()
-    k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).bfloat16()
-    v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).bfloat16()
-    rows = {"kv_lens": torch.full((B,), S, dtype=torch.int32, device=dev),
-            "kv_starts": torch.zeros(B, dtype=torch.int32, device=dev),
-            "q_offset": torch.zeros(B, dtype=torch.int32, device=dev)}
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    kernel_ms = cuda_ms(lambda: attention.flash_fwd(q, k, v, causal=True, **rows))
-    plain_ms = cuda_ms(lambda: attention.attention_plain(q, k, v, causal=True, return_lse=True,
-                                                         **rows))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                enable_gqa=True))
-    nbytes, flops = flash_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"], True)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    # time at the serving shape (one request, S = 96 text + 256 patches,
+    # 14/2 heads) and at the WM prefill shape (2 x 1088 queries, 16/16 heads)
+    timed = {}
+    for shape, B, Sq, Sk, Hq, Hkv, kv_len in (("serving", 1, 352, 352, 14, 2, 352),
+                                               ("wm_prefill", 2, WM_PREFIX, 1152, 16, 16,
+                                                WM_PREFIX)):
+        q = torch.randn(B, Sq, Hq, D, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
+        rows = {"kv_lens": torch.full((B,), kv_len, dtype=torch.int32, device=dev),
+                "kv_starts": torch.zeros(B, dtype=torch.int32, device=dev),
+                "q_offset": torch.zeros(B, dtype=torch.int32, device=dev)}
+        # SDPA over the valid keys only (a yardstick: the port never calls it)
+        qt, kt, vt = (x[:, :kv_len].transpose(1, 2) for x in (q, k, v))
+        kern = lambda: attention.flash_fwd(q, k, v, causal=True, **rows)
+        kernel_ms = graph_ms(kern)
+        eager_ms = cuda_ms(kern)
+        plain_ms = graph_ms(lambda: attention.attention_plain(q, k, v, causal=True,
+                                                              return_lse=True, **rows), 5)
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                     enable_gqa=True))
+        nbytes, flops = flash_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"],
+                                   True)
+        timed[shape] = {"B": B, "Sq": Sq, "Sk": Sk, "kv_len": kv_len, "Hq": Hq, "Hkv": Hkv,
+                        "D": D, "causal": True, "kernel_ms": kernel_ms, "eager_ms": eager_ms,
+                        "plain_ms": plain_ms,
+                        "library_ms": library_ms, **bound(nbytes, flops)}
     out = {"phase": "flash", "cases": results, "max_abs_err_o": err_o,
            "max_abs_err_lse": err_lse, "tolerance": {"o": O_TOL, "lse": LSE_TOL},
-           "timed_shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "causal": True},
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": nbytes, "flops": flops}
+           "timed": timed}
     emit(out)
     return out
 
@@ -225,31 +330,434 @@ def phase_serving(attention) -> dict:
     return out
 
 
+def _decode_inputs(dec, gen, *, int8, B, Sq, G, Hkv, Sr, shared, own, starts=None, pm=None,
+                   Sp=1152, shared_len=WM_PREFIX, per_row=False):
+    """Random inputs of one decode call: (kernel fn, twin fn, info, tensors)."""
+    dev = torch.device("cuda")
+    Hq = Hkv * G
+
+    def cache(rows, S):
+        if int8:
+            c = [torch.randint(-127, 128, (rows, S, Hkv * 64), generator=gen, device=dev,
+                               dtype=torch.int8) for _ in range(2)]
+            s = tuple((torch.rand(rows, Hkv, S, generator=gen, device=dev) * 0.04 + 0.01)
+                      .bfloat16() for _ in range(2))
+            return c, s
+        return [torch.randn(rows, S, Hkv * 64, generator=gen, device=dev).bfloat16()
+                for _ in range(2)], None
+
+    q = torch.randn(B, Sq, Hq, 64, generator=gen, device=dev).bfloat16()
+    (ck, cv), sc = cache(B, Sr)
+    own = torch.tensor(own, device=dev, dtype=torch.int32)
+    starts = torch.tensor(starts if starts is not None else [0] * B, device=dev,
+                          dtype=torch.int32)
+    t = {"q": q, "ck": ck, "cv": cv, "sc": sc, "own": own}
+    if shared:
+        (sck, scv), ssc = cache(2, Sp)
+        pm = torch.tensor(pm, device=dev, dtype=torch.int32)
+        kv_lens = shared_len + own
+        kw = dict(shared_len=shared_len, kv_lens=kv_lens, q_offset=kv_lens - Sq,
+                  shared_starts=starts, scales=sc, shared_scales=ssc)
+        kern = lambda: dec.decode_shared_kernel(q, ck, cv, sck, scv, pm, **kw)
+        twin = lambda: dec.decode_shared_plain(q, ck, cv, sck, scv, pm, **kw)
+        t.update(sck=sck, scv=scv, ssc=ssc, pm=pm)
+    else:
+        kw = dict(kv_lens=own, q_offset=own - Sq, kv_starts=starts, scales=sc)
+        kern = lambda: dec.decode_kernel(q, ck, cv, **kw)
+        twin = lambda: dec.decode_plain(q, ck, cv, **kw)
+    info = {"int8": int8, "B": B, "Sq": Sq, "Hq": Hq, "Hkv": Hkv, "Sr": Sr, "shared": shared,
+            "per_row_prefix_map": per_row}
+    return kern, twin, info, t
+
+
+def phase_decode(dec) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B = N_SAMPLES * (N_ROLLOUTS + 1)
+    uniform = [0] * 5 + [1] * 5  # each sample's 4 rollouts, then its gt row
+    per_row = [0, 1, 1, 0, 1, 0, 0, 1, 0, 1]
+    # ragged own lengths; row 0's own segment holds only the current block
+    own = lambda Sq: [Sq, 150, 291, 300, 7 + Sq, 384, 77, 200, 291, 12 + Sq]
+    cases = []
+    for int8 in (True, False):
+        for Sq in (1, 7):
+            cases.append(dict(int8=int8, B=B, Sq=Sq, G=1, Hkv=16, Sr=384, shared=True,
+                              pm=uniform, own=own(Sq), starts=[5] * 5 + [0] * 5))
+            cases.append(dict(int8=int8, B=B, Sq=Sq, G=1, Hkv=16, Sr=384, shared=True,
+                              per_row=True, pm=per_row, own=own(Sq),
+                              starts=[0, 9, 0, 0, 3, 0, 0, 0, 1, 0]))
+            # kernel #5: one cache, ragged lengths and left padding
+            cases.append(dict(int8=int8, B=B, Sq=Sq, G=1, Hkv=16, Sr=1408, shared=False,
+                              own=[1379, Sq, 800, 1408, 1200, 64, 1000, 1379, 999, 500],
+                              starts=[0, 0, 17, 0, 300, 0, 63, 0, 0, 499]))
+        # windows cut short: shared_starts and kv_starts leave a few keys
+        # (row 3 keeps none of its prefix, row 4 one key of it), so a kernel
+        # that ignored them, or was off by one at either end, would fail
+        cases.append(dict(int8=int8, B=B, Sq=1, G=1, Hkv=16, Sr=384, shared=True, pm=per_row,
+                          own=[1, 3, 5, 2, 1, 150, 9, 1, 4, 2],
+                          starts=[1080, 1085, 1000, WM_PREFIX, WM_PREFIX - 1, 1087, 600, 1086,
+                                  1084, 0]))
+        cases.append(dict(int8=int8, B=B, Sq=7, G=1, Hkv=16, Sr=1408, shared=False,
+                          own=[1379, 9, 800, 1408, 1200, 64, 1000, 1379, 999, 500],
+                          starts=[1378, 6, 797, 1400, 1199, 63, 990, 1372, 998, 495]))
+    # GQA 14/2 (the policy's head layout) on both kernels
+    cases.append(dict(int8=True, B=4, Sq=7, G=7, Hkv=2, Sr=256, shared=True, pm=[0, 0, 1, 1],
+                      own=[7, 100, 256, 31], starts=[0, 0, 2, 2]))
+    cases.append(dict(int8=False, B=4, Sq=1, G=7, Hkv=2, Sr=256, shared=False,
+                      own=[256, 1, 90, 200], starts=[0, 0, 10, 199]))
+    results, err = [], {"shared": 0.0, "plain": 0.0}
+    for case in cases:
+        kern, twin, info, _ = _decode_inputs(dec, gen, **case)
+        o = kern()
+        torch.cuda.synchronize()
+        ref = twin().float()
+        d = (o.float() - ref).abs()
+        e = d.max().item()
+        if not (torch.isfinite(o.float()).all()
+                and bool((d <= DEC_RTOL * ref.abs() + DEC_ATOL).all())):
+            raise AssertionError(f"decode case {info}: max|dO|={e}")
+        key = "shared" if case["shared"] else "plain"
+        err[key] = max(err[key], e)
+        results.append({**info, "max_abs_err": e})
+
+    # Time at the WM's mid-rollout shape: 10 rows (2 samples x (4 + gt)),
+    # 2 prefixes of 1088 valid positions, own length 7 + 4 * 71 = 291 (frame
+    # 4 of 8), one query, int8 cache.  #5 at the plain route's shape: the
+    # whole 1095 + 4 * 71 = 1379-token context in each row's cache.
+    mid = 7 + 4 * 71
+    timed = {}
+    for key, case in (("shared", dict(int8=True, B=B, Sq=1, G=1, Hkv=16, Sr=384, shared=True,
+                                      pm=uniform, own=[mid] * B)),
+                      ("plain", dict(int8=True, B=B, Sq=1, G=1, Hkv=16, Sr=1408, shared=False,
+                                     own=[1095 + mid - 7] * B))):
+        kern, twin, info, t = _decode_inputs(dec, gen, **case)
+        L = case["own"][0]
+        k_all = dec.dequantize(t["ck"][:, :L], t["sc"][0][:, :, :L], 64, torch.bfloat16)
+        v_all = dec.dequantize(t["cv"][:, :L], t["sc"][1][:, :, :L], 64, torch.bfloat16)
+        positions = B * L  # distinct cache positions the call must read
+        if key == "shared":
+            pm = t["pm"].long()
+            k_sh = dec.dequantize(t["sck"][:, :WM_PREFIX], t["ssc"][0][:, :, :WM_PREFIX], 64,
+                                  torch.bfloat16)[pm]
+            v_sh = dec.dequantize(t["scv"][:, :WM_PREFIX], t["ssc"][1][:, :, :WM_PREFIX], 64,
+                                  torch.bfloat16)[pm]
+            k_all, v_all = torch.cat([k_sh, k_all], 1), torch.cat([v_sh, v_all], 1)
+            positions += int(pm.unique().numel()) * WM_PREFIX
+        # SDPA over K/V already dequantised and concatenated: a yardstick
+        # that skips the dequantisation (the port never calls it)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (t["q"], k_all, v_all))
+        keys = k_all.shape[1]
+        nbytes = positions * 2 * 16 * (64 + 2) + 2 * 2 * B * 16 * 64  # int8 K/V + bf16 scales, q, O
+        flops = 4 * 64 * B * 16 * keys
+        timed[key] = {**info, "keys_per_row": keys, "kernel_ms": graph_ms(kern),
+                      "eager_ms": cuda_ms(kern, 100), "plain_ms": graph_ms(twin, 10),
+                      "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                      **bound(nbytes, flops)}
+    out = {"phase": "decode", "cases": results, "max_abs_err": err,
+           "tolerance": f"|dO| <= {DEC_RTOL} * |O| + {DEC_ATOL}", "timed": timed}
+    emit(out)
+    return out
+
+
+def wm_inputs(b, seed: int = 0):
+    """Seeded raw inputs of one training step: 9 frames of 256 x 256 x 3
+    uint8 per sample, the policy's 8-step action chunk per rollout and the
+    recorded one per sample, and the action ranges ([-1, 1]^7)."""
+    rng = np.random.default_rng(seed)
+    T, S, A = b.num_raw_frames, b.image_size, b.proc_cfg.action_dim
+    raw = rng.integers(0, 256, (N_SAMPLES, T, S, S, 3), dtype=np.uint8)
+    pred = rng.uniform(-1, 1, (N_SAMPLES * N_ROLLOUTS, T - 1, A)).astype(np.float32)
+    gt = rng.uniform(-1, 1, (N_SAMPLES, T - 1, A)).astype(np.float32)
+    ranges = np.stack([-np.ones(A), np.ones(A)], -1).astype(np.float32)
+    return tuple(torch.from_numpy(x).cuda() for x in (raw, pred, gt, ranges))
+
+
+def wm_process(b, raw, pred, gt, ranges, n):
+    """The training step's process stage: tokenize each sample's frames once
+    (frame 0 doubled as the context frame), tile the tokens over its n
+    rollouts, build the ctx_msp sequences and the gt action tokens."""
+    from vla_rft_tpu_torch.workers.processor import (add_context_frame, ctx_msp_process,
+                                                     discretize_actions)
+
+    pc = b.proc_cfg
+    pixels, _ = add_context_frame(raw.float() / 255.0, gt)
+    idx_c, idx_d = b.tokenizer.tokenize(pixels)
+    idx_c, idx_d = idx_c.repeat_interleave(n, 0), idx_d.repeat_interleave(n, 0)
+    pad = lambda a: torch.cat([a[:, :1], a, a[:, -1:]], dim=1)  # [a0, a, aT]
+    out = ctx_msp_process(pc, idx_c, idx_d, pad(pred), ranges)
+    out["gt_action_ids"] = discretize_actions(pad(gt.repeat_interleave(n, 0))[:, 1:], ranges,
+                                              pc.action_bins) + 2 * pc.visual_token_num
+    return out
+
+
+def wm_call_rows(b, out, n):
+    """The one WM call of the step: each sample's n policy rows, then its gt
+    row (gt_branch_per_sample).  Returns (prefixes, tails, actions,
+    prefix_map, row order)."""
+    pc, roll = b.proc_cfg, b.roll_cfg
+    prompt = out["input_ids"][:, : roll.prompt_length]
+    p0 = roll.prompt_length - pc.action_dim
+    B_u = prompt.shape[0] // n
+    gt_u = out["gt_action_ids"][::n]
+    idx = torch.cat([torch.cat([torch.arange(s * n, (s + 1) * n), torch.tensor([B_u * n + s])])
+                     for s in range(B_u)]).cuda()
+    pm = torch.cat([torch.arange(B_u).repeat_interleave(n), torch.arange(B_u)]).cuda()[idx]
+    tails = torch.cat([prompt[:, p0:], gt_u[:, 0]])[idx]
+    actions = torch.cat([out["action_ids"], gt_u])[idx]
+    return prompt[::n, :p0], tails, actions, pm, idx
+
+
+def phase_wm_reward(attention, dec) -> dict:
+    from vla_rft_tpu_torch.models.factory import build_wm_reward
+    from vla_rft_tpu_torch.workers.reward import (detokenize_response_frames, msp_reward,
+                                                  perceptual_loss_frames)
+    from vla_rft_tpu_torch.workers.wm_rollout import generate_sequences
+
+    (b, build_ms) = host_ms(lambda: build_wm_reward("libero", device="cuda", seed=11))
+    n, roll, pc = N_ROLLOUTS, b.roll_cfg, b.proc_cfg
+    raw, pred, gt, ranges = wm_inputs(b, seed=0)
+    total = N_SAMPLES * n
+    V, A, Fn = roll.interact_max_tokens, roll.action_dim, roll.num_frames
+    calls = 1 + Fn * (V + 1)  # tail prefill, then per frame V tokens and one action chunk
+    runs = []
+    for run in (1, 2):
+        gen = torch.Generator(device="cuda").manual_seed(run)
+        torch.cuda.reset_peak_memory_stats()
+        ms = {}
+        with torch.no_grad():
+            attention.launches = dec.shared_launches = dec.plain_launches = 0  # main path
+            out, ms["process"] = host_ms(lambda: wm_process(b, raw, pred, gt, ranges, n))
+            prefixes, tails, actions, pm, idx = wm_call_rows(b, out, n)
+            both, ms["wm_rollout"] = host_ms(lambda: generate_sequences(
+                b.wm, gen, tails, actions, roll, shared_prefix=prefixes, prefix_map=pm))
+            both = both[torch.argsort(idx)]
+            responses, gt_responses = both[:total], both[total:]
+            (_, feats), ms["ctx_feats"] = host_ms(
+                lambda: b.tokenizer.ctx_decode(out["ctx_tokens"][::n] - pc.visual_token_num))
+            gt_frames, ms["detokenize_gt"] = host_ms(lambda: detokenize_response_frames(
+                b.tokenizer, pc, Fn, gt_responses, feats, torch.arange(N_SAMPLES).cuda()))
+            cmap = torch.arange(N_SAMPLES).repeat_interleave(n).cuda()
+            (reward, metrics), ms["reward"] = host_ms(lambda: msp_reward(
+                b.tokenizer, b.lpips, pc, b.reward_cfg, responses, real_frames=gt_frames[cmap],
+                ctx_feats=feats, ctx_map=cmap))
+            counts = {"flash_fwd": attention.launches, "decode_shared_hd": dec.shared_launches,
+                      "decode_hd": dec.plain_launches}  # read right after the main path
+        expect = {"flash_fwd": b.wm_cfg.num_layers,
+                  "decode_shared_hd": b.wm_cfg.num_layers * calls, "decode_hd": 0}
+        if counts != expect:
+            raise AssertionError(f"wm_reward run {run}: launches {counts}, expected {expect}")
+        if responses.shape != (total, roll.response_length) or gt_responses.shape != (
+                N_SAMPLES, roll.response_length):
+            raise AssertionError(f"response shapes {tuple(responses.shape)}, "
+                                 f"{tuple(gt_responses.shape)}")
+        frames = both.reshape(-1, Fn, V + A)
+        act_in = torch.cat([out["action_ids"], out["gt_action_ids"][::n]])[:, 1:].cuda()
+        if not (bool(((both >= 0) & (both < b.wm_cfg.vocab_size)).all())
+                and torch.equal(frames[:, :, V:], act_in[:, :Fn])):
+            raise AssertionError("response tokens out of range or actions not teacher-forced")
+        if not (bool(torch.isfinite(reward).all()) and bool((reward[:, :-1] == 0).all())
+                and bool((reward[:, -1] != 0).all())):
+            raise AssertionError(f"bad rewards: {reward[:, -1].tolist()}")
+        runs.append({"run": run, "stage_ms": ms, "total_ms": sum(ms.values()),
+                     "launches": counts, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "reward_last": reward[:, -1].tolist(),
+                     "metrics": {k: v.item() for k, v in metrics.items()}})
+
+    # the rollout's parts, timed alone on the same inputs (outside the main path)
+    with torch.no_grad():
+        def prefill():
+            c = b.wm.init_cache(N_SAMPLES, prefixes.shape[1])
+            b.wm(prefixes, cache=c, cache_index=0, compute_logits=False)
+        _, prefill_ms = host_ms(prefill)
+        _, prefill_ms = host_ms(prefill)
+        _, lpips_ms = host_ms(lambda: perceptual_loss_frames(b.lpips, gt_frames[cmap], gt_frames[cmap]))
+        _, lpips_ms = host_ms(lambda: perceptual_loss_frames(b.lpips, gt_frames[cmap], gt_frames[cmap]))
+        _, detok_ms = host_ms(lambda: detokenize_response_frames(
+            b.tokenizer, pc, Fn, responses, feats, cmap))
+    trace = profile_decode_steps(b, prefixes, tails, actions, pm)
+    steady = runs[1]["stage_ms"]["wm_rollout"]
+    out_json = {"phase": "wm_reward", "preset": "libero", "samples": N_SAMPLES, "n": n,
+                "wm_rows": total + N_SAMPLES, "build_ms": build_ms, "runs": runs,
+                "decode_calls_per_rollout": calls,
+                "parts_ms": {"prefix_prefill": prefill_ms,
+                             "decode_per_frame": (steady - prefill_ms) / Fn,
+                             "detokenize_policy_rows": detok_ms,
+                             "lpips_64_frame_pairs": lpips_ms},
+                "decode_step_trace": trace}
+    emit(out_json)
+    return {"json": out_json, "bundle": b, "out": out, "responses": responses,
+            "prefixes": prefixes, "tails": tails, "actions": actions, "pm": pm, "idx": idx}
+
+
+def profile_decode_steps(b, prefixes, tails, actions, pm, steps: int = 16) -> dict:
+    """torch.profiler over `steps` sampled one-token decode calls of the
+    rollout (sampling included), after a warm-up: wall and device-busy ms
+    per call, the idle share, kernels per call and the decode kernel's
+    device time."""
+    from vla_rft_tpu_torch.ops.sampling import sample_token
+    from vla_rft_tpu_torch.serving.profile_request import _busy_us
+
+    roll, wmod = b.roll_cfg, b.wm
+    P, P0 = roll.prompt_length, prefixes.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    with torch.no_grad():
+        shared = wmod.init_cache(prefixes.shape[0], P0)
+        wmod(prefixes, cache=shared, cache_index=0, compute_logits=False)
+        kw = dict(shared_cache=shared, shared_len=P0, prefix_map=pm)
+        cache = wmod.init_cache(tails.shape[0], P - P0 + 4 * roll.tokens_per_frame)
+        last = wmod(tails, cache=cache, cache_index=P0, kv_lens=P, logits_last_only=True,
+                    **kw)[0][:, -1]
+
+        def step(i):
+            tok = sample_token(gen, last, roll.temperature, roll.top_k, roll.top_p,
+                               roll.do_sample)
+            return wmod(tok[:, None], cache=cache, cache_index=P + i, **kw)[0][:, 0]
+
+        for i in range(4):
+            last = step(i)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(4, 4 + steps):
+                last = step(i)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    dec_us = sum(e.time_range.end - e.time_range.start for e in kernels
+                 if "decode_hd_kernel" in e.name)
+    n_dec = sum(1 for e in kernels if "decode_hd_kernel" in e.name)
+    return {"calls": steps, "wall_ms_per_call": wall_us / 1e3 / steps,
+            "device_busy_ms_per_call": busy / 1e3 / steps,
+            "device_idle_share": (1.0 - busy / wall_us) if kernels else None,
+            "kernels_per_call": len(kernels) / steps, "decode_kernel_launches": n_dec,
+            "decode_kernel_ms_per_launch": dec_us / 1e3 / max(n_dec, 1)}
+
+
+def phase_wm_plain(attention, dec, wm) -> dict:
+    """generate_sequences without a shared prefix (kernel #5) on 2 rows, 2
+    frames."""
+    from vla_rft_tpu_torch.workers.wm_rollout import generate_sequences
+
+    b, out = wm["bundle"], wm["out"]
+    Fn = 2
+    roll = dataclasses.replace(b.roll_cfg, num_frames=Fn,
+                               response_length=Fn * b.roll_cfg.tokens_per_frame)
+    rows = torch.tensor([0, N_ROLLOUTS]).cuda()  # one rollout of each sample
+    prompt = out["input_ids"][rows, : roll.prompt_length]
+    with torch.no_grad():
+        attention.launches = dec.shared_launches = dec.plain_launches = 0  # main path
+        resp, ms = host_ms(lambda: generate_sequences(
+            b.wm, torch.Generator(device="cuda").manual_seed(5), prompt,
+            out["action_ids"][rows], roll))
+        counts = {"flash_fwd": attention.launches, "decode_shared_hd": dec.shared_launches,
+                  "decode_hd": dec.plain_launches}
+    L, V = b.wm_cfg.num_layers, roll.interact_max_tokens
+    expect = {"flash_fwd": L, "decode_shared_hd": 0, "decode_hd": L * Fn * (V + 1)}
+    if counts != expect:
+        raise AssertionError(f"wm_plain: launches {counts}, expected {expect}")
+    if resp.shape != (2, roll.response_length) or not bool(((resp >= 0) & (
+            resp < b.wm_cfg.vocab_size)).all()):
+        raise AssertionError(f"wm_plain: bad response {tuple(resp.shape)}")
+    res = {"phase": "wm_plain", "rows": 2, "frames": Fn, "rollout_ms": ms, "launches": counts}
+    emit(res)
+    return res
+
+
+def phase_wm_kernel_vs_plain(wm) -> dict:
+    """Teacher-force the kernel path's frame-0 tokens through both paths."""
+    b = wm["bundle"]
+    wmod, roll = b.wm, b.roll_cfg
+    P, V, P0 = roll.prompt_length, roll.interact_max_tokens, wm["prefixes"].shape[1]
+    both = wm["responses"]  # the kernel path's policy rows (argsorted order)
+    rows = wm["idx"][wm["idx"] < both.shape[0]]  # policy rows in call order
+    tails, actions = wm["tails"][wm["idx"] < both.shape[0]], wm["actions"][wm["idx"] < both.shape[0]]
+    pm = wm["pm"][wm["idx"] < both.shape[0]]
+    toks = both[rows, :V]
+    logits = {}
+    with torch.no_grad():
+        for impl in ("auto", "plain"):
+            wmod.attn_impl = impl
+            try:
+                shared = wmod.init_cache(N_SAMPLES, P0)
+                wmod(wm["prefixes"], cache=shared, cache_index=0, compute_logits=False)
+                kw = dict(shared_cache=shared, shared_len=P0, prefix_map=pm)
+                cache = wmod.init_cache(len(rows), P - P0 + 2 * roll.tokens_per_frame)
+                out = [wmod(tails, cache=cache, cache_index=P0, kv_lens=P,
+                            logits_last_only=True, **kw)[0][:, -1]]
+                for i in range(V):
+                    out.append(wmod(toks[:, i:i + 1], cache=cache, cache_index=P + i, **kw)[0][:, 0])
+                out.append(wmod(actions[:, 1], cache=cache, cache_index=P + V,
+                                logits_last_only=True, **kw)[0][:, -1])
+                logits[impl] = torch.stack(out)  # (2 + V, rows, vocab)
+            finally:
+                wmod.attn_impl = "auto"
+    k, p = logits["auto"], logits["plain"]
+    per_call = ((k - p).abs().amax(dim=(1, 2)) / p.abs().amax(dim=(1, 2))).tolist()
+    worst = max(per_call)
+    if not (worst <= WM_LOGIT_TOL and bool(torch.isfinite(k).all())):
+        raise AssertionError(f"WM kernel vs plain path: rel logit err {worst} > {WM_LOGIT_TOL}")
+    res = {"phase": "wm_kernel_vs_plain", "calls": len(per_call), "rows": len(rows),
+           "max_rel_logit_err": worst, "max_abs_logit_err": (k - p).abs().max().item(),
+           "rel_err_prefill": per_call[0], "tolerance": WM_LOGIT_TOL,
+           "argmax_agreement": (k.argmax(-1) == p.argmax(-1)).float().mean().item()}
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vla_rft_tpu_torch.ops import attention
+    from vla_rft_tpu_torch.ops import decode_attention_hd as dec
 
     # float32 references stay float32 (the defaults, stated)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build(attention)
-    flash = phase_flash(attention)
-    serving = phase_serving(attention)
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    timed("build", phase_build)
+    flash = timed("flash", phase_flash, attention)
+    decode = timed("decode", phase_decode, dec)
+    serving = timed("serving", phase_serving, attention)
+    wm = timed("wm_reward", phase_wm_reward, attention, dec)
+    plain = timed("wm_plain", phase_wm_plain, attention, dec, wm)
+    timed("wm_kernel_vs_plain", phase_wm_kernel_vs_plain, wm)
+    emit({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t0, 1)})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda", "source": "vla_rft_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "vla_rft_tpu/ops/attention.py:108",
-        "launches": serving["main_path_launches"], "max_abs_err": flash["max_abs_err_o"],
-        "ms": flash["kernel_ms"], "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
-        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
-    }]})
+    wm_launches = wm["json"]["runs"][0]["launches"]
+    entry = lambda name, source, replaces, launches, err, t: {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+    flash_src = "vla_rft_tpu_torch/csrc/flash_fwd.cu"
+    dec_src = "vla_rft_tpu_torch/csrc/decode_hd.cu"
+    emit({"kernels": [
+        entry("flash_fwd", flash_src, "vla_rft_tpu/ops/attention.py:108",
+              serving["main_path_launches"], flash["max_abs_err_o"], flash["timed"]["serving"]),
+        {**entry("flash_fwd@wm_prefill", flash_src, "vla_rft_tpu/ops/attention.py:108",
+                 wm_launches["flash_fwd"], flash["max_abs_err_o"], flash["timed"]["wm_prefill"]),
+         "shape": "B=2 Sq=1088 Sk=1152 Hq=Hkv=16 D=64 causal"},
+        entry("decode_shared_hd", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:226",
+              wm_launches["decode_shared_hd"], decode["max_abs_err"]["shared"],
+              decode["timed"]["shared"]),
+        entry("decode_hd", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:272",
+              plain["launches"]["decode_hd"], decode["max_abs_err"]["plain"],
+              decode["timed"]["plain"]),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

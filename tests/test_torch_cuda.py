@@ -6,9 +6,11 @@ that has only PyTorch (tests/conftest.py imports JAX, hence --noconftest):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
-Tolerances: O is bf16 (2^-8 relative) and the kernel rounds P to bf16 for
-the P.V product, so O gets atol/rtol 2e-2; the LSE is f32 from exact bf16
-products summed in f32, so it gets atol 1e-3.
+Tolerances: O is bf16 (2^-8 relative) and the flash kernel rounds P to
+bf16 for the P.V product, so its O gets atol/rtol 2e-2; the LSE is f32 from
+exact bf16 products summed in f32, so it gets atol 1e-3.  The decode kernels
+keep P in f32 and differ from their twins only by f32 summation order before
+O is rounded to bf16, so their O gets rtol 2^-7 (one bf16 ulp) and atol 2e-3.
 """
 import pytest
 import torch
@@ -85,3 +87,147 @@ def test_decoder_kernel_path_matches_plain_path(cuda_device):
     assert tattn.launches == before + cfg.num_layers
     scale = h_plain.float().abs().max()
     assert ((h_kernel.float() - h_plain.float()).abs().max() / scale) < 2e-2
+
+
+# ------------------------------------------------ split-cache decode (#4, #5)
+from vla_rft_tpu_torch.ops import decode_attention_hd as tdec  # noqa: E402
+
+
+def _decode_inputs(dev, gen, B, Sq, Hq, Hkv, S, int8, rows=None):
+    """q (B, Sq, Hq, 64) bf16 and one layer's cache (rows, S, Hkv*64) with
+    its (rows, Hkv, S) bf16 scales when int8."""
+    rows = B if rows is None else rows
+    q = torch.randn(B, Sq, Hq, 64, generator=gen, device=dev).bfloat16()
+    if int8:
+        c = [torch.randint(-127, 128, (rows, S, Hkv * 64), generator=gen, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+        s = [(torch.rand(rows, Hkv, S, generator=gen, device=dev) * 0.04 + 0.01).bfloat16()
+             for _ in range(2)]
+        return q, c, s
+    c = [torch.randn(rows, S, Hkv * 64, generator=gen, device=dev).bfloat16() for _ in range(2)]
+    return q, c, None
+
+
+DEC_TOL = dict(atol=2e-3, rtol=2 ** -7)
+DECODE_CASES = [
+    # (int8, Sq, G, per-row prefix_map)
+    (True, 1, 1, False), (True, 7, 1, True), (False, 1, 1, True), (False, 7, 1, False),
+    (True, 7, 7, False), (False, 3, 2, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8,Sq,G,per_row", DECODE_CASES)
+def test_decode_kernels_match_plain_twins(cuda_device, int8, Sq, G, per_row):
+    dev, gen = cuda_device, torch.Generator(device=cuda_device).manual_seed(Sq + G)
+    B, Hkv, Sr, Sp, shared_len = 6, 16 // G if G < 7 else 2, 200, 256, 250
+    Hq = Hkv * G
+    q, (ck, cv), sc = _decode_inputs(dev, gen, B, Sq, Hq, Hkv, Sr, int8)
+    _, (sck, scv), ssc = _decode_inputs(dev, gen, 1, Sq, Hq, Hkv, Sp, int8, rows=2)
+    pm = torch.tensor([1, 0, 0, 1, 1, 0] if per_row else [0, 0, 0, 1, 1, 1], device=dev)
+    own = torch.tensor([Sq, 17, 200, 63, 120, 1 + Sq], device=dev)  # row 0: only its block
+    kv_lens = shared_len + own
+    kw = dict(shared_len=shared_len, kv_lens=kv_lens, q_offset=kv_lens - Sq,
+              shared_starts=torch.tensor([0, 0, 9, 0, 3, 0], device=dev),
+              scales=None if sc is None else tuple(sc),
+              shared_scales=None if ssc is None else tuple(ssc))
+    before = tdec.shared_launches
+    o = tdec.decode_shared_kernel(q, ck, cv, sck, scv, pm, **kw)
+    torch.cuda.synchronize()
+    assert tdec.shared_launches == before + 1
+    ref = tdec.decode_shared_plain(q, ck, cv, sck, scv, pm, **kw)
+    torch.testing.assert_close(o.float(), ref.float(), **DEC_TOL)
+
+    kv_lens = torch.tensor([Sq, 40, 200, 111, 7 + Sq, 150], device=dev)
+    pkw = dict(kv_lens=kv_lens, q_offset=kv_lens - Sq,
+               kv_starts=torch.tensor([0, 5, 0, 100, 0, 149], device=dev),
+               scales=None if sc is None else tuple(sc))
+    before = tdec.plain_launches
+    o = tdec.decode_kernel(q, ck, cv, **pkw)
+    torch.cuda.synchronize()
+    assert tdec.plain_launches == before + 1
+    torch.testing.assert_close(o.float(), tdec.decode_plain(q, ck, cv, **pkw).float(),
+                               **DEC_TOL)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses_what_it_does_not_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, (ck, cv), sc = _decode_inputs(cuda_device, gen, 2, 1, 4, 4, 64, True)
+    kw = dict(kv_lens=torch.tensor([5, 6], device=cuda_device), q_offset=torch.tensor([4, 5], device=cuda_device))
+    with pytest.raises(ValueError, match="scales"):
+        tdec.decode_kernel(q, ck, cv, **kw)
+    with pytest.raises(ValueError, match="bf16"):
+        tdec.decode_kernel(q.float(), ck, cv, scales=tuple(sc), **kw)
+    with pytest.raises(ValueError, match="query positions"):
+        tdec.decode_kernel(q.expand(2, 9, 4, 64).contiguous(), ck, cv, scales=tuple(sc), **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdec.decode_kernel(q.cpu(), ck.cpu(), cv.cpu(), scales=tuple(s.cpu() for s in sc), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "bf16"])
+def test_cached_decoder_kernel_path_matches_plain_path(cuda_device, kv):
+    """A 2-layer bf16 WM-shaped decoder (16 heads of 64): shared-prefix
+    prefill, tail, decode steps and an action chunk through the kernels vs
+    through the twins."""
+    cfg = TransformerConfig(vocab_size=512, hidden_size=1024, intermediate_size=1024,
+                            num_layers=2, num_heads=16, num_kv_heads=16, kv_cache_dtype=kv)
+    with torch.device(cuda_device):
+        dec = init_random_(Decoder(cfg), seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    head = torch.randint(0, 512, (2, 96), device=cuda_device, generator=gen)
+    steps = [torch.randint(0, 512, (4, s), device=cuda_device, generator=gen) for s in (7, 1, 1, 7)]
+    pm = torch.tensor([0, 0, 1, 1], device=cuda_device)
+    logits = {}
+    with torch.no_grad():
+        for impl in ("auto", "plain"):
+            dec.attn_impl = impl
+            shared = dec.init_cache(2, 96)
+            dec(head, cache=shared, cache_index=0, compute_logits=False)
+            cache, ci, out = dec.init_cache(4, 64), 96, []
+            for ids in steps:
+                out.append(dec(ids, cache=cache, cache_index=ci, shared_cache=shared,
+                               shared_len=96, prefix_map=pm)[0].float())
+                ci += ids.shape[1]
+            logits[impl] = torch.cat([o.flatten() for o in out])
+    scale = logits["plain"].abs().max()
+    assert ((logits["auto"] - logits["plain"]).abs().max() / scale) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared,S", [(True, 12), (True, 40), (False, 12)])
+def test_long_cached_chunks_launch_the_flash_kernel(cuda_device, shared, S):
+    """A cached chunk longer than the decode kernels take goes through the
+    flash kernel (#1) over the dequantised cache, never through a twin."""
+    cfg = TransformerConfig(vocab_size=512, hidden_size=1024, intermediate_size=1024,
+                            num_layers=2, num_heads=16, num_kv_heads=16, kv_cache_dtype="int8")
+    with torch.device(cuda_device):
+        dec = init_random_(Decoder(cfg), seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    head = torch.randint(0, 512, (2, 96), device=cuda_device, generator=gen)
+    ids = torch.randint(0, 512, (4, S), device=cuda_device, generator=gen)
+    pm = torch.tensor([0, 1, 1, 0], device=cuda_device)
+    logits = {}
+    with torch.no_grad():
+        for impl in ("auto", "plain"):
+            dec.attn_impl = impl
+            if shared:
+                sh = dec.init_cache(2, 96)
+                dec(head, cache=sh, cache_index=0, compute_logits=False)
+                kw = dict(shared_cache=sh, shared_len=96, prefix_map=pm)
+                cache, ci = dec.init_cache(4, 64), 96
+            else:
+                kw = {}
+                cache = dec.init_cache(4, 160)
+                dec(head[pm], cache=cache, cache_index=0, compute_logits=False)
+                ci = 96
+            counts = (tattn.launches, tdec.shared_launches, tdec.plain_launches)
+            logits[impl] = dec(ids, cache=cache, cache_index=ci, **kw)[0].float()
+            torch.cuda.synchronize()
+            delta = (tattn.launches - counts[0], tdec.shared_launches - counts[1],
+                     tdec.plain_launches - counts[2])
+            assert delta == ((cfg.num_layers if impl == "auto" else 0), 0, 0)
+    dec.attn_impl = "auto"
+    scale = logits["plain"].abs().max()
+    assert ((logits["auto"] - logits["plain"]).abs().max() / scale) < 2e-2

@@ -1,12 +1,15 @@
-"""Model factory for the policy: the VLM and the action expert.
+"""Model factory: the policy, and the world-model reward models.
 
-Port of the policy half of vla_rft_tpu/models/factory.py:
-* 'libero' — SigLIP-so400m + DINOv2-L + Qwen2.5-0.5B (bf16) and the DiT
-  d8/h512 action expert (f32 params, bf16 compute);
-* 'tiny'   — the same topology at test sizes, all f32.
+Port of vla_rft_tpu/models/factory.py:
+* `build_policy`, preset 'libero': SigLIP-so400m + DINOv2-L + Qwen2.5-0.5B
+  (bf16) and the DiT d8/h512 action expert (f32 params, bf16 compute);
+* `build_wm_reward`, preset 'libero': the 24-layer WM (`wm_llama`, bf16,
+  int8 KV cache), the compressive tokenizer at 256 px and VGG16 LPIPS (f32
+  params, bf16 compute);
+* preset 'tiny': the same topologies at test sizes, all f32.
 
-`build_policy` makes the modules directly on the target device and fills
-them with seeded random weights there (the convention of the reference's
+Both make the modules directly on the target device and fill them with
+seeded random weights there (the convention of the reference's
 `fast_random_params`: ones for norm scales and LayerScale gammas, zeros for
 biases, N(0, 0.02) for everything else), so nothing is read from disk.
 Trained weights come in through `convert.flax_to_torch` + `load_state_dict`.
@@ -19,11 +22,16 @@ import torch
 from torch import nn
 
 from vla_rft_tpu_torch import resolve_device
-from vla_rft_tpu_torch.config import PolicyConfig
+from vla_rft_tpu_torch.config import PolicyConfig, WMRewardConfig
 from vla_rft_tpu_torch.models.action_head import ActionExpert, ActionHeadConfig
-from vla_rft_tpu_torch.models.layers import LayerNorm
+from vla_rft_tpu_torch.models.layers import GroupNorm, LayerNorm
+from vla_rft_tpu_torch.models.lpips import LPIPS
 from vla_rft_tpu_torch.models.prismatic import OpenVLA, OpenVLAConfig
-from vla_rft_tpu_torch.models.transformer import RMSNorm
+from vla_rft_tpu_torch.models.tokenizers import CompressiveVQModelFSQ, TokenizerConfig
+from vla_rft_tpu_torch.models.transformer import Decoder, RMSNorm, TransformerConfig
+from vla_rft_tpu_torch.workers.processor import ProcessorConfig
+from vla_rft_tpu_torch.workers.reward import RewardConfig
+from vla_rft_tpu_torch.workers.wm_rollout import WMRolloutConfig
 
 PRESETS = ("libero", "tiny")
 
@@ -70,7 +78,7 @@ def init_random_(module: nn.Module, seed: int = 0) -> nn.Module:
     for name, p in module.named_parameters():
         owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
         leaf = name.rsplit(".", 1)[-1]
-        if isinstance(owner, (LayerNorm, RMSNorm)) and leaf == "weight":
+        if isinstance(owner, (LayerNorm, RMSNorm, GroupNorm)) and leaf == "weight":
             p.fill_(1.0)
         elif "gamma" in leaf:
             p.fill_(1.0)
@@ -99,4 +107,87 @@ def build_policy(preset: str = "libero", config: PolicyConfig = PolicyConfig(), 
         expert_cfg=expert_cfg,
         policy_seq_len=seq_len,
         policy_image_size=image_size,
+    )
+
+
+@dataclasses.dataclass
+class WMRewardBundle:
+    wm: Decoder
+    tokenizer: CompressiveVQModelFSQ
+    lpips: LPIPS
+    wm_cfg: TransformerConfig
+    proc_cfg: ProcessorConfig
+    roll_cfg: WMRolloutConfig
+    reward_cfg: RewardConfig
+    image_size: int  # the tokenizer's frame size
+    num_raw_frames: int  # data.video.segment_length
+
+
+# the tiny preset's data shapes: a 64-token ctx grid and 4 dyn tokens per
+# frame (the overrides the reference's tiny CLI run uses)
+TINY_WM_DATA = dict(tokens_per_frame=4, interact_max_tokens=4, max_prompt_length=64 + 4 + 7,
+                    max_response_length=8 * (4 + 7))
+
+
+def wm_reward_configs(preset: str = "libero", config: WMRewardConfig = WMRewardConfig()):
+    """(TransformerConfig, TokenizerConfig, ProcessorConfig, WMRolloutConfig,
+    RewardConfig, image size, LPIPS compute dtype) of a preset."""
+    if preset == "tiny":
+        config = dataclasses.replace(config, **TINY_WM_DATA)
+        wm_cfg = TransformerConfig(
+            vocab_size=config.wm_vocab_size, hidden_size=64, intermediate_size=128,
+            num_layers=2, num_heads=4, num_kv_heads=4, dtype=torch.float32,
+            param_dtype=torch.float32,
+        )
+        tok_cfg = TokenizerConfig(
+            block_out_channels=(8, 16, 16), layers_per_block=1, latent_channels=4,
+            norm_num_groups=4, resolution=32, ctx_res=(8, 8), dyn_res=(2, 2),
+            max_att_resolution=8,
+        )
+        image_size, lpips_dtype = 32, torch.float32
+    elif preset == "libero":
+        wm_cfg = TransformerConfig.wm_llama(vocab_size=config.wm_vocab_size,
+                                            kv_cache_dtype="int8")
+        tok_cfg = TokenizerConfig(dtype=torch.bfloat16)
+        image_size, lpips_dtype = 256, torch.bfloat16
+    else:
+        raise ValueError(f"unknown preset {preset!r}; expected one of {PRESETS}")
+    proc_cfg = ProcessorConfig(
+        visual_token_num=config.visual_token_num, action_bins=config.action_bins,
+        action_dim=config.action_dim, tokens_per_frame=config.tokens_per_frame,
+    )
+    num_frames = config.segment_length - 1
+    roll_cfg = WMRolloutConfig(
+        prompt_length=config.max_prompt_length, response_length=config.max_response_length,
+        num_frames=num_frames, interact_max_tokens=config.interact_max_tokens,
+        action_dim=config.action_dim, temperature=config.temperature, top_k=config.top_k,
+        top_p=config.top_p, do_sample=config.do_sample, cache_segments=config.cache_segments,
+    )
+    reward_cfg = RewardConfig(
+        reward_fn=config.reward_fn, lpips_weight=config.lpips_weight,
+        recon_weight=config.recon_weight, msp_reward_aggregate=config.msp_reward_aggregate,
+        msp_reward_discount=config.msp_reward_discount, num_frames=num_frames,
+    )
+    return wm_cfg, tok_cfg, proc_cfg, roll_cfg, reward_cfg, image_size, lpips_dtype
+
+
+def build_wm_reward(preset: str = "libero", config: WMRewardConfig = WMRewardConfig(), *,
+                    device="cuda", seed: int = 0) -> WMRewardBundle:
+    """The WM, the tokenizer and LPIPS in eval mode on `device`, with their
+    configurations."""
+    dev = resolve_device(device)
+    wm_cfg, tok_cfg, proc_cfg, roll_cfg, reward_cfg, image_size, lpips_dtype = (
+        wm_reward_configs(preset, config))
+    with torch.device(dev):
+        wm = Decoder(wm_cfg)
+        tokenizer = CompressiveVQModelFSQ(tok_cfg)
+        lpips = LPIPS(lpips_dtype)
+    for i, m in enumerate((wm, tokenizer, lpips)):
+        init_random_(m, seed + i)
+    return WMRewardBundle(
+        wm=wm.eval().requires_grad_(False),
+        tokenizer=tokenizer.eval().requires_grad_(False),
+        lpips=lpips.eval().requires_grad_(False),
+        wm_cfg=wm_cfg, proc_cfg=proc_cfg, roll_cfg=roll_cfg, reward_cfg=reward_cfg,
+        image_size=image_size, num_raw_frames=config.segment_length,
     )

@@ -1,4 +1,4 @@
-"""Flax-equivalent building blocks: Dense, LayerNorm, Embed.
+"""Flax-equivalent building blocks: Dense, Conv, LayerNorm, GroupNorm, Embed.
 
 Flax modules keep parameters in `param_dtype` and compute in `dtype`: every
 weight is cast to the compute dtype where it is used (`promote_dtype`).
@@ -78,3 +78,43 @@ class Embed(nn.Module):
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Tied-embedding logits: x @ table^T in the compute dtype."""
         return x @ self.table().t()
+
+
+class Conv(nn.Module):
+    """nn.Conv over NCHW tensors: a (out, in, kh, kw) weight, symmetric
+    integer padding, computed in `dtype` (Flax's NHWC kernels are transposed
+    by convert.py)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, *, stride: int = 1,
+                 padding: int = 0, bias: bool = True, dtype=torch.float32,
+                 param_dtype=torch.float32):
+        super().__init__()
+        self.dtype, self.stride, self.padding = dtype, stride, padding
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.empty(out_ch, dtype=param_dtype)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride, self.padding)
+
+
+class GroupNorm(nn.Module):
+    """flax nn.GroupNorm over NCHW tensors: statistics in f32 with Flax's
+    fast variance E[x^2] - E[x]^2 (clipped at 0), output in `dtype`."""
+
+    def __init__(self, groups: int, channels: int, *, eps: float = 1e-6, dtype=torch.float32,
+                 param_dtype=torch.float32):
+        super().__init__()
+        self.groups, self.eps, self.dtype = groups, eps, dtype
+        self.weight = nn.Parameter(torch.empty(channels, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.empty(channels, dtype=param_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C = x.shape[:2]
+        xf = x.float().reshape(B, self.groups, -1)
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(B, C, -1)
+        y = y * self.weight.float()[:, None] + self.bias.float()[:, None]
+        return y.reshape(x.shape).to(self.dtype)

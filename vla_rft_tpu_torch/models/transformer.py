@@ -1,24 +1,41 @@
-"""Decoder-only transformer (LLaMA / Qwen2 family), full forward only.
+"""Decoder-only transformer (LLaMA / Qwen2 family) with a KV cache.
 
 Port of vla_rft_tpu/models/transformer.py for the policy backbone
 (Qwen2.5-0.5B: GQA 14/2 heads with qkv bias, tied embeddings, rope theta
-1e6): RMSNorm, NeoX rope, GQA attention through `ops.attention.attention`
-(the CUDA flash kernel on the card), SiLU MLP.  The reference's `nn.scan`
-over stacked layers becomes a ModuleList.
+1e6) and the world model (`wm_llama`: 24 layers, 16/16 heads of 64, untied
+lm_head): RMSNorm, NeoX rope, GQA attention, SiLU MLP.  The reference's
+`nn.scan` over stacked layers becomes a ModuleList.
 
-Not ported yet (the world-model slice needs them): the KV cache and its
-layouts, int8 KV / int8 weights, the shared-prefix split cache, Ulysses.
+The KV cache is the reference's head-dense ("hd") layout, (L, B, S, Hkv*D),
+in the compute dtype or int8 with bf16 per-(position, head) scales
+(L, B, Hkv, S).  Unlike the reference, which returns a new cache, the
+forward writes the cache tensors in place (one buffer per rollout instead
+of a copy per call).  With a shared prefix cache (`shared_cache`,
+`shared_len`, `prefix_map`) the own cache holds positions >= shared_len
+and writes land at cache_index - shared_len.  Attention with a cache goes
+  * Sq <= 8  -> ops.decode_attention_hd (CUDA kernel #4 with a shared
+    prefix, #5 without, on the card);
+  * Sq > 8   -> the dequantised layer slice (with the shared prefix
+    gathered in front of it) through ops.attention (the flash kernel #1 on
+    the card, which takes any Sq).  The reference sends 8 < Sq < 32 and a
+    shared prefix with Sq > 8 to its XLA path; that is the same math.
+On a CUDA tensor every branch launches a kernel or raises; the plain twins
+run for CPU tensors and when `attn_impl="plain"` asks for them.
+Not ported: the 'heads' cache layout, int8 weights, per-row cache offsets
+(speculative decode), Ulysses.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import numbers
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vla_rft_tpu_torch.models.layers import Dense, Embed
+from vla_rft_tpu_torch.ops import decode_attention_hd as dec_attn
 from vla_rft_tpu_torch.ops.attention import attention
 
 
@@ -38,10 +55,38 @@ class TransformerConfig:
     max_position_embeddings: int = 8192
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.bfloat16
+    # 'bf16' (the compute dtype) | 'int8' (per-(position, head) scales)
+    kv_cache_dtype: str = "bf16"
+    # only the head-dense layout (L, B, S, Hkv*D) is ported
+    kv_layout: str = "hd"
+
+    def __post_init__(self):
+        if self.kv_layout != "hd":
+            raise ValueError(f"kv_layout {self.kv_layout!r}: only 'hd' is ported")
+        if self.kv_cache_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}")
 
     @property
     def hd(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
+
+    @staticmethod
+    def wm_llama(vocab_size: int = 9008, **kw) -> "TransformerConfig":
+        """The world model: ivideogpt's llama.json with the run's vocab."""
+        d = dict(
+            vocab_size=vocab_size,
+            hidden_size=1024,
+            intermediate_size=4096,
+            num_layers=24,
+            num_heads=16,
+            num_kv_heads=16,
+            rope_theta=10000.0,
+            rms_norm_eps=1e-6,
+            qkv_bias=False,
+            tie_word_embeddings=False,
+        )
+        d.update(kw)
+        return TransformerConfig(**d)
 
     @staticmethod
     def qwen25_0_5b(**kw) -> "TransformerConfig":
@@ -88,6 +133,32 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, H, D) -> int8 values (B, S, H, D) and bf16 scales (B, S, H):
+    scale = max|x| / 127 per (position, head), floored at 1e-8; values are
+    rounded half to even with the f32 scale and clipped to +-127, and only
+    then is the scale stored as bf16 (reference transformer.py:405-416)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+@dataclasses.dataclass
+class CacheArgs:
+    """What one forward with a KV cache passes to every layer; the per-row
+    values are (B,) int32 tensors on the model's device."""
+    cache: Tuple[torch.Tensor, ...]
+    cache_index: int
+    kv_lens_eff: torch.Tensor  # min(kv_lens, cache_index + S)
+    q_offset: torch.Tensor  # cache_index, per row
+    kv_starts: torch.Tensor  # absolute start of the valid keys
+    shared_cache: Optional[Tuple[torch.Tensor, ...]]
+    shared_len: int
+    prefix_map: Optional[torch.Tensor]
+    shared_starts: torch.Tensor
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -99,7 +170,8 @@ class Attention(nn.Module):
         self.v_proj = Dense(H, nkv * hd, bias=cfg.qkv_bias, **kw)
         self.o_proj = Dense(nh * hd, H, bias=False, **kw)
 
-    def forward(self, x, positions, kv_lens, causal: bool, attn_impl: str):
+    def forward(self, x, positions, kv_lens, causal: bool, attn_impl: str, li: int = 0,
+                c: Optional[CacheArgs] = None):
         cfg = self.cfg
         B, S, _ = x.shape
         q = self.q_proj(x).view(B, S, cfg.num_heads, cfg.hd)
@@ -107,10 +179,59 @@ class Attention(nn.Module):
         v = self.v_proj(x).view(B, S, cfg.num_kv_heads, cfg.hd)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        out = attention(
-            q, k, v, causal=causal, kv_lens=kv_lens, impl=attn_impl
-        )
+        if c is None:
+            out = attention(q, k, v, causal=causal, kv_lens=kv_lens, impl=attn_impl)
+        else:
+            out = self._cached(q, k, v, li, c, attn_impl)
         return self.o_proj(out.reshape(B, S, cfg.num_heads * cfg.hd))
+
+    def _cached(self, q, k, v, li: int, c: CacheArgs, attn_impl: str):
+        cfg = self.cfg
+        B, S, nkv, hd = k.shape
+        w0 = c.cache_index - (c.shared_len if c.shared_cache is not None else 0)
+        int8 = cfg.kv_cache_dtype == "int8"
+        if int8:
+            ck, cv, sk, sv = c.cache
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            ck[li, :, w0:w0 + S] = kq.reshape(B, S, nkv * hd)
+            cv[li, :, w0:w0 + S] = vq.reshape(B, S, nkv * hd)
+            sk[li, :, :, w0:w0 + S] = ks.transpose(1, 2)
+            sv[li, :, :, w0:w0 + S] = vs.transpose(1, 2)
+            scales = (sk[li], sv[li])
+        else:
+            ck, cv = c.cache
+            ck[li, :, w0:w0 + S] = k.reshape(B, S, nkv * hd).to(ck.dtype)
+            cv[li, :, w0:w0 + S] = v.reshape(B, S, nkv * hd).to(cv.dtype)
+            scales = None
+        if c.shared_cache is not None:
+            if int8:
+                sck, scv, ssk, ssv = c.shared_cache
+                shared_scales = (ssk[li], ssv[li])
+            else:
+                (sck, scv), shared_scales = c.shared_cache, None
+            if S <= dec_attn.MAX_SQ:  # kernel #4
+                return dec_attn.decode_attention_shared_hd(
+                    q, ck[li], cv[li], sck[li], scv[li], c.prefix_map, shared_len=c.shared_len,
+                    kv_lens=c.kv_lens_eff, q_offset=c.q_offset, shared_starts=c.shared_starts,
+                    scales=scales, shared_scales=shared_scales, impl=attn_impl,
+                )
+            k_all, v_all = dec_attn.shared_kv(ck[li], cv[li], sck[li], scv[li], c.prefix_map,
+                                              c.shared_len, hd, q.dtype, scales, shared_scales)
+            starts = c.shared_starts
+        elif S <= dec_attn.MAX_SQ:  # kernel #5
+            return dec_attn.decode_attention_hd(
+                q, ck[li], cv[li], kv_lens=c.kv_lens_eff, q_offset=c.q_offset,
+                kv_starts=c.kv_starts, scales=scales, impl=attn_impl,
+            )
+        else:
+            k_all = dec_attn.dequantize(ck[li], scales[0] if int8 else None, hd, q.dtype)
+            v_all = dec_attn.dequantize(cv[li], scales[1] if int8 else None, hd, q.dtype)
+            starts = c.kv_starts
+        # longer chunks (prefill, or any S > 8): attend over the cache as
+        # stored (int8 dequantised, the prefix gathered) through kernel #1
+        return attention(q, k_all, v_all, causal=True, kv_lens=c.kv_lens_eff,
+                         q_offset=c.q_offset, kv_starts=starts, impl=attn_impl)
 
 
 class MLP(nn.Module):
@@ -135,17 +256,23 @@ class DecoderLayer(nn.Module):
         )
         self.mlp = MLP(cfg)
 
-    def forward(self, x, positions, kv_lens, causal, attn_impl):
-        x = x + self.self_attn(self.input_layernorm(x), positions, kv_lens, causal, attn_impl)
+    def forward(self, x, positions, kv_lens, causal, attn_impl, li=0, c=None):
+        x = x + self.self_attn(self.input_layernorm(x), positions, kv_lens, causal, attn_impl,
+                               li, c)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
 class Decoder(nn.Module):
-    """LLaMA/Qwen2-style causal decoder, full forward.
+    """LLaMA/Qwen2-style causal decoder with an optional KV cache.
 
-    `attn_impl` is "auto" (the CUDA kernel for CUDA tensors, the plain twin
-    for CPU tensors) or "plain" (the twin everywhere, the reference the
-    kernel path is checked against on the card)."""
+    Call conventions (as the reference's):
+      * full forward: input_ids | inputs_embeds [, kv_lens];
+      * prefill: a fresh `init_cache` and cache_index=0;
+      * decode: the same cache and cache_index = tokens so far.
+    The cache tuple is written in place.  `attn_impl` is "auto" (the CUDA
+    kernels for CUDA tensors, the plain twins for CPU tensors) or "plain"
+    (the twins everywhere, the reference the kernel path is checked
+    against on the card)."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -166,13 +293,23 @@ class Decoder(nn.Module):
         self,
         input_ids: Optional[torch.Tensor] = None,
         inputs_embeds: Optional[torch.Tensor] = None,
-        kv_lens: Optional[torch.Tensor] = None,
+        kv_lens=None,
         causal: bool = True,
         compute_logits: bool = True,
         embed_only: bool = False,
+        cache: Optional[Tuple[torch.Tensor, ...]] = None,
+        cache_index: int = 0,
+        logits_last_only: bool = False,
+        kv_starts=None,
+        shared_cache: Optional[Tuple[torch.Tensor, ...]] = None,
+        shared_len: int = 0,
+        prefix_map=None,
+        shared_starts=None,
     ):
         """embed_only -> token embeddings (B, S, H); otherwise
-        (logits (B, S, V) f32 or None, hidden (B, S, H) after the final norm)."""
+        (logits (B, S or 1, V) f32 or None, hidden (B, S, H) after the final
+        norm).  With `cache`, positions start at `cache_index` and kv_lens
+        defaults to cache_index + S."""
         cfg = self.cfg
         if embed_only:
             return self.embed_tokens(input_ids)
@@ -180,18 +317,61 @@ class Decoder(nn.Module):
             inputs_embeds = self.embed_tokens(input_ids)
         B, S, _ = inputs_embeds.shape
         dev = inputs_embeds.device
-        positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
-        if kv_lens is None:
-            kv_lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+        off = cache_index if cache is not None else 0
+        positions = (torch.arange(S, dtype=torch.int32, device=dev) + off)[None].expand(B, S)
+
+        def rows(x):  # a per-row int32 (B,) tensor; ints are filled on the device
+            if isinstance(x, numbers.Integral):
+                return torch.full((B,), int(x), dtype=torch.int32, device=dev)
+            return torch.as_tensor(x, device=dev).to(torch.int32).reshape(-1).expand(B).contiguous()
+
+        kv_lens = rows(off + S if kv_lens is None else kv_lens)
+        c = None
+        if cache is not None:
+            if not causal:
+                raise ValueError("a forward with a KV cache is causal")
+            c = CacheArgs(
+                cache=cache, cache_index=cache_index,
+                kv_lens_eff=torch.clamp(kv_lens, max=cache_index + S),
+                q_offset=rows(cache_index), kv_starts=rows(0 if kv_starts is None else kv_starts),
+                shared_cache=shared_cache, shared_len=shared_len,
+                prefix_map=None if prefix_map is None else rows(prefix_map),
+                shared_starts=rows(0 if shared_starts is None else shared_starts),
+            )
         x = inputs_embeds
-        for layer in self.layers:
-            x = layer(x, positions, kv_lens, causal, self.attn_impl)
+        for li, layer in enumerate(self.layers):
+            x = layer(x, positions, kv_lens, causal, self.attn_impl, li, c)
         x = self.norm(x)
         logits = None
         if compute_logits:
+            xl = x[:, -1:] if logits_last_only else x
             if cfg.tie_word_embeddings:
-                logits = self.embed_tokens.attend(x.to(cfg.dtype))
+                logits = self.embed_tokens.attend(xl.to(cfg.dtype))
             else:
-                logits = self.lm_head(x)
+                logits = self.lm_head(xl)
             logits = logits.float()
         return logits, x
+
+    def init_cache(self, batch_size: int, max_len: int) -> Tuple[torch.Tensor, ...]:
+        """A zeroed cache on the model's device: (L, B, S, Hkv*D) K and V, S
+        rounded up to 128 for int8 and to 8 otherwise, plus (L, B, Hkv, S)
+        bf16 scales set to 1 for int8."""
+        cfg = self.cfg
+        align = 128 if cfg.kv_cache_dtype == "int8" else 8
+        S = (max_len + align - 1) // align * align
+        dev = self.embed_tokens.weight.device
+        shape = (cfg.num_layers, batch_size, S, cfg.num_kv_heads * cfg.hd)
+        if cfg.kv_cache_dtype == "int8":
+            sshape = (cfg.num_layers, batch_size, cfg.num_kv_heads, S)
+            return (
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.ones(sshape, dtype=torch.bfloat16, device=dev),
+                torch.ones(sshape, dtype=torch.bfloat16, device=dev),
+            )
+        return (torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                torch.zeros(shape, dtype=cfg.dtype, device=dev))
+
+    def cache_seq_axes(self) -> Tuple[int, ...]:
+        """The sequence axis of each array of `init_cache`'s tuple."""
+        return (2, 2, 3, 3) if self.cfg.kv_cache_dtype == "int8" else (2, 2)

@@ -16,32 +16,21 @@ q[:, 0], for chunked prefill); optional causal masking.
   raises), a CPU tensor to the plain twin; `impl="plain"` asks for the twin
   on either device.
 
-The kernel library is compiled by nvcc at first use into `_build/` beside
-the package (a plain C interface loaded with ctypes), keyed by a hash of the
-source and flags, so an unchanged tree does not rebuild.
+The kernel library is compiled by nvcc at first use (`ops/cuda_build.py`:
+a plain C interface loaded with ctypes, keyed by a hash of the source and
+flags, so an unchanged tree does not rebuild).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from vla_rft_tpu_torch.ops import cuda_build
+
 NEG_INF = -1e30
 
-_PKG = Path(__file__).resolve().parent.parent
-_FLASH_SRC = _PKG / "csrc" / "flash_fwd.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 SUPPORTED_HEAD_DIMS = (64, 128)
 
 # kernel launches since the count was last set to 0 (read by chip_smoke.py)
@@ -113,43 +102,10 @@ def attention_plain(
 
 
 # ============================================================ kernel library
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
-def build_flash_fwd() -> dict:
-    """Compile csrc/flash_fwd.cu into a shared library unless a build of the
-    same source and flags exists; returns {path, seconds, built, log}."""
-    src = _FLASH_SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libflash_fwd_{key}.so"
-    if out.exists():
-        return {"path": str(out), "seconds": 0.0, "built": False, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_FLASH_SRC)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return {"path": str(out), "seconds": seconds, "built": True,
-            "log": proc.stdout + proc.stderr}
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build_flash_fwd()["path"])
+        lib = cuda_build.load("flash_fwd")
         fn = lib.flash_fwd_bf16
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p,

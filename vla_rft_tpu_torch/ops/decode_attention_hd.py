@@ -1,0 +1,221 @@
+"""Split-cache decode attention over the head-dense KV cache + its plain twins.
+
+Port of vla_rft_tpu/ops/decode_attention_hd.py (kernels #4
+`_shared_kernel_hd` and #5 `_plain_kernel_hd`).  The cache of one layer is
+(rows, S, Hkv*D), int8 with bf16 per-(position, head) scales laid out
+(rows, Hkv, S), or in the compute dtype without scales.  Every function
+takes that layer's slice (`ck[li]` of the stacked cache, a contiguous view)
+and q (B, Sq, Hq, D), and returns O (B, Sq, Hq, D) in q's dtype.
+
+The semantics are those of the reference's XLA fallback
+(models/transformer.py:503-545 shared, :569-596 plain): dequantise to the
+compute dtype, gather each row's shared prefix through `prefix_map` and cut
+it to `shared_len`, put it before the row's own cache, then masked causal
+attention in f32 with `q_offset` (the cache index), `kv_lens` (absolute end
+of the valid keys) and `kv_starts` / `shared_starts` (absolute start), 0 for
+a row with no valid key.  The Pallas kernels' int8 requantisation of q and
+p is a TPU trick and is not ported.
+
+* `decode_shared_plain` / `decode_plain` are those twins in PyTorch; they
+  run for CPU tensors, and on the card the kernels are checked against them.
+* `decode_shared_kernel` / `decode_kernel` launch csrc/decode_hd.cu (one
+  source, a template flag for the shared segment) and count their launches
+  in `shared_launches` / `plain_launches`.
+* `decode_attention_shared_hd` / `decode_attention_hd` are the front ends:
+  a CUDA tensor always goes to the kernel (or raises), a CPU tensor to the
+  twin; `impl="plain"` asks for the twin on either device.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from vla_rft_tpu_torch.ops import cuda_build
+from vla_rft_tpu_torch.ops.attention import _row_arg, attention_plain
+
+HEAD_DIM = 64
+MAX_QUERY_ROWS = 64  # G * Sq per (row, kv head) block
+MAX_SQ = 8
+
+# kernel launches since the counts were last set to 0 (read by chip_smoke.py)
+shared_launches = 0
+plain_launches = 0
+
+_lib = None
+
+
+# ================================================================ plain twins
+def dequantize(c: torch.Tensor, s: Optional[torch.Tensor], D: int, dtype) -> torch.Tensor:
+    """(rows, S, Hkv*D) cache [+ (rows, Hkv, S) scales] -> (rows, S, Hkv, D)
+    in `dtype`: int8 values times their f32-cast bf16 scale, then rounded to
+    the compute dtype, as the fallback does."""
+    rows, S, HD = c.shape
+    c = c.reshape(rows, S, HD // D, D)
+    if s is None:
+        return c.to(dtype)
+    return (c.float() * s.float().transpose(1, 2)[..., None]).to(dtype)
+
+
+def shared_kv(ck, cv, sck, scv, prefix_map, shared_len: int, D: int, dtype,
+              scales: Optional[Tuple] = None, shared_scales: Optional[Tuple] = None):
+    """The split cache as one sequence per row, (B, shared_len + S, Hkv, D)
+    K and V in `dtype`: [prefix row prefix_map[b] cut to shared_len | own
+    cache of row b], dequantised."""
+    sk, sv = scales if scales is not None else (None, None)
+    ssk, ssv = shared_scales if shared_scales is not None else (None, None)
+    pm = torch.as_tensor(prefix_map, device=ck.device).long()
+    k_sh = dequantize(sck, ssk, D, dtype)[pm][:, :shared_len]
+    v_sh = dequantize(scv, ssv, D, dtype)[pm][:, :shared_len]
+    return (torch.cat([k_sh, dequantize(ck, sk, D, dtype)], dim=1),
+            torch.cat([v_sh, dequantize(cv, sv, D, dtype)], dim=1))
+
+
+def decode_shared_plain(q, ck, cv, sck, scv, prefix_map, *, shared_len: int, kv_lens,
+                        q_offset, shared_starts=None, scales: Optional[Tuple] = None,
+                        shared_scales: Optional[Tuple] = None) -> torch.Tensor:
+    """The shared-prefix fallback: one masked softmax over `shared_kv`."""
+    k_all, v_all = shared_kv(ck, cv, sck, scv, prefix_map, shared_len, q.shape[-1], q.dtype,
+                             scales, shared_scales)
+    return attention_plain(q, k_all, v_all, causal=True, kv_lens=kv_lens, q_offset=q_offset,
+                           kv_starts=shared_starts)
+
+
+def decode_plain(q, ck, cv, *, kv_lens, q_offset, kv_starts=None,
+                 scales: Optional[Tuple] = None) -> torch.Tensor:
+    """The single-cache fallback: masked causal attention over the
+    dequantised layer slice."""
+    D, dt = q.shape[-1], q.dtype
+    sk, sv = scales if scales is not None else (None, None)
+    return attention_plain(q, dequantize(ck, sk, D, dt), dequantize(cv, sv, D, dt), causal=True,
+                           kv_lens=kv_lens, q_offset=q_offset, kv_starts=kv_starts)
+
+
+# ==================================================================== kernels
+def _load():
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load("decode_hd")
+        fn = lib.decode_hd
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + [
+            ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check_cache(name, c, s, q, HD):
+    if not c.is_cuda or c.device != q.device:
+        raise ValueError(f"decode kernel: {name} must be on q's CUDA device")
+    if c.dim() != 3 or c.shape[2] != HD or not c.is_contiguous():
+        raise ValueError(f"decode kernel: {name} must be a contiguous (rows, S, {HD}) tensor, "
+                         f"got {tuple(c.shape)}")
+    if c.dtype == torch.int8:
+        if s is None:
+            raise ValueError(f"decode kernel: int8 {name} needs its scales")
+        if (s.dtype != torch.bfloat16 or s.shape != (c.shape[0], HD // q.shape[-1], c.shape[1])
+                or not s.is_contiguous() or s.device != q.device):
+            raise ValueError(f"decode kernel: scales of {name} must be contiguous bf16 "
+                             f"(rows, Hkv, S) on q's device")
+    elif c.dtype != torch.bfloat16 or s is not None:
+        raise ValueError(f"decode kernel: {name} must be int8 with scales or bf16 without, "
+                         f"got {c.dtype}")
+
+
+def _launch(q, ck, cv, scales, shared, prefix_map, shared_len, kv_lens, q_offset, kv_starts):
+    if not q.is_cuda or q.dtype != torch.bfloat16 or q.dim() != 4 or not q.is_contiguous():
+        raise ValueError("decode kernel: q must be a contiguous 4-D bf16 CUDA tensor")
+    B, Sq, Hq, D = q.shape
+    if D != HEAD_DIM:
+        raise ValueError(f"decode kernel: head dim {D} != {HEAD_DIM}")
+    if not 1 <= Sq <= MAX_SQ:
+        raise ValueError(f"decode kernel: {Sq} query positions, the kernel takes 1..{MAX_SQ}")
+    HD = ck.shape[-1]
+    Hkv = HD // D
+    if HD % D or Hkv == 0 or Hq % Hkv or (Hq // Hkv) * Sq > MAX_QUERY_ROWS:
+        raise ValueError(f"decode kernel: Hq={Hq}, cache width {HD} and Sq={Sq} do not fit")
+    sk, sv = scales if scales is not None else (None, None)
+    _check_cache("k cache", ck, sk, q, HD)
+    _check_cache("v cache", cv, sv, q, HD)
+    if ck.shape != cv.shape or ck.dtype != cv.dtype or ck.shape[0] != B:
+        raise ValueError("decode kernel: k/v caches must match each other and q's batch")
+    int8 = ck.dtype == torch.int8
+    dev = q.device
+    null = 0
+    if shared is not None:
+        sck, scv, ssk, ssv = shared
+        _check_cache("shared k cache", sck, ssk, q, HD)
+        _check_cache("shared v cache", scv, ssv, q, HD)
+        if sck.shape != scv.shape or sck.dtype != ck.dtype or scv.dtype != ck.dtype:
+            raise ValueError("decode kernel: shared caches must match the own cache's type")
+        if not 0 <= shared_len <= sck.shape[1]:
+            raise ValueError(f"decode kernel: shared_len {shared_len} outside the prefix cache")
+        pm = _row_arg(prefix_map, B, 0, dev)
+        sh_ptrs = (sck.data_ptr(), scv.data_ptr(), ssk.data_ptr() if int8 else null,
+                   ssv.data_ptr() if int8 else null, pm.data_ptr())
+        Sp = sck.shape[1]
+    else:
+        sh_ptrs, Sp = (null,) * 5, 0
+    kl = _row_arg(kv_lens, B, 0, dev)
+    qo = _row_arg(q_offset, B, 0, dev)
+    ks = _row_arg(kv_starts, B, 0, dev)
+    lib = _load()
+    o = torch.empty_like(q)
+    rc = lib.decode_hd(
+        q.data_ptr(), o.data_ptr(), ck.data_ptr(), cv.data_ptr(),
+        sk.data_ptr() if int8 else null, sv.data_ptr() if int8 else null, *sh_ptrs,
+        kl.data_ptr(), qo.data_ptr(), ks.data_ptr(),
+        B, Sq, Hq, Hkv, D, ck.shape[1], Sp, int(shared_len), int(int8), int(shared is not None),
+        float(D ** -0.5), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"decode kernel: launch failed with CUDA error {rc}")
+    return o
+
+
+def decode_shared_kernel(q, ck, cv, sck, scv, prefix_map, *, shared_len: int, kv_lens,
+                         q_offset, shared_starts=None, scales: Optional[Tuple] = None,
+                         shared_scales: Optional[Tuple] = None) -> torch.Tensor:
+    """Launch kernel #4 (split cache); same arguments as `decode_shared_plain`,
+    all on one CUDA device, q bf16 with D = 64 and Sq <= 8.  Per-row
+    arguments are (B,) integer tensors.  prefix_map must index rows of the
+    shared cache (not checked: that would synchronise)."""
+    global shared_launches
+    ssk, ssv = shared_scales if shared_scales is not None else (None, None)
+    o = _launch(q, ck, cv, scales, (sck, scv, ssk, ssv), prefix_map, shared_len, kv_lens,
+                q_offset, shared_starts)
+    shared_launches += 1
+    return o
+
+
+def decode_kernel(q, ck, cv, *, kv_lens, q_offset, kv_starts=None,
+                  scales: Optional[Tuple] = None) -> torch.Tensor:
+    """Launch kernel #5 (single cache); same arguments as `decode_plain`."""
+    global plain_launches
+    o = _launch(q, ck, cv, scales, None, None, 0, kv_lens, q_offset, kv_starts)
+    plain_launches += 1
+    return o
+
+
+# ================================================================= front ends
+def _use_plain(q, impl: str) -> bool:
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown decode impl {impl!r}")
+    return impl == "plain" or q.device.type == "cpu"
+
+
+def decode_attention_shared_hd(q, ck, cv, sck, scv, prefix_map, *, shared_len: int, kv_lens,
+                               q_offset, shared_starts=None, scales=None, shared_scales=None,
+                               impl: str = "auto") -> torch.Tensor:
+    fn = decode_shared_plain if _use_plain(q, impl) else decode_shared_kernel
+    return fn(q, ck, cv, sck, scv, prefix_map, shared_len=shared_len, kv_lens=kv_lens,
+              q_offset=q_offset, shared_starts=shared_starts, scales=scales,
+              shared_scales=shared_scales)
+
+
+def decode_attention_hd(q, ck, cv, *, kv_lens, q_offset, kv_starts=None, scales=None,
+                        impl: str = "auto") -> torch.Tensor:
+    fn = decode_plain if _use_plain(q, impl) else decode_kernel
+    return fn(q, ck, cv, kv_lens=kv_lens, q_offset=q_offset, kv_starts=kv_starts, scales=scales)
