@@ -4,26 +4,35 @@
 
 Phases, one JSON line each:
   1. build      - nvcc builds the kernel libraries from the sources in this
-                  checkout (vla_rft_tpu_torch/csrc/flash_fwd.cu and
-                  decode_hd.cu), one nvcc per source, started together;
+                  checkout (vla_rft_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu
+                  and decode_hd.cu), one nvcc per source, started together;
   2. flash      - the flash kernel (#1) against its plain PyTorch twin on the
                   card over masked, padded and ragged cases and the WM's
                   1088-token prefill, and its time at the serving and the WM
                   prefill shapes beside the twin's, scaled_dot_product_attention's
                   (a yardstick only: the port never calls it) and the bound;
-  3. decode     - the split-cache decode kernels (#4 with a shared prefix, #5
+  3. flash_bwd  - the flash backward kernels (#2 dQ, #3 dK/dV) against their
+                  plain twin over the flash phase's masked, padded, ragged,
+                  fully-masked-row and q_offset cases, D = 128 and the WM's
+                  1663-token rows, causal and not; their time at the
+                  VLA-adapter shape (B 16 x 352, 14/2 heads) and the WM-SFT
+                  shape (B 4 x 1663, 16/16 heads) beside the twin's, the
+                  autograd backward of scaled_dot_product_attention's (a
+                  yardstick only, forward + backward replayed from a CUDA
+                  graph less the forward) and the bound;
+  4. decode     - the split-cache decode kernels (#4 with a shared prefix, #5
                   without) against their twins over int8 and bf16 caches, Sq 1
                   and 7, uniform and per-row prefix maps, shared_starts,
                   kv_starts (also cutting the window to a few keys or none),
                   ragged lengths and GQA 14/2, and their time at the WM's
                   mid-rollout shape;
-  4. serving    - the libero-width policy (SigLIP-so400m + DINOv2-L +
+  5. serving    - the libero-width policy (SigLIP-so400m + DINOv2-L +
                   Qwen2.5-0.5B + DiT action expert, seeded random weights)
                   behind ActionServer on localhost answers 4 POST /act
                   requests; every request must launch the flash kernel once
                   per Qwen layer (24), and the kernel path must agree with
                   the plain path on one request;
-  5. wm_reward  - the world-model reward path at libero width (24-layer WM
+  6. wm_reward  - the world-model reward path at libero width (24-layer WM
                   with an int8 KV cache, the 256 px tokenizer, VGG16 LPIPS;
                   seeded random weights) on 2 samples with n = 4 rollouts,
                   composed as the GRPO training step composes it: process ->
@@ -32,12 +41,23 @@ Phases, one JSON line each:
                   features -> gt frames decoded once -> msp_reward; run
                   twice, each run launching #1 exactly 24 times and #4
                   exactly 24 x 521 times;
-  6. wm_plain   - generate_sequences without a shared prefix on 2 rows for 2
+  7. wm_plain   - generate_sequences without a shared prefix on 2 rows for 2
                   frames (not 8, to keep the script short): #1 exactly 24
                   times and #5 exactly 24 x 2 x 65 times;
-  7. wm_kernel_vs_plain - the WM's kernel path and plain path fed the same
+  8. wm_kernel_vs_plain - the WM's kernel path and plain path fed the same
                   prompts and the kernel path's tokens of frame 0 must agree
                   on the logits of every call;
+  9. sft        - the supervised fine-tuning path at libero width through
+                  trainer/main_sft.run: 3 vla_adapter steps of B = 16 (the
+                  config's train_batch_size) with the vision towers frozen,
+                  each launching #1, #2 and #3 exactly 24 times (one per
+                  Qwen layer), every trained leaf moving and the towers
+                  bit-identical; the step's forward / backward / optimizer
+                  split and peak memory; the kernel path's loss and Qwen /
+                  projector gradients against the plain path's on one step
+                  (and non-zero); 2 vla_flow steps (24 of #1, none of #2 or
+                  #3); 2 next-token SFTTrainer steps of the 24-layer WM over
+                  4 rows of 1663 tokens (24 of each kernel per step);
 then the card's name and power limit, the kernel table as one JSON line, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no `ok` line.  It needs a CUDA device and the rest of the
@@ -46,6 +66,7 @@ repository beside it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -73,6 +94,24 @@ DEC_RTOL, DEC_ATOL = 2 ** -7, 2e-3
 # WM kernel path vs plain path, max|d logits| / max|logits|: 24 bf16 layers
 # whose int8 caches are written from each path's own hidden states
 WM_LOGIT_TOL = 5e-2
+# flash backward kernels vs their f32 twin, per gradient: max|d| <=
+# BWD_RTOL * max|ref| + BWD_ATOL.  The kernels round p and dS to bf16 for
+# their second products and dq/dk/dv to bf16 at the end (one bf16 ulp is
+# 2^-8 relative), and sum in f32 in another order.
+BWD_RTOL, BWD_ATOL = 2 ** -7, 1e-3
+# SFT step, kernel path vs plain path on the same params, batch and noise:
+# the loss (relative) and the Qwen q/k/v and projector gradients (max|d| /
+# max|g|) after 24 bf16 layers forward and backward, each path rounding its
+# own activations to bf16 (the serving check's 5e-2 for the gradients; the
+# loss is a mean over 16 x 56 flow values, so it averages the differences)
+SFT_LOSS_TOL, SFT_GRAD_TOL = 1e-3, 5e-2
+SFT_STEPS = 3
+# learning rates of the libero vla_adapter run.  The VLM's parameters are
+# bf16 with no f32 master copy (as in the reference), so an Adam step of
+# the default 2e-5 cannot move a norm weight of 1.0 (half a bf16 ulp there
+# is 2^-8); 5e-3 moves every trained leaf, which the phase checks
+SFT_VLM_LR, SFT_EXPERT_LR = 5e-3, 1e-4
+WM_SFT_ROWS, WM_SFT_PROMPT, WM_SFT_LEN = 4, 1095, 1663
 
 WM_PREFIX = 1088  # shared prompt head: 1024 ctx tokens + the 64 dyn tokens of frame 0
 N_SAMPLES, N_ROLLOUTS = 2, 4
@@ -142,6 +181,17 @@ def bound(nbytes: int, flops: int) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
+def attn_pairs(B, Sq, Sk, dev, kv_lens, kv_starts, q_offset, causal):
+    """(key positions some query of the row reads, summed over rows; valid
+    (query, key) pairs per query head)."""
+    kv = torch.arange(Sk, device=dev)[None, None, :]
+    qp = torch.arange(Sq, device=dev)[None, :, None] + q_offset[:, None, None]
+    valid = (kv < kv_lens[:, None, None]) & (kv >= kv_starts[:, None, None])
+    if causal:
+        valid = valid & (qp >= kv)
+    return int(valid.any(dim=1).sum()), int(valid.sum())
+
+
 def flash_work(q, k, kv_lens, kv_starts, q_offset, causal):
     """(bytes, flops) the function needs on these inputs: q read once, K/V
     read once at the key positions some query of the row attends to (masked
@@ -149,24 +199,33 @@ def flash_work(q, k, kv_lens, kv_starts, q_offset, causal):
     valid (query, key) pair."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    kv = torch.arange(Sk, device=q.device)[None, None, :]
-    qp = torch.arange(Sq, device=q.device)[None, :, None] + q_offset[:, None, None]
-    valid = (kv < kv_lens[:, None, None]) & (kv >= kv_starts[:, None, None])
-    if causal:
-        valid = valid & (qp >= kv)
-    keys = int(valid.any(dim=1).sum())  # sum over rows of the needed key positions
+    keys, pairs = attn_pairs(B, Sq, Sk, q.device, kv_lens, kv_starts, q_offset, causal)
     io = 2 * B * Sq * Hq * D + 2 * 2 * keys * Hkv * D + 2 * B * Sq * Hq * D + 4 * B * Sq * Hq
-    pairs = int(valid.sum()) * Hq
-    return io, 4 * D * pairs
+    return io, 4 * D * pairs * Hq
+
+
+def bwd_work(q, k, kv_lens, kv_starts, q_offset, causal):
+    """{kernel: (bytes, flops)} of the two backward kernels on these inputs.
+    Both read q, dO, the f32 LSE and delta once and K/V at the needed key
+    positions; #2 writes dq, #3 writes dk and dv.  Per valid (query, key)
+    pair #2 does 3 products of 2*D flops (S, dP, dQ), #3 does 4 (S, dP, dV,
+    dK)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    keys, pairs = attn_pairs(B, Sq, Sk, q.device, kv_lens, kv_starts, q_offset, causal)
+    rows_in = 2 * 2 * B * Sq * Hq * D + 2 * 4 * B * Sq * Hq + 2 * 2 * keys * Hkv * D
+    return {"dq": (rows_in + 2 * B * Sq * Hq * D, 6 * D * pairs * Hq),
+            "dkv": (rows_in + 2 * 2 * B * Sk * Hkv * D, 8 * D * pairs * Hq)}
 
 
 def phase_build() -> dict:
     from vla_rft_tpu_torch.ops import attention, cuda_build, decode_attention_hd
 
     t0 = time.perf_counter()
-    infos = cuda_build.build("flash_fwd", "decode_hd")
+    infos = cuda_build.build("flash_fwd", "flash_bwd", "decode_hd")
     wall = time.perf_counter() - t0
     attention._load()
+    attention._load_bwd()
     decode_attention_hd._load()
     libs = {}
     for name, info in infos.items():
@@ -250,6 +309,101 @@ def phase_flash(attention) -> dict:
            "max_abs_err_lse": err_lse, "tolerance": {"o": O_TOL, "lse": LSE_TOL},
            "timed": timed}
     emit(out)
+    return out
+
+
+def phase_flash_bwd(attention) -> dict:
+    """Kernels #2 and #3 against the backward twin, then timed at the two
+    SFT shapes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = [
+        # (name, B, Sq, Sk, Hq, Hkv, D, per-row kwargs): phase_flash's cases,
+        # D = 128, and one row of the WM's 1663 tokens (not a multiple of 64)
+        ("serving_b1", 1, 352, 352, 14, 2, 64, {}),
+        ("right_pad_b4", 4, 352, 352, 14, 2, 64, {"kv_lens": [352, 300, 161, 97]}),
+        ("left_pad_b4_608", 4, 608, 608, 14, 2, 64, {"kv_starts": [0, 64, 100, 333]}),
+        ("q_offset_chunk", 1, 100, 608, 14, 2, 64, {"q_offset": [508]}),
+        ("fully_masked_row", 4, 352, 352, 14, 2, 64, {"kv_lens": [352, 0, 352, 200],
+                                                      "kv_starts": [0, 0, 352, 50]}),
+        ("ragged_300", 4, 300, 300, 14, 2, 64, {"kv_lens": [300, 299, 250, 1]}),
+        ("d128_ragged", 2, 300, 300, 14, 2, 128, {"kv_lens": [300, 190], "kv_starts": [0, 7]}),
+        ("wm_sft_row", 1, WM_SFT_LEN, WM_SFT_LEN, 16, 16, 64, {}),
+    ]
+    results, err = [], {"dq": 0.0, "dkv": 0.0}
+    for name, B, Sq, Sk, Hq, Hkv, D, kw in cases:
+        for causal in (True, False):
+            q, do = (torch.randn(B, Sq, Hq, D, generator=gen, device=dev).bfloat16()
+                     for _ in range(2))
+            k, v = (torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
+                    for _ in range(2))
+            args = {a: torch.tensor(x, dtype=torch.int32, device=dev) for a, x in kw.items()}
+            o, lse = attention.flash_fwd(q, k, v, causal=causal, **args)
+            got = attention.flash_bwd(q, k, v, o, lse, do, causal=causal, **args)
+            torch.cuda.synchronize()
+            ref = attention.attention_bwd_plain(q, k, v, o, lse, do, causal=causal, **args)
+            errs = {}
+            for g_name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                e = (g.float() - r.float()).abs().max().item()
+                lim = BWD_RTOL * r.float().abs().max().item() + BWD_ATOL
+                if not (e <= lim and bool(torch.isfinite(g.float()).all())):
+                    raise AssertionError(f"flash_bwd case {name} causal={causal}: "
+                                         f"max|d{g_name}| {e} > {lim}")
+                errs[g_name] = e
+            if name == "fully_masked_row" and not all(bool((g[1:3] == 0).all()) for g in got):
+                raise AssertionError("fully-masked rows have non-zero gradients")
+            err["dq"] = max(err["dq"], errs["dq"])
+            err["dkv"] = max(err["dkv"], errs["dk"], errs["dv"])
+            results.append({"case": name, "causal": causal, "B": B, "Sq": Sq, "Sk": Sk,
+                            "Hq": Hq, "Hkv": Hkv, "D": D, "max_abs_err": errs})
+
+    # time at the SFT shapes: the VLA-adapter step's Qwen layer (16 rows of
+    # 96 text + 256 patch tokens, the last text token padding, 14/2 heads)
+    # and the WM-SFT step's layer (4 rows of 1663 tokens, 16/16 heads)
+    timed = {}
+    for shape, B, S, Hq, Hkv, kv_len in (("vla_adapter", 16, 352, 14, 2, 351),
+                                         ("wm_sft", WM_SFT_ROWS, WM_SFT_LEN, 16, 16,
+                                          WM_SFT_LEN)):
+        q, do = (torch.randn(B, S, Hq, 64, generator=gen, device=dev).bfloat16()
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, Hkv, 64, generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        rows = {"kv_lens": torch.full((B,), kv_len, dtype=torch.int32, device=dev),
+                "kv_starts": torch.zeros(B, dtype=torch.int32, device=dev),
+                "q_offset": torch.zeros(B, dtype=torch.int32, device=dev)}
+        o, lse = attention.flash_fwd(q, k, v, causal=True, **rows)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        kw = dict(causal=True, **rows)
+        plain_ms = graph_ms(lambda: attention.attention_bwd_plain(q, k, v, o, lse, do, **kw), 3)
+        # autograd backward of SDPA over the same rows (a yardstick: the port
+        # never calls it): forward + backward replayed from a CUDA graph,
+        # less the forward alone
+        leaves = [x[:, :kv_len].transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+        do_lib = do[:, :kv_len].transpose(1, 2)
+        sdpa = lambda: F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                      enable_gqa=Hq != Hkv)
+        library_ms = (graph_ms(lambda: torch.autograd.grad(sdpa(), leaves, do_lib))
+                      - graph_ms(sdpa))
+        work = bwd_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"], True)
+        entry = {"B": B, "S": S, "kv_len": kv_len, "Hq": Hq, "Hkv": Hkv, "D": 64, "causal": True,
+                 "plain_ms": plain_ms, "library_ms": library_ms}
+        timed[shape] = {
+            "dq": {**entry, "kernel_ms": graph_ms(
+                lambda: attention.flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
+                "eager_ms": cuda_ms(lambda: attention.flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
+                **bound(*work["dq"])},
+            "dkv": {**entry, "kernel_ms": graph_ms(
+                lambda: attention.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)),
+                "eager_ms": cuda_ms(lambda: attention.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                                    **kw)),
+                **bound(*work["dkv"])},
+        }
+        del leaves
+    out = {"phase": "flash_bwd", "cases": results, "max_abs_err": err,
+           "tolerance": f"max|d| <= {BWD_RTOL} * max|ref| + {BWD_ATOL} per gradient",
+           "timed": timed}
+    emit(out)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -705,6 +859,171 @@ def phase_wm_kernel_vs_plain(wm) -> dict:
     return res
 
 
+def _zero_counts(attention) -> None:
+    attention.launches = attention.bwd_dq_launches = attention.bwd_dkv_launches = 0
+
+
+def _counts(attention) -> dict:
+    return {"flash_fwd": attention.launches, "flash_bwd_dq": attention.bwd_dq_launches,
+            "flash_bwd_dkv": attention.bwd_dkv_launches}
+
+
+def _drive_sft(attention, argv):
+    """main_sft.run(argv) on the card with every kernel count set to 0 just
+    before each step and read just after it.  Returns (run, per-step
+    records, a clone of every parameter taken before the first step, peak
+    memory in GiB)."""
+    from vla_rft_tpu_torch.trainer import main_sft
+
+    steps, start = [], {}
+
+    def on_start(trainer):
+        start.update({id(p): p.detach().clone() for p in trainer.params})
+        torch.cuda.synchronize()
+        _zero_counts(attention)  # the main path starts here
+
+    def on_step(step, loss, seconds):
+        steps.append({"step": step, "loss": loss, "ms": seconds * 1e3,
+                      "launches": _counts(attention)})  # read right after the step
+        _zero_counts(attention)
+
+    torch.cuda.reset_peak_memory_stats()
+    run = main_sft.run(argv, on_start=on_start, on_step=on_step)
+    return run, steps, start, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _expect_launches(what, steps, expect):
+    for s in steps:
+        if s["launches"] != expect or not np.isfinite(s["loss"]):
+            raise AssertionError(f"{what} step {s['step']}: loss {s['loss']}, launches "
+                                 f"{s['launches']}, expected {expect}")
+
+
+def phase_sft(attention) -> dict:
+    """The SFT path at libero width: vla_adapter, kernel vs plain, vla_flow,
+    and next-token SFT of the WM."""
+    from vla_rft_tpu_torch.config import vla_rft_default_config
+    from vla_rft_tpu_torch.data.synthetic import SyntheticVLADataset
+    from vla_rft_tpu_torch.models.action_head import sample_noisy_actions
+    from vla_rft_tpu_torch.models.transformer import TransformerConfig
+    from vla_rft_tpu_torch.trainer import main_sft
+    from vla_rft_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    # (a) vla_adapter through the CLI entry point
+    argv = ["sft.mode=vla_adapter", f"trainer.total_training_steps={SFT_STEPS}",
+            "sft.freeze_vision_backbone=true", f"sft.vlm_lr={SFT_VLM_LR}",
+            f"actor_rollout_ref.actor.optim.lr={SFT_EXPERT_LR}"]
+    run, steps, start, peak = _drive_sft(attention, argv)
+    tr, bundle = run.trainer, run.bundle
+    L = bundle.vla_cfg.llm.num_layers
+    _expect_launches("vla_adapter", steps, {"flash_fwd": L, "flash_bwd_dq": L,
+                                            "flash_bwd_dkv": L})
+    names = {id(p): f"{pre}.{n}" for pre, m in (("vla", bundle.vla), ("expert", bundle.expert))
+             for n, p in m.named_parameters()}
+    still, moved_frozen = [], []
+    for p in tr.params:
+        same = torch.equal(p.detach(), start[id(p)])
+        frozen = tr.labels[names[id(p)]] == "frozen"
+        if frozen and not same:
+            moved_frozen.append(names[id(p)])
+        if not frozen and same:
+            still.append(names[id(p)])
+    if still or moved_frozen:
+        raise AssertionError(f"trained leaves that did not move {still[:5]} ({len(still)}); "
+                             f"frozen leaves that moved {moved_frozen[:5]}")
+    n_frozen = sum(1 for v in tr.labels.values() if v == "frozen")
+    del start
+
+    # the step's parts on one more batch (outside the main path)
+    config = vla_rft_default_config().apply_overrides(argv)
+    data = SyntheticVLADataset(main_sft.dataset_config(config, "libero", bundle))
+    data.load_state_dict({"step": SFT_STEPS})
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    batch, data_ms = host_ms(lambda: main_sft.policy_batch(data.next_batch(), "cuda"))
+    noise = sample_noisy_actions(gen, batch["actions"], bundle.expert_cfg)
+    loss, fwd_ms = host_ms(lambda: tr.compute_loss(batch, noise))
+    grads, bwd_ms = host_ms(lambda: tr.backward(loss))
+    _, opt_ms = host_ms(lambda: tr.update(grads))
+    del grads
+
+    # (d) kernel path vs plain path on one step: same params, batch and noise
+    lm = bundle.vla.language_model
+    watch = [f"vla.language_model.layers.{i}.self_attn.{w}_proj.weight"
+             for i in (0, L - 1) for w in "qkv"] + [f"vla.projector.fc{i}.weight" for i in (1, 2, 3)]
+    idx = {names[id(p)]: i for i, p in enumerate(tr.params)}
+    paths = {}
+    for impl in ("auto", "plain"):
+        lm.attn_impl = impl
+        try:
+            before = _counts(attention)
+            loss = tr.compute_loss(batch, noise)
+            grads = tr.backward(loss)
+            torch.cuda.synchronize()
+            n = {k: v - before[k] for k, v in _counts(attention).items()}
+            paths[impl] = (loss.item(), {w: grads[idx[w]].float() for w in watch}, n)
+            del grads
+        finally:
+            lm.attn_impl = "auto"
+    (lk, gk, nk), (lp, gp, np_) = paths["auto"], paths["plain"]
+    if nk != {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L} or any(np_.values()):
+        raise AssertionError(f"kernel vs plain: launches {nk} / {np_}")
+    loss_err = abs(lk - lp) / abs(lp)
+    grad_err = {w: ((gk[w] - gp[w]).abs().max() / gp[w].abs().max()).item() for w in watch}
+    zero = [w for w in watch if gk[w].abs().max().item() == 0.0]
+    if zero or loss_err > SFT_LOSS_TOL or max(grad_err.values()) > SFT_GRAD_TOL:
+        raise AssertionError(f"sft kernel vs plain: loss rel err {loss_err}, grad rel err "
+                             f"{grad_err}, zero kernel-path grads {zero}")
+    adapter = {"preset": "libero", "batch": config.data.train_batch_size,
+               "seq_len": int(batch["input_ids"].shape[1]) + bundle.vla_cfg.total_patches,
+               "steps": steps, "first_step_ms": steps[0]["ms"],
+               "steady_step_ms": float(np.mean([s["ms"] for s in steps[1:]])),
+               "launches_total": {k: sum(s["launches"][k] for s in steps) for k in steps[0]["launches"]},
+               "split_ms": {"data": data_ms, "forward": fwd_ms, "backward": bwd_ms,
+                            "optimizer": opt_ms},
+               "peak_mem_gib": peak, "trained_leaves": len(tr.params) - n_frozen,
+               "frozen_leaves": n_frozen, "lr": {"vlm": SFT_VLM_LR, "expert": SFT_EXPERT_LR},
+               "kernel_vs_plain": {"loss": [lk, lp], "loss_rel_err": loss_err,
+                                   "grad_rel_err": grad_err,
+                                   "tolerance": {"loss_rel": SFT_LOSS_TOL,
+                                                 "grad_rel": SFT_GRAD_TOL}}}
+    del run, tr, bundle, lm, paths, gk, gp, batch, noise, loss
+    torch.cuda.empty_cache()
+
+    # (b) vla_flow: the VLM frozen, its context encoded without gradients
+    run, steps, start, peak = _drive_sft(attention, ["sft.mode=vla_flow", "trainer.total_training_steps=2"])
+    L = run.bundle.vla_cfg.llm.num_layers
+    _expect_launches("vla_flow", steps, {"flash_fwd": L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    flow = {"steps": steps, "peak_mem_gib": peak}
+    del run, start
+    torch.cuda.empty_cache()
+
+    # (c) next-token SFT of the 24-layer WM over 4 rows of 1663 tokens, the
+    # labels -100 over the 1095-token prompt
+    torch.cuda.reset_peak_memory_stats()
+    cfg = TransformerConfig.wm_llama(vocab_size=9008)
+    wm_tr, build_ms = host_ms(lambda: SFTTrainer(cfg, lr=1e-5, device="cuda", seed=13))
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (WM_SFT_ROWS, WM_SFT_LEN)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, :WM_SFT_PROMPT] = -100
+    wm_batch = {"input_ids": ids, "labels": labels,
+                "attention_mask": np.ones_like(ids)}
+    wm_steps = []
+    for step in (1, 2):
+        _zero_counts(attention)  # the main path starts here
+        loss, ms = host_ms(lambda: wm_tr.training_step(wm_batch))
+        wm_steps.append({"step": step, "loss": loss, "ms": ms, "launches": _counts(attention)})
+    L = wm_tr.llm.cfg.num_layers
+    _expect_launches("wm_sft", wm_steps, {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
+    wm = {"rows": WM_SFT_ROWS, "seq_len": WM_SFT_LEN, "build_ms": build_ms, "steps": wm_steps,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del wm_tr
+    torch.cuda.empty_cache()
+    out = {"phase": "sft", "vla_adapter": adapter, "vla_flow": flow, "wm_sft": wm}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -717,33 +1036,52 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    seconds = {}
+    seconds, held = {}, {}
 
     def timed(name, fn, *args):
         t = time.perf_counter()
         out = fn(*args)
         seconds[name] = round(time.perf_counter() - t, 1)
+        gc.collect()  # a phase's models can sit in reference cycles
+        held[name] = torch.cuda.memory_allocated() / 2 ** 30  # what the phase leaves allocated
         return out
 
     timed("build", phase_build)
     flash = timed("flash", phase_flash, attention)
+    flash_bwd = timed("flash_bwd", phase_flash_bwd, attention)
     decode = timed("decode", phase_decode, dec)
     serving = timed("serving", phase_serving, attention)
     wm = timed("wm_reward", phase_wm_reward, attention, dec)
     plain = timed("wm_plain", phase_wm_plain, attention, dec, wm)
     timed("wm_kernel_vs_plain", phase_wm_kernel_vs_plain, wm)
-    emit({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t0, 1)})
+    wm_launches = wm["json"]["runs"][0]["launches"]
+    del wm  # frees the WM reward models before the training phase
+    torch.cuda.empty_cache()
+    sft = timed("sft", phase_sft, attention)
+    emit({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t0, 1),
+          "allocated_gib_after_phase": held})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    wm_launches = wm["json"]["runs"][0]["launches"]
     entry = lambda name, source, replaces, launches, err, t: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
     flash_src = "vla_rft_tpu_torch/csrc/flash_fwd.cu"
+    bwd_src = "vla_rft_tpu_torch/csrc/flash_bwd.cu"
+    adapter_n, wm_n = sft["vla_adapter"]["launches_total"], sft["wm_sft"]["steps"][0]["launches"]
+    bwd_entries = []
+    for kernel, line, key in (("flash_bwd_dq", 175, "dq"), ("flash_bwd_dkv", 239, "dkv")):
+        for shape, n, desc in (("vla_adapter", adapter_n,
+                                f"B=16 S=352 (351 valid) Hq/Hkv=14/2 D=64 causal; "
+                                f"{SFT_STEPS} steps"),
+                               ("wm_sft", wm_n, "B=4 S=1663 Hq=Hkv=16 D=64 causal; 1 step")):
+            bwd_entries.append({**entry(f"{kernel}@{shape}", bwd_src,
+                                        f"vla_rft_tpu/ops/attention.py:{line}", n[kernel],
+                                        flash_bwd["max_abs_err"][key],
+                                        flash_bwd["timed"][shape][key]), "shape": desc})
     dec_src = "vla_rft_tpu_torch/csrc/decode_hd.cu"
     emit({"kernels": [
         entry("flash_fwd", flash_src, "vla_rft_tpu/ops/attention.py:108",
@@ -757,6 +1095,7 @@ def main() -> int:
         entry("decode_hd", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:272",
               plain["launches"]["decode_hd"], decode["max_abs_err"]["plain"],
               decode["timed"]["plain"]),
+        *bwd_entries,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

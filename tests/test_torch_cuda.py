@@ -11,6 +11,9 @@ bf16 for the P.V product, so its O gets atol/rtol 2e-2; the LSE is f32 from
 exact bf16 products summed in f32, so it gets atol 1e-3.  The decode kernels
 keep P in f32 and differ from their twins only by f32 summation order before
 O is rounded to bf16, so their O gets rtol 2^-7 (one bf16 ulp) and atol 2e-3.
+The flash backward kernels round p and dS to bf16 for their second products
+and dq/dk/dv to bf16 at the end, and sum in f32 in another order than the
+f32 twin: each gradient gets max|d| <= 2^-7 max|ref| + 1e-3.
 """
 import pytest
 import torch
@@ -231,3 +234,136 @@ def test_long_cached_chunks_launch_the_flash_kernel(cuda_device, shared, S):
     dec.attn_impl = "auto"
     scale = logits["plain"].abs().max()
     assert ((logits["auto"] - logits["plain"]).abs().max() / scale) < 2e-2
+
+
+# ------------------------------------------------ flash backward (#2, #3)
+BWD_RTOL, BWD_ATOL = 2 ** -7, 1e-3
+
+BWD_CASES = [
+    # (name, B, Sq, Sk, Hq, Hkv, D, per-row kwargs): the CPU parity cases
+    # (tests/test_torch_attention.py) at the kernels' head dims, D = 128,
+    # and the WM-SFT row length (1663 = 1095 + 568, not a multiple of 64)
+    ("kv_lens", 2, 96, 96, 4, 2, 64, {"kv_lens": [96, 70]}),
+    ("kv_starts", 2, 64, 64, 4, 2, 64, {"kv_starts": [0, 16]}),
+    ("q_offset", 2, 32, 64, 4, 2, 64, {"q_offset": [32, 32]}),
+    ("gqa_7to1_ragged", 2, 50, 77, 14, 2, 64, {"kv_lens": [77, 41]}),
+    ("fully_masked_row", 2, 40, 40, 4, 2, 64, {"kv_lens": [40, 10], "kv_starts": [0, 10]}),
+    ("d128_ragged", 2, 130, 130, 14, 2, 128, {"kv_lens": [130, 77], "kv_starts": [0, 5]}),
+    ("wm_1663", 1, 1663, 1663, 16, 16, 64, {}),
+]
+
+
+def _bwd_inputs(dev, B, Sq, Sk, Hq, Hkv, D, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Sq, Hq, D, generator=gen, device=dev).bfloat16()
+    k = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
+    do = torch.randn(B, Sq, Hq, D, generator=gen, device=dev).bfloat16()
+    return q, k, v, do
+
+
+def _assert_grads_close(got, ref):
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        err = (g.float() - r.float()).abs().max().item()
+        lim = BWD_RTOL * r.float().abs().max().item() + BWD_ATOL
+        assert err <= lim, f"{name}: max|d| {err} > {lim}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("name,B,Sq,Sk,Hq,Hkv,D,kw", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_flash_bwd_kernels_match_plain_twin(cuda_device, name, B, Sq, Sk, Hq, Hkv, D, kw,
+                                            causal):
+    q, k, v, do = _bwd_inputs(cuda_device, B, Sq, Sk, Hq, Hkv, D)
+    args = {k_: torch.tensor(v_, device=cuda_device) for k_, v_ in kw.items()}
+    o, lse = tattn.flash_fwd(q, k, v, causal=causal, **args)
+    before = (tattn.bwd_dq_launches, tattn.bwd_dkv_launches)
+    got = tattn.flash_bwd(q, k, v, o, lse, do, causal=causal, **args)
+    torch.cuda.synchronize()
+    assert (tattn.bwd_dq_launches, tattn.bwd_dkv_launches) == (before[0] + 1, before[1] + 1)
+    ref = tattn.attention_bwd_plain(q, k, v, o, lse, do, causal=causal, **args)
+    _assert_grads_close(got, ref)
+    if name == "fully_masked_row":  # row 1 has no valid key: all of its grads are 0
+        assert all(bool((g[1] == 0).all()) for g in got)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_wrapper_refuses_what_the_kernels_do_not_take(cuda_device):
+    q, k, v, do = _bwd_inputs(cuda_device, 1, 8, 8, 4, 2, 64)
+    o, lse = tattn.flash_fwd(q, k, v)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tattn.flash_bwd(q, k, v, o, lse, do.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        tattn.flash_bwd(q, k, v, o, lse, do.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="differs from q"):
+        tattn.flash_bwd(q, k, v, o, lse, do[:, :4].contiguous())
+    with pytest.raises(ValueError, match="lse"):
+        tattn.flash_bwd_dq(q, k, v, do, lse.bfloat16(), lse)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tattn.flash_bwd(q.cpu(), k.cpu(), v.cpu(), o.cpu(), lse.cpu(), do.cpu())
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros(1, 8, 4, 32, device=cuda_device, dtype=torch.bfloat16)
+        tattn.flash_bwd_dkv(x, x, x, x, lse, lse)
+
+
+@pytest.mark.cuda
+def test_attention_grad_on_cuda_runs_the_kernels_and_matches_the_twin(cuda_device):
+    """autograd through attention() on CUDA tensors: the forward launches #1,
+    the backward #2 and #3, and dq/dk/dv are non-zero and match the plain
+    path's (the forward kernel alone would leave them without a grad_fn)."""
+    q, k, v, do = _bwd_inputs(cuda_device, 2, 96, 96, 14, 2, 64, seed=4)
+    kv_lens = torch.tensor([96, 61], device=cuda_device)
+    grads = {}
+    for impl in ("auto", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = (tattn.launches, tattn.bwd_dq_launches, tattn.bwd_dkv_launches)
+        o = tattn.attention(*leaves, causal=True, kv_lens=kv_lens, impl=impl)
+        grads[impl] = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        after = (tattn.launches, tattn.bwd_dq_launches, tattn.bwd_dkv_launches)
+        n = 1 if impl == "auto" else 0
+        assert tuple(a - b for a, b in zip(after, before)) == (n, n, n)
+    for g in grads["auto"]:
+        assert bool(torch.isfinite(g.float()).all()) and g.float().abs().max().item() > 0
+    _assert_grads_close(grads["auto"], grads["plain"])
+
+
+@pytest.mark.cuda
+def test_tiny_vla_adapter_step_launches_the_backward_once_per_layer(cuda_device):
+    """One vla_adapter SFT step of the tiny policy in bf16 on the card (head
+    dim 64, the kernels' smallest): the Qwen forward launches #1 and its
+    backward #2 and #3 once per layer, and the loss is finite."""
+    import dataclasses
+
+    from vla_rft_tpu_torch.models.factory import policy_configs
+    from vla_rft_tpu_torch.models.prismatic import OpenVLA
+    from vla_rft_tpu_torch.models.action_head import ActionExpert
+    from vla_rft_tpu_torch.trainer.sft_trainer import VLAAdapterSFTTrainer
+
+    vla_cfg, expert_cfg, seq_len, image = policy_configs("tiny")
+    llm = dataclasses.replace(vla_cfg.llm, hidden_size=256, num_heads=4, num_kv_heads=2,
+                              dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    vla_cfg = dataclasses.replace(vla_cfg, llm=llm)
+    expert_cfg = dataclasses.replace(expert_cfg, llm_dim=256)
+    with torch.device(cuda_device):
+        vla = init_random_(OpenVLA(vla_cfg), seed=0)
+        expert = init_random_(ActionExpert(expert_cfg), seed=1)
+    tr = VLAAdapterSFTTrainer(vla, expert)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    B, n = 2, vla_cfg.num_tokens
+    ids = torch.randint(5, 1000, (B, seq_len), device=cuda_device, generator=gen)
+    ids[:, 10:10 + n] = 151387 + torch.arange(n, device=cuda_device)
+    labels = torch.full_like(ids, -100)
+    labels[:, 10:10 + n] = ids[:, 10:10 + n]
+    batch = {"input_ids": ids, "labels": labels, "attention_mask": torch.ones_like(ids),
+             "pixels": torch.rand(B, image, image, 6, device=cuda_device, generator=gen),
+             "proprio": torch.randn(B, 8, device=cuda_device, generator=gen),
+             "actions": torch.rand(B, expert_cfg.num_actions_chunk, expert_cfg.action_dim,
+                                   device=cuda_device, generator=gen) * 2 - 1}
+    before = (tattn.launches, tattn.bwd_dq_launches, tattn.bwd_dkv_launches)
+    loss = tr.training_step(gen, batch)
+    after = (tattn.launches, tattn.bwd_dq_launches, tattn.bwd_dkv_launches)
+    L = llm.num_layers
+    assert tuple(a - b for a, b in zip(after, before)) == (L, L, L)
+    assert torch.isfinite(torch.tensor(loss))

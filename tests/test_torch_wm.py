@@ -13,6 +13,8 @@
   tools/rft_evidence.py's `save_tree`).
 * `filtered_logits` equal to JAX's exactly, ties included; `sample_token`
   frequencies within 5 standard errors of the filtered softmax.
+* Token ids come back as int32, the reference's dtype, from `sample_token`
+  (greedy and sampled) and `generate_sequences`.
 """
 import os
 
@@ -187,6 +189,27 @@ def test_sample_token_frequencies_and_greedy():
     greedy = t_sampling.sample_token(gen, logits, do_sample=False)
     assert greedy.item() == int(np.asarray(j_sampling.sample_token(
         jax.random.key(0), jnp.asarray(logits.numpy()), do_sample=False))[0])
+
+
+def test_token_ids_are_int32_as_in_jax():
+    logits = np.random.default_rng(8).normal(size=(3, 40)).astype(np.float32)
+    gen = torch.Generator().manual_seed(0)
+    for kw in (dict(do_sample=False), dict(top_p=0.8)):
+        j = np.asarray(j_sampling.sample_token(jax.random.key(0), jnp.asarray(logits), **kw))
+        t = t_sampling.sample_token(gen, torch.from_numpy(logits), **kw)
+        assert t.dtype == torch.int32 and j.dtype == np.int32
+    jm, params, tm = _pair("int8", seed=2)
+    F, V, A = 1, 2, 7
+    roll = dict(prompt_length=20, response_length=F * (V + A), num_frames=F,
+                interact_max_tokens=V, action_dim=A, do_sample=False)
+    prompt, actions = _rollout_inputs(3, 2, 1, 20, F, A, 256)
+    jcfg = j_roll.WMRolloutConfig(**roll)
+    j_out = jax.jit(lambda p, i, a: j_roll.generate_sequences(jm, p, jax.random.key(0), i, a, jcfg))(
+        params, jnp.asarray(prompt, jnp.int32), jnp.asarray(actions, jnp.int32))
+    t_out = t_roll.generate_sequences(tm, torch.Generator(), torch.from_numpy(prompt),
+                                      torch.from_numpy(actions), t_roll.WMRolloutConfig(**roll))
+    assert t_out.dtype == torch.int32 and np.asarray(j_out).dtype == np.int32
+    np.testing.assert_array_equal(t_out.numpy(), np.asarray(j_out))
 
 
 def _load_tree(path, like):

@@ -1,13 +1,15 @@
 """Flow-matching action head and its input projectors.
 
-Port of the serving half of vla_rft_tpu/models/action_head.py:
-`ActionHeadConfig`, `MLPProjector`, `FlowMatchingActionHead` and
-`ActionExpert.predict_flow`.  The sigma net and the training-time sampling
-helpers belong to the training slice and are not ported yet.
+Port of vla_rft_tpu/models/action_head.py: `ActionHeadConfig`,
+`MLPProjector`, `FlowMatchingActionHead`, `ActionExpert.predict_flow` and
+the flow-matching targets of behaviour cloning (`sample_beta`,
+`sample_noisy_actions`).  The sigma net belongs to the GRPO slice and is not
+ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +20,44 @@ from vla_rft_tpu_torch.models.layers import Dense
 
 ACTION_DIM = 7
 NUM_ACTIONS_CHUNK = 8
+
+
+def sample_beta(gen: Optional[torch.Generator], alpha: float, beta: float, shape,
+                device=None) -> torch.Tensor:
+    """action_heads.py:12-15: g_i = U_i^(1/a_i); t = g1 / (g1 + g2), f32."""
+    g1 = torch.rand(shape, generator=gen, device=device) ** (1.0 / alpha)
+    g2 = torch.rand(shape, generator=gen, device=device) ** (1.0 / beta)
+    return g1 / (g1 + g2)
+
+
+def noisy_actions(noise: torch.Tensor, timesteps: torch.Tensor,
+                  gt_actions: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The flow-matching pair from bf16 noise (B, chunk, A) and bf16 flow
+    times (B,): x_t = (1 - t) noise + t gt and u = noise - gt, computed in
+    f32 and stored in bf16 (the reference's `sample_noisy_actions` after its
+    draws)."""
+    t = timesteps.float()[:, None, None]
+    noise_f, gt = noise.float(), gt_actions.float()
+    return {
+        "noise": noise,
+        "flow": (noise_f - gt).to(torch.bfloat16),
+        "gt_noisy_actions": ((1.0 - t) * noise_f + t * gt).to(torch.bfloat16),
+        "gt_timesteps": timesteps,
+    }
+
+
+def sample_noisy_actions(gen: Optional[torch.Generator], gt_actions: torch.Tensor,
+                         cfg: "ActionHeadConfig") -> Dict[str, torch.Tensor]:
+    """FlowMatchingActionHead.sample_noisy_actions (action_heads.py:63-96):
+    noise drawn in f32 and rounded to bf16, t ~ Beta(1.5, 1) mapped to
+    t * 0.999 + 0.001 and rounded to bf16, then `noisy_actions`.  The draws
+    come from `gen` (torch's stream, not JAX's: parity tests pass the same
+    noise dict to both)."""
+    B, dev = gt_actions.shape[0], gt_actions.device
+    noise = torch.randn((B, cfg.num_actions_chunk, cfg.action_dim), generator=gen,
+                        device=dev, dtype=torch.float32).to(torch.bfloat16)
+    t_beta = sample_beta(gen, 1.5, 1.0, (B,), dev)
+    return noisy_actions(noise, (t_beta * 0.999 + 0.001).to(torch.bfloat16), gt_actions)
 
 
 class MLPProjector(nn.Module):

@@ -1,11 +1,14 @@
-"""Model factory: the policy, and the world-model reward models.
+"""Model factory: the policy, the world-model reward models, a lone decoder.
 
 Port of vla_rft_tpu/models/factory.py:
 * `build_policy`, preset 'libero': SigLIP-so400m + DINOv2-L + Qwen2.5-0.5B
   (bf16) and the DiT d8/h512 action expert (f32 params, bf16 compute);
+  frozen for serving, or trainable for the SFT trainers;
 * `build_wm_reward`, preset 'libero': the 24-layer WM (`wm_llama`, bf16,
   int8 KV cache), the compressive tokenizer at 256 px and VGG16 LPIPS (f32
   params, bf16 compute);
+* `build_decoder`: one trainable `Decoder` of a given config (the WM's
+  `wm_llama` for next-token SFT);
 * preset 'tiny': the same topologies at test sizes, all f32.
 
 Both make the modules directly on the target device and fill them with
@@ -90,9 +93,17 @@ def init_random_(module: nn.Module, seed: int = 0) -> nn.Module:
     return module
 
 
+def _mode(module: nn.Module, trainable: bool) -> nn.Module:
+    """train() with gradients on, or eval() and frozen."""
+    return module.train(trainable).requires_grad_(trainable)
+
+
 def build_policy(preset: str = "libero", config: PolicyConfig = PolicyConfig(), *,
-                 device="cuda", seed: int = 0) -> PolicyBundle:
-    """The policy (VLM + action expert) in eval mode on `device`."""
+                 device="cuda", seed: int = 0, trainable: bool = False) -> PolicyBundle:
+    """The policy (VLM + action expert) on `device`: in eval mode and frozen
+    (serving, rollouts), or with `trainable` in train mode with every
+    parameter requiring grad (the SFT trainers freeze by leaving parameters
+    out of the update, as the reference's optax labels do)."""
     dev = resolve_device(device)
     vla_cfg, expert_cfg, seq_len, image_size = policy_configs(preset, config)
     with torch.device(dev):
@@ -101,13 +112,22 @@ def build_policy(preset: str = "libero", config: PolicyConfig = PolicyConfig(), 
     init_random_(vla, seed)
     init_random_(expert, seed + 1)
     return PolicyBundle(
-        vla=vla.eval().requires_grad_(False),
-        expert=expert.eval().requires_grad_(False),
+        vla=_mode(vla, trainable),
+        expert=_mode(expert, trainable),
         vla_cfg=vla_cfg,
         expert_cfg=expert_cfg,
         policy_seq_len=seq_len,
         policy_image_size=image_size,
     )
+
+
+def build_decoder(cfg: TransformerConfig, *, device="cuda", seed: int = 0) -> Decoder:
+    """One trainable `Decoder` of config `cfg` on `device` with seeded random
+    weights (the reference's `SFTTrainer` builds its LLM this way)."""
+    dev = resolve_device(device)
+    with torch.device(dev):
+        dec = Decoder(cfg)
+    return _mode(init_random_(dec, seed), True)
 
 
 @dataclasses.dataclass
@@ -185,9 +205,9 @@ def build_wm_reward(preset: str = "libero", config: WMRewardConfig = WMRewardCon
     for i, m in enumerate((wm, tokenizer, lpips)):
         init_random_(m, seed + i)
     return WMRewardBundle(
-        wm=wm.eval().requires_grad_(False),
-        tokenizer=tokenizer.eval().requires_grad_(False),
-        lpips=lpips.eval().requires_grad_(False),
+        wm=_mode(wm, False),
+        tokenizer=_mode(tokenizer, False),
+        lpips=_mode(lpips, False),
         wm_cfg=wm_cfg, proc_cfg=proc_cfg, roll_cfg=roll_cfg, reward_cfg=reward_cfg,
         image_size=image_size, num_raw_frames=config.segment_length,
     )

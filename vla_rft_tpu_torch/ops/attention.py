@@ -1,4 +1,4 @@
-"""Attention: a hand-written CUDA flash forward for Hopper + its plain twin.
+"""Attention: hand-written CUDA flash kernels for Hopper + their plain twins.
 
 Port of vla_rft_tpu/ops/attention.py.  Layout (B, S, H, D) throughout; GQA
 maps query head h to kv head h // (Hq // Hkv); per-row `kv_lens` (right
@@ -12,11 +12,22 @@ q[:, 0], for chunked prefill); optional causal masking.
   Pallas `_fwd_kernel`): bf16 q/k/v -> bf16 O and f32 LSE, launched on the
   current stream without synchronising.  It counts its launches in the
   module-level `launches`.
-* `attention` is the front end: a CUDA tensor always goes to the kernel (or
-  raises), a CPU tensor to the plain twin; `impl="plain"` asks for the twin
-  on either device.
+* `attention_bwd_plain` is the backward's twin: the explicit formula of the
+  Pallas `_dq_kernel` / `_dkv_kernel` (p recomputed from the LSE with the
+  bounded exp, dS = p (dP - delta) scale), in f32.
+* `flash_bwd_dq` / `flash_bwd_dkv` wrap the CUDA kernels in
+  `csrc/flash_bwd.cu` (ports of `_dq_kernel` and `_dkv_kernel`), counted in
+  `bwd_dq_launches` / `bwd_dkv_launches`; `flash_bwd` computes delta and
+  launches both.
+* `FlashAttention` is the autograd Function around them: the forward runs
+  #1 (or the twin with its LSE), the backward #2 and #3 (or the backward
+  twin), as the reference's `jax.custom_vjp` does.
+* `attention` is the front end: when autograd needs a gradient through it,
+  it goes through `FlashAttention`; otherwise a CUDA tensor goes straight to
+  the forward kernel (or raises) and a CPU tensor to the plain twin.
+  `impl="plain"` asks for the twins on either device.
 
-The kernel library is compiled by nvcc at first use (`ops/cuda_build.py`:
+The kernel libraries are compiled by nvcc at first use (`ops/cuda_build.py`:
 a plain C interface loaded with ctypes, keyed by a hash of the source and
 flags, so an unchanged tree does not rebuild).
 """
@@ -33,10 +44,14 @@ NEG_INF = -1e30
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 
-# kernel launches since the count was last set to 0 (read by chip_smoke.py)
+# kernel launches since the count was last set to 0 (read by chip_smoke.py):
+# the forward (#1), the backward's dQ (#2) and dK/dV (#3)
 launches = 0
+bwd_dq_launches = 0
+bwd_dkv_launches = 0
 
 _lib = None
+_bwd_lib = None
 
 
 # ================================================================ plain twin
@@ -44,6 +59,25 @@ def _as_rows(x, B: int, device) -> Optional[torch.Tensor]:
     if x is None:
         return None
     return torch.as_tensor(x, device=device).to(torch.int64).reshape(B)
+
+
+def _valid(B: int, Sq: int, Sk: int, dev, causal, kv_lens, q_offset, kv_starts):
+    """(B, 1, 1, Sq, Sk) bool: which keys each query may attend to."""
+    kv_pos = torch.arange(Sk, device=dev)[None, :]
+    mask = torch.ones((B, 1, 1, Sq, Sk), dtype=torch.bool, device=dev)
+    kv_lens = _as_rows(kv_lens, B, dev)
+    kv_starts = _as_rows(kv_starts, B, dev)
+    if kv_lens is not None:
+        mask = mask & (kv_pos < kv_lens[:, None])[:, None, None, None, :]
+    if kv_starts is not None:
+        mask = mask & (kv_pos >= kv_starts[:, None])[:, None, None, None, :]
+    if causal:
+        q_pos = torch.arange(Sq, device=dev)[None, :]
+        if q_offset is not None:
+            q_pos = q_pos + _as_rows(q_offset, B, dev)[:, None]
+        cm = q_pos[:, :, None] >= kv_pos[:, None, :]  # (B, Sq, Sk)
+        mask = mask & cm[:, None, None, :, :]
+    return mask
 
 
 def attention_plain(
@@ -66,23 +100,9 @@ def attention_plain(
     group = Hq // Hkv
     if scale is None:
         scale = D ** -0.5
-    dev = q.device
     qh = q.reshape(B, Sq, Hkv, group, D).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qh, k.float()) * scale
-    kv_pos = torch.arange(Sk, device=dev)[None, :]
-    mask = torch.ones((B, 1, 1, Sq, Sk), dtype=torch.bool, device=dev)
-    kv_lens = _as_rows(kv_lens, B, dev)
-    kv_starts = _as_rows(kv_starts, B, dev)
-    if kv_lens is not None:
-        mask = mask & (kv_pos < kv_lens[:, None])[:, None, None, None, :]
-    if kv_starts is not None:
-        mask = mask & (kv_pos >= kv_starts[:, None])[:, None, None, None, :]
-    if causal:
-        q_pos = torch.arange(Sq, device=dev)[None, :]
-        if q_offset is not None:
-            q_pos = q_pos + _as_rows(q_offset, B, dev)[:, None]
-        cm = q_pos[:, :, None] >= kv_pos[:, None, :]  # (B, Sq, Sk)
-        mask = mask & cm[:, None, None, :, :]
+    mask = _valid(B, Sq, Sk, q.device, causal, kv_lens, q_offset, kv_starts)
     # bounded arithmetic as in the reference: finite fill for the max,
     # masked lanes see exp(0) and are then zeroed, the denominator is
     # clamped at 0.5 (exact for any row with a valid lane)
@@ -101,6 +121,48 @@ def attention_plain(
     return out, lse
 
 
+def attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_lens=None,
+    q_offset=None,
+    kv_starts=None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's twin: the explicit formula of the reference's
+    `_dq_kernel` and `_dkv_kernel` (not autograd of `attention_plain`), in
+    f32.  delta = sum_D dO * O from the stored O and dO; p = exp(max(s -
+    lse, -80)) on valid lanes and 0 elsewhere (a fully-masked row, lse =
+    -1e30, gives 0); dS = p (dP - delta) scale; dK/dV sum over the query
+    heads of each kv group.  Returns dq, dk, dv in q/k/v's dtypes."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    group = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    qf = q.reshape(B, Sq, Hkv, group, D).float()
+    dof = do.reshape(B, Sq, Hkv, group, D).float()
+    kf, vf = k.float(), v.float()
+    per_row = lambda x: x.reshape(B, Sq, Hkv, group).permute(0, 2, 3, 1)[..., None]
+    delta = per_row((do.float() * o.float()).sum(dim=-1))  # (B, Hkv, G, Sq, 1)
+    mask = _valid(B, Sq, Sk, q.device, causal, kv_lens, q_offset, kv_starts)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    x = torch.where(mask, s - per_row(lse.float()), torch.zeros_like(s))
+    p = torch.where(mask, torch.exp(x.clamp_min(-80.0)), torch.zeros_like(s))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(B, Sq, Hq, D)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ============================================================ kernel library
 def _load():
     global _lib
@@ -115,6 +177,18 @@ def _load():
     return _lib
 
 
+def _load_bwd():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = cuda_build.load("flash_bwd")
+        tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.flash_bwd_dq_bf16.argtypes = [ctypes.c_void_p] * 10 + tail
+        lib.flash_bwd_dkv_bf16.argtypes = [ctypes.c_void_p] * 11 + tail
+        lib.flash_bwd_dq_bf16.restype = lib.flash_bwd_dkv_bf16.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib
+
+
 def _row_arg(x, B: int, default: int, device) -> torch.Tensor:
     if x is None:
         return torch.full((B,), default, dtype=torch.int32, device=device)
@@ -122,6 +196,49 @@ def _row_arg(x, B: int, default: int, device) -> torch.Tensor:
     if t.shape != (B,):
         raise ValueError(f"per-row argument must have shape ({B},), got {tuple(t.shape)}")
     return t.to(torch.int32).contiguous()
+
+
+def _check(fn: str, q, k, v, extra=()):
+    """Raise unless q/k/v (and the `extra` (name, tensor) pairs, shaped like
+    q) are what the kernels take; returns (B, Sq, Sk, Hq, Hkv, D)."""
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
+        if not t.is_cuda:
+            raise ValueError(f"{fn}: {name} must be a CUDA tensor")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{fn}: {name} must be bfloat16, got {t.dtype}")
+        if t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous 4-D tensor")
+        if t.device != q.device:
+            raise ValueError(f"{fn}: q, k and v must share a device")
+    for name, t in extra:
+        if t.shape != q.shape:
+            raise ValueError(f"{fn}: {name} shape {tuple(t.shape)} differs from q's")
+    B, Sq, Hq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"{fn}: k/v shape {tuple(k.shape)} does not fit q {tuple(q.shape)}")
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"{fn}: Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if D not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {D} not in {SUPPORTED_HEAD_DIMS}")
+    if min(B, Sq, Sk) == 0:
+        raise ValueError(f"{fn}: empty input")
+    return B, Sq, Sk, Hq, Hkv, D
+
+
+def _check_rows_f32(fn: str, q, named):
+    """Raise unless each (name, t) is a contiguous f32 (B, Sq, Hq) tensor on
+    q's device."""
+    for name, t in named:
+        if t.dtype != torch.float32 or t.shape != q.shape[:3] or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"{fn}: {name} must be a contiguous float32 {tuple(q.shape[:3])} "
+                             f"tensor on q's device")
+
+
+def _rows(B: int, Sk: int, dev, kv_lens, q_offset, kv_starts):
+    return (_row_arg(kv_lens, B, Sk, dev), _row_arg(q_offset, B, 0, dev),
+            _row_arg(kv_starts, B, 0, dev))
 
 
 def flash_fwd(
@@ -139,31 +256,11 @@ def flash_fwd(
     bf16, contiguous, on one CUDA device, D in {64, 128}.  Returns O
     (B, Sq, Hq, D) bf16 and LSE (B, Sq, Hq) f32; does not synchronise."""
     global launches
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
-            raise ValueError(f"flash_fwd: {name} must be a CUDA tensor")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"flash_fwd: {name} must be bfloat16, got {t.dtype}")
-        if t.dim() != 4 or not t.is_contiguous():
-            raise ValueError(f"flash_fwd: {name} must be a contiguous 4-D tensor")
-        if t.device != q.device:
-            raise ValueError("flash_fwd: q, k and v must share a device")
-    B, Sq, Hq, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
-        raise ValueError(f"flash_fwd: k/v shape {tuple(k.shape)} does not fit q {tuple(q.shape)}")
-    Sk, Hkv = k.shape[1], k.shape[2]
-    if Hq % Hkv:
-        raise ValueError(f"flash_fwd: Hq={Hq} is not a multiple of Hkv={Hkv}")
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head dim {D} not in {SUPPORTED_HEAD_DIMS}")
-    if min(B, Sq, Sk) == 0:
-        raise ValueError("flash_fwd: empty input")
+    B, Sq, Sk, Hq, Hkv, D = _check("flash_fwd", q, k, v)
     if scale is None:
         scale = D ** -0.5
     dev = q.device
-    kl = _row_arg(kv_lens, B, Sk, dev)
-    qo = _row_arg(q_offset, B, 0, dev)
-    ks = _row_arg(kv_starts, B, 0, dev)
+    kl, qo, ks = _rows(B, Sk, dev, kv_lens, q_offset, kv_starts)
     lib = _load()
     o = torch.empty_like(q)
     lse = torch.empty((B, Sq, Hq), dtype=torch.float32, device=dev)
@@ -177,6 +274,97 @@ def flash_fwd(
         raise RuntimeError(f"flash_fwd: kernel launch failed with CUDA error {rc}")
     launches += 1
     return o, lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False, kv_lens=None,
+                 q_offset=None, kv_starts=None, scale: Optional[float] = None) -> torch.Tensor:
+    """Launch kernel #2: dq (B, Sq, Hq, D) bf16 from bf16 q, k, v, dO and the
+    f32 forward LSE and delta = sum_D dO * O, both (B, Sq, Hq)."""
+    global bwd_dq_launches
+    B, Sq, Sk, Hq, Hkv, D = _check("flash_bwd_dq", q, k, v, (("do", do),))
+    _check_rows_f32("flash_bwd_dq", q, (("lse", lse), ("delta", delta)))
+    scale = D ** -0.5 if scale is None else scale
+    kl, qo, ks = _rows(B, Sk, q.device, kv_lens, q_offset, kv_starts)
+    lib = _load_bwd()
+    dq = torch.empty_like(q)
+    rc = lib.flash_bwd_dq_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), kl.data_ptr(), qo.data_ptr(), ks.data_ptr(),
+        B, Sq, Sk, Hq, Hkv, D, float(scale), int(bool(causal)),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq: kernel launch failed with CUDA error {rc}")
+    bwd_dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False, kv_lens=None,
+                  q_offset=None, kv_starts=None,
+                  scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel #3: dk, dv (B, Sk, Hkv, D) bf16, each summed over the
+    query heads of its kv group; inputs as `flash_bwd_dq`."""
+    global bwd_dkv_launches
+    B, Sq, Sk, Hq, Hkv, D = _check("flash_bwd_dkv", q, k, v, (("do", do),))
+    _check_rows_f32("flash_bwd_dkv", q, (("lse", lse), ("delta", delta)))
+    scale = D ** -0.5 if scale is None else scale
+    kl, qo, ks = _rows(B, Sk, q.device, kv_lens, q_offset, kv_starts)
+    lib = _load_bwd()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = lib.flash_bwd_dkv_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), kl.data_ptr(), qo.data_ptr(),
+        ks.data_ptr(), B, Sq, Sk, Hq, Hkv, D, float(scale), int(bool(causal)),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv: kernel launch failed with CUDA error {rc}")
+    bwd_dkv_launches += 1
+    return dk, dv
+
+
+def flash_bwd(q, k, v, o, lse, do, *, causal: bool = False, kv_lens=None, q_offset=None,
+              kv_starts=None, scale: Optional[float] = None):
+    """The flash backward on the card: delta = sum_D dO * O in f32 (a torch
+    reduction, as the reference computes it outside Pallas), then kernels #2
+    and #3.  Returns dq, dk, dv in bf16; does not synchronise."""
+    _check("flash_bwd", q, k, v, (("o", o), ("do", do)))
+    delta = (do.float() * o.float()).sum(dim=-1)
+    kw = dict(causal=causal, kv_lens=kv_lens, q_offset=q_offset, kv_starts=kv_starts,
+              scale=scale)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash backward (the reference's `jax.custom_vjp`
+    around `_flash`).  The forward runs kernel #1 on the card (the twin with
+    its LSE for CPU tensors or `impl="plain"`) and saves q, k, v, O and the
+    LSE; the backward runs kernels #2 and #3 on the card (the backward twin
+    otherwise).  Returns (O, LSE); the LSE's cotangent is ignored, as in the
+    reference, and the per-row ints get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, q_offset, kv_starts, causal, scale, impl):
+        kw = dict(causal=causal, kv_lens=kv_lens, q_offset=q_offset, kv_starts=kv_starts,
+                  scale=scale)
+        kernel = impl == "auto" and q.is_cuda
+        if kernel:
+            o, lse = flash_fwd(q, k, v, **kw)
+        else:
+            o, lse = attention_plain(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw, ctx.kernel = kw, kernel
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_bwd if ctx.kernel else attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 # ================================================================ front end
@@ -195,18 +383,20 @@ def attention(
 ):
     """Multi-head attention (the reference's `attention()` front end).
 
-    impl: "auto" launches the CUDA kernel for CUDA tensors and runs the
-    plain twin for CPU tensors; "plain" runs the twin on either device.
-    There is no fallback: a CUDA input the kernel does not take raises."""
-    if impl == "plain" or (impl == "auto" and q.device.type == "cpu"):
-        return attention_plain(
-            q, k, v, causal=causal, kv_lens=kv_lens, q_offset=q_offset,
-            kv_starts=kv_starts, scale=scale, return_lse=return_lse,
-        )
-    if impl != "auto":
+    impl: "auto" launches the CUDA kernels for CUDA tensors and runs the
+    plain twins for CPU tensors; "plain" runs the twins on either device.
+    When autograd needs a gradient through q, k or v, the call goes through
+    `FlashAttention` (flash backward kernels on the card).  There is no
+    fallback: a CUDA input the kernels do not take raises."""
+    if impl not in ("auto", "plain"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    o, lse = flash_fwd(
-        q, k, v, causal=causal, kv_lens=kv_lens, q_offset=q_offset,
-        kv_starts=kv_starts, scale=scale,
-    )
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        o, lse = FlashAttention.apply(q, k, v, kv_lens, q_offset, kv_starts, causal, scale,
+                                      impl)
+        return (o, lse) if return_lse else o
+    kw = dict(causal=causal, kv_lens=kv_lens, q_offset=q_offset, kv_starts=kv_starts,
+              scale=scale)
+    if impl == "plain" or q.device.type == "cpu":
+        return attention_plain(q, k, v, return_lse=return_lse, **kw)
+    o, lse = flash_fwd(q, k, v, **kw)
     return (o, lse) if return_lse else o

@@ -49,10 +49,11 @@ def filtered_logits(logits: torch.Tensor, temperature: float = 1.0, top_k: int =
 
 def sample_token(gen: torch.Generator, logits: torch.Tensor, temperature: float = 1.0,
                  top_k: int = -1, top_p: float = 1.0, do_sample: bool = True) -> torch.Tensor:
-    """Token ids (...) from (..., V) logits; temperature 0 or do_sample=False
-    gives the argmax (the first one on ties)."""
+    """int32 token ids (...) from (..., V) logits, as the reference returns
+    them; temperature 0 or do_sample=False gives the argmax (the first one on
+    ties)."""
     if not do_sample or temperature == 0:
-        return logits.argmax(dim=-1)
+        return logits.argmax(dim=-1).to(torch.int32)
     fl = filtered_logits(logits, temperature, top_k, top_p)
     u = torch.rand(fl.shape, generator=gen, device=fl.device).clamp_(min=1e-20)
-    return (fl - torch.log(-torch.log(u))).argmax(dim=-1)
+    return (fl - torch.log(-torch.log(u))).argmax(dim=-1).to(torch.int32)

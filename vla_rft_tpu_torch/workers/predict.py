@@ -1,7 +1,7 @@
 """Eval-time action prediction: deterministic flow integration + unnormalize.
 
-Port of vla_rft_tpu/workers/predict.py (and `encode_context`, the one-line
-VLM forward of workers/flow_actor.py): ONE VLM context forward, then K
+Port of vla_rft_tpu/workers/predict.py: ONE VLM context forward
+(`workers/flow_actor.py::encode_context`), then K
 deterministic Euler steps of the flow head from Gaussian noise, then
 unnormalization from dataset statistics and the gripper post-processing.
 """
@@ -14,13 +14,7 @@ import torch
 
 from vla_rft_tpu_torch.models.action_head import ActionExpert
 from vla_rft_tpu_torch.models.prismatic import OpenVLA
-
-
-def encode_context(vla: OpenVLA, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The single multimodal VLM forward shared by rollout and replay."""
-    return vla.encode_context(
-        batch["input_ids"], batch["pixels"], batch["labels"], batch["attention_mask"]
-    )
+from vla_rft_tpu_torch.workers.flow_actor import encode_context  # noqa: F401 (re-exported)
 
 
 @torch.no_grad()

@@ -92,8 +92,9 @@ def generate_sequences(
     shared_prefix: Optional[torch.Tensor] = None,  # (B_u, P0) unique prompt heads
     prefix_map=None,  # (B,) row -> unique prefix
 ) -> torch.Tensor:
-    """Response tokens (B, num_frames * (V + A)), int64: per frame V sampled
-    visual tokens then the A action tokens of frame f + 1."""
+    """Response tokens (B, num_frames * (V + A)), int32 as the reference
+    returns them: per frame V sampled visual tokens then the A action tokens
+    of frame f + 1."""
     B = action_ids.shape[0]
     dev = input_ids.device
     P0 = 0 if shared_prefix is None else shared_prefix.shape[1]
@@ -132,7 +133,7 @@ def generate_sequences(
                 logits, _ = wm(tok[:, None], cache=cache, cache_index=base + i, **shared_kw)
                 last = logits[:, 0]
                 toks.append(tok)
-            act = action_ids[:, f + 1].to(torch.long)
+            act = action_ids[:, f + 1].to(torch.int32)
             logits, _ = wm(act, cache=cache, cache_index=base + V, logits_last_only=True,
                            **shared_kw)
             last = logits[:, -1]
