@@ -4,8 +4,9 @@
 
 Phases, one JSON line each:
   1. build      - nvcc builds the kernel libraries from the sources in this
-                  checkout (vla_rft_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu
-                  and decode_hd.cu), one nvcc per source, started together;
+                  checkout (vla_rft_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu,
+                  decode_hd.cu and fused_decode_layer.cu), one nvcc per
+                  source, started together;
   2. flash      - the flash kernel (#1) against its plain PyTorch twin on the
                   card over masked, padded and ragged cases and the WM's
                   1088-token prefill, and its time at the serving and the WM
@@ -26,28 +27,48 @@ Phases, one JSON line each:
                   kv_starts (also cutting the window to a few keys or none),
                   ragged lengths and GQA 14/2, and their time at the WM's
                   mid-rollout shape;
-  5. serving    - the libero-width policy (SigLIP-so400m + DINOv2-L +
+  5. fused_decode - the fused decode-layer kernels of the int8-weight WM
+                  (#8 RMSNorm + q/k/v + rope + k/v quantisation, #9 o_proj +
+                  MLP, three launches) against their twins on one WM layer
+                  of seeded int8 weights (H 1024, 16/16 heads of 64, I 4096)
+                  over Sq 1 and 7, N = B*Sq of 1, 10, 128 and ragged, and
+                  GQA 16/4; their
+                  time at N = 10 and N = 128 beside the twin's, torch.matmul
+                  of the same products over pre-dequantised bf16 weights (a
+                  yardstick only) and the bound;
+  6. serving    - the libero-width policy (SigLIP-so400m + DINOv2-L +
                   Qwen2.5-0.5B + DiT action expert, seeded random weights)
                   behind ActionServer on localhost answers 4 POST /act
                   requests; every request must launch the flash kernel once
                   per Qwen layer (24), and the kernel path must agree with
                   the plain path on one request;
-  6. wm_reward  - the world-model reward path at libero width (24-layer WM
-                  with an int8 KV cache, the 256 px tokenizer, VGG16 LPIPS;
-                  seeded random weights) on 2 samples with n = 4 rollouts,
-                  composed as the GRPO training step composes it: process ->
-                  one shared-prefix rollout of 8 frames over 10 rows (each
-                  sample's 4 rollouts, then its gt-action row) -> context
-                  features -> gt frames decoded once -> msp_reward; run
-                  twice, each run launching #1 exactly 24 times and #4
-                  exactly 24 x 521 times;
-  7. wm_plain   - generate_sequences without a shared prefix on 2 rows for 2
+  7. wm_reward  - the world-model reward path at libero width (24-layer bf16
+                  WM with an int8 KV cache, the 256 px tokenizer, VGG16
+                  LPIPS; seeded random weights) on 2 samples with n = 4
+                  rollouts, through the GRPO trainer's own stage functions
+                  (process_stage -> wm_rows / wm_rollout_stage: one
+                  shared-prefix rollout of 8 frames over 10 rows, each
+                  sample's 4 rollouts then its gt-action row ->
+                  reward_stage); run twice, each run launching #1 exactly
+                  24 times and #4 exactly 24 x 521 times;
+  8. wm_plain   - generate_sequences without a shared prefix on 2 rows for 2
                   frames (not 8, to keep the script short): #1 exactly 24
                   times and #5 exactly 24 x 2 x 65 times;
-  8. wm_kernel_vs_plain - the WM's kernel path and plain path fed the same
+  9. wm_kernel_vs_plain - the WM's kernel path and plain path fed the same
                   prompts and the kernel path's tokens of frame 0 must agree
                   on the logits of every call;
-  9. sft        - the supervised fine-tuning path at libero width through
+ 10. grpo       - the GRPO training step through
+                  trainer/main_vla_rft_grpo.run at the libero preset with
+                  world_model_rollout.rollout.weights_int8=true, 2 steps of
+                  2 samples x n = 4 (one WM call of 10 rows), every other
+                  setting the config default: per step the stage times, the
+                  peak memory and exact launches (#1 24 + 24, #4 24 x 521,
+                  #8 24 x 520, #9 3 x 24 x 520, #5 0); every trained expert
+                  leaf moved, every VLM / WM / tokenizer / LPIPS leaf
+                  bit-identical, metrics finite; a torch.profiler window of
+                  16 fused decode calls; the fused route against the unfused
+                  int8 route on frame 0's calls;
+ 11. sft        - the supervised fine-tuning path at libero width through
                   trainer/main_sft.run: 3 vla_adapter steps of B = 16 (the
                   config's train_batch_size) with the vision towers frozen,
                   each launching #1, #2 and #3 exactly 24 times (one per
@@ -115,6 +136,14 @@ WM_SFT_ROWS, WM_SFT_PROMPT, WM_SFT_LEN = 4, 1095, 1663
 
 WM_PREFIX = 1088  # shared prompt head: 1024 ctx tokens + the 64 dyn tokens of frame 0
 N_SAMPLES, N_ROLLOUTS = 2, 4
+# fused decode kernels vs twins: both round every product and residual to
+# bf16 in the reference's order and differ only in the order of f32 sums,
+# which can move one bf16 rounding: bf16 outputs |d| <= 2^-7 max|ref|, int8
+# k/v within one quantum (two where the scales are an ulp apart) on at most
+# 1 % of entries (0.012-0.117 % measured at WM width on an H100), scales
+# within one bf16 ulp
+FUSED_RTOL = 2 ** -7
+FUSED_INT8_SHARE = 0.01
 
 
 def emit(obj) -> None:
@@ -220,13 +249,15 @@ def bwd_work(q, k, kv_lens, kv_starts, q_offset, causal):
 
 def phase_build() -> dict:
     from vla_rft_tpu_torch.ops import attention, cuda_build, decode_attention_hd
+    from vla_rft_tpu_torch.ops import fused_decode_layer
 
     t0 = time.perf_counter()
-    infos = cuda_build.build("flash_fwd", "flash_bwd", "decode_hd")
+    infos = cuda_build.build("flash_fwd", "flash_bwd", "decode_hd", "fused_decode_layer")
     wall = time.perf_counter() - t0
     attention._load()
     attention._load_bwd()
     decode_attention_hd._load()
+    fused_decode_layer._load()
     libs = {}
     for name, info in infos.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines()
@@ -625,46 +656,12 @@ def wm_inputs(b, seed: int = 0):
     return tuple(torch.from_numpy(x).cuda() for x in (raw, pred, gt, ranges))
 
 
-def wm_process(b, raw, pred, gt, ranges, n):
-    """The training step's process stage: tokenize each sample's frames once
-    (frame 0 doubled as the context frame), tile the tokens over its n
-    rollouts, build the ctx_msp sequences and the gt action tokens."""
-    from vla_rft_tpu_torch.workers.processor import (add_context_frame, ctx_msp_process,
-                                                     discretize_actions)
-
-    pc = b.proc_cfg
-    pixels, _ = add_context_frame(raw.float() / 255.0, gt)
-    idx_c, idx_d = b.tokenizer.tokenize(pixels)
-    idx_c, idx_d = idx_c.repeat_interleave(n, 0), idx_d.repeat_interleave(n, 0)
-    pad = lambda a: torch.cat([a[:, :1], a, a[:, -1:]], dim=1)  # [a0, a, aT]
-    out = ctx_msp_process(pc, idx_c, idx_d, pad(pred), ranges)
-    out["gt_action_ids"] = discretize_actions(pad(gt.repeat_interleave(n, 0))[:, 1:], ranges,
-                                              pc.action_bins) + 2 * pc.visual_token_num
-    return out
-
-
-def wm_call_rows(b, out, n):
-    """The one WM call of the step: each sample's n policy rows, then its gt
-    row (gt_branch_per_sample).  Returns (prefixes, tails, actions,
-    prefix_map, row order)."""
-    pc, roll = b.proc_cfg, b.roll_cfg
-    prompt = out["input_ids"][:, : roll.prompt_length]
-    p0 = roll.prompt_length - pc.action_dim
-    B_u = prompt.shape[0] // n
-    gt_u = out["gt_action_ids"][::n]
-    idx = torch.cat([torch.cat([torch.arange(s * n, (s + 1) * n), torch.tensor([B_u * n + s])])
-                     for s in range(B_u)]).cuda()
-    pm = torch.cat([torch.arange(B_u).repeat_interleave(n), torch.arange(B_u)]).cuda()[idx]
-    tails = torch.cat([prompt[:, p0:], gt_u[:, 0]])[idx]
-    actions = torch.cat([out["action_ids"], gt_u])[idx]
-    return prompt[::n, :p0], tails, actions, pm, idx
-
-
 def phase_wm_reward(attention, dec) -> dict:
     from vla_rft_tpu_torch.models.factory import build_wm_reward
-    from vla_rft_tpu_torch.workers.reward import (detokenize_response_frames, msp_reward,
+    from vla_rft_tpu_torch.trainer.grpo_trainer import (process_stage, reward_stage,
+                                                        wm_rollout_stage, wm_rows)
+    from vla_rft_tpu_torch.workers.reward import (detokenize_response_frames,
                                                   perceptual_loss_frames)
-    from vla_rft_tpu_torch.workers.wm_rollout import generate_sequences
 
     (b, build_ms) = host_ms(lambda: build_wm_reward("libero", device="cuda", seed=11))
     n, roll, pc = N_ROLLOUTS, b.roll_cfg, b.proc_cfg
@@ -679,20 +676,12 @@ def phase_wm_reward(attention, dec) -> dict:
         ms = {}
         with torch.no_grad():
             attention.launches = dec.shared_launches = dec.plain_launches = 0  # main path
-            out, ms["process"] = host_ms(lambda: wm_process(b, raw, pred, gt, ranges, n))
-            prefixes, tails, actions, pm, idx = wm_call_rows(b, out, n)
-            both, ms["wm_rollout"] = host_ms(lambda: generate_sequences(
-                b.wm, gen, tails, actions, roll, shared_prefix=prefixes, prefix_map=pm))
-            both = both[torch.argsort(idx)]
-            responses, gt_responses = both[:total], both[total:]
-            (_, feats), ms["ctx_feats"] = host_ms(
-                lambda: b.tokenizer.ctx_decode(out["ctx_tokens"][::n] - pc.visual_token_num))
-            gt_frames, ms["detokenize_gt"] = host_ms(lambda: detokenize_response_frames(
-                b.tokenizer, pc, Fn, gt_responses, feats, torch.arange(N_SAMPLES).cuda()))
-            cmap = torch.arange(N_SAMPLES).repeat_interleave(n).cuda()
-            (reward, metrics), ms["reward"] = host_ms(lambda: msp_reward(
-                b.tokenizer, b.lpips, pc, b.reward_cfg, responses, real_frames=gt_frames[cmap],
-                ctx_feats=feats, ctx_map=cmap))
+            out, ms["process"] = host_ms(lambda: process_stage(b, ranges, raw, pred, gt, n, True))
+            rows = wm_rows(b, out, n, True, True)
+            (responses, gt_responses), ms["wm_rollout"] = host_ms(lambda: wm_rollout_stage(
+                b, b.wm, rows, 128, lambda ci: gen))
+            (reward, metrics), ms["reward"] = host_ms(lambda: reward_stage(
+                b, out, responses, gt_responses, n, True, True, 8))
             counts = {"flash_fwd": attention.launches, "decode_shared_hd": dec.shared_launches,
                       "decode_hd": dec.plain_launches}  # read right after the main path
         expect = {"flash_fwd": b.wm_cfg.num_layers,
@@ -703,6 +692,7 @@ def phase_wm_reward(attention, dec) -> dict:
                 N_SAMPLES, roll.response_length):
             raise AssertionError(f"response shapes {tuple(responses.shape)}, "
                                  f"{tuple(gt_responses.shape)}")
+        both = torch.cat([responses, gt_responses])
         frames = both.reshape(-1, Fn, V + A)
         act_in = torch.cat([out["action_ids"], out["gt_action_ids"][::n]])[:, 1:].cuda()
         if not (bool(((both >= 0) & (both < b.wm_cfg.vocab_size)).all())
@@ -713,57 +703,66 @@ def phase_wm_reward(attention, dec) -> dict:
             raise AssertionError(f"bad rewards: {reward[:, -1].tolist()}")
         runs.append({"run": run, "stage_ms": ms, "total_ms": sum(ms.values()),
                      "launches": counts, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-                     "reward_last": reward[:, -1].tolist(),
-                     "metrics": {k: v.item() for k, v in metrics.items()}})
+                     "reward_last": reward[:, -1].tolist(), "metrics": metrics})
 
-    # the rollout's parts, timed alone on the same inputs (outside the main path)
+    # the rollout's and the reward's parts, timed alone on the same inputs
+    # (outside the main path)
     with torch.no_grad():
         def prefill():
-            c = b.wm.init_cache(N_SAMPLES, prefixes.shape[1])
-            b.wm(prefixes, cache=c, cache_index=0, compute_logits=False)
+            c = b.wm.init_cache(N_SAMPLES, rows.prefixes.shape[1])
+            b.wm(rows.prefixes, cache=c, cache_index=0, compute_logits=False)
         _, prefill_ms = host_ms(prefill)
         _, prefill_ms = host_ms(prefill)
+        (_, feats), ctx_ms = host_ms(
+            lambda: b.tokenizer.ctx_decode(out["ctx_tokens"][::n] - pc.visual_token_num))
+        gt_frames, gt_ms = host_ms(lambda: detokenize_response_frames(
+            b.tokenizer, pc, Fn, gt_responses, feats, torch.arange(N_SAMPLES).cuda()))
+        cmap = torch.arange(N_SAMPLES).repeat_interleave(n).cuda()
         _, lpips_ms = host_ms(lambda: perceptual_loss_frames(b.lpips, gt_frames[cmap], gt_frames[cmap]))
         _, lpips_ms = host_ms(lambda: perceptual_loss_frames(b.lpips, gt_frames[cmap], gt_frames[cmap]))
         _, detok_ms = host_ms(lambda: detokenize_response_frames(
             b.tokenizer, pc, Fn, responses, feats, cmap))
-    trace = profile_decode_steps(b, prefixes, tails, actions, pm)
+    trace = profile_decode_steps(b.wm, roll, rows)
     steady = runs[1]["stage_ms"]["wm_rollout"]
     out_json = {"phase": "wm_reward", "preset": "libero", "samples": N_SAMPLES, "n": n,
                 "wm_rows": total + N_SAMPLES, "build_ms": build_ms, "runs": runs,
                 "decode_calls_per_rollout": calls,
                 "parts_ms": {"prefix_prefill": prefill_ms,
                              "decode_per_frame": (steady - prefill_ms) / Fn,
+                             "context_features": ctx_ms, "detokenize_gt": gt_ms,
                              "detokenize_policy_rows": detok_ms,
                              "lpips_64_frame_pairs": lpips_ms},
                 "decode_step_trace": trace}
     emit(out_json)
-    return {"json": out_json, "bundle": b, "out": out, "responses": responses,
-            "prefixes": prefixes, "tails": tails, "actions": actions, "pm": pm, "idx": idx}
+    return {"json": out_json, "bundle": b, "out": out, "responses": responses, "rows": rows}
 
 
-def profile_decode_steps(b, prefixes, tails, actions, pm, steps: int = 16) -> dict:
+def profile_decode_steps(wmod, roll, rows, fused: bool = False, steps: int = 16) -> dict:
     """torch.profiler over `steps` sampled one-token decode calls of the
-    rollout (sampling included), after a warm-up: wall and device-busy ms
-    per call, the idle share, kernels per call and the decode kernel's
-    device time."""
+    rollout over `rows` (sampling included), after a warm-up: wall and
+    device-busy ms per call, the idle share, kernels per call and the decode
+    kernel's device time.  `fused` sends the calls through
+    decode_step_fused (the int8-weight route) instead of the module."""
+    from vla_rft_tpu_torch.models.transformer import decode_step_fused
     from vla_rft_tpu_torch.ops.sampling import sample_token
     from vla_rft_tpu_torch.serving.profile_request import _busy_us
 
-    roll, wmod = b.roll_cfg, b.wm
-    P, P0 = roll.prompt_length, prefixes.shape[1]
+    P, P0 = roll.prompt_length, rows.prefixes.shape[1]
+    pm = torch.as_tensor(rows.prefix_map, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(9)
     with torch.no_grad():
-        shared = wmod.init_cache(prefixes.shape[0], P0)
-        wmod(prefixes, cache=shared, cache_index=0, compute_logits=False)
+        shared = wmod.init_cache(rows.prefixes.shape[0], P0)
+        wmod(rows.prefixes, cache=shared, cache_index=0, compute_logits=False)
         kw = dict(shared_cache=shared, shared_len=P0, prefix_map=pm)
-        cache = wmod.init_cache(tails.shape[0], P - P0 + 4 * roll.tokens_per_frame)
-        last = wmod(tails, cache=cache, cache_index=P0, kv_lens=P, logits_last_only=True,
+        cache = wmod.init_cache(rows.tails.shape[0], P - P0 + 4 * roll.tokens_per_frame)
+        last = wmod(rows.tails, cache=cache, cache_index=P0, kv_lens=P, logits_last_only=True,
                     **kw)[0][:, -1]
 
         def step(i):
             tok = sample_token(gen, last, roll.temperature, roll.top_k, roll.top_p,
                                roll.do_sample)
+            if fused:
+                return decode_step_fused(wmod, tok[:, None], cache, P + i, **kw)[0][:, 0]
             return wmod(tok[:, None], cache=cache, cache_index=P + i, **kw)[0][:, 0]
 
         for i in range(4):
@@ -781,11 +780,18 @@ def profile_decode_steps(b, prefixes, tails, actions, pm, steps: int = 16) -> di
     dec_us = sum(e.time_range.end - e.time_range.start for e in kernels
                  if "decode_hd_kernel" in e.name)
     n_dec = sum(1 for e in kernels if "decode_hd_kernel" in e.name)
-    return {"calls": steps, "wall_ms_per_call": wall_us / 1e3 / steps,
+    by_name = {}
+    for e in kernels:
+        for name in ("qkv_kernel", "o_proj_kernel", "gate_up_kernel", "down_kernel"):
+            if name in e.name:
+                by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
+    return {"calls": steps, "rows": int(rows.tails.shape[0]), "fused": fused,
+            "wall_ms_per_call": wall_us / 1e3 / steps,
             "device_busy_ms_per_call": busy / 1e3 / steps,
             "device_idle_share": (1.0 - busy / wall_us) if kernels else None,
             "kernels_per_call": len(kernels) / steps, "decode_kernel_launches": n_dec,
-            "decode_kernel_ms_per_launch": dec_us / 1e3 / max(n_dec, 1)}
+            "decode_kernel_ms_per_launch": dec_us / 1e3 / max(n_dec, 1),
+            "fused_kernel_ms_per_call": {k: v / 1e3 / steps for k, v in by_name.items()}}
 
 
 def phase_wm_plain(attention, dec, wm) -> dict:
@@ -818,45 +824,297 @@ def phase_wm_plain(attention, dec, wm) -> dict:
     return res
 
 
+def _policy_rows(rows):
+    """The policy rows of a WMRows layout, in call order: (tails, actions,
+    prefix_map, row index into the step's responses)."""
+    keep = rows.order < rows.total
+    pm = torch.as_tensor(rows.prefix_map[keep], dtype=torch.int32, device="cuda")
+    return rows.tails[keep], rows.actions[keep], pm, torch.as_tensor(rows.order[keep]).cuda()
+
+
+def _frame0_logits(wmod, roll, prefixes, tails, actions, pm, toks, call):
+    """Teacher-force frame 0 (the prompt tail, `toks` (rows, V), then the
+    frame's action chunk) through `call(ids, cache, cache_index, kw,
+    last_only)` after a shared-prefix prefill by the module; returns the
+    logits of every call, (2 + V, rows, vocab)."""
+    P, V, P0 = roll.prompt_length, roll.interact_max_tokens, prefixes.shape[1]
+    shared = wmod.init_cache(prefixes.shape[0], P0)
+    wmod(prefixes, cache=shared, cache_index=0, compute_logits=False)
+    kw = dict(shared_cache=shared, shared_len=P0, prefix_map=pm)
+    cache = wmod.init_cache(tails.shape[0], P - P0 + 2 * roll.tokens_per_frame)
+    out = [wmod(tails, cache=cache, cache_index=P0, kv_lens=P, logits_last_only=True,
+                **kw)[0][:, -1]]
+    for i in range(V):
+        out.append(call(toks[:, i:i + 1], cache, P + i, kw, False)[:, 0])
+    out.append(call(actions[:, 1], cache, P + V, kw, True)[:, -1])
+    return torch.stack(out)
+
+
+def _rel_logit_err(k, p):
+    per_call = ((k - p).abs().amax(dim=(1, 2)) / p.abs().amax(dim=(1, 2))).tolist()
+    return per_call, {"max_rel_logit_err": max(per_call),
+                      "max_abs_logit_err": (k - p).abs().max().item(),
+                      "rel_err_prefill": per_call[0],
+                      "argmax_agreement": (k.argmax(-1) == p.argmax(-1)).float().mean().item()}
+
+
 def phase_wm_kernel_vs_plain(wm) -> dict:
     """Teacher-force the kernel path's frame-0 tokens through both paths."""
-    b = wm["bundle"]
+    b, rows = wm["bundle"], wm["rows"]
     wmod, roll = b.wm, b.roll_cfg
-    P, V, P0 = roll.prompt_length, roll.interact_max_tokens, wm["prefixes"].shape[1]
-    both = wm["responses"]  # the kernel path's policy rows (argsorted order)
-    rows = wm["idx"][wm["idx"] < both.shape[0]]  # policy rows in call order
-    tails, actions = wm["tails"][wm["idx"] < both.shape[0]], wm["actions"][wm["idx"] < both.shape[0]]
-    pm = wm["pm"][wm["idx"] < both.shape[0]]
-    toks = both[rows, :V]
+    tails, actions, pm, idx = _policy_rows(rows)
+    toks = wm["responses"][idx, :roll.interact_max_tokens]
+    module_call = lambda ids, cache, ci, kw, last: wmod(ids, cache=cache, cache_index=ci,
+                                                         logits_last_only=last, **kw)[0]
     logits = {}
     with torch.no_grad():
         for impl in ("auto", "plain"):
             wmod.attn_impl = impl
             try:
-                shared = wmod.init_cache(N_SAMPLES, P0)
-                wmod(wm["prefixes"], cache=shared, cache_index=0, compute_logits=False)
-                kw = dict(shared_cache=shared, shared_len=P0, prefix_map=pm)
-                cache = wmod.init_cache(len(rows), P - P0 + 2 * roll.tokens_per_frame)
-                out = [wmod(tails, cache=cache, cache_index=P0, kv_lens=P,
-                            logits_last_only=True, **kw)[0][:, -1]]
-                for i in range(V):
-                    out.append(wmod(toks[:, i:i + 1], cache=cache, cache_index=P + i, **kw)[0][:, 0])
-                out.append(wmod(actions[:, 1], cache=cache, cache_index=P + V,
-                                logits_last_only=True, **kw)[0][:, -1])
-                logits[impl] = torch.stack(out)  # (2 + V, rows, vocab)
+                logits[impl] = _frame0_logits(wmod, roll, rows.prefixes, tails, actions, pm,
+                                              toks, module_call)
             finally:
                 wmod.attn_impl = "auto"
     k, p = logits["auto"], logits["plain"]
-    per_call = ((k - p).abs().amax(dim=(1, 2)) / p.abs().amax(dim=(1, 2))).tolist()
-    worst = max(per_call)
-    if not (worst <= WM_LOGIT_TOL and bool(torch.isfinite(k).all())):
-        raise AssertionError(f"WM kernel vs plain path: rel logit err {worst} > {WM_LOGIT_TOL}")
-    res = {"phase": "wm_kernel_vs_plain", "calls": len(per_call), "rows": len(rows),
-           "max_rel_logit_err": worst, "max_abs_logit_err": (k - p).abs().max().item(),
-           "rel_err_prefill": per_call[0], "tolerance": WM_LOGIT_TOL,
-           "argmax_agreement": (k.argmax(-1) == p.argmax(-1)).float().mean().item()}
+    per_call, errs = _rel_logit_err(k, p)
+    if not (errs["max_rel_logit_err"] <= WM_LOGIT_TOL and bool(torch.isfinite(k).all())):
+        raise AssertionError(f"WM kernel vs plain path: rel logit err {errs} > {WM_LOGIT_TOL}")
+    res = {"phase": "wm_kernel_vs_plain", "calls": len(per_call), "rows": int(tails.shape[0]),
+           **errs, "tolerance": WM_LOGIT_TOL}
     emit(res)
     return res
+
+
+def _fused_layer(gen, H=1024, I=4096, Hq=16, Hkv=16, D=64):
+    """One WM layer's seeded int8 weights, bf16 scales and norm weights."""
+    dev = torch.device("cuda")
+
+    def w(k_in, k_out):
+        return (torch.randint(-127, 128, (k_in, k_out), generator=gen, device=dev,
+                              dtype=torch.int8),
+                ((torch.rand(k_out, generator=gen, device=dev) + 0.5) * 0.02 / k_in ** 0.5)
+                .bfloat16())
+
+    p = {"wq": w(H, Hq * D), "wk": w(H, Hkv * D), "wv": w(H, Hkv * D), "wo": w(Hq * D, H),
+         "wg": w(H, I), "wu": w(H, I), "wd": w(I, H)}
+    p["n1"], p["n2"] = ((1 + 0.1 * torch.randn(H, generator=gen, device=dev)).bfloat16()
+                        for _ in range(2))
+    return p
+
+
+def _fused_args(fdl, p, gen, B, Sq, Hq, Hkv, H=1024, D=64):
+    dev = torch.device("cuda")
+    x = torch.randn(B, Sq, H, generator=gen, device=dev).bfloat16()
+    attn = torch.randn(B, Sq, Hq * D, generator=gen, device=dev).bfloat16()
+    pos = torch.arange(Sq, device=dev)[None] + torch.randint(0, 1600, (B, 1), generator=gen,
+                                                             device=dev)
+    cos, sins = fdl.rope_tables(pos, 10000.0, Hq, D)
+    qkv = (x, cos, sins, p["n1"], *p["wq"], *p["wk"], *p["wv"])
+    omlp = (attn, x, *p["wo"], p["n2"], *p["wg"], *p["wu"], *p["wd"])
+    return qkv, omlp, dict(num_heads=Hq, num_kv_heads=Hkv, head_dim=D, eps=1e-6)
+
+
+def _qkv_err(got, ref):
+    """max |dq|, largest int8 step and its share, scales within one ulp."""
+    q, k8, v8, ks, vs = got
+    rq, rk8, rv8, rks, rvs = ref
+    e_q = (q.float() - rq.float()).abs().max().item()
+    ok = e_q <= FUSED_RTOL * rq.float().abs().max().item()
+    for sc, rs in ((ks, rks), (vs, rvs)):
+        ok &= bool(((sc.float() - rs.float()).abs() <= FUSED_RTOL * rs.float().abs()).all())
+    quanta, share = 0, 0.0
+    for t, r, sc, rs in ((k8, rk8, ks, rks), (v8, rv8, vs, rvs)):
+        d = (t.int() - r.int()).abs()
+        flip = (sc != rs).transpose(1, 2).repeat_interleave(t.shape[-1] // sc.shape[1], dim=-1)
+        ok &= bool((d <= torch.where(flip, 2, 1)).all())
+        quanta, share = max(quanta, d.max().item()), max(share, (d > 0).float().mean().item())
+    return ok and share <= FUSED_INT8_SHARE, e_q, quanta, share
+
+
+def fused_work(N, H, Hq, Hkv, I, D=64):
+    """{kernel: (bytes, flops)} of one call of #8 and #9 at N = B*Sq rows:
+    the layer's int8 weights, bf16 scales and norm weight, the activations
+    in and the results out once (for #8 the f32 rope tables too); #9's x1
+    and m stay between its launches and are not counted."""
+    HqD, KD = Hq * D, Hkv * D
+    qkv_b = (H * (HqD + 2 * KD) + 2 * (HqD + 2 * KD) + 2 * H + 2 * N * H + 2 * 4 * N * HqD
+             + 2 * N * HqD + 2 * N * KD + 2 * 2 * N * Hkv)
+    omlp_b = HqD * H + 3 * H * I + 2 * (2 * H + 2 * I) + 2 * H + 2 * N * HqD + 2 * 2 * N * H
+    return {"qkv": (qkv_b, 2 * N * H * (HqD + 2 * KD)),
+            "o_mlp": (omlp_b, 2 * N * (HqD * H + 3 * H * I))}
+
+
+def phase_fused_decode(fdl) -> dict:
+    """Kernels #8 and #9 against their twins at WM width, then timed."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    H, I = 1024, 4096
+    layers = {(16, 16): _fused_layer(gen), (16, 4): _fused_layer(gen, Hkv=4)}
+    cases = [(1, 1, 16, 16), (10, 1, 16, 16), (128, 1, 16, 16), (2, 7, 16, 16), (10, 7, 16, 16),
+             (19, 7, 16, 16), (128, 7, 16, 16), (10, 1, 16, 4), (5, 7, 16, 4)]
+    results, err = [], {"qkv": 0.0, "o_mlp": 0.0}
+    for B, Sq, Hq, Hkv in cases:
+        qkv, omlp, kw = _fused_args(fdl, layers[(Hq, Hkv)], gen, B, Sq, Hq, Hkv)
+        got = fdl.fused_qkv_kernel(*qkv, **kw)
+        o = fdl.fused_o_mlp_kernel(*omlp, eps=1e-6)
+        torch.cuda.synchronize()
+        ok, e_q, quanta, share = _qkv_err(got, fdl.fused_rmsnorm_qkv_plain(*qkv, **kw))
+        ref = fdl.fused_o_mlp_plain(*omlp, eps=1e-6).float()
+        e_o = (o.float() - ref).abs().max().item()
+        ok &= e_o <= FUSED_RTOL * ref.abs().max().item() and bool(torch.isfinite(o.float()).all())
+        case = {"B": B, "Sq": Sq, "N": B * Sq, "Hq": Hq, "Hkv": Hkv, "max_abs_err_q": e_q,
+                "max_int8_diff": quanta, "int8_diff_share": share, "max_abs_err_o": e_o}
+        if not ok:
+            raise AssertionError(f"fused decode case {case}")
+        err["qkv"], err["o_mlp"] = max(err["qkv"], e_q), max(err["o_mlp"], e_o)
+        results.append(case)
+
+    # time at N = 10 (the main path's decode call: 2 samples x (4 + gt) rows)
+    # and N = 128 (the default micro_batch_size), one query each
+    timed = {}
+    for N in (10, 128):
+        p = layers[(16, 16)]
+        qkv, omlp, kw = _fused_args(fdl, p, gen, N, 1, 16, 16)
+        wq = torch.cat([p[k][0].bfloat16() * p[k][1] for k in ("wq", "wk", "wv")], dim=1)
+        wo, wd = (p[k][0].bfloat16() * p[k][1] for k in ("wo", "wd"))
+        wgu = torch.cat([p[k][0].bfloat16() * p[k][1] for k in ("wg", "wu")], dim=1)
+        xn = omlp[1].reshape(N, H)
+        attn, m = omlp[0].reshape(N, -1), torch.randn(N, I, generator=gen, device="cuda").bfloat16()
+        # the same products by torch.matmul over pre-dequantised bf16 weights
+        # (a yardstick only: the port never calls it)
+        lib = {"qkv": lambda: torch.matmul(xn, wq),
+               "o_mlp": lambda: (torch.matmul(attn, wo), torch.matmul(xn, wgu),
+                                 torch.matmul(m, wd))}
+        work = fused_work(N, H, 16, 16, I)
+        timed[N] = {
+            "qkv": {"kernel_ms": graph_ms(lambda: fdl.fused_qkv_kernel(*qkv, **kw)),
+                    "eager_ms": cuda_ms(lambda: fdl.fused_qkv_kernel(*qkv, **kw), 100),
+                    "plain_ms": graph_ms(lambda: fdl.fused_rmsnorm_qkv_plain(*qkv, **kw), 10),
+                    "library_ms": graph_ms(lib["qkv"]), **bound(*work["qkv"])},
+            "o_mlp": {"kernel_ms": graph_ms(lambda: fdl.fused_o_mlp_kernel(*omlp, eps=1e-6)),
+                      "eager_ms": cuda_ms(lambda: fdl.fused_o_mlp_kernel(*omlp, eps=1e-6), 100),
+                      "plain_ms": graph_ms(lambda: fdl.fused_o_mlp_plain(*omlp, eps=1e-6), 10),
+                      "library_ms": graph_ms(lib["o_mlp"]), **bound(*work["o_mlp"])},
+        }
+    out = {"phase": "fused_decode", "H": H, "I": I, "cases": results, "max_abs_err": err,
+           "tolerance": f"bf16 |d| <= {FUSED_RTOL} max|ref|; int8 within 1 quantum (2 where "
+                        f"the scales are an ulp apart) on <= 10 % of entries; scales 1 ulp",
+           "launches_per_call": {"qkv": 1, "o_mlp": fdl.O_MLP_LAUNCHES}, "timed": timed}
+    emit(out)
+    return out
+
+
+GRPO_STEPS = 2
+
+
+def phase_grpo(attention, dec, fdl) -> dict:
+    """Two GRPO steps at the libero preset through the CLI entry point."""
+    import tempfile
+
+    from vla_rft_tpu_torch.models.action_head import sample_noisy_actions
+    from vla_rft_tpu_torch.models.transformer import decode_step_fused
+    from vla_rft_tpu_torch.trainer import main_vla_rft_grpo
+    from vla_rft_tpu_torch.trainer.grpo_trainer import process_stage, wm_rows
+    from vla_rft_tpu_torch.workers.flow_actor import rollout_from_hidden
+
+    ckpt_dir = tempfile.mkdtemp(prefix="grpo_ckpt_")
+    argv = ["world_model_rollout.rollout.weights_int8=true",
+            f"data.train_batch_size={N_SAMPLES}", f"actor_rollout_ref.rollout.n={N_ROLLOUTS}",
+            f"trainer.total_training_steps={GRPO_STEPS}", f"trainer.default_local_dir={ckpt_dir}"]
+    start, steps = {}, []
+
+    def counts():
+        return {"flash_fwd": attention.launches, "decode_shared_hd": dec.shared_launches,
+                "decode_hd": dec.plain_launches, "fused_qkv": fdl.qkv_launches,
+                "fused_o_mlp": fdl.o_mlp_launches}
+
+    def on_start(trainer):
+        b = trainer.bundle
+        for name in ("vla", "wm", "tokenizer", "lpips", "expert"):
+            start[name] = {k: v.detach().clone() for k, v in getattr(b, name).state_dict().items()}
+
+    def on_step_start(step):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        attention.launches = dec.shared_launches = dec.plain_launches = 0  # the main path
+        fdl.qkv_launches = fdl.o_mlp_launches = 0
+
+    def on_step_end(step, metrics):
+        steps.append({"step": step, "launches": counts(),  # read right after the step
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "timing_s": {k[len("timing_s/"):]: v for k, v in metrics.items()
+                                   if k.startswith("timing_s/")},
+                      "metrics": {k: v for k, v in metrics.items()
+                                  if not k.startswith("timing_s/")}})
+
+    t0 = time.perf_counter()
+    tr = main_vla_rft_grpo.run(argv, on_start, on_step_start, on_step_end)
+    run_s = time.perf_counter() - t0
+    b = tr.bundle
+    L, roll = b.wm_cfg.num_layers, b.roll_cfg
+    fused_calls = roll.num_frames * (roll.interact_max_tokens + 1)
+    # #1: the Qwen context forward and the WM's shared-prefix prefill; #4:
+    # the prompt tails' prefill (7 tokens, unfused) and every fused call
+    expect = {"flash_fwd": b.vla_cfg.llm.num_layers + L, "decode_shared_hd": L * (fused_calls + 1),
+              "decode_hd": 0, "fused_qkv": L * fused_calls,
+              "fused_o_mlp": fdl.O_MLP_LAUNCHES * L * fused_calls}
+    for s in steps:
+        if s["launches"] != expect:
+            raise AssertionError(f"grpo step {s['step']}: launches {s['launches']}, "
+                                 f"expected {expect}")
+        bad = [k for k, v in s["metrics"].items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"grpo step {s['step']}: non-finite metrics {bad}")
+    # the trained expert moved leaf by leaf; nothing frozen moved a bit
+    still = [k for k, v in b.expert.state_dict().items() if torch.equal(v, start["expert"][k])]
+    moved = [f"{m}.{k}" for m in ("vla", "wm", "tokenizer", "lpips")
+             for k, v in getattr(b, m).state_dict().items() if not torch.equal(v, start[m][k])]
+    if still or moved:
+        raise AssertionError(f"expert leaves that did not move {still[:5]} ({len(still)}); "
+                             f"frozen leaves that moved {moved[:5]} ({len(moved)})")
+    n_expert = len(start["expert"])
+    n_frozen = sum(len(start[m]) for m in ("vla", "wm", "tokenizer", "lpips"))
+    del start
+
+    # the decode calls of a next batch's rollout rows (outside the main path):
+    # a profiler window of the fused route, and frame 0 of the fused route
+    # against the unfused int8 route on the same prompts and tokens
+    n = N_ROLLOUTS
+    wm_q = tr._wm_gen_model()
+    with torch.no_grad():
+        batch = tr.put_batch(tr.dataset.next_batch())
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        hidden = tr.encode(batch).repeat_interleave(n, 0)
+        noise = sample_noisy_actions(gen, batch["actions"].repeat_interleave(n, 0), b.expert_cfg)
+        acts = rollout_from_hidden(b.expert, gen, hidden, noise["noise"],
+                                   batch["proprio"].repeat_interleave(n, 0),
+                                   b.expert_cfg.num_flow_steps)["predicted_actions"]
+        wm_inputs = process_stage(b, tr.action_ranges, batch["raw_pixel_values"], acts,
+                                  batch["actions"], n, True)
+        rows = wm_rows(b, wm_inputs, n, True, True)
+    trace = profile_decode_steps(wm_q, roll, rows, fused=True)
+    tails, actions, pm, _ = _policy_rows(rows)
+    with torch.no_grad():
+        fused_call = lambda ids, cache, ci, kw, last: decode_step_fused(
+            wm_q, ids, cache, ci, logits_last_only=last, **kw)[0]
+        module_call = lambda ids, cache, ci, kw, last: wm_q(
+            ids, cache=cache, cache_index=ci, logits_last_only=last, **kw)[0]
+        V = roll.interact_max_tokens
+        toks = torch.randint(0, 4375, (tails.shape[0], V), generator=gen, device="cuda")
+        k = _frame0_logits(wm_q, roll, rows.prefixes, tails, actions, pm, toks, fused_call)
+        p = _frame0_logits(wm_q, roll, rows.prefixes, tails, actions, pm, toks, module_call)
+    per_call, errs = _rel_logit_err(k, p)
+    if not (errs["max_rel_logit_err"] <= WM_LOGIT_TOL and bool(torch.isfinite(k).all())):
+        raise AssertionError(f"fused vs unfused int8 route: {errs} > {WM_LOGIT_TOL}")
+    out = {"phase": "grpo", "preset": "libero", "samples": N_SAMPLES, "n": n,
+           "weights_int8": True, "wm_rows_per_call": N_SAMPLES * (n + 1), "run_s": run_s,
+           "steps": steps, "expected_launches_per_step": expect,
+           "fused_decode_calls_per_step": fused_calls, "expert_leaves_moved": n_expert,
+           "frozen_leaves_bit_identical": n_frozen, "fused_decode_trace": trace,
+           "fused_vs_unfused_frame0": {"calls": len(per_call), "rows": int(tails.shape[0]),
+                                       **errs, "tolerance": WM_LOGIT_TOL}}
+    emit(out)
+    del tr, wm_q
+    return out
 
 
 def _zero_counts(attention) -> None:
@@ -871,25 +1129,39 @@ def _counts(attention) -> dict:
 def _drive_sft(attention, argv):
     """main_sft.run(argv) on the card with every kernel count set to 0 just
     before each step and read just after it.  Returns (run, per-step
-    records, a clone of every parameter taken before the first step, peak
-    memory in GiB)."""
+    records, a clone of every parameter taken before the first step, the
+    ids of the parameters whose gradient was exactly zero in every step,
+    peak memory in GiB)."""
     from vla_rft_tpu_torch.trainer import main_sft
 
-    steps, start = [], {}
+    steps, start, grads, nonzero = [], {}, [], {}
 
     def on_start(trainer):
         start.update({id(p): p.detach().clone() for p in trainer.params})
+        backward = trainer.backward
+
+        def keep_grads(loss):  # the step's gradients, read in on_step after its time
+            grads[:] = zip(trainer.params, backward(loss))
+            return [g for _, g in grads]
+
+        trainer.backward = keep_grads
         torch.cuda.synchronize()
         _zero_counts(attention)  # the main path starts here
 
     def on_step(step, loss, seconds):
         steps.append({"step": step, "loss": loss, "ms": seconds * 1e3,
                       "launches": _counts(attention)})  # read right after the step
+        flags = torch.stack([g.ne(0).any() for _, g in grads]).tolist()
+        for (p, _), f in zip(grads, flags):
+            nonzero[id(p)] = nonzero.get(id(p), False) or f
+        grads.clear()
         _zero_counts(attention)
 
     torch.cuda.reset_peak_memory_stats()
     run = main_sft.run(argv, on_start=on_start, on_step=on_step)
-    return run, steps, start, torch.cuda.max_memory_allocated() / 2 ** 30
+    del run.trainer.backward  # the class's own again
+    zero_grad = {i for i, f in nonzero.items() if not f}
+    return run, steps, start, zero_grad, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
 def _expect_launches(what, steps, expect):
@@ -913,21 +1185,26 @@ def phase_sft(attention) -> dict:
     argv = ["sft.mode=vla_adapter", f"trainer.total_training_steps={SFT_STEPS}",
             "sft.freeze_vision_backbone=true", f"sft.vlm_lr={SFT_VLM_LR}",
             f"actor_rollout_ref.actor.optim.lr={SFT_EXPERT_LR}"]
-    run, steps, start, peak = _drive_sft(attention, argv)
+    run, steps, start, zero_grad, peak = _drive_sft(attention, argv)
     tr, bundle = run.trainer, run.bundle
     L = bundle.vla_cfg.llm.num_layers
     _expect_launches("vla_adapter", steps, {"flash_fwd": L, "flash_bwd_dq": L,
                                             "flash_bwd_dkv": L})
     names = {id(p): f"{pre}.{n}" for pre, m in (("vla", bundle.vla), ("expert", bundle.expert))
              for n, p in m.named_parameters()}
-    still, moved_frozen = [], []
+    still, moved_frozen, no_grad = [], [], []
     for p in tr.params:
         same = torch.equal(p.detach(), start[id(p)])
         frozen = tr.labels[names[id(p)]] == "frozen"
         if frozen and not same:
             moved_frozen.append(names[id(p)])
+        # a trained leaf whose gradient was exactly zero in every step (the BC
+        # loss does not reach the sigma net) is moved only by weight decay
+        # (1e-4 x lr 1e-4), below f32 resolution, as in the reference
         if not frozen and same:
-            still.append(names[id(p)])
+            (no_grad if id(p) in zero_grad else still).append(names[id(p)])
+    print(f"[sft] vla_adapter: {len(no_grad)} trained leaves with an exactly zero gradient in "
+          f"every step, not required to move: {no_grad}", flush=True)
     if still or moved_frozen:
         raise AssertionError(f"trained leaves that did not move {still[:5]} ({len(still)}); "
                              f"frozen leaves that moved {moved_frozen[:5]}")
@@ -981,6 +1258,7 @@ def phase_sft(attention) -> dict:
                "split_ms": {"data": data_ms, "forward": fwd_ms, "backward": bwd_ms,
                             "optimizer": opt_ms},
                "peak_mem_gib": peak, "trained_leaves": len(tr.params) - n_frozen,
+               "zero_grad_leaves": no_grad,
                "frozen_leaves": n_frozen, "lr": {"vlm": SFT_VLM_LR, "expert": SFT_EXPERT_LR},
                "kernel_vs_plain": {"loss": [lk, lp], "loss_rel_err": loss_err,
                                    "grad_rel_err": grad_err,
@@ -990,7 +1268,8 @@ def phase_sft(attention) -> dict:
     torch.cuda.empty_cache()
 
     # (b) vla_flow: the VLM frozen, its context encoded without gradients
-    run, steps, start, peak = _drive_sft(attention, ["sft.mode=vla_flow", "trainer.total_training_steps=2"])
+    run, steps, start, _, peak = _drive_sft(attention, ["sft.mode=vla_flow",
+                                                        "trainer.total_training_steps=2"])
     L = run.bundle.vla_cfg.llm.num_layers
     _expect_launches("vla_flow", steps, {"flash_fwd": L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
     flow = {"steps": steps, "peak_mem_gib": peak}
@@ -1031,6 +1310,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vla_rft_tpu_torch.ops import attention
     from vla_rft_tpu_torch.ops import decode_attention_hd as dec
+    from vla_rft_tpu_torch.ops import fused_decode_layer as fdl
 
     # float32 references stay float32 (the defaults, stated)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1050,12 +1330,15 @@ def main() -> int:
     flash = timed("flash", phase_flash, attention)
     flash_bwd = timed("flash_bwd", phase_flash_bwd, attention)
     decode = timed("decode", phase_decode, dec)
+    fused = timed("fused_decode", phase_fused_decode, fdl)
     serving = timed("serving", phase_serving, attention)
     wm = timed("wm_reward", phase_wm_reward, attention, dec)
     plain = timed("wm_plain", phase_wm_plain, attention, dec, wm)
     timed("wm_kernel_vs_plain", phase_wm_kernel_vs_plain, wm)
     wm_launches = wm["json"]["runs"][0]["launches"]
-    del wm  # frees the WM reward models before the training phase
+    del wm  # frees the WM reward models before the training phases
+    torch.cuda.empty_cache()
+    grpo = timed("grpo", phase_grpo, attention, dec, fdl)
     torch.cuda.empty_cache()
     sft = timed("sft", phase_sft, attention)
     emit({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t0, 1),
@@ -1083,6 +1366,19 @@ def main() -> int:
                                         flash_bwd["max_abs_err"][key],
                                         flash_bwd["timed"][shape][key]), "shape": desc})
     dec_src = "vla_rft_tpu_torch/csrc/decode_hd.cu"
+    fused_src = "vla_rft_tpu_torch/csrc/fused_decode_layer.cu"
+    grpo_n = {k: sum(s["launches"][k] for s in grpo["steps"]) for k in grpo["steps"][0]["launches"]}
+    fused_entries = []
+    for kernel, key, line in (("fused_rmsnorm_qkv", "qkv", 117), ("fused_o_mlp", "o_mlp", 162)):
+        for N in (10, 128):
+            fused_entries.append({
+                **entry(kernel if N == 10 else f"{kernel}@n128", fused_src,
+                        f"vla_rft_tpu/ops/fused_decode_layer.py:{line}",
+                        grpo_n[f"fused_{key}"], fused["max_abs_err"][key], fused["timed"][N][key]),
+                "shape": f"N={N} (B={N}, Sq=1) H=1024 Hq=Hkv=16 D=64 I=4096; launches: the "
+                         f"kernel's over {GRPO_STEPS} grpo steps, all at N=10 (B=10, Sq=1)"
+                         + (f", {fdl.O_MLP_LAUNCHES} per call" if key == "o_mlp" else ""),
+                "launches_at_this_shape": grpo_n[f"fused_{key}"] if N == 10 else 0})
     emit({"kernels": [
         entry("flash_fwd", flash_src, "vla_rft_tpu/ops/attention.py:108",
               serving["main_path_launches"], flash["max_abs_err_o"], flash["timed"]["serving"]),
@@ -1096,6 +1392,7 @@ def main() -> int:
               plain["launches"]["decode_hd"], decode["max_abs_err"]["plain"],
               decode["timed"]["plain"]),
         *bwd_entries,
+        *fused_entries,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

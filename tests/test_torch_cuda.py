@@ -15,6 +15,9 @@ The flash backward kernels round p and dS to bf16 for their second products
 and dq/dk/dv to bf16 at the end, and sum in f32 in another order than the
 f32 twin: each gradient gets max|d| <= 2^-7 max|ref| + 1e-3.
 """
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
@@ -367,3 +370,235 @@ def test_tiny_vla_adapter_step_launches_the_backward_once_per_layer(cuda_device)
     L = llm.num_layers
     assert tuple(a - b for a, b in zip(after, before)) == (L, L, L)
     assert torch.isfinite(torch.tensor(loss))
+
+
+# ------------------------------------------------ fused decode layers #8, #9
+# Kernel vs twin: both round every product and residual to bf16 in the
+# reference's order; they differ only in the order of f32 sums, which can
+# move one bf16 rounding.  bf16 outputs: |d| <= 2^-7 max|ref|; int8 k/v
+# within one quantum where the two scales agree and two where they are one
+# bf16 ulp apart, on at most 1 % of entries (0.012-0.117 % measured at WM
+# width on an H100); scales within one bf16 ulp.
+FUSED_RTOL = 2.0 ** -7
+FUSED_INT8_SHARE = 0.01
+
+
+def _fused_inputs(dev, gen, B, Sq, H, I, Hq, Hkv, D=64):
+    def w(k_in, k_out):
+        return (torch.randint(-127, 128, (k_in, k_out), generator=gen, device=dev,
+                              dtype=torch.int8),
+                ((torch.rand(k_out, generator=gen, device=dev) + 0.5) * 0.02 / k_in ** 0.5)
+                .bfloat16())
+
+    from vla_rft_tpu_torch.ops import fused_decode_layer as fdl
+
+    p = {"wq": w(H, Hq * D), "wk": w(H, Hkv * D), "wv": w(H, Hkv * D), "wo": w(Hq * D, H),
+         "wg": w(H, I), "wu": w(H, I), "wd": w(I, H)}
+    p["n1"], p["n2"] = ((1 + 0.1 * torch.randn(H, generator=gen, device=dev)).bfloat16()
+                        for _ in range(2))
+    x = torch.randn(B, Sq, H, generator=gen, device=dev).bfloat16()
+    attn = torch.randn(B, Sq, Hq * D, generator=gen, device=dev).bfloat16()
+    pos = torch.arange(Sq, device=dev)[None] + torch.randint(0, 1500, (B, 1), generator=gen,
+                                                             device=dev)
+    cos, sins = fdl.rope_tables(pos, 10000.0, Hq, D)
+    return p, x, attn, cos, sins
+
+
+def _assert_qkv_close(got, ref):
+    q, k8, v8, ks, vs = got
+    rq, rk8, rv8, rks, rvs = ref
+    assert (q.float() - rq.float()).abs().max() <= FUSED_RTOL * rq.float().abs().max()
+    for s, r in ((ks, rks), (vs, rvs)):
+        assert bool(((s.float() - r.float()).abs() <= FUSED_RTOL * r.float().abs()).all())
+    for t, r, s, rs in ((k8, rk8, ks, rks), (v8, rv8, vs, rvs)):
+        d = (t.int() - r.int()).abs()
+        flip = (s != rs).transpose(1, 2).repeat_interleave(t.shape[-1] // s.shape[1], dim=-1)
+        assert bool((d <= torch.where(flip, 2, 1)).all())
+        assert (d > 0).float().mean().item() <= FUSED_INT8_SHARE
+
+
+FUSED_CASES = [
+    # (B, Sq, Hq, Hkv): N = B*Sq of 1, 10, 128 and ragged; one GQA case
+    (1, 1, 16, 16), (10, 1, 16, 16), (128, 1, 16, 16), (3, 7, 16, 16), (19, 7, 16, 16),
+    (10, 1, 16, 4), (5, 7, 16, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Hq,Hkv", FUSED_CASES)
+def test_fused_decode_kernels_match_plain_twins(cuda_device, B, Sq, Hq, Hkv):
+    from vla_rft_tpu_torch.ops import fused_decode_layer as fdl
+
+    gen = torch.Generator(device=cuda_device).manual_seed(B * 10 + Sq + Hkv)
+    H, I = 1024, 4096  # the WM's widths
+    p, x, attn, cos, sins = _fused_inputs(cuda_device, gen, B, Sq, H, I, Hq, Hkv)
+    args = (x, cos, sins, p["n1"], *p["wq"], *p["wk"], *p["wv"])
+    kw = dict(num_heads=Hq, num_kv_heads=Hkv, head_dim=64, eps=1e-6)
+    before = (fdl.qkv_launches, fdl.o_mlp_launches)
+    got = fdl.fused_qkv_kernel(*args, **kw)
+    o = fdl.fused_o_mlp_kernel(attn, x, *p["wo"], p["n2"], *p["wg"], *p["wu"], *p["wd"],
+                               eps=1e-6)
+    torch.cuda.synchronize()
+    assert (fdl.qkv_launches - before[0], fdl.o_mlp_launches - before[1]) == (
+        1, fdl.O_MLP_LAUNCHES)
+    _assert_qkv_close(got, fdl.fused_rmsnorm_qkv_plain(*args, **kw))
+    ref = fdl.fused_o_mlp_plain(attn, x, *p["wo"], p["n2"], *p["wg"], *p["wu"], *p["wd"],
+                                eps=1e-6)
+    assert o.dtype == torch.bfloat16 and o.shape == x.shape
+    assert (o.float() - ref.float()).abs().max() <= FUSED_RTOL * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_fused_qkv_kernel_writes_cache_views(cuda_device):
+    from vla_rft_tpu_torch.ops import fused_decode_layer as fdl
+
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    B, Sq, H, Hq, Hkv, S, w0 = 4, 7, 1024, 16, 16, 384, 100
+    p, x, _, cos, sins = _fused_inputs(cuda_device, gen, B, Sq, H, 4096, Hq, Hkv)
+    ck = torch.zeros(3, B, S, Hkv * 64, dtype=torch.int8, device=cuda_device)
+    cv = torch.zeros_like(ck)
+    sk = torch.ones(3, B, Hkv, S, dtype=torch.bfloat16, device=cuda_device)
+    sv = torch.ones_like(sk)
+    args = (x, cos, sins, p["n1"], *p["wq"], *p["wk"], *p["wv"])
+    kw = dict(num_heads=Hq, num_kv_heads=Hkv, head_dim=64, eps=1e-6)
+    _, k8, v8, ks, vs = fdl.fused_qkv_kernel(*args, **kw)
+    out = (ck[1, :, w0:w0 + Sq], cv[1, :, w0:w0 + Sq], sk[1, :, :, w0:w0 + Sq],
+           sv[1, :, :, w0:w0 + Sq])
+    fdl.fused_qkv_kernel(*args, **kw, out=out)
+    torch.cuda.synchronize()
+    for view, t in zip(out, (k8, v8, ks, vs)):
+        assert torch.equal(view, t)
+    assert not ck[0].any() and not ck[2].any() and not ck[1, :, :w0].any()
+    assert bool((sk[1, :, :, w0 + Sq:] == 1).all())
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    from vla_rft_tpu_torch.ops import fused_decode_layer as fdl
+
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    p, x, attn, cos, sins = _fused_inputs(cuda_device, gen, 2, 1, 128, 256, 2, 2)
+    kw = dict(num_heads=2, num_kv_heads=2, head_dim=64, eps=1e-6)
+    w = (p["n1"], *p["wq"], *p["wk"], *p["wv"])
+    with pytest.raises(ValueError, match="bf16"):
+        fdl.fused_qkv_kernel(x.float(), cos, sins, *w, **kw)
+    with pytest.raises(ValueError, match="head dim"):
+        fdl.fused_qkv_kernel(x, cos, sins, *w, **dict(kw, head_dim=32))
+    with pytest.raises(ValueError, match="contiguous"):
+        fdl.fused_qkv_kernel(x, cos, sins, p["n1"], p["wq"][0].t().contiguous().t(),
+                             p["wq"][1], *p["wk"], *p["wv"], **kw)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fdl.fused_qkv_kernel(x[..., :96].contiguous(), cos, sins, *w, **kw)
+    with pytest.raises(ValueError, match="strides"):
+        k_bad = torch.zeros(2, 128, 1, dtype=torch.int8, device=cuda_device).transpose(1, 2)
+        s_ok = torch.zeros(2, 2, 1, dtype=torch.bfloat16, device=cuda_device)
+        fdl.fused_qkv_kernel(x, cos, sins, *w, **kw, out=(k_bad, k_bad, s_ok, s_ok))
+    with pytest.raises(ValueError, match="chain"):  # a down projection 64 wide, not H
+        fdl.fused_o_mlp_kernel(attn, x, *p["wo"], p["n2"], *p["wg"], *p["wu"],
+                               p["wd"][0][:, :64].contiguous(), p["wd"][1][:64].contiguous(),
+                               eps=1e-6)
+    with pytest.raises(ValueError, match="device"):
+        fdl.fused_o_mlp_kernel(attn.cpu(), x, *p["wo"], p["n2"], *p["wg"], *p["wu"],
+                               *p["wd"], eps=1e-6)
+
+
+def _int8_wm(dev, layers=2):
+    """A bf16 WM of the kernels' head dim with int8 weights and KV cache:
+    its bf16 parent's state quantised by the port."""
+    from vla_rft_tpu_torch.models.transformer import quantize_decoder_params
+
+    cfg = TransformerConfig(vocab_size=512, hidden_size=128, intermediate_size=256,
+                            num_layers=layers, num_heads=2, num_kv_heads=2,
+                            kv_cache_dtype="int8")
+    with torch.device(dev):
+        parent = init_random_(Decoder(cfg), seed=3)
+        q = Decoder(dataclasses.replace(cfg, weights_int8=True))
+    q.load_state_dict(quantize_decoder_params(parent.state_dict(), q.cfg), strict=True)
+    return q.eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True])
+def test_fused_decode_step_matches_the_unfused_int8_route(cuda_device, shared):
+    """decode_step_fused (kernels #8, #4 / #5, #9) against Decoder.forward on
+    the same int8 model and cache (QuantLinear products, the same decode
+    attention kernel): logits within 5e-2 of max|logits| after 2 bf16
+    layers whose caches are written from each route's own hidden states."""
+    from vla_rft_tpu_torch.models.transformer import decode_step_fused
+    from vla_rft_tpu_torch.ops import fused_decode_layer as fdl
+
+    wm = _int8_wm(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    B, P0, P = 4, 40, 47
+    prompt = torch.randint(0, 512, (B, P), generator=gen, device=cuda_device)
+    kw = {}
+    with torch.no_grad():
+        if shared:
+            sh = wm.init_cache(2, P0)
+            wm(prompt[::2, :P0], cache=sh, cache_index=0, compute_logits=False)
+            kw = dict(shared_cache=sh, shared_len=P0,
+                      prefix_map=torch.tensor([0, 0, 1, 1], device=cuda_device))
+            caches = [wm.init_cache(B, 64) for _ in range(2)]
+            for c in caches:
+                wm(prompt[:, P0:], cache=c, cache_index=P0, kv_lens=P, **kw)
+        else:
+            caches = [wm.init_cache(B, P + 64) for _ in range(2)]
+            for c in caches:
+                wm(prompt, cache=c, cache_index=0)
+        toks = [torch.randint(0, 512, (B, s), generator=gen, device=cuda_device)
+                for s in (1, 1, 7, 1)]
+        ci = P
+        for t in toks:
+            before = (fdl.qkv_launches, fdl.o_mlp_launches)
+            fused, _ = decode_step_fused(wm, t, caches[0], ci, **kw)
+            assert (fdl.qkv_launches - before[0], fdl.o_mlp_launches - before[1]) == (
+                2, 2 * fdl.O_MLP_LAUNCHES)
+            plain, _ = wm(t, cache=caches[1], cache_index=ci, **kw)
+            err = ((fused - plain).abs().max() / plain.abs().max()).item()
+            assert err <= 5e-2 and bool(torch.isfinite(fused).all()), err
+            ci += t.shape[1]
+
+
+@pytest.mark.cuda
+def test_tiny_grpo_step_launches_the_fused_kernels(cuda_device, tmp_path):
+    """One training_step of the tiny preset on the card with weights_int8,
+    the Qwen and the WM swapped for bf16 ones of head dim 64 (the kernels'
+    shapes; the WM with an int8 KV cache): every one of the WM call's
+    Fn * (V + 1) decode calls launches #8 once and #9 three times per layer;
+    the metrics are finite."""
+    from vla_rft_tpu_torch.models.action_head import ActionExpert
+    from vla_rft_tpu_torch.models.prismatic import OpenVLA
+    from vla_rft_tpu_torch.config import vla_rft_default_config
+    from vla_rft_tpu_torch.ops import fused_decode_layer as fdl
+    from vla_rft_tpu_torch.trainer.grpo_trainer import VLARFTGRPOTrainer
+
+    cfg = vla_rft_default_config().apply_overrides([
+        "data.train_batch_size=2", "data.video.segment_length=3", "actor_rollout_ref.rollout.n=2",
+        "actor_rollout_ref.actor.ppo_mini_batch_size=4",
+        "actor_rollout_ref.actor.ppo_micro_batch_size_per_gpu=2",
+        "processor.tokens_per_frame=4", "data.max_prompt_length=75",
+        "data.max_response_length=22", "world_model_rollout.rollout.interact_max_tokens=4",
+        "world_model_rollout.rollout.weights_int8=true", f"trainer.default_local_dir={tmp_path}",
+        "world_model_rollout.world_model.vocab_size=9008"])
+    tr = VLARFTGRPOTrainer(cfg, preset="tiny", device="cuda")
+    b = tr.bundle
+    llm = dataclasses.replace(b.vla_cfg.llm, hidden_size=256, num_heads=4, num_kv_heads=2,
+                              dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    b.vla_cfg = dataclasses.replace(b.vla_cfg, llm=llm)
+    b.expert_cfg = dataclasses.replace(b.expert_cfg, llm_dim=256)
+    parent_cfg = dataclasses.replace(_int8_wm(cuda_device).cfg, vocab_size=9008,
+                                     weights_int8=False)
+    with torch.device(cuda_device):
+        b.vla = init_random_(OpenVLA(b.vla_cfg), seed=0).eval().requires_grad_(False)
+        b.expert = init_random_(ActionExpert(b.expert_cfg), seed=1)
+        b.wm = init_random_(Decoder(parent_cfg), seed=5).eval().requires_grad_(False)
+    b.wm_cfg = parent_cfg
+    tr._init_state(None)  # the optimizer over the new expert
+    before = (fdl.qkv_launches, fdl.o_mlp_launches)
+    metrics = tr.training_step(tr.dataset.next_batch(), step=1)
+    roll = tr.bundle.roll_cfg
+    calls = roll.num_frames * (roll.interact_max_tokens + 1)
+    L = parent_cfg.num_layers
+    assert (fdl.qkv_launches - before[0], fdl.o_mlp_launches - before[1]) == (
+        L * calls, fdl.O_MLP_LAUNCHES * L * calls)
+    assert all(np.isfinite(v) for v in metrics.values())

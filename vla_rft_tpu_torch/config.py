@@ -366,6 +366,14 @@ class PolicyConfig:
     # data.video.segment_length: the action chunk is segment_length - 1 long
     segment_length: int = 9
 
+    @staticmethod
+    def from_config(config: Config) -> "PolicyConfig":
+        return PolicyConfig(
+            num_images_in_input=int(config.actor_rollout_ref.model.get("num_images_in_input", 1)),
+            action_dim=config.processor.action_dim,
+            segment_length=config.data.video.segment_length,
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class WMRewardConfig:
@@ -395,3 +403,24 @@ class WMRewardConfig:
     recon_weight: float = 1.0
     msp_reward_aggregate: str = "mean"
     msp_reward_discount: float = 0.95
+
+    @staticmethod
+    def from_config(config: Config) -> "WMRewardConfig":
+        """The fields as the reference's build_models reads them from the tree."""
+        roll, proc, tr = config.world_model_rollout.rollout, config.processor, config.trainer
+        sampling = roll.val_kwargs if roll.is_validate else roll
+        return WMRewardConfig(
+            max_prompt_length=config.data.max_prompt_length,
+            max_response_length=config.data.max_response_length,
+            segment_length=config.data.video.segment_length,
+            wm_vocab_size=config.world_model_rollout.world_model.vocab_size,
+            visual_token_num=proc.visual_token_num, action_bins=proc.action_bins,
+            action_dim=proc.action_dim, tokens_per_frame=proc.tokens_per_frame,
+            interact_max_tokens=roll.interact_max_tokens, temperature=sampling.temperature,
+            top_k=sampling.top_k, top_p=sampling.top_p, do_sample=roll.do_sample,
+            cache_segments=roll.get("cache_segments", 4), reward_fn=tr.reward_fn,
+            lpips_weight=tr.loss_weight.lpips,
+            recon_weight=tr.loss_weight.get(tr.reward_fn, 1.0),
+            msp_reward_aggregate=tr.msp_reward_aggregate,
+            msp_reward_discount=tr.msp_reward_discount,
+        )

@@ -19,8 +19,6 @@ port's module: "vla" (`models.prismatic.OpenVLA`), "expert"
   convolutions are NCHW);
 * LayerNorm / GroupNorm `scale` and Embed `embedding` become `weight`;
 * the VAE blocks keep their Flax names (`down_blocks_0.resnets_1.conv1`).
-
-The sigma net of the expert tree is skipped: the port has no sigma net yet.
 """
 from __future__ import annotations
 
@@ -81,8 +79,6 @@ def flax_to_torch(tree: Dict[str, Any], which: str) -> Dict[str, torch.Tensor]:
         raise ValueError(f"which must be one of {WHICH}, got {which!r}")
     if "params" in tree:
         tree = tree["params"]
-    if which == "expert":
-        tree = {k: v for k, v in tree.items() if k != "sigma_net"}
     sd = _convert(tree)
     renamed = {}
     for k, v in sd.items():

@@ -89,3 +89,31 @@ class SyntheticVLADataset:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         while True:
             yield self.next_batch()
+
+
+def default_action_ranges(action_dim: int = 7) -> np.ndarray:
+    """Stand-in for libero_action_ranges.pth: [-1, 1]^A as (A, 2) [min, max]."""
+    return np.stack([-np.ones(action_dim), np.ones(action_dim)], axis=-1).astype(np.float32)
+
+
+def load_action_ranges(path: str) -> np.ndarray:
+    """Per-dimension action ranges (A, 2) [min, max] f32 from a torch tensor
+    file (.pth / .pt, the reference's libero_action_ranges.pth) or
+    .npy / .npz / .json."""
+    if path.endswith((".npy", ".npz")):
+        arr = np.load(path)
+        if hasattr(arr, "files"):  # npz
+            arr = arr[arr.files[0]]
+    elif path.endswith(".json"):
+        import json
+
+        with open(path) as f:
+            arr = np.asarray(json.load(f))
+    else:
+        import torch
+
+        arr = torch.load(path, map_location="cpu", weights_only=True).numpy()
+    arr = np.asarray(arr, np.float32)
+    if arr.ndim != 2 or arr.shape[1] != 2:
+        raise ValueError(f"action ranges at {path} must be (A, 2), got {arr.shape}")
+    return arr

@@ -1,15 +1,17 @@
 """Flow-matching action head and its input projectors.
 
 Port of vla_rft_tpu/models/action_head.py: `ActionHeadConfig`,
-`MLPProjector`, `FlowMatchingActionHead`, `ActionExpert.predict_flow` and
-the flow-matching targets of behaviour cloning (`sample_beta`,
-`sample_noisy_actions`).  The sigma net belongs to the GRPO slice and is not
-ported yet.
+`MLPProjector`, `FlowMatchingActionHead`, `TokenSigmaNet` (the per-dim
+sigma head of the stochastic rollout: the same DiT computed in f32, a
+tanh-squashed log-std in [log(min_std), log(max_std)]), `ActionExpert`
+(`predict_flow`, `predict_std` and both together) and the flow-matching
+targets (`sample_beta`, `sample_noisy_actions`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -121,22 +123,59 @@ class FlowMatchingActionHead(nn.Module):
         return self.dit(obs, timesteps, hidden_states, proprio_features)
 
 
+class TokenSigmaNet(nn.Module):
+    """Per-dim sigma head: the DiT in f32 (parameters and compute), then
+    log_std = log_min + (log_max - log_min) (tanh(raw) + 1) / 2."""
+
+    def __init__(self, cfg: ActionHeadConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.dit = DiTSingleTokenActionOneCtx(cfg.dit_cfg(dtype=torch.float32))
+
+    def forward(self, hidden_states, timesteps, proprio_features, noisy_action_features
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        B = noisy_action_features.shape[0]
+        obs = noisy_action_features.reshape(
+            B, cfg.num_actions_chunk, cfg.action_dim * cfg.llm_dim
+        ).float()
+        raw = self.dit(obs, timesteps.float(), hidden_states.float(), proprio_features.float())
+        log_min, log_max = math.log(cfg.min_std), math.log(cfg.max_std)
+        log_std = log_min + (log_max - log_min) * (torch.tanh(raw.float()) + 1.0) * 0.5
+        return torch.exp(log_std), log_std
+
+
 class ActionExpert(nn.Module):
-    """The flow head and the two input projectors (the sigma net comes with
-    the training slice)."""
+    """The trainable modules: the flow head, the sigma net and the two input
+    projectors (one module, so the optimizer sees one parameter tree)."""
 
     def __init__(self, cfg: ActionHeadConfig):
         super().__init__()
         self.cfg = cfg
         self.action_head = FlowMatchingActionHead(cfg)
+        self.sigma_net = TokenSigmaNet(cfg)
         kw = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype)
         self.proprio_projector = MLPProjector(cfg.proprio_dim, cfg.llm_dim, **kw)
         self.noisy_action_projector = MLPProjector(1, cfg.llm_dim, **kw)
 
-    def predict_flow(self, hidden_states, noisy_actions, timesteps, proprio):
-        """hidden (B, S_ctx, llm_dim), noisy actions (B, chunk, A), t (B,),
-        proprio (B, proprio_dim) -> flow (B, chunk, A)."""
+    def _project_inputs(self, noisy_actions, proprio):
         B = noisy_actions.shape[0]
         naf = self.noisy_action_projector(noisy_actions.reshape(B, -1, 1))
         pf = self.proprio_projector(proprio.reshape(B, -1))
+        return naf, pf
+
+    def predict_flow(self, hidden_states, noisy_actions, timesteps, proprio):
+        """hidden (B, S_ctx, llm_dim), noisy actions (B, chunk, A), t (B,),
+        proprio (B, proprio_dim) -> flow (B, chunk, A)."""
+        naf, pf = self._project_inputs(noisy_actions, proprio)
         return self.action_head(hidden_states, timesteps, pf, naf)
+
+    def predict_std(self, hidden_states, noisy_actions, timesteps, proprio):
+        """The same inputs -> (std, log_std), (B, chunk, A) f32."""
+        naf, pf = self._project_inputs(noisy_actions, proprio)
+        return self.sigma_net(hidden_states, timesteps, pf, naf)
+
+    def forward(self, hidden_states, noisy_actions, timesteps, proprio):
+        flow = self.predict_flow(hidden_states, noisy_actions, timesteps, proprio)
+        std, log_std = self.predict_std(hidden_states, noisy_actions, timesteps, proprio)
+        return flow, std, log_std

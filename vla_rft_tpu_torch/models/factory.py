@@ -9,6 +9,9 @@ Port of vla_rft_tpu/models/factory.py:
   params, bf16 compute);
 * `build_decoder`: one trainable `Decoder` of a given config (the WM's
   `wm_llama` for next-token SFT);
+* `build_models`: everything the GRPO trainer runs, from the config tree
+  (the reference's `build_models`): the policy with a trainable action
+  expert, and the WM, tokenizer and LPIPS, frozen;
 * preset 'tiny': the same topologies at test sizes, all f32.
 
 Both make the modules directly on the target device and fill them with
@@ -20,12 +23,13 @@ Trained weights come in through `convert.flax_to_torch` + `load_state_dict`.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
 
 from vla_rft_tpu_torch import resolve_device
-from vla_rft_tpu_torch.config import PolicyConfig, WMRewardConfig
+from vla_rft_tpu_torch.config import Config, PolicyConfig, WMRewardConfig
 from vla_rft_tpu_torch.models.action_head import ActionExpert, ActionHeadConfig
 from vla_rft_tpu_torch.models.layers import GroupNorm, LayerNorm
 from vla_rft_tpu_torch.models.lpips import LPIPS
@@ -149,11 +153,15 @@ TINY_WM_DATA = dict(tokens_per_frame=4, interact_max_tokens=4, max_prompt_length
                     max_response_length=8 * (4 + 7))
 
 
-def wm_reward_configs(preset: str = "libero", config: WMRewardConfig = WMRewardConfig()):
+def wm_reward_configs(preset: str = "libero", config: WMRewardConfig = WMRewardConfig(),
+                      tiny_data: bool = True):
     """(TransformerConfig, TokenizerConfig, ProcessorConfig, WMRolloutConfig,
-    RewardConfig, image size, LPIPS compute dtype) of a preset."""
+    RewardConfig, image size, LPIPS compute dtype) of a preset.  The tiny
+    preset takes TINY_WM_DATA's token shapes unless `tiny_data` is False
+    (the trainer, whose config sets them)."""
     if preset == "tiny":
-        config = dataclasses.replace(config, **TINY_WM_DATA)
+        if tiny_data:
+            config = dataclasses.replace(config, **TINY_WM_DATA)
         wm_cfg = TransformerConfig(
             vocab_size=config.wm_vocab_size, hidden_size=64, intermediate_size=128,
             num_layers=2, num_heads=4, num_kv_heads=4, dtype=torch.float32,
@@ -192,12 +200,15 @@ def wm_reward_configs(preset: str = "libero", config: WMRewardConfig = WMRewardC
 
 
 def build_wm_reward(preset: str = "libero", config: WMRewardConfig = WMRewardConfig(), *,
-                    device="cuda", seed: int = 0) -> WMRewardBundle:
+                    device="cuda", seed: int = 0, tiny_data: bool = True,
+                    wm_overrides: Optional[dict] = None) -> WMRewardBundle:
     """The WM, the tokenizer and LPIPS in eval mode on `device`, with their
-    configurations."""
+    configurations; `wm_overrides` replaces fields of the WM's config."""
     dev = resolve_device(device)
     wm_cfg, tok_cfg, proc_cfg, roll_cfg, reward_cfg, image_size, lpips_dtype = (
-        wm_reward_configs(preset, config))
+        wm_reward_configs(preset, config, tiny_data))
+    if wm_overrides:
+        wm_cfg = dataclasses.replace(wm_cfg, **wm_overrides)
     with torch.device(dev):
         wm = Decoder(wm_cfg)
         tokenizer = CompressiveVQModelFSQ(tok_cfg)
@@ -210,4 +221,51 @@ def build_wm_reward(preset: str = "libero", config: WMRewardConfig = WMRewardCon
         lpips=_mode(lpips, False),
         wm_cfg=wm_cfg, proc_cfg=proc_cfg, roll_cfg=roll_cfg, reward_cfg=reward_cfg,
         image_size=image_size, num_raw_frames=config.segment_length,
+    )
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    """Every module of a GRPO step with its configuration: the fields of
+    PolicyBundle and WMRewardBundle."""
+    vla: OpenVLA
+    expert: ActionExpert
+    wm: Decoder
+    tokenizer: CompressiveVQModelFSQ
+    lpips: LPIPS
+    vla_cfg: OpenVLAConfig
+    expert_cfg: ActionHeadConfig
+    wm_cfg: TransformerConfig
+    proc_cfg: ProcessorConfig
+    roll_cfg: WMRolloutConfig
+    reward_cfg: RewardConfig
+    policy_seq_len: int
+    policy_image_size: int
+    image_size: int  # the tokenizer's frame size
+    num_raw_frames: int
+
+
+def build_models(config: Config, preset: str = "libero", *, device="cuda",
+                 seed: int = 0) -> ModelBundle:
+    """The GRPO trainer's modules from the config tree, on `device`, with
+    seeded random weights: the VLM frozen, the action expert trainable (the
+    libero expert takes rollout.num_flow_steps; the tiny one keeps 10, as in
+    the reference), the WM (with world_model_rollout.model.size_overrides),
+    tokenizer and LPIPS frozen."""
+    policy = build_policy(preset, PolicyConfig.from_config(config), device=device, seed=seed)
+    if preset == "libero":
+        k = int(config.actor_rollout_ref.rollout.get("num_flow_steps", 10))
+        policy.expert_cfg = dataclasses.replace(policy.expert_cfg, num_flow_steps=k)
+    overrides = config.world_model_rollout.model.get("size_overrides", None)
+    overrides = {k: int(v) for k, v in (overrides.to_dict() if overrides else {}).items()
+                 if v is not None}
+    wm = build_wm_reward(preset, WMRewardConfig.from_config(config), device=device,
+                         seed=seed + 2, tiny_data=False, wm_overrides=overrides)
+    return ModelBundle(
+        vla=policy.vla, expert=_mode(policy.expert, True), wm=wm.wm, tokenizer=wm.tokenizer,
+        lpips=wm.lpips, vla_cfg=policy.vla_cfg, expert_cfg=policy.expert_cfg, wm_cfg=wm.wm_cfg,
+        proc_cfg=wm.proc_cfg, roll_cfg=wm.roll_cfg,
+        reward_cfg=wm.reward_cfg, policy_seq_len=policy.policy_seq_len,
+        policy_image_size=policy.policy_image_size, image_size=wm.image_size,
+        num_raw_frames=wm.num_raw_frames,
     )

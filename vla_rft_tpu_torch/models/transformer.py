@@ -21,8 +21,15 @@ and writes land at cache_index - shared_len.  Attention with a cache goes
     shared prefix with Sq > 8 to its XLA path; that is the same math.
 On a CUDA tensor every branch launches a kernel or raises; the plain twins
 run for CPU tensors and when `attn_impl="plain"` asks for them.
-Not ported: the 'heads' cache layout, int8 weights, per-row cache offsets
-(speculative decode), Ulysses.
+With `weights_int8` every product of the decoder is a `QuantLinear` (an
+int8 (in, out) kernel and a bf16 per-output-channel scale, the reference's
+QuantDenseGeneral), filled by `quantize_decoder_params` from a bf16
+decoder's state dict; the WM rollout decodes with it.  `decode_step_fused`
+is the rollout's decode call on that model: per layer kernel #8
+(RMSNorm + q/k/v + rope + k/v quantisation, writing the cache), the decode
+attention #4 / #5 and kernel #9 (o_proj + MLP) on the card.
+Not ported: the 'heads' cache layout, per-row cache offsets (speculative
+decode), Ulysses.
 """
 from __future__ import annotations
 
@@ -31,11 +38,11 @@ import numbers
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from vla_rft_tpu_torch.models.layers import Dense, Embed
 from vla_rft_tpu_torch.ops import decode_attention_hd as dec_attn
+from vla_rft_tpu_torch.ops import fused_decode_layer as fused
 from vla_rft_tpu_torch.ops.attention import attention
 
 
@@ -59,6 +66,10 @@ class TransformerConfig:
     kv_cache_dtype: str = "bf16"
     # only the head-dense layout (L, B, S, Hkv*D) is ported
     kv_layout: str = "hd"
+    # int8 per-output-channel weights for every product (QuantLinear); the
+    # state dict comes from quantize_decoder_params.  For a frozen rollout
+    # model (the WM): training paths keep bf16.
+    weights_int8: bool = False
 
     def __post_init__(self):
         if self.kv_layout != "hd":
@@ -120,6 +131,67 @@ class RMSNorm(nn.Module):
         return (xf * self.weight.float()).to(x.dtype)
 
 
+class QuantLinear(nn.Module):
+    """The reference's QuantDenseGeneral: an int8 (in, out) `kernel` and a
+    bf16 (out,) `scale` (buffers: they are frozen), optional bf16 bias.
+    y = bf16(x @ bf16(kernel)) (f32 accumulation), then times the scale in
+    the compute dtype, in that rounding order."""
+
+    def __init__(self, in_features: int, out_features: int, *, bias: bool = False,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("kernel", torch.zeros(in_features, out_features, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_features, dtype=torch.bfloat16))
+        self.register_buffer("bias", torch.zeros(out_features, dtype=torch.bfloat16)
+                             if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = (x.to(dt) @ self.kernel.to(dt)) * self.scale.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+def make_dense(cfg: TransformerConfig, in_features: int, out_features: int, bias: bool):
+    """The decoder's product: QuantLinear with `weights_int8`, else Dense."""
+    if cfg.weights_int8:
+        return QuantLinear(in_features, out_features, bias=bias, dtype=cfg.dtype)
+    return Dense(in_features, out_features, bias=bias, dtype=cfg.dtype,
+                 param_dtype=cfg.param_dtype)
+
+
+_QUANTIZED = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj",
+              "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
+
+
+@torch.no_grad()
+def quantize_decoder_params(state_dict, cfg: TransformerConfig):
+    """A bf16 `Decoder` state dict -> the state dict of its `weights_int8`
+    twin (reference transformer.py:213): every product's (out, in) weight
+    becomes an (in, out) int8 kernel, per output channel s = max(amax / 127,
+    1e-10) in f32, q = clip(round(w / s), -127, 127) (round half to even),
+    and the scale is stored as bf16; embedding, norms and biases stay (a
+    bias becomes bf16).  Runs on the tensors' own device."""
+
+    def quant(w):
+        w2 = w.float().t()  # (in, out)
+        s = torch.clamp(w2.abs().amax(dim=0) / 127.0, min=1e-10)
+        q = torch.clamp(torch.round(w2 / s), -127, 127).to(torch.int8)
+        return q.contiguous(), s.to(torch.bfloat16)
+
+    out = {}
+    for name, t in state_dict.items():
+        mod, _, leaf = name.rpartition(".")
+        is_prod = mod == "lm_head" or any(mod.endswith(p) for p in _QUANTIZED)
+        if is_prod and leaf == "weight":
+            out[f"{mod}.kernel"], out[f"{mod}.scale"] = quant(t)
+        elif is_prod and leaf == "bias":
+            out[name] = t.to(torch.bfloat16)
+        else:
+            out[name] = t
+    return out
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """NeoX-style rotary embedding. x: (B, S, H, D), positions: (B, S)."""
     d = x.shape[-1]
@@ -144,6 +216,14 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale.to(torch.bfloat16)
 
 
+def _rows(x, B: int, dev) -> torch.Tensor:
+    """A per-row int32 (B,) tensor from an int (filled on the device) or a
+    scalar / (B,) tensor."""
+    if isinstance(x, numbers.Integral):
+        return torch.full((B,), int(x), dtype=torch.int32, device=dev)
+    return torch.as_tensor(x, device=dev).to(torch.int32).reshape(-1).expand(B).contiguous()
+
+
 @dataclasses.dataclass
 class CacheArgs:
     """What one forward with a KV cache passes to every layer; the per-row
@@ -164,11 +244,10 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         H, hd, nh, nkv = cfg.hidden_size, cfg.hd, cfg.num_heads, cfg.num_kv_heads
-        kw = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype)
-        self.q_proj = Dense(H, nh * hd, bias=cfg.qkv_bias, **kw)
-        self.k_proj = Dense(H, nkv * hd, bias=cfg.qkv_bias, **kw)
-        self.v_proj = Dense(H, nkv * hd, bias=cfg.qkv_bias, **kw)
-        self.o_proj = Dense(nh * hd, H, bias=False, **kw)
+        self.q_proj = make_dense(cfg, H, nh * hd, cfg.qkv_bias)
+        self.k_proj = make_dense(cfg, H, nkv * hd, cfg.qkv_bias)
+        self.v_proj = make_dense(cfg, H, nkv * hd, cfg.qkv_bias)
+        self.o_proj = make_dense(cfg, nh * hd, H, False)
 
     def forward(self, x, positions, kv_lens, causal: bool, attn_impl: str, li: int = 0,
                 c: Optional[CacheArgs] = None):
@@ -237,13 +316,16 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        kw = dict(bias=False, dtype=cfg.dtype, param_dtype=cfg.param_dtype)
-        self.gate_proj = Dense(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.up_proj = Dense(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.down_proj = Dense(cfg.intermediate_size, cfg.hidden_size, **kw)
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = make_dense(cfg, H, I, False)
+        self.up_proj = make_dense(cfg, H, I, False)
+        self.down_proj = make_dense(cfg, I, H, False)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        g, u = self.gate_proj(x), self.up_proj(x)
+        # silu as the reference rounds it: the sigmoid (computed in f32 and
+        # rounded to the compute dtype), then two products
+        return self.down_proj(g * torch.sigmoid(g) * u)
 
 
 class DecoderLayer(nn.Module):
@@ -285,8 +367,7 @@ class Decoder(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.param_dtype)
         self.lm_head = (
             None if cfg.tie_word_embeddings
-            else Dense(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=cfg.dtype,
-                       param_dtype=cfg.param_dtype)
+            else make_dense(cfg, cfg.hidden_size, cfg.vocab_size, False)
         )
 
     def forward(
@@ -320,11 +401,7 @@ class Decoder(nn.Module):
         off = cache_index if cache is not None else 0
         positions = (torch.arange(S, dtype=torch.int32, device=dev) + off)[None].expand(B, S)
 
-        def rows(x):  # a per-row int32 (B,) tensor; ints are filled on the device
-            if isinstance(x, numbers.Integral):
-                return torch.full((B,), int(x), dtype=torch.int32, device=dev)
-            return torch.as_tensor(x, device=dev).to(torch.int32).reshape(-1).expand(B).contiguous()
-
+        rows = lambda x: _rows(x, B, dev)
         kv_lens = rows(off + S if kv_lens is None else kv_lens)
         c = None
         if cache is not None:
@@ -375,3 +452,79 @@ class Decoder(nn.Module):
     def cache_seq_axes(self) -> Tuple[int, ...]:
         """The sequence axis of each array of `init_cache`'s tuple."""
         return (2, 2, 3, 3) if self.cfg.kv_cache_dtype == "int8" else (2, 2)
+
+
+@torch.no_grad()
+def decode_step_fused(wm: Decoder, input_ids: torch.Tensor, cache: Tuple[torch.Tensor, ...],
+                      cache_index: int, kv_lens=None,
+                      shared_cache: Optional[Tuple[torch.Tensor, ...]] = None,
+                      shared_len: int = 0, prefix_map=None, shared_starts=None,
+                      logits_last_only: bool = False, impl: Optional[str] = None):
+    """One decode call of the int8-weight WM through the fused layer kernels
+    (reference transformer.py:797-913): per layer kernel #8 (RMSNorm, q/k/v,
+    rope, k/v quantisation), then decode attention over the split cache (#4
+    with a shared prefix, #5 without), then kernel #9 (o_proj, residual,
+    RMSNorm, MLP, residual); rope tables are built once per call.  Same
+    contract as `Decoder.forward` on the decode path: input_ids (B, Sq <= 8),
+    the int8 KV cache written in place (k/v and their scales go straight
+    from kernel #8 into the cache at cache_index, or cache_index -
+    shared_len with a shared prefix), returns (logits f32, hidden after the
+    final norm).  `impl` is "auto" (kernels for CUDA tensors, twins for CPU
+    tensors) or "plain"; it defaults to the model's `attn_impl`."""
+    cfg = wm.cfg
+    if not (cfg.weights_int8 and cfg.kv_cache_dtype == "int8" and not cfg.qkv_bias):
+        raise ValueError("decode_step_fused needs int8 weights, an int8 KV cache and no qkv bias")
+    B, S = input_ids.shape
+    if not 1 <= S <= dec_attn.MAX_SQ:
+        raise ValueError(f"decode_step_fused takes 1..{dec_attn.MAX_SQ} tokens, got {S}")
+    impl = impl or wm.attn_impl
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dev = input_ids.device
+
+    rows = lambda v: _rows(v, B, dev)
+    x = wm.embed_tokens(input_ids).contiguous()
+    positions = (torch.arange(S, dtype=torch.int32, device=dev) + cache_index)[None].expand(B, S)
+    kv_lens_eff = torch.clamp(rows(cache_index + S if kv_lens is None else kv_lens),
+                              max=cache_index + S)
+    q_offset = rows(cache_index)
+    w0 = cache_index - shared_len if shared_cache is not None else cache_index
+    rope_cos, rope_sins = fused.rope_tables(positions, cfg.rope_theta, nh, hd)
+    ck, cv, sk, sv = cache
+    if shared_cache is not None:
+        sck, scv, ssk, ssv = shared_cache
+        pm = rows(prefix_map)
+        starts = rows(0 if shared_starts is None else shared_starts)
+    else:
+        starts = rows(0)
+    for li, layer in enumerate(wm.layers):
+        at, mlp = layer.self_attn, layer.mlp
+        q, *_ = fused.fused_rmsnorm_qkv(
+            x, rope_cos, rope_sins, layer.input_layernorm.weight,
+            at.q_proj.kernel, at.q_proj.scale, at.k_proj.kernel, at.k_proj.scale,
+            at.v_proj.kernel, at.v_proj.scale, num_heads=nh, num_kv_heads=nkv, head_dim=hd,
+            eps=cfg.rms_norm_eps, impl=impl,
+            out=(ck[li, :, w0:w0 + S], cv[li, :, w0:w0 + S], sk[li, :, :, w0:w0 + S],
+                 sv[li, :, :, w0:w0 + S]),
+        )
+        q = q.view(B, S, nh, hd)
+        if shared_cache is not None:
+            attn = dec_attn.decode_attention_shared_hd(
+                q, ck[li], cv[li], sck[li], scv[li], pm, shared_len=shared_len,
+                kv_lens=kv_lens_eff, q_offset=q_offset, shared_starts=starts,
+                scales=(sk[li], sv[li]), shared_scales=(ssk[li], ssv[li]), impl=impl)
+        else:
+            attn = dec_attn.decode_attention_hd(
+                q, ck[li], cv[li], kv_lens=kv_lens_eff, q_offset=q_offset, kv_starts=starts,
+                scales=(sk[li], sv[li]), impl=impl)
+        x = fused.fused_o_mlp(
+            attn.reshape(B, S, nh * hd), x, at.o_proj.kernel, at.o_proj.scale,
+            layer.post_attention_layernorm.weight, mlp.gate_proj.kernel, mlp.gate_proj.scale,
+            mlp.up_proj.kernel, mlp.up_proj.scale, mlp.down_proj.kernel, mlp.down_proj.scale,
+            eps=cfg.rms_norm_eps, impl=impl)
+    xn = wm.norm(x)
+    xl = xn[:, -1:] if logits_last_only else xn
+    if cfg.tie_word_embeddings:
+        logits = wm.embed_tokens.attend(xl)
+    else:
+        logits = wm.lm_head(xl)
+    return logits.float(), xn

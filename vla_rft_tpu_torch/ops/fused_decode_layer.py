@@ -1,0 +1,297 @@
+"""Fused decode-layer products of the int8-weight WM rollout + their plain twins.
+
+Port of vla_rft_tpu/ops/fused_decode_layer.py (kernels #8 `_qkv_kernel` and
+#9 `_o_mlp_kernel`).  Per decoder layer of a decode call:
+
+  fused_rmsnorm_qkv:  x -> RMSNorm -> int8-weight q/k/v products -> rope(q, k)
+                      -> per-(position, kv head) int8 quantisation of k and v
+  fused_o_mlp:        attn -> o_proj -> + residual -> RMSNorm -> gate/up ->
+                      silu * up -> down -> + residual
+
+The math is the reference's, in its rounding order, which is bit-compatible
+with the unfused int8 path (`QuantLinear`, `RMSNorm`, `rope`, `quantize_kv`
+in models/transformer.py): bf16 activations times int8 weights widened to
+bf16 with f32 accumulation, rounded to bf16, then times the bf16
+per-output-channel scale.  Weights are one layer's (in, out) int8 kernel
+and (out,) bf16 scale; a layer's slice `w[li]` of a stacked tensor is a
+view, so nothing is copied.
+
+* `rope_tables` stays plain PyTorch: it runs once per decode call, outside
+  the layer loop, as in the reference.
+* `fused_rmsnorm_qkv_plain` / `fused_o_mlp_plain` are the twins; they run
+  for CPU tensors, and on the card the kernels are checked against them.
+* `fused_qkv_kernel` / `fused_o_mlp_kernel` launch csrc/fused_decode_layer.cu
+  and count every CUDA launch in `qkv_launches` (1 per call) and
+  `o_mlp_launches` (`O_MLP_LAUNCHES` = 3 per call: o_proj + residual,
+  gate/up + silu, down + residual).
+* `fused_rmsnorm_qkv` / `fused_o_mlp` are the front ends: a CUDA tensor
+  always goes to the kernel (or raises), a CPU tensor to the twin;
+  `impl="plain"` asks for the twin on either device.
+
+`fused_rmsnorm_qkv` may write k, v and their scales straight into the KV
+cache: `out=(k8, v8, ks, vs)` takes views of the layer's cache at the write
+position, (B, Sq, Hkv*D) int8 with unit-stride rows of Hkv*D and (B, Hkv,
+Sq) bf16 with unit-stride positions.
+
+Bounds on an H100 (bytes, the data-sheet 3.35 TB/s; both kernels sit below
+the card's flop/byte ridge at decode widths): at the WM's H 1024, 16/16
+heads of 64, I 4096, #8 moves ~3.3 MB at N = B*Sq = 10 (~1.0 us) and #9
+~13.6 MB (~4.1 us); chip_smoke.py computes the exact figure of each call.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from vla_rft_tpu_torch.ops import cuda_build
+
+HEAD_DIM = 64  # the kernels' head tile
+TILE = 64  # columns of a product tile and depth of a contraction chunk
+O_MLP_LAUNCHES = 3
+
+# kernel launches since the counts were last set to 0 (read by chip_smoke.py)
+qkv_launches = 0
+o_mlp_launches = 0
+
+_lib = None
+
+
+def rope_tables(positions: torch.Tensor, theta: float, num_heads: int,
+                head_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-lane (N, num_heads * head_dim) f32 cos and signed sin tables of
+    (B, Sq) positions, N = B*Sq: lane l of a head pairs with lane l ^ D/2,
+    and sins carries the NeoX sign (-sin on the first half of each head), so
+    rope(t) = t * cos + t[l ^ D/2] * sins.  The frequencies are those of
+    models.transformer.rope."""
+    d = head_dim
+    exponent = torch.arange(0, d, 2, dtype=torch.float32, device=positions.device) / d
+    freqs = 1.0 / (theta ** exponent)
+    ang = positions.reshape(-1, 1).float() * freqs  # (N, d/2)
+    cos_h, sin_h = torch.cos(ang), torch.sin(ang)
+    cos = torch.cat([cos_h, cos_h], dim=-1).repeat(1, num_heads)
+    sins = torch.cat([-sin_h, sin_h], dim=-1).repeat(1, num_heads)
+    return cos.contiguous(), sins.contiguous()
+
+
+# ================================================================ plain twins
+def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """models.transformer.RMSNorm: f32 statistics, output in x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def qdot(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """QuantDenseGeneral's product: bf16(x @ bf16(w)) accumulated in f32,
+    then times the bf16 scale (a bf16 multiply)."""
+    y = (x.float() @ w.float()).to(torch.bfloat16)
+    return y * s.to(torch.bfloat16)
+
+
+def _rope_dense(t: torch.Tensor, cos: torch.Tensor, sins: torch.Tensor, d: int) -> torch.Tensor:
+    """NeoX rope on head-dense (N, nh*d) bf16 rows, in f32."""
+    N, W = t.shape
+    partner = t.reshape(N, W // d, 2, d // 2).flip(2).reshape(N, W)
+    return t.float() * cos + partner.float() * sins
+
+
+def _quant(tf: torch.Tensor, nh: int, d: int, B: int, Sq: int):
+    """Per-(position, head) symmetric int8 quantisation of (N, nh*d) f32 rows
+    -> ((B, Sq, nh*d) int8, (B, nh, Sq) bf16 scales), as Attention.quant."""
+    t3 = tf.reshape(-1, nh, d)
+    sc = torch.clamp(t3.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(t3 / sc[..., None]), -127, 127).to(torch.int8)
+    return q.reshape(B, Sq, nh * d), sc.reshape(B, Sq, nh).transpose(1, 2).to(torch.bfloat16)
+
+
+def fused_rmsnorm_qkv_plain(x, rope_cos, rope_sins, norm_w, wq, sq, wk, sk, wv, sv, *,
+                            num_heads: int, num_kv_heads: int, head_dim: int, eps: float):
+    """x (B, Sq, H) bf16 -> q (B, Sq, Hq*D) bf16 (rope'd), k8 / v8 (B, Sq,
+    Hkv*D) int8, k / v scales (B, Hkv, Sq) bf16."""
+    B, Sq, H = x.shape
+    d, KD = head_dim, num_kv_heads * head_dim
+    xn = _rmsnorm(x.reshape(B * Sq, H), norm_w, eps)
+    q = qdot(xn, wq, sq)
+    k = qdot(xn, wk, sk)
+    v = qdot(xn, wv, sv)
+    q_r = _rope_dense(q, rope_cos, rope_sins, d).to(torch.bfloat16)
+    # the k tables are the first KD lanes: cos/sins repeat with period d
+    k_r = _rope_dense(k, rope_cos[:, :KD], rope_sins[:, :KD], d)
+    k8, ks = _quant(k_r.to(torch.bfloat16).float(), num_kv_heads, d, B, Sq)
+    v8, vs = _quant(v.float(), num_kv_heads, d, B, Sq)
+    return q_r.reshape(B, Sq, num_heads * d), k8, v8, ks, vs
+
+
+def fused_o_mlp_plain(attn, x, wo, so, norm_w, wg, sg, wu, su, wd, sd, *, eps: float):
+    """attn (B, Sq, Hq*D) and the residual x (B, Sq, H), bf16 -> (B, Sq, H)."""
+    B, Sq, H = x.shape
+    h = qdot(attn.reshape(B * Sq, -1).to(torch.bfloat16), wo, so)
+    x1 = x.reshape(B * Sq, H) + h  # bf16 residual, like DecoderLayer
+    xn = _rmsnorm(x1, norm_w, eps)
+    g = qdot(xn, wg, sg)
+    u = qdot(xn, wu, su)
+    m = g * torch.sigmoid(g.float()).to(torch.bfloat16) * u  # two bf16 multiplies
+    return (x1 + qdot(m, wd, sd)).reshape(B, Sq, H).to(x.dtype)
+
+
+# ==================================================================== kernels
+def _load():
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load("fused_decode_layer")
+        lib.fused_qkv_bf16.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                                       + [ctypes.c_int64] * 3 + [ctypes.c_float, ctypes.c_void_p])
+        lib.fused_qkv_bf16.restype = ctypes.c_int
+        lib.fused_o_mlp_bf16.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+                                         + [ctypes.c_float, ctypes.c_void_p])
+        lib.fused_o_mlp_bf16.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(name, t, dtype, shape, dev):
+    if not t.is_cuda or t.device != dev:
+        raise ValueError(f"fused decode kernel: {name} must be on x's CUDA device")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"fused decode kernel: {name} must be a contiguous {dtype} tensor of "
+                         f"shape {tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _check_x(x):
+    if not x.is_cuda or x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError("fused decode kernel: x must be a contiguous (B, Sq, H) bf16 CUDA tensor")
+    if x.shape[2] % TILE:
+        raise ValueError(f"fused decode kernel: width {x.shape[2]} is not a multiple of {TILE}")
+
+
+def _check_weight(name, w, s, k_in, dev):
+    if w.dim() != 2 or w.shape[0] != k_in or w.shape[1] % TILE:
+        raise ValueError(f"fused decode kernel: {name} must be ({k_in}, a multiple of {TILE}), "
+                         f"got {tuple(w.shape)}")
+    _check(name, w, torch.int8, w.shape, dev)
+    _check(f"{name} scale", s, torch.bfloat16, (w.shape[1],), dev)
+
+
+def _check_out(name, t, dtype, shape, dev, inner):
+    """An output view: its shape, and unit strides on its last `inner` axes
+    laid out as a contiguous tensor of that shape would be."""
+    if not t.is_cuda or t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"fused decode kernel: {name} must be {dtype} of shape {tuple(shape)} "
+                         f"on x's device, got {t.dtype} {tuple(t.shape)}")
+    want = torch.empty(shape, device="meta").stride()
+    if t.stride()[-inner:] != want[-inner:]:
+        raise ValueError(f"fused decode kernel: {name} strides {t.stride()} need unit-stride "
+                         f"trailing axes {want[-inner:]}")
+
+
+def fused_qkv_kernel(x, rope_cos, rope_sins, norm_w, wq, sq, wk, sk, wv, sv, *, num_heads: int,
+                     num_kv_heads: int, head_dim: int, eps: float,
+                     out: Optional[Tuple[torch.Tensor, ...]] = None):
+    """Launch kernel #8; same arguments and results as
+    `fused_rmsnorm_qkv_plain`, all on one CUDA device, D = 64, widths
+    multiples of 64.  With `out`, k/v and their scales are written into
+    those views (see the module docstring) and returned."""
+    global qkv_launches
+    _check_x(x)
+    B, Sq, H = x.shape
+    N, dev = B * Sq, x.device
+    if head_dim != HEAD_DIM:
+        raise ValueError(f"fused decode kernel: head dim {head_dim} != {HEAD_DIM}")
+    if num_kv_heads < 1 or num_heads % num_kv_heads:
+        raise ValueError(f"fused decode kernel: {num_heads} q heads for {num_kv_heads} kv heads")
+    HqD, KD = num_heads * head_dim, num_kv_heads * head_dim
+    _check("norm weight", norm_w, torch.bfloat16, (H,), dev)
+    _check("rope cos", rope_cos, torch.float32, (N, HqD), dev)
+    _check("rope sins", rope_sins, torch.float32, (N, HqD), dev)
+    for name, w, s, width in (("wq", wq, sq, HqD), ("wk", wk, sk, KD), ("wv", wv, sv, KD)):
+        _check_weight(name, w, s, H, dev)
+        if w.shape[1] != width:
+            raise ValueError(f"fused decode kernel: {name} has {w.shape[1]} columns, not {width}")
+    q = torch.empty((B, Sq, HqD), dtype=torch.bfloat16, device=dev)
+    if out is None:
+        k8, v8 = (torch.empty((B, Sq, KD), dtype=torch.int8, device=dev) for _ in range(2))
+        ks, vs = (torch.empty((B, num_kv_heads, Sq), dtype=torch.bfloat16, device=dev)
+                  for _ in range(2))
+    else:
+        k8, v8, ks, vs = out
+        for name, t in (("k out", k8), ("v out", v8)):
+            _check_out(name, t, torch.int8, (B, Sq, KD), dev, 2)
+        for name, t in (("k scale out", ks), ("v scale out", vs)):
+            _check_out(name, t, torch.bfloat16, (B, num_kv_heads, Sq), dev, 1)
+        if v8.stride() != k8.stride() or vs.stride() != ks.stride():
+            raise ValueError("fused decode kernel: k and v outputs must share their strides")
+    rc = _load().fused_qkv_bf16(
+        x.data_ptr(), rope_cos.data_ptr(), rope_sins.data_ptr(), norm_w.data_ptr(),
+        wq.data_ptr(), sq.data_ptr(), wk.data_ptr(), sk.data_ptr(), wv.data_ptr(), sv.data_ptr(),
+        q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        N, Sq, H, num_heads, num_kv_heads, k8.stride(0), ks.stride(0), ks.stride(1),
+        float(eps), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused qkv kernel: launch failed with CUDA error {rc}")
+    qkv_launches += 1
+    return q, k8, v8, ks, vs
+
+
+def fused_o_mlp_kernel(attn, x, wo, so, norm_w, wg, sg, wu, su, wd, sd, *, eps: float):
+    """Launch kernel #9 (three launches); same arguments and result as
+    `fused_o_mlp_plain`, all on one CUDA device, widths multiples of 64."""
+    global o_mlp_launches
+    _check_x(x)
+    B, Sq, H = x.shape
+    N, dev = B * Sq, x.device
+    if (attn.dim() != 3 or attn.shape[:2] != x.shape[:2] or attn.shape[2] % TILE
+            or attn.dtype != torch.bfloat16 or not attn.is_contiguous() or attn.device != dev):
+        raise ValueError("fused decode kernel: attn must be a contiguous (B, Sq, Hq*D) bf16 "
+                         "tensor on x's device, Hq*D a multiple of 64")
+    HqD, I = attn.shape[2], wg.shape[-1]
+    _check_weight("wo", wo, so, HqD, dev)
+    _check_weight("wg", wg, sg, H, dev)
+    _check_weight("wu", wu, su, H, dev)
+    _check_weight("wd", wd, sd, I, dev)
+    _check("norm weight", norm_w, torch.bfloat16, (H,), dev)
+    if wo.shape[1] != H or wu.shape[1] != I or wd.shape[1] != H:
+        raise ValueError("fused decode kernel: o/gate/up/down widths do not chain")
+    x1 = torch.empty((N, H), dtype=torch.bfloat16, device=dev)
+    m = torch.empty((N, I), dtype=torch.bfloat16, device=dev)
+    o = torch.empty_like(x)
+    rc = _load().fused_o_mlp_bf16(
+        attn.data_ptr(), x.data_ptr(), wo.data_ptr(), so.data_ptr(), norm_w.data_ptr(),
+        wg.data_ptr(), sg.data_ptr(), wu.data_ptr(), su.data_ptr(), wd.data_ptr(), sd.data_ptr(),
+        x1.data_ptr(), m.data_ptr(), o.data_ptr(), N, HqD, H, I, float(eps),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused o/mlp kernel: launch failed with CUDA error {rc}")
+    o_mlp_launches += O_MLP_LAUNCHES
+    return o
+
+
+# ================================================================= front ends
+def _use_plain(x, impl: str) -> bool:
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown fused decode impl {impl!r}")
+    return impl == "plain" or x.device.type == "cpu"
+
+
+def fused_rmsnorm_qkv(x, rope_cos, rope_sins, norm_w, wq, sq, wk, sk, wv, sv, *,
+                      num_heads: int, num_kv_heads: int, head_dim: int, eps: float,
+                      out: Optional[Tuple[torch.Tensor, ...]] = None, impl: str = "auto"):
+    kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim, eps=eps)
+    args = (x, rope_cos, rope_sins, norm_w, wq, sq, wk, sk, wv, sv)
+    if not _use_plain(x, impl):
+        return fused_qkv_kernel(*args, out=out, **kw)
+    q, *kv = fused_rmsnorm_qkv_plain(*args, **kw)
+    if out is not None:
+        for dst, src in zip(out, kv):
+            dst.copy_(src)
+        kv = out
+    return (q, *kv)
+
+
+def fused_o_mlp(attn, x, wo, so, norm_w, wg, sg, wu, su, wd, sd, *, eps: float,
+                impl: str = "auto"):
+    fn = fused_o_mlp_plain if _use_plain(x, impl) else fused_o_mlp_kernel
+    return fn(attn, x, wo, so, norm_w, wg, sg, wu, su, wd, sd, eps=eps)

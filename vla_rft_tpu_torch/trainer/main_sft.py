@@ -77,7 +77,8 @@ def run(argv: Optional[List[str]] = None,
         raise SystemExit(f"unknown sft.mode {mode!r} (text | vla_flow | vla_adapter | vla_align)")
     dev = resolve_device(device)
     seed = config.trainer.get("seed", 0)
-    bundle = build_policy(preset, _policy_config(config), device=dev, seed=seed, trainable=True)
+    bundle = build_policy(preset, PolicyConfig.from_config(config), device=dev, seed=seed,
+                          trainable=True)
     dataset = SyntheticVLADataset(dataset_config(config, preset, bundle))
     gen = torch.Generator(device=dev).manual_seed(seed)
     if mode == "vla_flow":
@@ -99,14 +100,6 @@ def run(argv: Optional[List[str]] = None,
         if on_step is not None:
             on_step(step, losses[-1], seconds)
     return SFTRun(losses, trainer, bundle)
-
-
-def _policy_config(config) -> PolicyConfig:
-    return PolicyConfig(
-        num_images_in_input=int(config.actor_rollout_ref.model.get("num_images_in_input", 1)),
-        action_dim=config.processor.action_dim,
-        segment_length=config.data.video.segment_length,
-    )
 
 
 def dataset_config(config, preset: str, bundle) -> SyntheticVLAConfig:

@@ -1,4 +1,4 @@
-"""What the SFT trainers need of optax, with optax's semantics.
+"""The trainers' optimizers, with optax's semantics.
 
 The reference builds its optimizers from optax (vla_rft_tpu/trainer/
 sft_trainer.py): `chain(clip_by_global_norm(c), adamw(lr))`, optionally
@@ -25,10 +25,17 @@ module reproduces those steps on lists of torch parameters:
 
 The norm is summed in f32 (optax sums each leaf in its own dtype); for the
 f32 models the CPU tests compare, the two are the same computation.
+
+The GRPO actor's optimizer (vla_rft_tpu/trainer/optim.py) is built from the
+same pieces: `label_params` ('sigma' for the sigma net, 'base' otherwise),
+`make_optimizer` (two AdamW groups, warmup on the base group only),
+`clip_grads_per_module` (each top-level module clipped by its own norm) and
+`apply_updates_with_skip` (a non-finite gradient leaves parameters and
+optimizer state unchanged).
 """
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -92,3 +99,96 @@ class AdamW:
             u = (mu / bc1.to(dev, mu.dtype)) / (torch.sqrt(nu / bc2.to(dev, nu.dtype)) + self.eps)
             u = u + self.weight_decay * p
             p.copy_(p + (-lr) * u)
+
+
+# ------------------------------------------------- the GRPO actor's optimizer
+SIGMA_KEY = "sigma_net"
+
+
+def module_of(name: str) -> str:
+    """The top-level module of a parameter name (the reference's `_group_of`:
+    action_head, sigma_net, proprio_projector, noisy_action_projector)."""
+    return name.split(".", 1)[0]
+
+
+def label_params(names: Sequence[str]) -> Dict[str, str]:
+    """'sigma' for the sigma net's parameters, 'base' for everything else."""
+    return {n: "sigma" if module_of(n) == SIGMA_KEY else "base" for n in names}
+
+
+class GroupOptimizer:
+    """optax.multi_transform of two AdamWs over named parameters: each
+    parameter updated by the AdamW of its label."""
+
+    def __init__(self, named_params, labels: Dict[str, str], groups: Dict[str, "AdamW"]):
+        self.names = [n for n, _ in named_params]
+        self.labels, self.groups = labels, groups
+
+    def step(self, grads: Dict[str, torch.Tensor]) -> None:
+        for label, opt in self.groups.items():
+            opt.step([grads[n] for n in self.names if self.labels[n] == label])
+
+    def state_dict(self) -> Dict[str, dict]:
+        return {k: {"mu": opt.mu, "nu": opt.nu, "count": opt.count}
+                for k, opt in self.groups.items()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, dict]) -> None:
+        for k, opt in self.groups.items():
+            for dst, src in zip(opt.mu + opt.nu, state[k]["mu"] + state[k]["nu"]):
+                dst.copy_(src)
+            opt.count = int(state[k]["count"])
+
+
+def make_optimizer(named_params, optim_cfg, total_training_steps: int) -> GroupOptimizer:
+    """The actor's two-group AdamW (fsdp_workers.py:414-471): 'base' (the
+    flow head and projectors) at `lr` with a linear warmup from 0 over
+    lr_warmup_steps (or lr_warmup_steps_ratio of the run), weight decay
+    `weight_decay`; 'sigma' (the sigma net) at `sigma_lr` (default 2 lr),
+    no warmup, weight decay `sigma_weight_decay`."""
+    named_params = list(named_params)
+    base_lr = optim_cfg.get("lr", 1e-6)
+    wd = optim_cfg.get("weight_decay", 0.01)
+    b1, b2 = optim_cfg.get("betas", [0.9, 0.999])
+    sigma_lr = optim_cfg.get("sigma_lr", base_lr * 2.0)
+    sigma_wd = optim_cfg.get("sigma_weight_decay", 0.0)
+    warmup = optim_cfg.get("lr_warmup_steps", -1)
+    if warmup is None or warmup < 0:
+        warmup = int(optim_cfg.get("lr_warmup_steps_ratio", 0.0) * total_training_steps)
+    base_schedule = warmup_constant_schedule(0.0, base_lr, warmup) if warmup > 0 else base_lr
+    labels = label_params([n for n, _ in named_params])
+    of = lambda label: [p for n, p in named_params if labels[n] == label]
+    groups = {
+        "base": AdamW(of("base"), base_schedule, b1=b1, b2=b2, weight_decay=wd),
+        "sigma": AdamW(of("sigma"), sigma_lr, b1=b1, b2=b2, weight_decay=sigma_wd),
+    }
+    return GroupOptimizer(named_params, labels, groups)
+
+
+@torch.no_grad()
+def clip_grads_per_module(grads: Dict[str, torch.Tensor], max_norm: float):
+    """Clip each top-level module's gradients to max_norm by their own
+    global norm (dp_actor._optimizer_step).  Returns (clipped grads, the
+    norm of the clipped groups together, whether every norm is finite)."""
+    groups: Dict[str, List[str]] = {}
+    for n in grads:
+        groups.setdefault(module_of(n), []).append(n)
+    norms = {g: global_norm([grads[n] for n in ns]) for g, ns in sorted(groups.items())}
+    finite = torch.stack([torch.isfinite(v) for v in norms.values()]).all()
+    scales = {g: torch.clamp(max_norm / torch.clamp(v, min=1e-12), max=1.0)
+              for g, v in norms.items()}
+    clipped = {n: g * scales[module_of(n)].to(g.dtype) for n, g in grads.items()}
+    total = torch.sqrt(sum(torch.clamp(v, max=max_norm) ** 2 for v in norms.values()))
+    return clipped, total, finite
+
+
+def apply_updates_with_skip(opt: GroupOptimizer, grads: Dict[str, torch.Tensor],
+                            max_norm: float) -> torch.Tensor:
+    """Clip per module, then one optimizer step; when any group's gradient
+    is non-finite the step is skipped (parameters and optimizer state
+    unchanged) and the reported norm is NaN."""
+    clipped, total, finite = clip_grads_per_module(grads, max_norm)
+    if not bool(finite):
+        return torch.full_like(total, float("nan"))
+    opt.step(clipped)
+    return total

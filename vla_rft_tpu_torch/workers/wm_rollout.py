@@ -1,7 +1,7 @@
 """World-model interactive rollout: eager decode with a growing KV cache.
 
 Port of vla_rft_tpu/workers/wm_rollout.py (`generate_sequences` without the
-speculative path and without the fused int8-weight layers).  The reference
+speculative path).  The reference
 compiles the loop with `lax.scan`; here it is a Python loop over frames and
 tokens: per frame `interact_max_tokens` sampled visual tokens, each fed back
 as a one-token decode call, then the policy's `action_dim` action tokens
@@ -16,6 +16,15 @@ row into a read-only prefix cache, and every decode call reads it through
 tail and the response.  Without it, the whole prompt is prefilled per row
 and decode calls read one cache (kernel #5).  The TPU kernel's batch-block
 clamp (`prefix_run`) is not needed: the CUDA kernel reads prefix_map per row.
+
+With an int8-weight WM (`weights_int8`), an int8 KV cache and no qkv bias,
+every decode call on the card goes through `decode_step_fused` (kernels #8,
+#4 or #5, and #9 per layer); on the CPU the calls take the unfused int8
+route (`Decoder.forward` with `QuantLinear`), as the reference's CPU run
+does.  The prompt prefill always takes the unfused route (kernel #1 for
+attention).
+Each call samples from the one `torch.Generator` it is given; the trainer
+passes one per WM chunk.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from vla_rft_tpu_torch.models.transformer import Decoder
+from vla_rft_tpu_torch.models.transformer import Decoder, decode_step_fused
 from vla_rft_tpu_torch.ops.sampling import sample_token
 
 
@@ -119,6 +128,16 @@ def generate_sequences(
         logits, _ = wm(input_ids, cache=cache, cache_index=0, logits_last_only=True)
     last = logits[:, -1]
 
+    mc = wm.cfg
+    use_fused = (mc.weights_int8 and mc.kv_cache_dtype == "int8" and not mc.qkv_bias
+                 and input_ids.is_cuda)
+
+    def step(toks, ci, **kw):
+        """One decode call: the fused kernels when eligible, else the module."""
+        if use_fused:
+            return decode_step_fused(wm, toks, cache, ci, **shared_kw, **kw)
+        return wm(toks, cache=cache, cache_index=ci, **shared_kw, **kw)
+
     align = 128 if wm.cfg.kv_cache_dtype == "int8" else 8
     sample = lambda lg: sample_token(gen, lg, cfg.temperature, cfg.top_k, cfg.top_p,
                                      cfg.do_sample)
@@ -130,12 +149,11 @@ def generate_sequences(
             toks = []
             for i in range(V):
                 tok = sample(last)
-                logits, _ = wm(tok[:, None], cache=cache, cache_index=base + i, **shared_kw)
+                logits, _ = step(tok[:, None], base + i)
                 last = logits[:, 0]
                 toks.append(tok)
             act = action_ids[:, f + 1].to(torch.int32)
-            logits, _ = wm(act, cache=cache, cache_index=base + V, logits_last_only=True,
-                           **shared_kw)
+            logits, _ = step(act, base + V, logits_last_only=True)
             last = logits[:, -1]
             frames.append(torch.cat([torch.stack(toks, dim=1), act], dim=1))
     return torch.cat(frames, dim=1)
