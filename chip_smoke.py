@@ -5,8 +5,9 @@
 Phases, one JSON line each:
   1. build      - nvcc builds the kernel libraries from the sources in this
                   checkout (vla_rft_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu,
-                  decode_hd.cu and fused_decode_layer.cu), one nvcc per
-                  source, started together;
+                  decode_hd.cu, decode_heads.cu, fused_decode_layer.cu and
+                  fused_decode_attention.cu), one nvcc per source, started
+                  together;
   2. flash      - the flash kernel (#1) against its plain PyTorch twin on the
                   card over masked, padded and ragged cases and the WM's
                   1088-token prefill, and its time at the serving and the WM
@@ -27,6 +28,14 @@ Phases, one JSON line each:
                   kv_starts (also cutting the window to a few keys or none),
                   ragged lengths and GQA 14/2, and their time at the WM's
                   mid-rollout shape;
+     decode_heads - the same for #6 / #7 over the same draws in the 'heads'
+                  cache layout (rows, Hkv, S, D);
+     fused_decode_attention - the cache-writing one-token decode (#10)
+                  against its twin on bf16 and f32 caches at rows 0, 1,
+                  mid-window and last, kv_starts at or past the row, GQA
+                  14/2: written rows bit-equal, #7 over the cache #10 wrote
+                  agrees; its time at WM width (B 10, 16/16 x 64, S 1664);
+                  no main path launches it (the reference's neither);
   5. fused_decode - the fused decode-layer kernels of the int8-weight WM
                   (#8 RMSNorm + q/k/v + rope + k/v quantisation, #9 o_proj +
                   MLP, three launches) against their twins on one WM layer
@@ -54,6 +63,9 @@ Phases, one JSON line each:
   8. wm_plain   - generate_sequences without a shared prefix on 2 rows for 2
                   frames (not 8, to keep the script short): #1 exactly 24
                   times and #5 exactly 24 x 2 x 65 times;
+     wm_plain_heads - the same on the WM's weights with a 'heads' cache: #1
+                  24 times and #7 24 x 2 x 65 times, and the share of its
+                  tokens equal to wm_plain's (the same numbers and draws);
   9. wm_kernel_vs_plain - the WM's kernel path and plain path fed the same
                   prompts and the kernel path's tokens of frame 0 must agree
                   on the logits of every call;
@@ -63,11 +75,16 @@ Phases, one JSON line each:
                   2 samples x n = 4 (one WM call of 10 rows), every other
                   setting the config default: per step the stage times, the
                   peak memory and exact launches (#1 24 + 24, #4 24 x 521,
-                  #8 24 x 520, #9 3 x 24 x 520, #5 0); every trained expert
-                  leaf moved, every VLM / WM / tokenizer / LPIPS leaf
-                  bit-identical, metrics finite; a torch.profiler window of
-                  16 fused decode calls; the fused route against the unfused
-                  int8 route on frame 0's calls;
+                  #8 24 x 520, #9 3 x 24 x 520, every other kernel 0); every
+                  trained expert leaf moved, every VLM / WM / tokenizer /
+                  LPIPS leaf bit-identical, metrics finite; a torch.profiler
+                  window of 16 fused decode calls; the fused route against
+                  the unfused int8 route on frame 0's calls;
+     grpo_heads - the same with world_model_rollout.rollout.kv_layout=heads
+                  instead (a bf16 WM): #1 24 + 24 and #6 24 x 521 per step,
+                  every other kernel 0; a profiler window of 16 decode
+                  calls; the 'heads' route against the 'hd' route on the
+                  same weights and frame 0's calls;
  11. sft        - the supervised fine-tuning path at libero width through
                   trainer/main_sft.run: 3 vla_adapter steps of B = 16 (the
                   config's train_batch_size) with the vision towers frozen,
@@ -249,15 +266,18 @@ def bwd_work(q, k, kv_lens, kv_starts, q_offset, causal):
 
 def phase_build() -> dict:
     from vla_rft_tpu_torch.ops import attention, cuda_build, decode_attention_hd
-    from vla_rft_tpu_torch.ops import fused_decode_layer
+    from vla_rft_tpu_torch.ops import fused_decode_attention, fused_decode_layer
 
     t0 = time.perf_counter()
-    infos = cuda_build.build("flash_fwd", "flash_bwd", "decode_hd", "fused_decode_layer")
+    infos = cuda_build.build("flash_fwd", "flash_bwd", "decode_hd", "decode_heads",
+                             "fused_decode_layer", "fused_decode_attention")
     wall = time.perf_counter() - t0
     attention._load()
     attention._load_bwd()
-    decode_attention_hd._load()
+    decode_attention_hd._load("hd")
+    decode_attention_hd._load("heads")
     fused_decode_layer._load()
+    fused_decode_attention._load()
     libs = {}
     for name, info in infos.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines()
@@ -516,19 +536,24 @@ def phase_serving(attention) -> dict:
 
 
 def _decode_inputs(dec, gen, *, int8, B, Sq, G, Hkv, Sr, shared, own, starts=None, pm=None,
-                   Sp=1152, shared_len=WM_PREFIX, per_row=False):
-    """Random inputs of one decode call: (kernel fn, twin fn, info, tensors)."""
+                   Sp=1152, shared_len=WM_PREFIX, per_row=False, heads=False):
+    """Random inputs of one decode call: (kernel fn, twin fn, info, tensors).
+    `dec` is the layout's module (ops/decode_attention_hd.py, or with `heads`
+    ops/decode_attention.py, whose caches are the same draws transposed to
+    (rows, Hkv, S, D))."""
     dev = torch.device("cuda")
     Hq = Hkv * G
+    layout = ((lambda c: c.view(c.shape[0], c.shape[1], Hkv, 64).transpose(1, 2).contiguous())
+              if heads else (lambda c: c))
 
     def cache(rows, S):
         if int8:
-            c = [torch.randint(-127, 128, (rows, S, Hkv * 64), generator=gen, device=dev,
-                               dtype=torch.int8) for _ in range(2)]
+            c = [layout(torch.randint(-127, 128, (rows, S, Hkv * 64), generator=gen, device=dev,
+                                      dtype=torch.int8)) for _ in range(2)]
             s = tuple((torch.rand(rows, Hkv, S, generator=gen, device=dev) * 0.04 + 0.01)
                       .bfloat16() for _ in range(2))
             return c, s
-        return [torch.randn(rows, S, Hkv * 64, generator=gen, device=dev).bfloat16()
+        return [layout(torch.randn(rows, S, Hkv * 64, generator=gen, device=dev).bfloat16())
                 for _ in range(2)], None
 
     q = torch.randn(B, Sq, Hq, 64, generator=gen, device=dev).bfloat16()
@@ -555,7 +580,10 @@ def _decode_inputs(dec, gen, *, int8, B, Sq, G, Hkv, Sr, shared, own, starts=Non
     return kern, twin, info, t
 
 
-def phase_decode(dec) -> dict:
+def phase_decode(dec, heads: bool = False) -> dict:
+    """The split-cache decode kernels against their twins, then timed: #4 /
+    #5 over the 'hd' cache, or with `heads` #6 / #7 over the 'heads' cache
+    (`dec` the layout's module), on the same cases."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     B = N_SAMPLES * (N_ROLLOUTS + 1)
     uniform = [0] * 5 + [1] * 5  # each sample's 4 rollouts, then its gt row
@@ -591,7 +619,7 @@ def phase_decode(dec) -> dict:
                       own=[256, 1, 90, 200], starts=[0, 0, 10, 199]))
     results, err = [], {"shared": 0.0, "plain": 0.0}
     for case in cases:
-        kern, twin, info, _ = _decode_inputs(dec, gen, **case)
+        kern, twin, info, _ = _decode_inputs(dec, gen, heads=heads, **case)
         o = kern()
         torch.cuda.synchronize()
         ref = twin().float()
@@ -614,16 +642,17 @@ def phase_decode(dec) -> dict:
                                       pm=uniform, own=[mid] * B)),
                       ("plain", dict(int8=True, B=B, Sq=1, G=1, Hkv=16, Sr=1408, shared=False,
                                      own=[1095 + mid - 7] * B))):
-        kern, twin, info, t = _decode_inputs(dec, gen, **case)
+        kern, twin, info, t = _decode_inputs(dec, gen, heads=heads, **case)
         L = case["own"][0]
-        k_all = dec.dequantize(t["ck"][:, :L], t["sc"][0][:, :, :L], 64, torch.bfloat16)
-        v_all = dec.dequantize(t["cv"][:, :L], t["sc"][1][:, :, :L], 64, torch.bfloat16)
+        seq = (lambda c, n: c[:, :, :n]) if heads else (lambda c, n: c[:, :n])
+        k_all = dec.dequantize(seq(t["ck"], L), t["sc"][0][:, :, :L], 64, torch.bfloat16)
+        v_all = dec.dequantize(seq(t["cv"], L), t["sc"][1][:, :, :L], 64, torch.bfloat16)
         positions = B * L  # distinct cache positions the call must read
         if key == "shared":
             pm = t["pm"].long()
-            k_sh = dec.dequantize(t["sck"][:, :WM_PREFIX], t["ssc"][0][:, :, :WM_PREFIX], 64,
+            k_sh = dec.dequantize(seq(t["sck"], WM_PREFIX), t["ssc"][0][:, :, :WM_PREFIX], 64,
                                   torch.bfloat16)[pm]
-            v_sh = dec.dequantize(t["scv"][:, :WM_PREFIX], t["ssc"][1][:, :, :WM_PREFIX], 64,
+            v_sh = dec.dequantize(seq(t["scv"], WM_PREFIX), t["ssc"][1][:, :, :WM_PREFIX], 64,
                                   torch.bfloat16)[pm]
             k_all, v_all = torch.cat([k_sh, k_all], 1), torch.cat([v_sh, v_all], 1)
             positions += int(pm.unique().numel()) * WM_PREFIX
@@ -637,7 +666,7 @@ def phase_decode(dec) -> dict:
                       "eager_ms": cuda_ms(kern, 100), "plain_ms": graph_ms(twin, 10),
                       "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
                       **bound(nbytes, flops)}
-    out = {"phase": "decode", "cases": results, "max_abs_err": err,
+    out = {"phase": "decode_heads" if heads else "decode", "cases": results, "max_abs_err": err,
            "tolerance": f"|dO| <= {DEC_RTOL} * |O| + {DEC_ATOL}", "timed": timed}
     emit(out)
     return out
@@ -656,7 +685,32 @@ def wm_inputs(b, seed: int = 0):
     return tuple(torch.from_numpy(x).cuda() for x in (raw, pred, gt, ranges))
 
 
-def phase_wm_reward(attention, dec) -> dict:
+def _decode_counts(mods) -> dict:
+    """The launch count of every kernel a WM call can run; `mods` is
+    (ops.attention, ops.decode_attention_hd, ops.decode_attention,
+    ops.fused_decode_layer)."""
+    attention, dec, heads, fdl = mods
+    return {"flash_fwd": attention.launches, "decode_shared_hd": dec.shared_launches,
+            "decode_hd": dec.plain_launches, "decode_shared_heads": heads.shared_heads_launches,
+            "decode_heads": heads.heads_launches, "fused_qkv": fdl.qkv_launches,
+            "fused_o_mlp": fdl.o_mlp_launches}
+
+
+def _zero_decode_counts(mods) -> None:
+    attention, dec, heads, fdl = mods
+    attention.launches = dec.shared_launches = dec.plain_launches = 0
+    heads.shared_heads_launches = heads.heads_launches = 0
+    fdl.qkv_launches = fdl.o_mlp_launches = 0
+
+
+def _expect(**nonzero) -> dict:
+    """Expected launch counts: the given kernels, every other one 0."""
+    return {**{k: 0 for k in ("flash_fwd", "decode_shared_hd", "decode_hd",
+                              "decode_shared_heads", "decode_heads", "fused_qkv",
+                              "fused_o_mlp")}, **nonzero}
+
+
+def phase_wm_reward(mods) -> dict:
     from vla_rft_tpu_torch.models.factory import build_wm_reward
     from vla_rft_tpu_torch.trainer.grpo_trainer import (process_stage, reward_stage,
                                                         wm_rollout_stage, wm_rows)
@@ -675,17 +729,16 @@ def phase_wm_reward(attention, dec) -> dict:
         torch.cuda.reset_peak_memory_stats()
         ms = {}
         with torch.no_grad():
-            attention.launches = dec.shared_launches = dec.plain_launches = 0  # main path
+            _zero_decode_counts(mods)  # main path
             out, ms["process"] = host_ms(lambda: process_stage(b, ranges, raw, pred, gt, n, True))
             rows = wm_rows(b, out, n, True, True)
             (responses, gt_responses), ms["wm_rollout"] = host_ms(lambda: wm_rollout_stage(
                 b, b.wm, rows, 128, lambda ci: gen))
             (reward, metrics), ms["reward"] = host_ms(lambda: reward_stage(
                 b, out, responses, gt_responses, n, True, True, 8))
-            counts = {"flash_fwd": attention.launches, "decode_shared_hd": dec.shared_launches,
-                      "decode_hd": dec.plain_launches}  # read right after the main path
-        expect = {"flash_fwd": b.wm_cfg.num_layers,
-                  "decode_shared_hd": b.wm_cfg.num_layers * calls, "decode_hd": 0}
+            counts = _decode_counts(mods)  # read right after the main path
+        expect = _expect(flash_fwd=b.wm_cfg.num_layers,
+                         decode_shared_hd=b.wm_cfg.num_layers * calls)
         if counts != expect:
             raise AssertionError(f"wm_reward run {run}: launches {counts}, expected {expect}")
         if responses.shape != (total, roll.response_length) or gt_responses.shape != (
@@ -778,8 +831,8 @@ def profile_decode_steps(wmod, roll, rows, fused: bool = False, steps: int = 16)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
     dec_us = sum(e.time_range.end - e.time_range.start for e in kernels
-                 if "decode_hd_kernel" in e.name)
-    n_dec = sum(1 for e in kernels if "decode_hd_kernel" in e.name)
+                 if "decode_attend_kernel" in e.name)
+    n_dec = sum(1 for e in kernels if "decode_attend_kernel" in e.name)
     by_name = {}
     for e in kernels:
         for name in ("qkv_kernel", "o_proj_kernel", "gate_up_kernel", "down_kernel"):
@@ -794,34 +847,44 @@ def profile_decode_steps(wmod, roll, rows, fused: bool = False, steps: int = 16)
             "fused_kernel_ms_per_call": {k: v / 1e3 / steps for k, v in by_name.items()}}
 
 
-def phase_wm_plain(attention, dec, wm) -> dict:
-    """generate_sequences without a shared prefix (kernel #5) on 2 rows, 2
+def phase_wm_plain(mods, wm, heads: bool = False) -> dict:
+    """generate_sequences without a shared prefix (kernel #5, or #7 with
+    `heads`: the same WM's weights with a 'heads' cache) on 2 rows, 2
     frames."""
+    from vla_rft_tpu_torch.models.transformer import Decoder
     from vla_rft_tpu_torch.workers.wm_rollout import generate_sequences
 
     b, out = wm["bundle"], wm["out"]
+    wmod = b.wm
+    if heads:
+        with torch.device("cuda"):
+            wmod = Decoder(dataclasses.replace(b.wm.cfg, kv_layout="heads"))
+        wmod.load_state_dict(b.wm.state_dict(), strict=True)
+        wmod.eval().requires_grad_(False)
     Fn = 2
     roll = dataclasses.replace(b.roll_cfg, num_frames=Fn,
                                response_length=Fn * b.roll_cfg.tokens_per_frame)
     rows = torch.tensor([0, N_ROLLOUTS]).cuda()  # one rollout of each sample
     prompt = out["input_ids"][rows, : roll.prompt_length]
     with torch.no_grad():
-        attention.launches = dec.shared_launches = dec.plain_launches = 0  # main path
+        _zero_decode_counts(mods)  # main path
         resp, ms = host_ms(lambda: generate_sequences(
-            b.wm, torch.Generator(device="cuda").manual_seed(5), prompt,
+            wmod, torch.Generator(device="cuda").manual_seed(5), prompt,
             out["action_ids"][rows], roll))
-        counts = {"flash_fwd": attention.launches, "decode_shared_hd": dec.shared_launches,
-                  "decode_hd": dec.plain_launches}
+        counts = _decode_counts(mods)
     L, V = b.wm_cfg.num_layers, roll.interact_max_tokens
-    expect = {"flash_fwd": L, "decode_shared_hd": 0, "decode_hd": L * Fn * (V + 1)}
+    expect = _expect(flash_fwd=L, **{"decode_heads" if heads else "decode_hd": L * Fn * (V + 1)})
     if counts != expect:
         raise AssertionError(f"wm_plain: launches {counts}, expected {expect}")
     if resp.shape != (2, roll.response_length) or not bool(((resp >= 0) & (
             resp < b.wm_cfg.vocab_size)).all()):
         raise AssertionError(f"wm_plain: bad response {tuple(resp.shape)}")
-    res = {"phase": "wm_plain", "rows": 2, "frames": Fn, "rollout_ms": ms, "launches": counts}
+    res = {"phase": "wm_plain_heads" if heads else "wm_plain", "kv_layout": wmod.cfg.kv_layout,
+           "rows": 2, "frames": Fn, "rollout_ms": ms, "launches": counts}
+    if heads:  # the same draws as the hd route's wm_plain over the same numbers
+        res["tokens_equal_to_hd_route"] = float((resp == wm["plain_tokens"]).float().mean())
     emit(res)
-    return res
+    return {**res, "tokens": resp}
 
 
 def _policy_rows(rows):
@@ -1006,26 +1069,23 @@ def phase_fused_decode(fdl) -> dict:
 GRPO_STEPS = 2
 
 
-def phase_grpo(attention, dec, fdl) -> dict:
-    """Two GRPO steps at the libero preset through the CLI entry point."""
+def _drive_grpo(mods, argv, expect_fn):
+    """GRPO_STEPS steps of main_vla_rft_grpo.run(argv) at the libero preset
+    with every kernel count set to 0 just before each step and read just
+    after it; each step's launches must equal expect_fn(trainer), its
+    metrics be finite, every trained expert leaf must move and every frozen
+    leaf stay bit-identical.  Returns (trainer, step records, expected
+    launches, run seconds, expert leaves, frozen leaves)."""
     import tempfile
 
-    from vla_rft_tpu_torch.models.action_head import sample_noisy_actions
-    from vla_rft_tpu_torch.models.transformer import decode_step_fused
     from vla_rft_tpu_torch.trainer import main_vla_rft_grpo
-    from vla_rft_tpu_torch.trainer.grpo_trainer import process_stage, wm_rows
-    from vla_rft_tpu_torch.workers.flow_actor import rollout_from_hidden
 
     ckpt_dir = tempfile.mkdtemp(prefix="grpo_ckpt_")
-    argv = ["world_model_rollout.rollout.weights_int8=true",
-            f"data.train_batch_size={N_SAMPLES}", f"actor_rollout_ref.rollout.n={N_ROLLOUTS}",
-            f"trainer.total_training_steps={GRPO_STEPS}", f"trainer.default_local_dir={ckpt_dir}"]
+    argv = argv + [f"data.train_batch_size={N_SAMPLES}",
+                   f"actor_rollout_ref.rollout.n={N_ROLLOUTS}",
+                   f"trainer.total_training_steps={GRPO_STEPS}",
+                   f"trainer.default_local_dir={ckpt_dir}"]
     start, steps = {}, []
-
-    def counts():
-        return {"flash_fwd": attention.launches, "decode_shared_hd": dec.shared_launches,
-                "decode_hd": dec.plain_launches, "fused_qkv": fdl.qkv_launches,
-                "fused_o_mlp": fdl.o_mlp_launches}
 
     def on_start(trainer):
         b = trainer.bundle
@@ -1035,11 +1095,10 @@ def phase_grpo(attention, dec, fdl) -> dict:
     def on_step_start(step):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        attention.launches = dec.shared_launches = dec.plain_launches = 0  # the main path
-        fdl.qkv_launches = fdl.o_mlp_launches = 0
+        _zero_decode_counts(mods)  # the main path
 
     def on_step_end(step, metrics):
-        steps.append({"step": step, "launches": counts(),  # read right after the step
+        steps.append({"step": step, "launches": _decode_counts(mods),  # read right after
                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                       "timing_s": {k[len("timing_s/"):]: v for k, v in metrics.items()
                                    if k.startswith("timing_s/")},
@@ -1050,13 +1109,7 @@ def phase_grpo(attention, dec, fdl) -> dict:
     tr = main_vla_rft_grpo.run(argv, on_start, on_step_start, on_step_end)
     run_s = time.perf_counter() - t0
     b = tr.bundle
-    L, roll = b.wm_cfg.num_layers, b.roll_cfg
-    fused_calls = roll.num_frames * (roll.interact_max_tokens + 1)
-    # #1: the Qwen context forward and the WM's shared-prefix prefill; #4:
-    # the prompt tails' prefill (7 tokens, unfused) and every fused call
-    expect = {"flash_fwd": b.vla_cfg.llm.num_layers + L, "decode_shared_hd": L * (fused_calls + 1),
-              "decode_hd": 0, "fused_qkv": L * fused_calls,
-              "fused_o_mlp": fdl.O_MLP_LAUNCHES * L * fused_calls}
+    expect = expect_fn(tr)
     for s in steps:
         if s["launches"] != expect:
             raise AssertionError(f"grpo step {s['step']}: launches {s['launches']}, "
@@ -1073,16 +1126,19 @@ def phase_grpo(attention, dec, fdl) -> dict:
                              f"frozen leaves that moved {moved[:5]} ({len(moved)})")
     n_expert = len(start["expert"])
     n_frozen = sum(len(start[m]) for m in ("vla", "wm", "tokenizer", "lpips"))
-    del start
+    return tr, steps, expect, run_s, n_expert, n_frozen
 
-    # the decode calls of a next batch's rollout rows (outside the main path):
-    # a profiler window of the fused route, and frame 0 of the fused route
-    # against the unfused int8 route on the same prompts and tokens
-    n = N_ROLLOUTS
-    wm_q = tr._wm_gen_model()
+
+def _next_rollout_rows(tr, seed: int):
+    """The WM rows of a next batch's rollout (outside the main path)."""
+    from vla_rft_tpu_torch.models.action_head import sample_noisy_actions
+    from vla_rft_tpu_torch.trainer.grpo_trainer import process_stage, wm_rows
+    from vla_rft_tpu_torch.workers.flow_actor import rollout_from_hidden
+
+    b, n = tr.bundle, N_ROLLOUTS
     with torch.no_grad():
         batch = tr.put_batch(tr.dataset.next_batch())
-        gen = torch.Generator(device="cuda").manual_seed(21)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
         hidden = tr.encode(batch).repeat_interleave(n, 0)
         noise = sample_noisy_actions(gen, batch["actions"].repeat_interleave(n, 0), b.expert_cfg)
         acts = rollout_from_hidden(b.expert, gen, hidden, noise["noise"],
@@ -1090,7 +1146,36 @@ def phase_grpo(attention, dec, fdl) -> dict:
                                    b.expert_cfg.num_flow_steps)["predicted_actions"]
         wm_inputs = process_stage(b, tr.action_ranges, batch["raw_pixel_values"], acts,
                                   batch["actions"], n, True)
-        rows = wm_rows(b, wm_inputs, n, True, True)
+        return wm_rows(b, wm_inputs, n, True, True), gen
+
+
+def phase_grpo(mods) -> dict:
+    """Two GRPO steps at the libero preset through the CLI entry point, with
+    the int8-weight WM (fused decode layers #8 / #9)."""
+    from vla_rft_tpu_torch.models.transformer import decode_step_fused
+
+    fdl = mods[3]
+
+    def expect_fn(tr):
+        # #1: the Qwen context forward and the WM's shared-prefix prefill; #4:
+        # the prompt tails' prefill (7 tokens, unfused) and every fused call
+        b = tr.bundle
+        L, roll = b.wm_cfg.num_layers, b.roll_cfg
+        fused_calls = roll.num_frames * (roll.interact_max_tokens + 1)
+        return _expect(flash_fwd=b.vla_cfg.llm.num_layers + L,
+                       decode_shared_hd=L * (fused_calls + 1), fused_qkv=L * fused_calls,
+                       fused_o_mlp=fdl.O_MLP_LAUNCHES * L * fused_calls)
+
+    tr, steps, expect, run_s, n_expert, n_frozen = _drive_grpo(
+        mods, ["world_model_rollout.rollout.weights_int8=true"], expect_fn)
+    b, roll = tr.bundle, tr.bundle.roll_cfg
+    fused_calls = roll.num_frames * (roll.interact_max_tokens + 1)
+
+    # the decode calls of a next batch's rollout rows (outside the main path):
+    # a profiler window of the fused route, and frame 0 of the fused route
+    # against the unfused int8 route on the same prompts and tokens
+    wm_q = tr._wm_gen_model()
+    rows, gen = _next_rollout_rows(tr, 21)
     trace = profile_decode_steps(wm_q, roll, rows, fused=True)
     tails, actions, pm, _ = _policy_rows(rows)
     with torch.no_grad():
@@ -1105,15 +1190,157 @@ def phase_grpo(attention, dec, fdl) -> dict:
     per_call, errs = _rel_logit_err(k, p)
     if not (errs["max_rel_logit_err"] <= WM_LOGIT_TOL and bool(torch.isfinite(k).all())):
         raise AssertionError(f"fused vs unfused int8 route: {errs} > {WM_LOGIT_TOL}")
-    out = {"phase": "grpo", "preset": "libero", "samples": N_SAMPLES, "n": n,
-           "weights_int8": True, "wm_rows_per_call": N_SAMPLES * (n + 1), "run_s": run_s,
-           "steps": steps, "expected_launches_per_step": expect,
+    out = {"phase": "grpo", "preset": "libero", "samples": N_SAMPLES, "n": N_ROLLOUTS,
+           "weights_int8": True, "wm_rows_per_call": N_SAMPLES * (N_ROLLOUTS + 1),
+           "run_s": run_s, "steps": steps, "expected_launches_per_step": expect,
            "fused_decode_calls_per_step": fused_calls, "expert_leaves_moved": n_expert,
            "frozen_leaves_bit_identical": n_frozen, "fused_decode_trace": trace,
            "fused_vs_unfused_frame0": {"calls": len(per_call), "rows": int(tails.shape[0]),
                                        **errs, "tolerance": WM_LOGIT_TOL}}
     emit(out)
     del tr, wm_q
+    return out
+
+
+def phase_grpo_heads(mods) -> dict:
+    """Two GRPO steps at the libero preset with the WM's KV cache in the
+    'heads' layout (every other setting the default: a bf16 WM, int8 KV
+    cache), so every WM decode call runs kernel #6; then a profiler window
+    of 16 decode calls and the 'heads' route against the 'hd' route on the
+    same weights and frame 0's tokens."""
+    from vla_rft_tpu_torch.models.transformer import Decoder
+
+    def expect_fn(tr):
+        # #1: the Qwen context forward and the WM's shared-prefix prefill; #6:
+        # the prompt tails' prefill (7 tokens) and every decode call
+        b = tr.bundle
+        L, roll = b.wm_cfg.num_layers, b.roll_cfg
+        calls = 1 + roll.num_frames * (roll.interact_max_tokens + 1)
+        return _expect(flash_fwd=b.vla_cfg.llm.num_layers + L, decode_shared_heads=L * calls)
+
+    tr, steps, expect, run_s, n_expert, n_frozen = _drive_grpo(
+        mods, ["world_model_rollout.rollout.kv_layout=heads"], expect_fn)
+    b, roll = tr.bundle, tr.bundle.roll_cfg
+    if b.wm.cfg.kv_layout != "heads" or tr._wm_gen_model() is not b.wm:
+        raise AssertionError(f"the step's WM runs {b.wm.cfg.kv_layout!r}")
+    rows, gen = _next_rollout_rows(tr, 22)
+    trace = profile_decode_steps(b.wm, roll, rows)  # outside the main path
+    tails, actions, pm, _ = _policy_rows(rows)
+    with torch.device("cuda"):
+        wm_hd = Decoder(dataclasses.replace(b.wm.cfg, kv_layout="hd"))
+    wm_hd.load_state_dict(b.wm.state_dict(), strict=True)
+    wm_hd.eval().requires_grad_(False)
+    toks = torch.randint(0, 4375, (tails.shape[0], roll.interact_max_tokens), generator=gen,
+                         device="cuda")
+    logits = {}
+    with torch.no_grad():
+        for name, wmod in (("heads", b.wm), ("hd", wm_hd)):
+            call = lambda ids, cache, ci, kw, last, m=wmod: m(
+                ids, cache=cache, cache_index=ci, logits_last_only=last, **kw)[0]
+            logits[name] = _frame0_logits(wmod, roll, rows.prefixes, tails, actions, pm, toks,
+                                          call)
+    per_call, errs = _rel_logit_err(logits["heads"], logits["hd"])
+    if not (errs["max_rel_logit_err"] <= WM_LOGIT_TOL
+            and bool(torch.isfinite(logits["heads"]).all())):
+        raise AssertionError(f"heads vs hd route: {errs} > {WM_LOGIT_TOL}")
+    out = {"phase": "grpo_heads", "preset": "libero", "samples": N_SAMPLES, "n": N_ROLLOUTS,
+           "kv_layout": "heads", "weights_int8": False,
+           "wm_rows_per_call": N_SAMPLES * (N_ROLLOUTS + 1), "run_s": run_s, "steps": steps,
+           "expected_launches_per_step": expect, "expert_leaves_moved": n_expert,
+           "frozen_leaves_bit_identical": n_frozen, "decode_step_trace": trace,
+           "heads_vs_hd_frame0": {"calls": len(per_call), "rows": int(tails.shape[0]), **errs,
+                                  "bit_equal": bool(torch.equal(logits["heads"], logits["hd"])),
+                                  "tolerance": WM_LOGIT_TOL}}
+    emit(out)
+    del tr, wm_hd
+    return out
+
+
+def fda_work(B, Hq, Hkv, D, idx, kv_starts, elem: int):
+    """(bytes, flops) of one #10 call: q and the new K/V rows read, the rows
+    written, the valid history [kv_starts[b], idx) of each (row, kv head)
+    read once for K and V, O written; 4*D flops per (query head, key),
+    the current token included."""
+    keys = int(torch.clamp(idx - kv_starts, min=0).sum()) * Hkv  # history rows x kv heads
+    io = 2 * (B * Hq * D * elem) + 2 * 2 * B * Hkv * D * elem + 2 * keys * D * elem
+    return io, 4 * D * (keys // Hkv + B) * Hq
+
+
+def phase_fused_decode_attention(fda, heads) -> dict:
+    """Kernel #10 against its twin on bf16 and f32 caches: the written rows
+    bit-equal, the output within the decode tolerance (f32: 1e-5); #7 over
+    the cache #10 wrote agrees with it; then timed at the WM's width."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    B, L, S, li = 10, 2, 1664, 1
+    cases = [
+        # (cache dtype, Hq, Hkv, idx, kv_starts): rows 0, 1, mid-window, the
+        # last; starts at or past the row (only the current token); GQA 14/2
+        (torch.bfloat16, 16, 16, 0, [0] * B),
+        (torch.bfloat16, 16, 16, 1, [0, 1] * 5),
+        (torch.bfloat16, 16, 16, 1379, [0, 7, 1379, 1500, 0, 3, 1378, 0, 100, 0]),
+        (torch.bfloat16, 16, 16, S - 1, [0, S - 1, 5, 0, 9, 0, 0, 1, 2, 3]),
+        (torch.float32, 16, 16, 1379, [0, 7, 1379, 1500, 0, 3, 1378, 0, 100, 0]),
+        (torch.float32, 16, 16, S - 1, [0] * B),
+        (torch.bfloat16, 14, 2, 700, [0, 0, 13, 699, 700, 0, 0, 5, 0, 0]),
+        (torch.float32, 14, 2, 0, [0] * B),
+    ]
+    results, err = [], 0.0
+    fda.launches = 0  # no main path launches #10: its count is this loop's
+    for dt, Hq, Hkv, idx, starts in cases:
+        rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(dt)
+        ck, cv = rnd(L, B, Hkv, S, 64), rnd(L, B, Hkv, S, 64)
+        q, kn, vn = rnd(B, 1, Hq, 64), rnd(B, 1, Hkv, 64), rnd(B, 1, Hkv, 64)
+        ks = torch.tensor(starts, dtype=torch.int32, device=dev)
+        rck, rcv = ck.clone(), cv.clone()
+        o, _, _ = fda.fused_decode_attention_kernel(q, kn, vn, ck, cv, li, idx, ks)
+        torch.cuda.synchronize()
+        ref = fda.fused_decode_attention_plain(q, kn, vn, rck, rcv, li, idx, ks)[0].float()
+        d = (o.float() - ref).abs()
+        rtol, atol = (DEC_RTOL, DEC_ATOL) if dt == torch.bfloat16 else (1e-5, 1e-5)
+        rows_equal = torch.equal(ck, rck) and torch.equal(cv, rcv)
+        if not (rows_equal and bool(torch.isfinite(o.float()).all())
+                and bool((d <= rtol * ref.abs() + atol).all())):
+            raise AssertionError(f"fused_decode_attention case {dt} {Hq}/{Hkv} idx {idx}: "
+                                 f"max|dO| {d.max().item()}, rows equal {rows_equal}")
+        entry = {"dtype": str(dt).split(".")[-1], "Hq": Hq, "Hkv": Hkv, "cache_index": idx,
+                 "kv_starts": starts, "max_abs_err": d.max().item(),
+                 "written_rows_bit_equal": rows_equal}
+        if dt == torch.bfloat16 and Hq == Hkv:  # #7 over the cache #10 wrote
+            o7 = heads.decode_kernel(q, ck[li], cv[li], kv_lens=torch.full_like(ks, idx + 1),
+                                     q_offset=torch.full_like(ks, idx),
+                                     kv_starts=torch.clamp(ks, max=idx))
+            d7 = (o7.float() - o.float()).abs()
+            if not bool((d7 <= DEC_RTOL * o.float().abs() + DEC_ATOL).all()):
+                raise AssertionError(f"#7 over #10's cache, idx {idx}: {d7.max().item()}")
+            entry["max_abs_diff_vs_decode_heads"] = d7.max().item()
+        err = max(err, d.max().item())
+        results.append(entry)
+    launches = fda.launches
+
+    # time at the WM's width: 10 rows, 16/16 heads of 64, S 1664, bf16, the
+    # plain route's mid-rollout position (1095 + 4 * 71 = 1379 cached rows)
+    idx = 1379
+    ck, cv = (torch.randn(L, B, 16, S, 64, generator=gen, device=dev).bfloat16() for _ in range(2))
+    q = torch.randn(B, 1, 16, 64, generator=gen, device=dev).bfloat16()
+    kn, vn = (torch.randn(B, 1, 16, 64, generator=gen, device=dev).bfloat16() for _ in range(2))
+    ks = torch.zeros(B, dtype=torch.int32, device=dev)
+    kern = lambda: fda.fused_decode_attention_kernel(q, kn, vn, ck, cv, li, idx, ks)
+    twin = lambda: fda.fused_decode_attention_plain(q, kn, vn, ck, cv, li, idx, ks)
+    # SDPA over the written cache's valid rows (a yardstick that skips the
+    # write; the port never calls it)
+    qt, kt, vt = q.transpose(1, 2), ck[li, :, :, :idx + 1], cv[li, :, :, :idx + 1]
+    nbytes, flops = fda_work(B, 16, 16, 64, idx, ks, 2)
+    timed = {"B": B, "Hq": 16, "Hkv": 16, "D": 64, "S": S, "cache_index": idx, "dtype": "bf16",
+             "kernel_ms": graph_ms(kern), "eager_ms": cuda_ms(kern, 100),
+             "plain_ms": graph_ms(twin, 10),
+             "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+             **bound(nbytes, flops)}
+    out = {"phase": "fused_decode_attention", "cases": results, "launches": launches,
+           "max_abs_err": err,
+           "tolerance": f"bf16 |dO| <= {DEC_RTOL} * |O| + {DEC_ATOL}, f32 1e-5 * |O| + 1e-5; "
+                        f"written rows bit-equal", "timed": timed}
+    emit(out)
     return out
 
 
@@ -1309,7 +1536,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vla_rft_tpu_torch.ops import attention
+    from vla_rft_tpu_torch.ops import decode_attention as heads
     from vla_rft_tpu_torch.ops import decode_attention_hd as dec
+    from vla_rft_tpu_torch.ops import fused_decode_attention as fda
     from vla_rft_tpu_torch.ops import fused_decode_layer as fdl
 
     # float32 references stay float32 (the defaults, stated)
@@ -1326,19 +1555,26 @@ def main() -> int:
         held[name] = torch.cuda.memory_allocated() / 2 ** 30  # what the phase leaves allocated
         return out
 
+    mods = (attention, dec, heads, fdl)  # the kernels a WM call can launch
     timed("build", phase_build)
     flash = timed("flash", phase_flash, attention)
     flash_bwd = timed("flash_bwd", phase_flash_bwd, attention)
     decode = timed("decode", phase_decode, dec)
+    decode_heads = timed("decode_heads", phase_decode, heads, True)
+    fused_attn = timed("fused_decode_attention", phase_fused_decode_attention, fda, heads)
     fused = timed("fused_decode", phase_fused_decode, fdl)
     serving = timed("serving", phase_serving, attention)
-    wm = timed("wm_reward", phase_wm_reward, attention, dec)
-    plain = timed("wm_plain", phase_wm_plain, attention, dec, wm)
+    wm = timed("wm_reward", phase_wm_reward, mods)
+    plain = timed("wm_plain", phase_wm_plain, mods, wm)
+    wm["plain_tokens"] = plain["tokens"]
+    plain_heads = timed("wm_plain_heads", phase_wm_plain, mods, wm, True)
     timed("wm_kernel_vs_plain", phase_wm_kernel_vs_plain, wm)
     wm_launches = wm["json"]["runs"][0]["launches"]
     del wm  # frees the WM reward models before the training phases
     torch.cuda.empty_cache()
-    grpo = timed("grpo", phase_grpo, attention, dec, fdl)
+    grpo = timed("grpo", phase_grpo, mods)
+    torch.cuda.empty_cache()
+    grpo_heads = timed("grpo_heads", phase_grpo_heads, mods)
     torch.cuda.empty_cache()
     sft = timed("sft", phase_sft, attention)
     emit({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t0, 1),
@@ -1366,6 +1602,9 @@ def main() -> int:
                                         flash_bwd["max_abs_err"][key],
                                         flash_bwd["timed"][shape][key]), "shape": desc})
     dec_src = "vla_rft_tpu_torch/csrc/decode_hd.cu"
+    heads_src = "vla_rft_tpu_torch/csrc/decode_heads.cu"
+    heads_n = {k: sum(s["launches"][k] for s in grpo_heads["steps"])
+               for k in grpo_heads["steps"][0]["launches"]}
     fused_src = "vla_rft_tpu_torch/csrc/fused_decode_layer.cu"
     grpo_n = {k: sum(s["launches"][k] for s in grpo["steps"]) for k in grpo["steps"][0]["launches"]}
     fused_entries = []
@@ -1393,6 +1632,21 @@ def main() -> int:
               decode["timed"]["plain"]),
         *bwd_entries,
         *fused_entries,
+        {**entry("decode_shared_heads", heads_src, "vla_rft_tpu/ops/decode_attention.py:183",
+                 heads_n["decode_shared_heads"], decode_heads["max_abs_err"]["shared"],
+                 decode_heads["timed"]["shared"]),
+         "shape": f"B=10 Sq=1 Hq=Hkv=16 D=64 int8, 2 prefixes of {WM_PREFIX} + 291 own; "
+                  f"launches: {GRPO_STEPS} grpo_heads steps"},
+        {**entry("decode_heads", heads_src, "vla_rft_tpu/ops/decode_attention.py:36",
+                 plain_heads["launches"]["decode_heads"], decode_heads["max_abs_err"]["plain"],
+                 decode_heads["timed"]["plain"]),
+         "shape": "B=10 Sq=1 Hq=Hkv=16 D=64 int8, 1379 keys; launches: wm_plain_heads "
+                  "(2 rows, 2 frames)"},
+        {**entry("fused_decode_attention", "vla_rft_tpu_torch/csrc/fused_decode_attention.cu",
+                 "vla_rft_tpu/ops/fused_decode_attention.py:31", fused_attn["launches"],
+                 fused_attn["max_abs_err"], fused_attn["timed"]),
+         "shape": "B=10 Hq=Hkv=16 D=64 S=1664 bf16, row 1379; no main path launches it (the "
+                  "reference calls it only from its tests): launches are its own phase's"},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

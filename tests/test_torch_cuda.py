@@ -13,7 +13,12 @@ keep P in f32 and differ from their twins only by f32 summation order before
 O is rounded to bf16, so their O gets rtol 2^-7 (one bf16 ulp) and atol 2e-3.
 The flash backward kernels round p and dS to bf16 for their second products
 and dq/dk/dv to bf16 at the end, and sum in f32 in another order than the
-f32 twin: each gradient gets max|d| <= 2^-7 max|ref| + 1e-3.
+f32 twin: each gradient gets max|d| <= 2^-7 max|ref| + 1e-3.  The 'heads'
+decode kernels (#6/#7) take the decode tolerance and equal #4/#5 bit for
+bit on the same numbers; the cache-writing decode (#10) writes rows
+bit-equal to its twin's, and its O gets the decode tolerance in bf16 and
+1e-5 (relative and absolute) in f32, the same f32 arithmetic in another
+order.
 """
 import dataclasses
 
@@ -602,3 +607,162 @@ def test_tiny_grpo_step_launches_the_fused_kernels(cuda_device, tmp_path):
     assert (fdl.qkv_launches - before[0], fdl.o_mlp_launches - before[1]) == (
         L * calls, fdl.O_MLP_LAUNCHES * L * calls)
     assert all(np.isfinite(v) for v in metrics.values())
+
+
+# ------------------------------------ 'heads' decode (#6, #7) and #10
+from vla_rft_tpu_torch.ops import decode_attention as theads  # noqa: E402
+from vla_rft_tpu_torch.ops import fused_decode_attention as tfda  # noqa: E402
+
+
+def _to_heads(c, Hkv):
+    """An 'hd' layer slice (rows, S, Hkv*64) as the 'heads' one (rows, Hkv, S, 64)."""
+    return c.view(c.shape[0], c.shape[1], Hkv, 64).transpose(1, 2).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8,Sq,G,per_row", DECODE_CASES)
+def test_heads_decode_kernels_match_plain_twins(cuda_device, int8, Sq, G, per_row):
+    """#6 / #7 against their twins, and equal bit for bit to #4 / #5 on the
+    same numbers in the 'hd' layout (the one kernel over other strides)."""
+    dev, gen = cuda_device, torch.Generator(device=cuda_device).manual_seed(Sq + G + 50)
+    B, Hkv, Sr, Sp, shared_len = 6, 16 // G if G < 7 else 2, 200, 256, 250
+    Hq = Hkv * G
+    q, (ck, cv), sc = _decode_inputs(dev, gen, B, Sq, Hq, Hkv, Sr, int8)
+    _, (sck, scv), ssc = _decode_inputs(dev, gen, 1, Sq, Hq, Hkv, Sp, int8, rows=2)
+    hk, hv, hsk, hsv = (_to_heads(c, Hkv) for c in (ck, cv, sck, scv))
+    pm = torch.tensor([1, 0, 0, 1, 1, 0] if per_row else [0, 0, 0, 1, 1, 1], device=dev)
+    own = torch.tensor([Sq, 17, 200, 63, 120, 1 + Sq], device=dev)
+    kv_lens = shared_len + own
+    kw = dict(shared_len=shared_len, kv_lens=kv_lens, q_offset=kv_lens - Sq,
+              shared_starts=torch.tensor([0, 0, 9, 0, 3, 0], device=dev),
+              scales=None if sc is None else tuple(sc),
+              shared_scales=None if ssc is None else tuple(ssc))
+    before = (theads.shared_heads_launches, tdec.shared_launches)
+    o = theads.decode_shared_kernel(q, hk, hv, hsk, hsv, pm, **kw)
+    o_hd = tdec.decode_shared_kernel(q, ck, cv, sck, scv, pm, **kw)
+    torch.cuda.synchronize()
+    assert (theads.shared_heads_launches, tdec.shared_launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(o.float(), theads.decode_shared_plain(
+        q, hk, hv, hsk, hsv, pm, **kw).float(), **DEC_TOL)
+    assert torch.equal(o, o_hd)
+
+    kv_lens = torch.tensor([Sq, 40, 200, 111, 7 + Sq, 150], device=dev)
+    pkw = dict(kv_lens=kv_lens, q_offset=kv_lens - Sq,
+               kv_starts=torch.tensor([0, 5, 0, 100, 0, 149], device=dev),
+               scales=None if sc is None else tuple(sc))
+    before = theads.heads_launches
+    o = theads.decode_kernel(q, hk, hv, **pkw)
+    torch.cuda.synchronize()
+    assert theads.heads_launches == before + 1
+    torch.testing.assert_close(o.float(), theads.decode_plain(q, hk, hv, **pkw).float(),
+                               **DEC_TOL)
+    assert torch.equal(o, tdec.decode_kernel(q, ck, cv, **pkw))
+
+
+@pytest.mark.cuda
+def test_heads_decode_kernel_refuses_the_other_layout(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q, (ck, cv), sc = _decode_inputs(cuda_device, gen, 2, 1, 4, 4, 64, True)
+    kw = dict(kv_lens=torch.tensor([5, 6], device=cuda_device),
+              q_offset=torch.tensor([4, 5], device=cuda_device), scales=tuple(sc))
+    with pytest.raises(ValueError, match=r"\(rows, Hkv, S, D\)"):
+        theads.decode_kernel(q, ck, cv, **kw)
+    with pytest.raises(ValueError, match=r"\(rows, S, Hkv\*D\)"):
+        tdec.decode_kernel(q, _to_heads(ck, 4), _to_heads(cv, 4), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights_int8", [False, True])
+def test_heads_decoder_launches_the_heads_kernels_and_never_a_twin(cuda_device, monkeypatch,
+                                                                   weights_int8):
+    """A 2-layer WM-width decoder with an int8 'heads' cache on the card: a
+    shared-prefix rollout launches #6 once per layer per call (prefix
+    prefill: #1), a prefix-free one #7; neither twin runs, no 'hd' kernel
+    and, with int8 weights, no fused layer kernel (the unfused int8 route,
+    as in the reference)."""
+    from vla_rft_tpu_torch.models.transformer import quantize_decoder_params
+    from vla_rft_tpu_torch.ops import fused_decode_layer as fdl
+    from vla_rft_tpu_torch.workers.wm_rollout import WMRolloutConfig, generate_sequences
+
+    cfg = TransformerConfig(vocab_size=512, hidden_size=1024, intermediate_size=1024,
+                            num_layers=2, num_heads=16, num_kv_heads=16, kv_cache_dtype="int8",
+                            kv_layout="heads")
+    with torch.device(cuda_device):
+        wm = init_random_(Decoder(cfg), seed=0)
+        if weights_int8:
+            q = Decoder(dataclasses.replace(cfg, weights_int8=True))
+            q.load_state_dict(quantize_decoder_params(wm.state_dict(), q.cfg), strict=True)
+            wm = q
+    for name in ("decode_shared_plain", "decode_plain"):
+        monkeypatch.setattr(theads, name, lambda *a, **k: pytest.fail("twin on the card"))
+    F, V, A = 2, 4, 7
+    roll = WMRolloutConfig(prompt_length=96 + A, response_length=F * (V + A), num_frames=F,
+                           interact_max_tokens=V, action_dim=A, do_sample=False,
+                           cache_segments=2)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    tail = torch.randint(0, 512, (4, A), generator=gen, device=cuda_device)
+    actions = torch.randint(0, 512, (4, F + 1, A), generator=gen, device=cuda_device)
+    head = torch.randint(0, 512, (2, 96), generator=gen, device=cuda_device)
+    counts = lambda: (tattn.launches, theads.shared_heads_launches, theads.heads_launches,
+                      tdec.shared_launches, tdec.plain_launches, fdl.qkv_launches)
+    L, calls = cfg.num_layers, F * (V + 1)
+    with torch.no_grad():
+        c0 = counts()
+        out = generate_sequences(wm, torch.Generator(device=cuda_device), tail, actions, roll,
+                                 shared_prefix=head, prefix_map=torch.tensor([0, 0, 1, 1]))
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(c0, counts())) == (L, L * (calls + 1), 0, 0, 0, 0)
+        c0 = counts()
+        out2 = generate_sequences(wm, torch.Generator(device=cuda_device),
+                                  torch.cat([head[[0, 0, 1, 1]], tail], 1), actions, roll)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(c0, counts())) == (L, 0, L * calls, 0, 0, 0)
+    assert out.shape == out2.shape == (4, F * (V + A))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("idx,starts,D,G", [(0, [0, 0], 64, 1), (1, [0, 1], 64, 1),
+                                            (700, [0, 13], 64, 7), (1663, [5, 1663], 64, 1),
+                                            (37, [0, 5], 32, 2), (300, [2, 0], 128, 2)])
+def test_fused_decode_attention_kernel_matches_the_twin(cuda_device, dtype, idx, starts, D, G):
+    """#10 against its twin: the written rows bit-equal, the output within
+    one bf16 ulp (2^-7 relative) + 2e-3 (f32: 1e-5 relative + 1e-5, the
+    same f32 arithmetic in another order); then #7 over the cache #10 wrote
+    (kv_lens = idx + 1, for a cache it takes: bf16, D = 64) agrees within
+    the decode tolerance."""
+    gen = torch.Generator(device=cuda_device).manual_seed(idx + D)
+    L, B, Hkv, S, li = 2, 2, 2, 1664, 1
+    Hq = Hkv * G
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda_device).to(dtype)
+    ck, cv = rnd(L, B, Hkv, S, D), rnd(L, B, Hkv, S, D)
+    q, kn, vn = rnd(B, 1, Hq, D), rnd(B, 1, Hkv, D), rnd(B, 1, Hkv, D)
+    ks = torch.tensor(starts, device=cuda_device)
+    rck, rcv = ck.clone(), cv.clone()
+    before = tfda.launches
+    o, _, _ = tfda.fused_decode_attention_kernel(q, kn, vn, ck, cv, li, idx, ks)
+    torch.cuda.synchronize()
+    assert tfda.launches == before + 1
+    ref, _, _ = tfda.fused_decode_attention_plain(q, kn, vn, rck, rcv, li, idx, ks)
+    assert torch.equal(ck, rck) and torch.equal(cv, rcv)
+    tol = dict(atol=2e-3, rtol=2 ** -7) if dtype == torch.bfloat16 else dict(atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(o.float(), ref.float(), **tol)
+    if dtype == torch.bfloat16 and D == 64 and G == 1:
+        o7 = theads.decode_kernel(q, ck[li], cv[li], kv_lens=torch.full_like(ks, idx + 1),
+                                  q_offset=torch.full_like(ks, idx), kv_starts=torch.clamp(ks, max=idx))
+        torch.testing.assert_close(o7.float(), o.float(), **DEC_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_decode_attention_refuses_what_the_kernel_does_not_take(cuda_device):
+    z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt, device=cuda_device)
+    q, kv, ck = z(2, 1, 4, 64), z(2, 1, 2, 64), z(1, 2, 2, 16, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        tfda.fused_decode_attention_kernel(z(2, 1, 4, 48), z(2, 1, 2, 48), z(2, 1, 2, 48),
+                                           z(1, 2, 2, 16, 48), z(1, 2, 2, 16, 48), 0, 3)
+    with pytest.raises(ValueError, match="outside"):
+        tfda.fused_decode_attention_kernel(q, kv, kv, ck, ck.clone(), 0, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfda.fused_decode_attention_kernel(q, kv, kv, ck.transpose(3, 4), ck.clone(), 0, 3)
+    with pytest.raises(ValueError, match="kv heads"):
+        tfda.fused_decode_attention_kernel(z(2, 1, 40, 64), kv, kv, ck, ck.clone(), 0, 3)

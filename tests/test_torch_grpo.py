@@ -483,11 +483,17 @@ COMPARED = ("critic/rewards/mean", "critic/rewards/max", "critic/rewards/min",
             "actor/old_log_prob_mean", "actor/predicted_action_abs_mean")
 
 
-@pytest.mark.parametrize("int8", [False, True])
-def test_tiny_training_step_matches_jax(tiny_params, jax_steps, int8):
+@pytest.mark.parametrize("int8,kv_layout", [
+    pytest.param(False, "hd", id="False"), pytest.param(True, "hd", id="True"),
+    pytest.param(False, "heads", id="heads-False"), pytest.param(True, "heads", id="heads-True")])
+def test_tiny_training_step_matches_jax(tiny_params, jax_steps, int8, kv_layout):
+    """The reference's tiny WM (4 heads of 16) always runs the 'heads'
+    layout (its 'hd' needs 128 lanes), so one JAX step per int8 setting
+    holds both of the port's layouts."""
     _, params = tiny_params
     s = jax_steps[int8]
-    cfg = vla_rft_default_config().apply_overrides(s["argv"])
+    cfg = vla_rft_default_config().apply_overrides(
+        s["argv"] + [f"world_model_rollout.rollout.kv_layout={kv_layout}"])
     port_params = {m: flax_to_torch(params[m], m) for m in MODULES}
     tr = TTrainer(cfg, preset="tiny", device="cpu", params=port_params)
     before = {k: v.clone() for k, v in tr.bundle.expert.state_dict().items()}
@@ -510,8 +516,10 @@ def test_tiny_training_step_matches_jax(tiny_params, jax_steps, int8):
     pinned = {"noise": noise, "flow_eps": torch.from_numpy(s["eps"]),
               "rollout": {k: bf(v) for k, v in s["rollout"].items()}}
     metrics = tr.training_step(s["batch"], step=1, pinned=pinned)
+    assert tr.bundle.wm.cfg.kv_layout == kv_layout
     if int8:
         assert tr._wm_q is not None and tr._wm_q.cfg.weights_int8
+        assert tr._wm_q.cfg.kv_layout == kv_layout
     for k in COMPARED:
         got, ref = metrics[k], float(s["metrics"][k])
         assert abs(got - ref) <= 1e-3 * abs(ref) + 1e-5, (k, got, ref)
@@ -533,6 +541,20 @@ def test_tiny_training_step_matches_jax(tiny_params, jax_steps, int8):
 
 
 # ------------------------------------------------------------------ the CLI
+@pytest.mark.parametrize("layout", [None, "hd", "heads"])
+def test_kv_layout_override_reaches_the_wm(layout):
+    """world_model_rollout.rollout.kv_layout reaches the WM's config, "hd"
+    by default, as the reference's build_models reads it (factory.py:235-237)."""
+    from vla_rft_tpu_torch.models.factory import build_models
+
+    argv = _tiny_overrides("/nonexistent") + (
+        [] if layout is None else [f"world_model_rollout.rollout.kv_layout={layout}"])
+    bundle = build_models(vla_rft_default_config().apply_overrides(argv), "tiny", device="cpu")
+    assert bundle.wm.cfg.kv_layout == bundle.wm_cfg.kv_layout == (layout or "hd")
+    kv_shape = bundle.wm.init_cache(2, 8)[0].shape
+    assert kv_shape == ((2, 2, 4, 8, 16) if layout == "heads" else (2, 2, 8, 64))
+
+
 def test_cli_refuses_what_is_not_ported_and_runs_without_a_card_only_on_request(monkeypatch):
     from vla_rft_tpu_torch.trainer import main_vla_rft_grpo
 

@@ -397,6 +397,8 @@ class WMRewardConfig:
     do_sample: bool = True
     # the reference's WMRolloutConfig default; the yaml's 8 changes no result
     cache_segments: int = 4
+    # world_model_rollout.rollout.kv_layout: the WM's KV cache layout
+    kv_layout: str = "hd"
     # trainer.reward_fn / loss_weight / msp_reward_*
     reward_fn: str = "mae"
     lpips_weight: float = 1.0
@@ -418,7 +420,8 @@ class WMRewardConfig:
             action_dim=proc.action_dim, tokens_per_frame=proc.tokens_per_frame,
             interact_max_tokens=roll.interact_max_tokens, temperature=sampling.temperature,
             top_k=sampling.top_k, top_p=sampling.top_p, do_sample=roll.do_sample,
-            cache_segments=roll.get("cache_segments", 4), reward_fn=tr.reward_fn,
+            cache_segments=roll.get("cache_segments", 4),
+            kv_layout=str(roll.get("kv_layout", "hd") or "hd"), reward_fn=tr.reward_fn,
             lpips_weight=tr.loss_weight.lpips,
             recon_weight=tr.loss_weight.get(tr.reward_fn, 1.0),
             msp_reward_aggregate=tr.msp_reward_aggregate,

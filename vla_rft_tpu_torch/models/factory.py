@@ -158,14 +158,18 @@ def wm_reward_configs(preset: str = "libero", config: WMRewardConfig = WMRewardC
     """(TransformerConfig, TokenizerConfig, ProcessorConfig, WMRolloutConfig,
     RewardConfig, image size, LPIPS compute dtype) of a preset.  The tiny
     preset takes TINY_WM_DATA's token shapes unless `tiny_data` is False
-    (the trainer, whose config sets them)."""
+    (the trainer, whose config sets them).  The WM's KV cache takes
+    `config.kv_layout` in both presets (the reference reads the key at
+    libero, factory.py:235-237; its tiny WM, 4 heads of 16, falls back to
+    the 'heads' layout for the TPU's 128 lanes, a rule the port does not
+    have)."""
     if preset == "tiny":
         if tiny_data:
             config = dataclasses.replace(config, **TINY_WM_DATA)
         wm_cfg = TransformerConfig(
             vocab_size=config.wm_vocab_size, hidden_size=64, intermediate_size=128,
             num_layers=2, num_heads=4, num_kv_heads=4, dtype=torch.float32,
-            param_dtype=torch.float32,
+            param_dtype=torch.float32, kv_layout=config.kv_layout,
         )
         tok_cfg = TokenizerConfig(
             block_out_channels=(8, 16, 16), layers_per_block=1, latent_channels=4,
@@ -175,7 +179,7 @@ def wm_reward_configs(preset: str = "libero", config: WMRewardConfig = WMRewardC
         image_size, lpips_dtype = 32, torch.float32
     elif preset == "libero":
         wm_cfg = TransformerConfig.wm_llama(vocab_size=config.wm_vocab_size,
-                                            kv_cache_dtype="int8")
+                                            kv_cache_dtype="int8", kv_layout=config.kv_layout)
         tok_cfg = TokenizerConfig(dtype=torch.bfloat16)
         image_size, lpips_dtype = 256, torch.bfloat16
     else:
@@ -250,8 +254,8 @@ def build_models(config: Config, preset: str = "libero", *, device="cuda",
     """The GRPO trainer's modules from the config tree, on `device`, with
     seeded random weights: the VLM frozen, the action expert trainable (the
     libero expert takes rollout.num_flow_steps; the tiny one keeps 10, as in
-    the reference), the WM (with world_model_rollout.model.size_overrides),
-    tokenizer and LPIPS frozen."""
+    the reference), the WM (with world_model_rollout.model.size_overrides
+    and rollout.kv_layout), tokenizer and LPIPS frozen."""
     policy = build_policy(preset, PolicyConfig.from_config(config), device=device, seed=seed)
     if preset == "libero":
         k = int(config.actor_rollout_ref.rollout.get("num_flow_steps", 10))

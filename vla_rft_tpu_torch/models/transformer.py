@@ -6,19 +6,29 @@ Port of vla_rft_tpu/models/transformer.py for the policy backbone
 lm_head): RMSNorm, NeoX rope, GQA attention, SiLU MLP.  The reference's
 `nn.scan` over stacked layers becomes a ModuleList.
 
-The KV cache is the reference's head-dense ("hd") layout, (L, B, S, Hkv*D),
-in the compute dtype or int8 with bf16 per-(position, head) scales
-(L, B, Hkv, S).  Unlike the reference, which returns a new cache, the
+The KV cache takes either of the reference's layouts (`kv_layout`): the
+head-dense "hd" (L, B, S, Hkv*D) or the head-blocked "heads" (L, B, Hkv,
+S, D), in the compute dtype or int8 with bf16 per-(position, head) scales
+(L, B, Hkv, S) in both.  The two hold the same numbers: a "heads" write
+transposes the chunk's k/v to (B, Hkv, S, D) and quantises per (position,
+head) as "hd" does.  Unlike the reference, which returns a new cache, the
 forward writes the cache tensors in place (one buffer per rollout instead
 of a copy per call).  With a shared prefix cache (`shared_cache`,
 `shared_len`, `prefix_map`) the own cache holds positions >= shared_len
 and writes land at cache_index - shared_len.  Attention with a cache goes
-  * Sq <= 8  -> ops.decode_attention_hd (CUDA kernel #4 with a shared
-    prefix, #5 without, on the card);
+  * Sq <= 8  -> ops.decode_attention_hd for "hd" (CUDA kernel #4 with a
+    shared prefix, #5 without, on the card), ops.decode_attention for
+    "heads" (#6 with a shared prefix, #7 without; the reference's Pallas
+    #7 takes one token and leaves 2-8 token chunks to its XLA fallback,
+    the same function);
   * Sq > 8   -> the dequantised layer slice (with the shared prefix
     gathered in front of it) through ops.attention (the flash kernel #1 on
     the card, which takes any Sq).  The reference sends 8 < Sq < 32 and a
     shared prefix with Sq > 8 to its XLA path; that is the same math.
+The reference's TPU layout rules are not ported: the head-pair packing of
+a "heads" cache (`pack_kv`), the fall back from "hd" to "heads" when
+Hkv*D is not a multiple of 128 lanes (`kv_layout_eff`), `decode_block_b`
+and the kernels' `row_chunk`.  The port runs the layout it is given.
 On a CUDA tensor every branch launches a kernel or raises; the plain twins
 run for CPU tensors and when `attn_impl="plain"` asks for them.
 With `weights_int8` every product of the decoder is a `QuantLinear` (an
@@ -28,8 +38,8 @@ decoder's state dict; the WM rollout decodes with it.  `decode_step_fused`
 is the rollout's decode call on that model: per layer kernel #8
 (RMSNorm + q/k/v + rope + k/v quantisation, writing the cache), the decode
 attention #4 / #5 and kernel #9 (o_proj + MLP) on the card.
-Not ported: the 'heads' cache layout, per-row cache offsets (speculative
-decode), Ulysses.
+`decode_step_fused` takes the "hd" layout only, as the reference's does.
+Not ported: per-row cache offsets (speculative decode), Ulysses.
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ import torch
 from torch import nn
 
 from vla_rft_tpu_torch.models.layers import Dense, Embed
+from vla_rft_tpu_torch.ops import decode_attention as dec_heads
 from vla_rft_tpu_torch.ops import decode_attention_hd as dec_attn
 from vla_rft_tpu_torch.ops import fused_decode_layer as fused
 from vla_rft_tpu_torch.ops.attention import attention
@@ -64,7 +75,7 @@ class TransformerConfig:
     param_dtype: torch.dtype = torch.bfloat16
     # 'bf16' (the compute dtype) | 'int8' (per-(position, head) scales)
     kv_cache_dtype: str = "bf16"
-    # only the head-dense layout (L, B, S, Hkv*D) is ported
+    # KV cache layout: 'hd' (L, B, S, Hkv*D) or 'heads' (L, B, Hkv, S, D)
     kv_layout: str = "hd"
     # int8 per-output-channel weights for every product (QuantLinear); the
     # state dict comes from quantize_decoder_params.  For a frozen rollout
@@ -72,8 +83,8 @@ class TransformerConfig:
     weights_int8: bool = False
 
     def __post_init__(self):
-        if self.kv_layout != "hd":
-            raise ValueError(f"kv_layout {self.kv_layout!r}: only 'hd' is ported")
+        if self.kv_layout not in ("hd", "heads"):
+            raise ValueError(f"kv_layout {self.kv_layout!r}: 'hd' or 'heads'")
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}")
 
@@ -268,20 +279,29 @@ class Attention(nn.Module):
         cfg = self.cfg
         B, S, nkv, hd = k.shape
         w0 = c.cache_index - (c.shared_len if c.shared_cache is not None else 0)
+        heads = cfg.kv_layout == "heads"
+        ops = dec_heads if heads else dec_attn
+
+        def write(cache, x):  # (B, S, Hkv, D) into layer li at w0, in the layout
+            if heads:
+                cache[li, :, :, w0:w0 + S] = x.transpose(1, 2)
+            else:
+                cache[li, :, w0:w0 + S] = x.reshape(B, S, nkv * hd)
+
         int8 = cfg.kv_cache_dtype == "int8"
         if int8:
             ck, cv, sk, sv = c.cache
             kq, ks = quantize_kv(k)
             vq, vs = quantize_kv(v)
-            ck[li, :, w0:w0 + S] = kq.reshape(B, S, nkv * hd)
-            cv[li, :, w0:w0 + S] = vq.reshape(B, S, nkv * hd)
+            write(ck, kq)
+            write(cv, vq)
             sk[li, :, :, w0:w0 + S] = ks.transpose(1, 2)
             sv[li, :, :, w0:w0 + S] = vs.transpose(1, 2)
             scales = (sk[li], sv[li])
         else:
             ck, cv = c.cache
-            ck[li, :, w0:w0 + S] = k.reshape(B, S, nkv * hd).to(ck.dtype)
-            cv[li, :, w0:w0 + S] = v.reshape(B, S, nkv * hd).to(cv.dtype)
+            write(ck, k.to(ck.dtype))
+            write(cv, v.to(cv.dtype))
             scales = None
         if c.shared_cache is not None:
             if int8:
@@ -289,23 +309,26 @@ class Attention(nn.Module):
                 shared_scales = (ssk[li], ssv[li])
             else:
                 (sck, scv), shared_scales = c.shared_cache, None
-            if S <= dec_attn.MAX_SQ:  # kernel #4
-                return dec_attn.decode_attention_shared_hd(
+            if S <= ops.MAX_SQ:  # kernel #4 ("hd") / #6 ("heads")
+                attend = (dec_heads.decode_attention_shared if heads
+                          else dec_attn.decode_attention_shared_hd)
+                return attend(
                     q, ck[li], cv[li], sck[li], scv[li], c.prefix_map, shared_len=c.shared_len,
                     kv_lens=c.kv_lens_eff, q_offset=c.q_offset, shared_starts=c.shared_starts,
                     scales=scales, shared_scales=shared_scales, impl=attn_impl,
                 )
-            k_all, v_all = dec_attn.shared_kv(ck[li], cv[li], sck[li], scv[li], c.prefix_map,
-                                              c.shared_len, hd, q.dtype, scales, shared_scales)
+            k_all, v_all = ops.shared_kv(ck[li], cv[li], sck[li], scv[li], c.prefix_map,
+                                         c.shared_len, hd, q.dtype, scales, shared_scales)
             starts = c.shared_starts
-        elif S <= dec_attn.MAX_SQ:  # kernel #5
-            return dec_attn.decode_attention_hd(
+        elif S <= ops.MAX_SQ:  # kernel #5 ("hd") / #7 ("heads")
+            attend = dec_heads.decode_attention if heads else dec_attn.decode_attention_hd
+            return attend(
                 q, ck[li], cv[li], kv_lens=c.kv_lens_eff, q_offset=c.q_offset,
                 kv_starts=c.kv_starts, scales=scales, impl=attn_impl,
             )
         else:
-            k_all = dec_attn.dequantize(ck[li], scales[0] if int8 else None, hd, q.dtype)
-            v_all = dec_attn.dequantize(cv[li], scales[1] if int8 else None, hd, q.dtype)
+            k_all = ops.dequantize(ck[li], scales[0] if int8 else None, hd, q.dtype)
+            v_all = ops.dequantize(cv[li], scales[1] if int8 else None, hd, q.dtype)
             starts = c.kv_starts
         # longer chunks (prefill, or any S > 8): attend over the cache as
         # stored (int8 dequantised, the prefix gathered) through kernel #1
@@ -430,16 +453,19 @@ class Decoder(nn.Module):
         return logits, x
 
     def init_cache(self, batch_size: int, max_len: int) -> Tuple[torch.Tensor, ...]:
-        """A zeroed cache on the model's device: (L, B, S, Hkv*D) K and V, S
+        """A zeroed cache on the model's device: K and V in the layout,
+        (L, B, S, Hkv*D) for "hd" or (L, B, Hkv, S, D) for "heads", S
         rounded up to 128 for int8 and to 8 otherwise, plus (L, B, Hkv, S)
         bf16 scales set to 1 for int8."""
         cfg = self.cfg
         align = 128 if cfg.kv_cache_dtype == "int8" else 8
         S = (max_len + align - 1) // align * align
         dev = self.embed_tokens.weight.device
-        shape = (cfg.num_layers, batch_size, S, cfg.num_kv_heads * cfg.hd)
+        L, nkv = cfg.num_layers, cfg.num_kv_heads
+        shape = ((L, batch_size, nkv, S, cfg.hd) if cfg.kv_layout == "heads"
+                 else (L, batch_size, S, nkv * cfg.hd))
         if cfg.kv_cache_dtype == "int8":
-            sshape = (cfg.num_layers, batch_size, cfg.num_kv_heads, S)
+            sshape = (L, batch_size, nkv, S)
             return (
                 torch.zeros(shape, dtype=torch.int8, device=dev),
                 torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -451,7 +477,8 @@ class Decoder(nn.Module):
 
     def cache_seq_axes(self) -> Tuple[int, ...]:
         """The sequence axis of each array of `init_cache`'s tuple."""
-        return (2, 2, 3, 3) if self.cfg.kv_cache_dtype == "int8" else (2, 2)
+        kv_ax = 3 if self.cfg.kv_layout == "heads" else 2
+        return (kv_ax, kv_ax, 3, 3) if self.cfg.kv_cache_dtype == "int8" else (kv_ax, kv_ax)
 
 
 @torch.no_grad()
@@ -472,8 +499,10 @@ def decode_step_fused(wm: Decoder, input_ids: torch.Tensor, cache: Tuple[torch.T
     final norm).  `impl` is "auto" (kernels for CUDA tensors, twins for CPU
     tensors) or "plain"; it defaults to the model's `attn_impl`."""
     cfg = wm.cfg
-    if not (cfg.weights_int8 and cfg.kv_cache_dtype == "int8" and not cfg.qkv_bias):
-        raise ValueError("decode_step_fused needs int8 weights, an int8 KV cache and no qkv bias")
+    if not (cfg.weights_int8 and cfg.kv_cache_dtype == "int8" and cfg.kv_layout == "hd"
+            and not cfg.qkv_bias):
+        raise ValueError("decode_step_fused needs int8 weights, an int8 'hd' KV cache and no "
+                         "qkv bias")
     B, S = input_ids.shape
     if not 1 <= S <= dec_attn.MAX_SQ:
         raise ValueError(f"decode_step_fused takes 1..{dec_attn.MAX_SQ} tokens, got {S}")

@@ -2,8 +2,8 @@
 
 Each kernel source `csrc/<name>.cu` exposes a plain C entry point and is
 compiled at first use by nvcc into `_build/lib<name>_<key>.so` beside the
-package, where <key> hashes the source and the flags, so an unchanged tree
-does not rebuild.  No PyTorch headers are involved, so a build takes seconds.
+package, where <key> hashes the source, the shared headers `csrc/*.cuh` and
+the flags, so an unchanged tree does not rebuild.  No PyTorch headers are involved, so a build takes seconds.
 `build` starts one nvcc per missing library, all at once, and waits for all.
 """
 from __future__ import annotations
@@ -39,8 +39,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of csrc/<name>.cu with the current flags lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where the build of csrc/<name>.cu (and the headers beside it) with
+    the current flags lives."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 

@@ -20,7 +20,9 @@ p is a TPU trick and is not ported.
   run for CPU tensors, and on the card the kernels are checked against them.
 * `decode_shared_kernel` / `decode_kernel` launch csrc/decode_hd.cu (one
   source, a template flag for the shared segment) and count their launches
-  in `shared_launches` / `plain_launches`.
+  in `shared_launches` / `plain_launches`.  `_launch` checks and launches
+  for both cache layouts: ops/decode_attention.py (kernels #6 / #7 over
+  the 'heads' layout, csrc/decode_heads.cu) goes through it too.
 * `decode_attention_shared_hd` / `decode_attention_hd` are the front ends:
   a CUDA tensor always goes to the kernel (or raises), a CPU tensor to the
   twin; `impl="plain"` asks for the twin on either device.
@@ -43,7 +45,7 @@ MAX_SQ = 8
 shared_launches = 0
 plain_launches = 0
 
-_lib = None
+_libs = {}  # library name -> its loaded C entry point
 
 
 # ================================================================ plain twins
@@ -93,38 +95,61 @@ def decode_plain(q, ck, cv, *, kv_lens, q_offset, kv_starts=None,
 
 
 # ==================================================================== kernels
-def _load():
-    global _lib
-    if _lib is None:
-        lib = cuda_build.load("decode_hd")
-        fn = lib.decode_hd
+_LIBRARIES = {"hd": "decode_hd", "heads": "decode_heads"}  # layout -> csrc/<name>.cu
+
+
+def _load(layout: str = "hd"):
+    """The decode library of a cache layout: csrc/decode_hd.cu (kernels #4 /
+    #5) or csrc/decode_heads.cu (#6 / #7), one C entry point each."""
+    name = _LIBRARIES[layout]
+    if name not in _libs:
+        fn = getattr(cuda_build.load(name), name)
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = fn
+    return _libs[name]
 
 
-def _check_cache(name, c, s, q, HD):
+def _cache_dims(c, layout: str, D: int):
+    """(rows, S, Hkv) of one layer's cache slice, or None if its shape is
+    not the layout's: (rows, S, Hkv*D) for "hd", (rows, Hkv, S, D) for
+    "heads"."""
+    if layout == "hd" and c.dim() == 3 and c.shape[2] % D == 0:
+        return c.shape[0], c.shape[1], c.shape[2] // D
+    if layout == "heads" and c.dim() == 4 and c.shape[3] == D:
+        return c.shape[0], c.shape[2], c.shape[1]
+    return None
+
+
+def _check_cache(name, c, s, q, layout):
     if not c.is_cuda or c.device != q.device:
         raise ValueError(f"decode kernel: {name} must be on q's CUDA device")
-    if c.dim() != 3 or c.shape[2] != HD or not c.is_contiguous():
-        raise ValueError(f"decode kernel: {name} must be a contiguous (rows, S, {HD}) tensor, "
-                         f"got {tuple(c.shape)}")
+    dims = _cache_dims(c, layout, q.shape[-1])
+    if dims is None or not c.is_contiguous():
+        want = "(rows, S, Hkv*D)" if layout == "hd" else "(rows, Hkv, S, D)"
+        raise ValueError(f"decode kernel: {name} must be a contiguous {want} tensor with "
+                         f"D = {q.shape[-1]}, got {tuple(c.shape)}")
+    rows, S, Hkv = dims
     if c.dtype == torch.int8:
         if s is None:
             raise ValueError(f"decode kernel: int8 {name} needs its scales")
-        if (s.dtype != torch.bfloat16 or s.shape != (c.shape[0], HD // q.shape[-1], c.shape[1])
+        if (s.dtype != torch.bfloat16 or s.shape != (rows, Hkv, S)
                 or not s.is_contiguous() or s.device != q.device):
             raise ValueError(f"decode kernel: scales of {name} must be contiguous bf16 "
                              f"(rows, Hkv, S) on q's device")
     elif c.dtype != torch.bfloat16 or s is not None:
         raise ValueError(f"decode kernel: {name} must be int8 with scales or bf16 without, "
                          f"got {c.dtype}")
+    return dims
 
 
-def _launch(q, ck, cv, scales, shared, prefix_map, shared_len, kv_lens, q_offset, kv_starts):
+def _launch(q, ck, cv, scales, shared, prefix_map, shared_len, kv_lens, q_offset, kv_starts,
+            layout: str = "hd"):
+    """Check the arguments and launch the decode kernel of `layout` (#4 / #5
+    for "hd", #6 / #7 for "heads"); `shared` is (sck, scv, ssk, ssv) or
+    None."""
     if not q.is_cuda or q.dtype != torch.bfloat16 or q.dim() != 4 or not q.is_contiguous():
         raise ValueError("decode kernel: q must be a contiguous 4-D bf16 CUDA tensor")
     B, Sq, Hq, D = q.shape
@@ -132,42 +157,41 @@ def _launch(q, ck, cv, scales, shared, prefix_map, shared_len, kv_lens, q_offset
         raise ValueError(f"decode kernel: head dim {D} != {HEAD_DIM}")
     if not 1 <= Sq <= MAX_SQ:
         raise ValueError(f"decode kernel: {Sq} query positions, the kernel takes 1..{MAX_SQ}")
-    HD = ck.shape[-1]
-    Hkv = HD // D
-    if HD % D or Hkv == 0 or Hq % Hkv or (Hq // Hkv) * Sq > MAX_QUERY_ROWS:
-        raise ValueError(f"decode kernel: Hq={Hq}, cache width {HD} and Sq={Sq} do not fit")
     sk, sv = scales if scales is not None else (None, None)
-    _check_cache("k cache", ck, sk, q, HD)
-    _check_cache("v cache", cv, sv, q, HD)
-    if ck.shape != cv.shape or ck.dtype != cv.dtype or ck.shape[0] != B:
+    rows, Sr, Hkv = _check_cache("k cache", ck, sk, q, layout)
+    _check_cache("v cache", cv, sv, q, layout)
+    if Hkv == 0 or Hq % Hkv or (Hq // Hkv) * Sq > MAX_QUERY_ROWS:
+        raise ValueError(f"decode kernel: Hq={Hq}, {Hkv} kv heads and Sq={Sq} do not fit")
+    if ck.shape != cv.shape or ck.dtype != cv.dtype or rows != B:
         raise ValueError("decode kernel: k/v caches must match each other and q's batch")
     int8 = ck.dtype == torch.int8
     dev = q.device
     null = 0
     if shared is not None:
         sck, scv, ssk, ssv = shared
-        _check_cache("shared k cache", sck, ssk, q, HD)
-        _check_cache("shared v cache", scv, ssv, q, HD)
-        if sck.shape != scv.shape or sck.dtype != ck.dtype or scv.dtype != ck.dtype:
-            raise ValueError("decode kernel: shared caches must match the own cache's type")
-        if not 0 <= shared_len <= sck.shape[1]:
+        _, Sp, sh_heads = _check_cache("shared k cache", sck, ssk, q, layout)
+        _check_cache("shared v cache", scv, ssv, q, layout)
+        if (sck.shape != scv.shape or sck.dtype != ck.dtype or scv.dtype != ck.dtype
+                or sh_heads != Hkv):
+            raise ValueError("decode kernel: shared caches must match the own cache's type "
+                             "and heads")
+        if not 0 <= shared_len <= Sp:
             raise ValueError(f"decode kernel: shared_len {shared_len} outside the prefix cache")
         pm = _row_arg(prefix_map, B, 0, dev)
         sh_ptrs = (sck.data_ptr(), scv.data_ptr(), ssk.data_ptr() if int8 else null,
                    ssv.data_ptr() if int8 else null, pm.data_ptr())
-        Sp = sck.shape[1]
     else:
         sh_ptrs, Sp = (null,) * 5, 0
     kl = _row_arg(kv_lens, B, 0, dev)
     qo = _row_arg(q_offset, B, 0, dev)
     ks = _row_arg(kv_starts, B, 0, dev)
-    lib = _load()
+    fn = _load(layout)
     o = torch.empty_like(q)
-    rc = lib.decode_hd(
+    rc = fn(
         q.data_ptr(), o.data_ptr(), ck.data_ptr(), cv.data_ptr(),
         sk.data_ptr() if int8 else null, sv.data_ptr() if int8 else null, *sh_ptrs,
         kl.data_ptr(), qo.data_ptr(), ks.data_ptr(),
-        B, Sq, Hq, Hkv, D, ck.shape[1], Sp, int(shared_len), int(int8), int(shared is not None),
+        B, Sq, Hq, Hkv, D, Sr, Sp, int(shared_len), int(int8), int(shared is not None),
         float(D ** -0.5), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

@@ -14,8 +14,12 @@ reference's `_sync` at a stage boundary is a device synchronize, so the
                   of every rollout and the gt action tokens
   wm_rollout      one shared-prefix WM rollout over each chunk of rollout
                   groups: each sample's n policy rows, then its gt-action row
-                  (gt_branch_per_sample); with weights_int8 the int8 WM,
-                  whose decode calls on the card run kernels #8, #4 and #9
+                  (gt_branch_per_sample), its decode calls on the card
+                  through kernel #4 ('hd' KV cache, the default) or #6
+                  (world_model_rollout.rollout.kv_layout=heads); with
+                  weights_int8 the int8 WM, whose 'hd' decode calls run
+                  kernels #8, #4 and #9 (a 'heads' cache takes the
+                  unfused int8 route, as in the reference)
   adv             context features and gt frames decoded once per sample,
                   the MSP reward (MAE + LPIPS) per reward chunk
   (advantage)     GRPO over the n rollouts of each sample

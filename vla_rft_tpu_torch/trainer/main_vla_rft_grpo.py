@@ -5,7 +5,7 @@ Usage (the reference's dotted overrides and defaults):
   python -m vla_rft_tpu_torch.trainer.main_vla_rft_grpo \
       trainer.total_training_steps=2 data.train_batch_size=2 \
       actor_rollout_ref.rollout.n=4 world_model_rollout.rollout.weights_int8=true \
-      [--preset=libero|tiny] [--device=cpu]
+      [world_model_rollout.rollout.kv_layout=hd|heads] [--preset=libero|tiny] [--device=cpu]
 
 The device defaults to the card; `--device=cpu` runs the plain PyTorch path.
 Data comes from `data/synthetic.py`; a non-empty data.video.dataset_path

@@ -12,16 +12,19 @@ largest valid length.
 With `shared_prefix`, the prompt head shared by a group of rows (the n
 rollouts of a sample and its gt-action row) is prefilled once per unique
 row into a read-only prefix cache, and every decode call reads it through
-`prefix_map` (CUDA kernel #4 on the card); the per-row cache holds only the
-tail and the response.  Without it, the whole prompt is prefilled per row
-and decode calls read one cache (kernel #5).  The TPU kernel's batch-block
+`prefix_map` (CUDA kernel #4 on the card, #6 with the WM's 'heads' cache
+layout); the per-row cache holds only the tail and the response.  Without
+it, the whole prompt is prefilled per row and decode calls read one cache
+(kernel #5, or #7 for 'heads').  `grow_cache` pads each array along the
+sequence axis of the WM's layout (`Decoder.cache_seq_axes`).  The TPU kernel's batch-block
 clamp (`prefix_run`) is not needed: the CUDA kernel reads prefix_map per row.
 
-With an int8-weight WM (`weights_int8`), an int8 KV cache and no qkv bias,
-every decode call on the card goes through `decode_step_fused` (kernels #8,
-#4 or #5, and #9 per layer); on the CPU the calls take the unfused int8
-route (`Decoder.forward` with `QuantLinear`), as the reference's CPU run
-does.  The prompt prefill always takes the unfused route (kernel #1 for
+With an int8-weight WM (`weights_int8`), an int8 KV cache in the 'hd'
+layout and no qkv bias, every decode call on the card goes through
+`decode_step_fused` (kernels #8, #4 or #5, and #9 per layer); on the CPU,
+and with the 'heads' layout anywhere, the calls take the unfused int8
+route (`Decoder.forward` with `QuantLinear`), as the reference's do
+(vla_rft_tpu/workers/wm_rollout.py:198-206).  The prompt prefill always takes the unfused route (kernel #1 for
 attention).
 Each call samples from the one `torch.Generator` it is given; the trainer
 passes one per WM chunk.
@@ -34,7 +37,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from vla_rft_tpu_torch.models.transformer import Decoder, decode_step_fused
+from vla_rft_tpu_torch.models.transformer import Decoder, TransformerConfig, decode_step_fused
 from vla_rft_tpu_torch.ops.sampling import sample_token
 
 
@@ -78,6 +81,14 @@ def grow_cache(cache: Tuple[torch.Tensor, ...], new_len: int, align: int,
         pad = [0, 0] * (arr.dim() - 1 - ax) + [0, new_len - s]
         out.append(F.pad(arr, pad))
     return tuple(out)
+
+
+def fused_route(cfg: TransformerConfig, on_cuda: bool) -> bool:
+    """Whether a rollout's decode calls go through `decode_step_fused`: an
+    int8-weight WM with an int8 KV cache in the 'hd' layout and no qkv
+    bias, on the card (the reference's guard, wm_rollout.py:198-206)."""
+    return bool(cfg.weights_int8 and cfg.kv_cache_dtype == "int8" and cfg.kv_layout == "hd"
+                and not cfg.qkv_bias and on_cuda)
 
 
 def uniform_prefix_run(local) -> int:
@@ -128,9 +139,7 @@ def generate_sequences(
         logits, _ = wm(input_ids, cache=cache, cache_index=0, logits_last_only=True)
     last = logits[:, -1]
 
-    mc = wm.cfg
-    use_fused = (mc.weights_int8 and mc.kv_cache_dtype == "int8" and not mc.qkv_bias
-                 and input_ids.is_cuda)
+    use_fused = fused_route(wm.cfg, input_ids.is_cuda)
 
     def step(toks, ci, **kw):
         """One decode call: the fused kernels when eligible, else the module."""
