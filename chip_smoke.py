@@ -10,7 +10,8 @@ Phases, one JSON line each:
                   together;
   2. flash      - the flash kernel (#1) against its plain PyTorch twin on the
                   card over masked, padded and ragged cases and the WM's
-                  1088-token prefill, and its time at the serving and the WM
+                  1088-token prefill; three calls at each timed shape give
+                  the same bits; its time at the serving and the WM
                   prefill shapes beside the twin's, scaled_dot_product_attention's
                   (a yardstick only: the port never calls it) and the bound;
   3. flash_bwd  - the flash backward kernels (#2 dQ, #3 dK/dV) against their
@@ -44,7 +45,10 @@ Phases, one JSON line each:
                   GQA 16/4; their
                   time at N = 10 and N = 128 beside the twin's, torch.matmul
                   of the same products over pre-dequantised bf16 weights (a
-                  yardstick only) and the bound;
+                  yardstick only) and the bound; #9's time per launch
+                  (o_proj, gate/up, down: torch.profiler over a CUDA-graph
+                  replay), its launch plan, and three calls giving the same
+                  bits (its split-K sums are reduced in a fixed order);
   6. serving    - the libero-width policy (SigLIP-so400m + DINOv2-L +
                   Qwen2.5-0.5B + DiT action expert, seeded random weights)
                   behind ActionServer on localhost answers 4 POST /act
@@ -161,6 +165,9 @@ N_SAMPLES, N_ROLLOUTS = 2, 4
 # within one bf16 ulp
 FUSED_RTOL = 2 ** -7
 FUSED_INT8_SHARE = 0.01
+# #9's three launches, by the name of their kernel instance
+O_MLP_KERNELS = {"o_proj": "o_mlp_product<0", "gate_up": "o_mlp_product<1",
+                 "down": "o_mlp_product<2"}
 
 
 def emit(obj) -> None:
@@ -181,10 +188,9 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
-    """Device time of one fn() call in ms: `iters` calls captured in a CUDA
-    graph and replayed, so the host's launch pace does not set the time
-    (back-to-back eager calls of a small kernel measure the Python wrapper)."""
+def _graph(fn, iters: int):
+    """`iters` calls of fn captured in a CUDA graph, after 3 warm-up calls on
+    a side stream; replayed once before it is returned."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -197,6 +203,14 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one fn() call in ms: `iters` calls captured in a CUDA
+    graph and replayed, so the host's launch pace does not set the time
+    (back-to-back eager calls of a small kernel measure the Python wrapper)."""
+    graph = _graph(fn, iters)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(replays):
@@ -207,6 +221,32 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     del graph
     torch.cuda.empty_cache()
     return ms
+
+
+def graph_kernel_ms(fn, names: dict, iters: int = 20) -> dict:
+    """{key: {"ms", "launches"}}: the device ms per launch of the kernels
+    whose names contain names[key], from torch.profiler over one replay of
+    `iters` calls of fn captured in a CUDA graph."""
+    graph = _graph(fn, iters)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for key, sub in names.items():
+        us = [e.time_range.end - e.time_range.start for e in kernels if sub in e.name]
+        out[key] = {"ms": sum(us) / 1e3 / max(len(us), 1), "launches": len(us)}
+    return out
+
+
+def repeats_bit_for_bit(fn, calls: int = 3) -> bool:
+    """fn() `calls` times on the same inputs: every output tensor the same bits."""
+    outs = [fn() for _ in range(calls)]
+    torch.cuda.synchronize()
+    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
+    return all(torch.equal(a, b) for o in outs[1:] for a, b in zip(as_tuple(outs[0]), as_tuple(o)))
 
 
 def host_ms(fn):
@@ -280,8 +320,10 @@ def phase_build() -> dict:
     fused_decode_attention._load()
     libs = {}
     for name, info in infos.items():
+        # ptxas's lines per kernel: its (mangled) name, then registers and spills
         ptxas = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "smem" in ln or "spill" in ln]
+                 if "Compiling entry function" in ln or "registers" in ln or "smem" in ln
+                 or "spill" in ln]
         libs[name] = {"seconds": round(info["seconds"], 3), "built": info["built"],
                       "library": os.path.relpath(info["path"]), "ptxas": ptxas}
     out = {"phase": "build", "wall_seconds": round(wall, 3), "libraries": libs}
@@ -344,6 +386,8 @@ def phase_flash(attention) -> dict:
         # SDPA over the valid keys only (a yardstick: the port never calls it)
         qt, kt, vt = (x[:, :kv_len].transpose(1, 2) for x in (q, k, v))
         kern = lambda: attention.flash_fwd(q, k, v, causal=True, **rows)
+        if not repeats_bit_for_bit(kern):
+            raise AssertionError(f"flash at {shape}: three calls gave different bits")
         kernel_ms = graph_ms(kern)
         eager_ms = cuda_ms(kern)
         plain_ms = graph_ms(lambda: attention.attention_plain(q, k, v, causal=True,
@@ -353,7 +397,8 @@ def phase_flash(attention) -> dict:
         nbytes, flops = flash_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"],
                                    True)
         timed[shape] = {"B": B, "Sq": Sq, "Sk": Sk, "kv_len": kv_len, "Hq": Hq, "Hkv": Hkv,
-                        "D": D, "causal": True, "kernel_ms": kernel_ms, "eager_ms": eager_ms,
+                        "D": D, "causal": True, "repeats_bit_for_bit": True,
+                        "kernel_ms": kernel_ms, "eager_ms": eager_ms,
                         "plain_ms": plain_ms,
                         "library_ms": library_ms, **bound(nbytes, flops)}
     out = {"phase": "flash", "cases": results, "max_abs_err_o": err_o,
@@ -835,9 +880,9 @@ def profile_decode_steps(wmod, roll, rows, fused: bool = False, steps: int = 16)
     n_dec = sum(1 for e in kernels if "decode_attend_kernel" in e.name)
     by_name = {}
     for e in kernels:
-        for name in ("qkv_kernel", "o_proj_kernel", "gate_up_kernel", "down_kernel"):
+        for key, name in (("qkv", "qkv_kernel"), *O_MLP_KERNELS.items()):
             if name in e.name:
-                by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
+                by_name[key] = by_name.get(key, 0.0) + (e.time_range.end - e.time_range.start)
     return {"calls": steps, "rows": int(rows.tails.shape[0]), "fused": fused,
             "wall_ms_per_call": wall_us / 1e3 / steps,
             "device_busy_ms_per_call": busy / 1e3 / steps,
@@ -1048,13 +1093,20 @@ def phase_fused_decode(fdl) -> dict:
                "o_mlp": lambda: (torch.matmul(attn, wo), torch.matmul(xn, wgu),
                                  torch.matmul(m, wd))}
         work = fused_work(N, H, 16, 16, I)
+        o_mlp = lambda: fdl.fused_o_mlp_kernel(*omlp, eps=1e-6)
+        if not repeats_bit_for_bit(o_mlp):
+            raise AssertionError(f"fused o/mlp at N={N}: three calls gave different bits")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         timed[N] = {
             "qkv": {"kernel_ms": graph_ms(lambda: fdl.fused_qkv_kernel(*qkv, **kw)),
                     "eager_ms": cuda_ms(lambda: fdl.fused_qkv_kernel(*qkv, **kw), 100),
                     "plain_ms": graph_ms(lambda: fdl.fused_rmsnorm_qkv_plain(*qkv, **kw), 10),
                     "library_ms": graph_ms(lib["qkv"]), **bound(*work["qkv"])},
-            "o_mlp": {"kernel_ms": graph_ms(lambda: fdl.fused_o_mlp_kernel(*omlp, eps=1e-6)),
-                      "eager_ms": cuda_ms(lambda: fdl.fused_o_mlp_kernel(*omlp, eps=1e-6), 100),
+            "o_mlp": {"kernel_ms": graph_ms(o_mlp),
+                      "per_launch": graph_kernel_ms(o_mlp, O_MLP_KERNELS),
+                      "plan": fdl.o_mlp_plan(N, 16 * 64, H, I, sms),
+                      "repeats_bit_for_bit": True,
+                      "eager_ms": cuda_ms(o_mlp, 100),
                       "plain_ms": graph_ms(lambda: fdl.fused_o_mlp_plain(*omlp, eps=1e-6), 10),
                       "library_ms": graph_ms(lib["o_mlp"]), **bound(*work["o_mlp"])},
         }

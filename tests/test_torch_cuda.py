@@ -39,25 +39,38 @@ def cuda_device():
 
 
 KERNEL_CASES = [
-    # (B, Sq, Sk, causal, per-row kwargs)
+    # (B, Sq, Sk, causal, per-row kwargs); heads 14/2 unless "heads" says
     (1, 352, 352, True, {}),
     (4, 352, 352, True, {"kv_lens": [352, 300, 200, 97]}),
     (2, 608, 608, True, {"kv_starts": [0, 37]}),
     (2, 100, 352, True, {"q_offset": [252, 252]}),
     (2, 352, 352, False, {"kv_lens": [352, 0]}),
     (1, 61, 130, False, {}),
+    # the WM's shared-prefix prefill (128-query tiles of 8 warps)
+    (2, 1088, 1152, True, {"heads": (16, 16), "kv_lens": [1088, 1088]}),
+    # Sq and Sk off the 64/128-query and 64-key tiles, both tile plans
+    (3, 201, 333, False, {"kv_starts": [0, 70, 5], "kv_lens": [333, 301, 129]}),
+    (8, 200, 200, True, {"heads": (16, 16), "kv_lens": [200, 199, 150, 77, 200, 64, 65, 1]}),
+    # chunked prefill whose diagonal cuts key tiles mid-way
+    (2, 77, 500, True, {"q_offset": [423, 300], "kv_lens": [500, 377]}),
 ]
+
+
+def _flash_inputs(dev, B, Sq, Sk, D, kw, seed=0):
+    kw = dict(kw)
+    Hq, Hkv = kw.pop("heads", (14, 2))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Sq, Hq, D, generator=gen, device=dev).bfloat16()
+    k = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
+    return q, k, v, {k_: torch.tensor(v_, device=dev) for k_, v_ in kw.items()}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("B,Sq,Sk,causal,kw", KERNEL_CASES)
 def test_flash_kernel_matches_plain_twin(cuda_device, B, Sq, Sk, causal, kw, D):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    q = torch.randn(B, Sq, 14, D, generator=gen, device=cuda_device).bfloat16()
-    k = torch.randn(B, Sk, 2, D, generator=gen, device=cuda_device).bfloat16()
-    v = torch.randn(B, Sk, 2, D, generator=gen, device=cuda_device).bfloat16()
-    args = {k_: torch.tensor(v_, device=cuda_device) for k_, v_ in kw.items()}
+    q, k, v, args = _flash_inputs(cuda_device, B, Sq, Sk, D, kw)
     before = tattn.launches
     o, lse = tattn.flash_fwd(q, k, v, causal=causal, **args)
     torch.cuda.synchronize()
@@ -65,6 +78,23 @@ def test_flash_kernel_matches_plain_twin(cuda_device, B, Sq, Sk, causal, kw, D):
     o_ref, lse_ref = tattn.attention_plain(q, k, v, causal=causal, return_lse=True, **args)
     torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-4)
+    if kw.get("kv_lens") and 0 in kw["kv_lens"]:  # a fully-masked row: O = 0, LSE = -1e30
+        row = kw["kv_lens"].index(0)
+        assert not o[row].any() and bool((lse[row] == tattn.NEG_INF).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernel_repeats_bit_for_bit(cuda_device, D):
+    """Three calls on the same inputs give the same O and LSE bits (the
+    WM-prefill plan of 8 warps, and the 4-warp plan of the serving shape)."""
+    for B, Sq, Sk, kw in ((2, 1088, 1152, {"heads": (16, 16), "kv_lens": [1088, 1000]}),
+                          (1, 352, 352, {})):
+        q, k, v, args = _flash_inputs(cuda_device, B, Sq, Sk, D, kw, seed=3)
+        runs = [tattn.flash_fwd(q, k, v, causal=True, **args) for _ in range(3)]
+        torch.cuda.synchronize()
+        for o, lse in runs[1:]:
+            assert torch.equal(o, runs[0][0]) and torch.equal(lse, runs[0][1])
 
 
 @pytest.mark.cuda
@@ -426,6 +456,9 @@ FUSED_CASES = [
     # (B, Sq, Hq, Hkv): N = B*Sq of 1, 10, 128 and ragged; one GQA case
     (1, 1, 16, 16), (10, 1, 16, 16), (128, 1, 16, 16), (3, 7, 16, 16), (19, 7, 16, 16),
     (10, 1, 16, 4), (5, 7, 16, 4),
+    # #9's token tiles (8, 16, 32) and their edges, its split plans, and
+    # N = 896 = 128 x 7 (28 token groups, one split)
+    (16, 1, 16, 16), (17, 1, 16, 16), (64, 1, 16, 16), (65, 1, 16, 16), (128, 7, 16, 16),
 ]
 
 
@@ -451,6 +484,45 @@ def test_fused_decode_kernels_match_plain_twins(cuda_device, B, Sq, Hq, Hkv):
                                 eps=1e-6)
     assert o.dtype == torch.bfloat16 and o.shape == x.shape
     assert (o.float() - ref.float()).abs().max() <= FUSED_RTOL * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [10, 128])
+def test_fused_o_mlp_kernel_repeats_bit_for_bit(cuda_device, N):
+    """#9's split-K sums are reduced in a fixed order: three calls on the same
+    inputs give the same bits."""
+    from vla_rft_tpu_torch.ops import fused_decode_layer as fdl
+
+    gen = torch.Generator(device=cuda_device).manual_seed(N)
+    p, x, attn, _, _ = _fused_inputs(cuda_device, gen, N, 1, 1024, 4096, 16, 16)
+    args = (attn, x, *p["wo"], p["n2"], *p["wg"], *p["wu"], *p["wd"])
+    runs = [fdl.fused_o_mlp_kernel(*args, eps=1e-6) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+@pytest.mark.cuda
+def test_fused_o_mlp_kernel_reads_a_layer_slice(cuda_device):
+    """#9 on w[li] of stacked (L, in, out) weights, a view at a non-zero
+    offset, gives the bits of the same layer's weights as their own tensors."""
+    from vla_rft_tpu_torch.ops import fused_decode_layer as fdl
+
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    p, x, attn, _, _ = _fused_inputs(cuda_device, gen, 10, 1, 1024, 4096, 16, 16)
+    stacked = {k: torch.stack([torch.randint_like(p[k][0], -127, 128), p[k][0],
+                               torch.randint_like(p[k][0], -127, 128)])
+               for k in ("wo", "wg", "wu", "wd")}
+    assert stacked["wd"][1].storage_offset() > 0
+    own = fdl.fused_o_mlp_kernel(attn, x, *p["wo"], p["n2"], *p["wg"], *p["wu"], *p["wd"],
+                                 eps=1e-6)
+    sliced = fdl.fused_o_mlp_kernel(
+        attn, x, stacked["wo"][1], p["wo"][1], p["n2"], stacked["wg"][1], p["wg"][1],
+        stacked["wu"][1], p["wu"][1], stacked["wd"][1], p["wd"][1], eps=1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(own, sliced)
+    ref = fdl.fused_o_mlp_plain(attn, x, *p["wo"], p["n2"], *p["wg"], *p["wu"], *p["wd"],
+                                eps=1e-6)
+    assert (sliced.float() - ref.float()).abs().max() <= FUSED_RTOL * ref.float().abs().max()
 
 
 @pytest.mark.cuda

@@ -52,6 +52,7 @@ bwd_dkv_launches = 0
 
 _lib = None
 _bwd_lib = None
+_ready = set()  # device indices whose forward shared-memory limits are set
 
 
 # ================================================================ plain twin
@@ -172,9 +173,24 @@ def _load():
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
-        fn.restype = ctypes.c_int
+        fn.restype = lib.flash_fwd_setup.restype = ctypes.c_int
+        lib.flash_fwd_setup.argtypes = []
         _lib = lib
     return _lib
+
+
+def _fwd_lib(dev: torch.device):
+    """The forward's library, with its shared-memory limits set once on `dev`."""
+    lib = _load()
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _ready:
+        with torch.cuda.device(idx):
+            rc = lib.flash_fwd_setup()
+        if rc != 0:
+            raise RuntimeError(f"flash_fwd: setup failed with CUDA error {rc}")
+        _ready.add(idx)
+    return lib
+
 
 
 def _load_bwd():
@@ -257,11 +273,14 @@ def flash_fwd(
     (B, Sq, Hq, D) bf16 and LSE (B, Sq, Hq) f32; does not synchronise."""
     global launches
     B, Sq, Sk, Hq, Hkv, D = _check("flash_fwd", q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_fwd: {name} must start on a 16-byte boundary")
     if scale is None:
         scale = D ** -0.5
     dev = q.device
     kl, qo, ks = _rows(B, Sk, dev, kv_lens, q_offset, kv_starts)
-    lib = _load()
+    lib = _fwd_lib(dev)
     o = torch.empty_like(q)
     lse = torch.empty((B, Sq, Hq), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -23,7 +23,10 @@ view, so nothing is copied.
 * `fused_qkv_kernel` / `fused_o_mlp_kernel` launch csrc/fused_decode_layer.cu
   and count every CUDA launch in `qkv_launches` (1 per call) and
   `o_mlp_launches` (`O_MLP_LAUNCHES` = 3 per call: o_proj + residual,
-  gate/up + silu, down + residual).
+  gate/up + silu, down + residual).  #9 is a split-K product: `o_mlp_plan`
+  picks its token tile and the K splits of each launch (a thread-block
+  cluster per column tile, reduced in split order), so that each launch
+  runs about one block per SM.
 * `fused_rmsnorm_qkv` / `fused_o_mlp` are the front ends: a CUDA tensor
   always goes to the kernel (or raises), a CPU tensor to the twin;
   `impl="plain"` asks for the twin on either device.
@@ -41,7 +44,8 @@ heads of 64, I 4096, #8 moves ~3.3 MB at N = B*Sq = 10 (~1.0 us) and #9
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,12 +54,16 @@ from vla_rft_tpu_torch.ops import cuda_build
 HEAD_DIM = 64  # the kernels' head tile
 TILE = 64  # columns of a product tile and depth of a contraction chunk
 O_MLP_LAUNCHES = 3
+H100_SMS = 132  # the grid is planned for the device's SM count; this when none is given
+TOKEN_TILES = (8, 16, 32)  # #9's tokens per block (8 * nt8)
+MAX_SPLITS = 8  # #9's K splits per launch: one portable cluster
 
 # kernel launches since the counts were last set to 0 (read by chip_smoke.py)
 qkv_launches = 0
 o_mlp_launches = 0
 
 _lib = None
+_sms: Dict[int, int] = {}  # device index -> SM count, once #9's shared-memory limits are set
 
 
 def rope_tables(positions: torch.Tensor, theta: float, num_heads: int,
@@ -136,6 +144,31 @@ def fused_o_mlp_plain(attn, x, wo, so, norm_w, wg, sg, wu, su, wd, sd, *, eps: f
     return (x1 + qdot(m, wd, sd)).reshape(B, Sq, H).to(x.dtype)
 
 
+# ================================================================ #9's plan
+@functools.lru_cache(maxsize=256)
+def o_mlp_plan(N: int, HqD: int, H: int, I: int, sms: int = H100_SMS) -> dict:
+    """The launch plan of kernel #9 at N = B*Sq tokens: one token tile for
+    the three launches (8, 16 or 32 tokens, the smallest that holds N, 32
+    beyond) and, per launch, the number of K splits: the largest divisor of
+    its K / 64 chunks, at most MAX_SPLITS, that keeps column tiles x token
+    groups x splits within one block per SM (two per SM measured slower:
+    the clusters ran in two waves).  Returns {"token_tile",
+    "token_groups", "launches": {name: {k, cols, splits, chunks, grid}}};
+    the splits of a column tile run as one cluster.  Cached (the decode
+    loop asks once per layer): callers must not change the result."""
+    tile = next((t for t in TOKEN_TILES if N <= t), TOKEN_TILES[-1])
+    groups = -(-N // tile)
+    launches = {}
+    for name, k, cols in (("o_proj", HqD, H), ("gate_up", H, I), ("down", I, H)):
+        chunks, tiles = k // TILE, cols // TILE
+        want = max(1, sms // (tiles * groups))
+        splits = max(d for d in range(1, min(chunks, MAX_SPLITS) + 1)
+                     if chunks % d == 0 and d <= want)
+        launches[name] = {"k": k, "cols": cols, "splits": splits, "chunks": chunks // splits,
+                          "grid": (tiles, splits, groups)}
+    return {"token_tile": tile, "token_groups": groups, "launches": launches}
+
+
 # ==================================================================== kernels
 def _load():
     global _lib
@@ -144,11 +177,26 @@ def _load():
         lib.fused_qkv_bf16.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
                                        + [ctypes.c_int64] * 3 + [ctypes.c_float, ctypes.c_void_p])
         lib.fused_qkv_bf16.restype = ctypes.c_int
-        lib.fused_o_mlp_bf16.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+        lib.fused_o_mlp_bf16.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
                                          + [ctypes.c_float, ctypes.c_void_p])
-        lib.fused_o_mlp_bf16.restype = ctypes.c_int
+        lib.fused_o_mlp_bf16.restype = lib.fused_o_mlp_setup.restype = ctypes.c_int
+        lib.fused_o_mlp_setup.argtypes = []
         _lib = lib
     return _lib
+
+
+def _o_mlp_lib(dev: torch.device):
+    """The library, with #9's shared-memory limits set once on `dev`, and
+    the device's SM count."""
+    lib = _load()
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        with torch.cuda.device(idx):
+            rc = lib.fused_o_mlp_setup()
+        if rc != 0:
+            raise RuntimeError(f"fused o/mlp kernel: setup failed with CUDA error {rc}")
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return lib, _sms[idx]
 
 
 def _check(name, t, dtype, shape, dev):
@@ -164,6 +212,14 @@ def _check_x(x):
         raise ValueError("fused decode kernel: x must be a contiguous (B, Sq, H) bf16 CUDA tensor")
     if x.shape[2] % TILE:
         raise ValueError(f"fused decode kernel: width {x.shape[2]} is not a multiple of {TILE}")
+
+
+def _check_aligned(named):
+    """#9 copies 16-byte vectors: every (name, tensor) must start on a
+    16-byte boundary (a layer's slice w[li] of a stacked tensor does)."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused decode kernel: {name} must start on a 16-byte boundary")
 
 
 def _check_weight(name, w, s, k_in, dev):
@@ -237,7 +293,8 @@ def fused_qkv_kernel(x, rope_cos, rope_sins, norm_w, wq, sq, wk, sk, wv, sv, *, 
 
 def fused_o_mlp_kernel(attn, x, wo, so, norm_w, wg, sg, wu, su, wd, sd, *, eps: float):
     """Launch kernel #9 (three launches); same arguments and result as
-    `fused_o_mlp_plain`, all on one CUDA device, widths multiples of 64."""
+    `fused_o_mlp_plain`, all on one CUDA device, widths multiples of 64,
+    tensors on 16-byte boundaries."""
     global o_mlp_launches
     _check_x(x)
     B, Sq, H = x.shape
@@ -254,13 +311,19 @@ def fused_o_mlp_kernel(attn, x, wo, so, norm_w, wg, sg, wu, su, wd, sd, *, eps: 
     _check("norm weight", norm_w, torch.bfloat16, (H,), dev)
     if wo.shape[1] != H or wu.shape[1] != I or wd.shape[1] != H:
         raise ValueError("fused decode kernel: o/gate/up/down widths do not chain")
+    _check_aligned((("attn", attn), ("x", x), ("wo", wo), ("wg", wg), ("wu", wu), ("wd", wd),
+                    ("norm weight", norm_w)))
+    lib, sms = _o_mlp_lib(dev)
+    plan = o_mlp_plan(N, HqD, H, I, sms)
     x1 = torch.empty((N, H), dtype=torch.bfloat16, device=dev)
     m = torch.empty((N, I), dtype=torch.bfloat16, device=dev)
     o = torch.empty_like(x)
-    rc = _load().fused_o_mlp_bf16(
+    splits = [plan["launches"][k]["splits"] for k in ("o_proj", "gate_up", "down")]
+    rc = lib.fused_o_mlp_bf16(
         attn.data_ptr(), x.data_ptr(), wo.data_ptr(), so.data_ptr(), norm_w.data_ptr(),
         wg.data_ptr(), sg.data_ptr(), wu.data_ptr(), su.data_ptr(), wd.data_ptr(), sd.data_ptr(),
-        x1.data_ptr(), m.data_ptr(), o.data_ptr(), N, HqD, H, I, float(eps),
+        x1.data_ptr(), m.data_ptr(), o.data_ptr(), N, HqD, H, I, plan["token_tile"] // 8,
+        *splits, float(eps),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
