@@ -22,7 +22,9 @@ Phases, one JSON line each:
                   shape (B 4 x 1663, 16/16 heads) beside the twin's, the
                   autograd backward of scaled_dot_product_attention's (a
                   yardstick only, forward + backward replayed from a CUDA
-                  graph less the forward) and the bound;
+                  graph less the forward) and the bound; #3's launch plan
+                  and three calls of it giving the same bits (its cluster
+                  split is reduced in a fixed order);
   4. decode     - the split-cache decode kernels (#4 with a shared prefix, #5
                   without) against their twins over int8 and bf16 caches, Sq 1
                   and 7, uniform and per-row prefix maps, shared_starts,
@@ -45,10 +47,11 @@ Phases, one JSON line each:
                   GQA 16/4; their
                   time at N = 10 and N = 128 beside the twin's, torch.matmul
                   of the same products over pre-dequantised bf16 weights (a
-                  yardstick only) and the bound; #9's time per launch
-                  (o_proj, gate/up, down: torch.profiler over a CUDA-graph
-                  replay), its launch plan, and three calls giving the same
-                  bits (its split-K sums are reduced in a fixed order);
+                  yardstick only) and the bound; the time per launch of #8
+                  and of #9's three (o_proj, gate/up, down: torch.profiler
+                  over a CUDA-graph replay), their launch plans, and three
+                  calls of each giving the same bits (their split-K sums
+                  are reduced in a fixed order);
   6. serving    - the libero-width policy (SigLIP-so400m + DINOv2-L +
                   Qwen2.5-0.5B + DiT action expert, seeded random weights)
                   behind ActionServer on localhost answers 4 POST /act
@@ -160,14 +163,18 @@ N_SAMPLES, N_ROLLOUTS = 2, 4
 # fused decode kernels vs twins: both round every product and residual to
 # bf16 in the reference's order and differ only in the order of f32 sums,
 # which can move one bf16 rounding: bf16 outputs |d| <= 2^-7 max|ref|, int8
-# k/v within one quantum (two where the scales are an ulp apart) on at most
-# 1 % of entries (0.012-0.117 % measured at WM width on an H100), scales
-# within one bf16 ulp
+# k/v within one quantum (two where the scales differ) on at most 1 % of
+# entries (0.012-0.117 % measured at WM width on an H100); k/v scales at
+# most 2 bf16 ulps from the twin's (an amax one ulp away moves bf16(amax /
+# 127) by up to two, proven over every bf16 amax in
+# tests/test_torch_kernel_redesign_qkv_dkv.py), on at most 1 % of scales
 FUSED_RTOL = 2 ** -7
 FUSED_INT8_SHARE = 0.01
-# #9's three launches, by the name of their kernel instance
-O_MLP_KERNELS = {"o_proj": "o_mlp_product<0", "gate_up": "o_mlp_product<1",
-                 "down": "o_mlp_product<2"}
+SCALE_ULPS = 2
+# the launches of #8 and #9's three, by the name of their kernel instance
+QKV_KERNELS = {"qkv": "streaming_product<3"}
+O_MLP_KERNELS = {"o_proj": "streaming_product<0", "gate_up": "streaming_product<1",
+                 "down": "streaming_product<2"}
 
 
 def emit(obj) -> None:
@@ -483,16 +490,18 @@ def phase_flash_bwd(attention) -> dict:
         work = bwd_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"], True)
         entry = {"B": B, "S": S, "kv_len": kv_len, "Hq": Hq, "Hkv": Hkv, "D": 64, "causal": True,
                  "plain_ms": plain_ms, "library_ms": library_ms}
+        dkv = lambda: attention.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        if not repeats_bit_for_bit(dkv):
+            raise AssertionError(f"flash_bwd_dkv at {shape}: three calls gave different bits")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         timed[shape] = {
             "dq": {**entry, "kernel_ms": graph_ms(
                 lambda: attention.flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
                 "eager_ms": cuda_ms(lambda: attention.flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
                 **bound(*work["dq"])},
-            "dkv": {**entry, "kernel_ms": graph_ms(
-                lambda: attention.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)),
-                "eager_ms": cuda_ms(lambda: attention.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                                    **kw)),
-                **bound(*work["dkv"])},
+            "dkv": {**entry, "kernel_ms": graph_ms(dkv), "eager_ms": cuda_ms(dkv),
+                    "repeats_bit_for_bit": True, "plan": attention.dkv_plan(B, S, Hq, Hkv, sms),
+                    **bound(*work["dkv"])},
         }
         del leaves
     out = {"phase": "flash_bwd", "cases": results, "max_abs_err": err,
@@ -880,7 +889,7 @@ def profile_decode_steps(wmod, roll, rows, fused: bool = False, steps: int = 16)
     n_dec = sum(1 for e in kernels if "decode_attend_kernel" in e.name)
     by_name = {}
     for e in kernels:
-        for key, name in (("qkv", "qkv_kernel"), *O_MLP_KERNELS.items()):
+        for key, name in (*QKV_KERNELS.items(), *O_MLP_KERNELS.items()):
             if name in e.name:
                 by_name[key] = by_name.get(key, 0.0) + (e.time_range.end - e.time_range.start)
     return {"calls": steps, "rows": int(rows.tails.shape[0]), "fused": fused,
@@ -1023,20 +1032,22 @@ def _fused_args(fdl, p, gen, B, Sq, Hq, Hkv, H=1024, D=64):
 
 
 def _qkv_err(got, ref):
-    """max |dq|, largest int8 step and its share, scales within one ulp."""
+    """(within the bounds, max |dq|, largest int8 step and its share, largest
+    scale step in bf16 ulps and the share of scales that differ)."""
     q, k8, v8, ks, vs = got
     rq, rk8, rv8, rks, rvs = ref
     e_q = (q.float() - rq.float()).abs().max().item()
     ok = e_q <= FUSED_RTOL * rq.float().abs().max().item()
-    for sc, rs in ((ks, rks), (vs, rvs)):
-        ok &= bool(((sc.float() - rs.float()).abs() <= FUSED_RTOL * rs.float().abs()).all())
-    quanta, share = 0, 0.0
+    quanta, share, ulps, sc_share = 0, 0.0, 0, 0.0
     for t, r, sc, rs in ((k8, rk8, ks, rks), (v8, rv8, vs, rvs)):
+        u = (sc.view(torch.int16).int() - rs.view(torch.int16).int()).abs()
+        ulps, sc_share = max(ulps, u.max().item()), max(sc_share, (u > 0).float().mean().item())
         d = (t.int() - r.int()).abs()
         flip = (sc != rs).transpose(1, 2).repeat_interleave(t.shape[-1] // sc.shape[1], dim=-1)
         ok &= bool((d <= torch.where(flip, 2, 1)).all())
         quanta, share = max(quanta, d.max().item()), max(share, (d > 0).float().mean().item())
-    return ok and share <= FUSED_INT8_SHARE, e_q, quanta, share
+    ok &= ulps <= SCALE_ULPS and sc_share <= FUSED_INT8_SHARE and share <= FUSED_INT8_SHARE
+    return ok, e_q, quanta, share, ulps, sc_share
 
 
 def fused_work(N, H, Hq, Hkv, I, D=64):
@@ -1065,12 +1076,14 @@ def phase_fused_decode(fdl) -> dict:
         got = fdl.fused_qkv_kernel(*qkv, **kw)
         o = fdl.fused_o_mlp_kernel(*omlp, eps=1e-6)
         torch.cuda.synchronize()
-        ok, e_q, quanta, share = _qkv_err(got, fdl.fused_rmsnorm_qkv_plain(*qkv, **kw))
+        ok, e_q, quanta, share, ulps, sc_share = _qkv_err(
+            got, fdl.fused_rmsnorm_qkv_plain(*qkv, **kw))
         ref = fdl.fused_o_mlp_plain(*omlp, eps=1e-6).float()
         e_o = (o.float() - ref).abs().max().item()
         ok &= e_o <= FUSED_RTOL * ref.abs().max().item() and bool(torch.isfinite(o.float()).all())
         case = {"B": B, "Sq": Sq, "N": B * Sq, "Hq": Hq, "Hkv": Hkv, "max_abs_err_q": e_q,
-                "max_int8_diff": quanta, "int8_diff_share": share, "max_abs_err_o": e_o}
+                "max_int8_diff": quanta, "int8_diff_share": share, "max_scale_ulps": ulps,
+                "scale_diff_share": sc_share, "max_abs_err_o": e_o}
         if not ok:
             raise AssertionError(f"fused decode case {case}")
         err["qkv"], err["o_mlp"] = max(err["qkv"], e_q), max(err["o_mlp"], e_o)
@@ -1094,12 +1107,17 @@ def phase_fused_decode(fdl) -> dict:
                                  torch.matmul(m, wd))}
         work = fused_work(N, H, 16, 16, I)
         o_mlp = lambda: fdl.fused_o_mlp_kernel(*omlp, eps=1e-6)
-        if not repeats_bit_for_bit(o_mlp):
-            raise AssertionError(f"fused o/mlp at N={N}: three calls gave different bits")
+        qkv_k = lambda: fdl.fused_qkv_kernel(*qkv, **kw)
+        for name, fn in (("qkv", qkv_k), ("o/mlp", o_mlp)):
+            if not repeats_bit_for_bit(fn):
+                raise AssertionError(f"fused {name} at N={N}: three calls gave different bits")
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         timed[N] = {
-            "qkv": {"kernel_ms": graph_ms(lambda: fdl.fused_qkv_kernel(*qkv, **kw)),
-                    "eager_ms": cuda_ms(lambda: fdl.fused_qkv_kernel(*qkv, **kw), 100),
+            "qkv": {"kernel_ms": graph_ms(qkv_k),
+                    "per_launch": graph_kernel_ms(qkv_k, QKV_KERNELS),
+                    "plan": fdl.qkv_plan(N, 16, 16, H, sms),
+                    "repeats_bit_for_bit": True,
+                    "eager_ms": cuda_ms(qkv_k, 100),
                     "plain_ms": graph_ms(lambda: fdl.fused_rmsnorm_qkv_plain(*qkv, **kw), 10),
                     "library_ms": graph_ms(lib["qkv"]), **bound(*work["qkv"])},
             "o_mlp": {"kernel_ms": graph_ms(o_mlp),
@@ -1112,7 +1130,8 @@ def phase_fused_decode(fdl) -> dict:
         }
     out = {"phase": "fused_decode", "H": H, "I": I, "cases": results, "max_abs_err": err,
            "tolerance": f"bf16 |d| <= {FUSED_RTOL} max|ref|; int8 within 1 quantum (2 where "
-                        f"the scales are an ulp apart) on <= 10 % of entries; scales 1 ulp",
+                        f"the scales differ) on <= {FUSED_INT8_SHARE} of entries; k/v scales "
+                        f"within {SCALE_ULPS} bf16 ulps, <= {FUSED_INT8_SHARE} of them differ",
            "launches_per_call": {"qkv": 1, "o_mlp": fdl.O_MLP_LAUNCHES}, "timed": timed}
     emit(out)
     return out

@@ -16,22 +16,52 @@
 //   * dQ = dS K;  dV = p^T dO and dK = dS^T Q, summed over the G query heads
 //     of the kv group.  f32 accumulation, bf16 dq/dk/dv out.
 //
-// Design.  Both kernels use #1's structure: 4-warp blocks, 64-row tiles
-// staged in shared memory, WMMA bf16 products (16x16x16, f32 accumulate),
-// each warp owning 16 rows end to end so warps only __syncwarp between the
-// tile loads.
-//   #2: one block per (64-query tile, query head, batch row).  It keeps Q,
-//       dO, lse and delta of its tile in shared memory and loops over the
-//       64-key K/V tiles that hold a valid key for some query of the tile:
-//       S = Q K^T and dP = dO V^T go to f32 shared memory, the element pass
-//       turns them into dS (bf16), and dQ += dS K accumulates in registers.
-//   #3: one block per (64-key tile, kv head, batch row).  It keeps K and V
-//       of its tile and loops over the G query heads of the group and the
-//       64-query tiles that can see one of its keys: S^T = K Q^T and
-//       dP^T = V dO^T, the element pass gives p^T and dS^T (bf16), then
-//       dV += p^T dO and dK += dS^T Q in registers.  One block owns its keys
-//       for every query head, so dK/dV need no atomics and are
-//       deterministic.
+// Design.
+//   #2: the first design.  A block of 4 warps per (64-query tile, query
+//       head, batch row), 64-row tiles staged in shared memory, WMMA bf16
+//       products (16x16x16, f32 accumulate), each warp owning 16 rows end
+//       to end.  It keeps Q, dO, lse and delta of its tile in shared memory
+//       and loops over the 64-key K/V tiles that hold a valid key for some
+//       query of the tile: S = Q K^T and dP = dO V^T go to f32 shared
+//       memory, the element pass turns them into dS (bf16), and dQ += dS K
+//       accumulates in registers.
+//   #3: register-resident.  A block of 4 warps (one warpgroup) owns a
+//       64-key tile of one kv head and batch row, each warp 16 keys; its K
+//       and V tiles are staged once, and it walks the (query head of the kv
+//       group, 64-query tile) pairs that can see one of its keys, with the
+//       next pair's Q, dO, lse and delta double-buffered in shared memory by
+//       cp.async (16 bytes a copy for Q/dO, 4 for lse and delta) while the
+//       current pair is multiplied.  Per pair, 32 queries at a time (few
+//       enough live registers for three blocks per SM at D = 64):
+//         S^T = K Q^T, dP^T = V dO^T   into registers, K/V as A, Q/dO as B:
+//                   at D = 64 on wgmma m64n32k16 (A: K/V fragments read
+//                   into registers once for the block; B: the Q/dO rows,
+//                   read once for the warpgroup), at D = 128 on mma.sync
+//                   m16n8k16 with ldmatrix;
+//         p, dS     the element pass on the accumulators: p = 2^max(s
+//                   scale log2 e - lse log2 e, -80 log2 e) (one FFMA and
+//                   one EX2), exactly 0 on masked lanes, dS = p (dP -
+//                   delta) scale; masks only where a pair cuts a kv_starts /
+//                   kv_lens edge, the ragged last query tile or the causal
+//                   diagonal of the warp's keys; halves wholly above the
+//                   keys' diagonal are skipped;
+//         dV += p^T dO, dK += dS^T Q   p^T and dS^T rounded to bf16 and used
+//                   directly as A fragments (the accumulator layout is the A
+//                   fragment layout, for mma.sync and wgmma alike), dO and Q
+//                   as B: at D = 64 on wgmma m64n64k16 with B's queries as
+//                   K (transposed), at D = 128 through ldmatrix.trans;
+//       dK and dV never leave registers until the epilogue.  Shared-memory
+//       rows are XOR-swizzled in 16-byte chunks (at D = 64 exactly wgmma's
+//       128-byte swizzle atoms, on 1024-byte boundaries), so ldmatrix and
+//       cp.async are free of bank conflicts.  Under causal masking the key
+//       tiles with the most query tiles run first (the key tile is the
+//       slowest grid axis; the low tiles see the most queries).  The
+//       wrapper may split a key tile's pairs over a cluster of `splits`
+//       blocks (rank r takes pairs r, r + splits, ...); the ranks' f32
+//       dK/dV are then summed from distributed shared memory in rank
+//       order, so dK/dV are the same bits on every run, with no float
+//       atomics.  The dynamic shared-memory limits are raised once per
+//       device (flash_bwd_setup).
 // Unlike the TPU kernels, nothing is padded to block multiples: ragged
 // tiles are zero-filled in shared memory and masked by index.  p and dS are
 // rounded to bf16 for the second products, as #1 rounds P.
@@ -42,20 +72,27 @@
 // about 46 MB of q/k/v/o/dO/dq/dk/dv, about 260 FLOP per byte: near the
 // card's ~295 FLOP/byte bf16 ridge, so both bounds are ~12-14 us.  At the
 // WM-SFT shape (B = 4, S = 1663, 16/16 heads) it is about 79 GFLOP against
-// 110 MB, bound by operations (~80 us).  This simple version (no TMA, no
-// wgmma, no pipelining; the element pass goes through shared memory) is far
-// from either bound; making it fast is later work.
+// 110 MB, bound by operations (~80 us).  #3 pays one MUFU.EX2 a score (16
+// a clock per SM) and, at D = 64, wgmma from registers and shared memory.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md): with its
+// products on mma.sync (each warp reading all of Q and dO by ldmatrix) #3
+// took 0.079 ms at the VLA-adapter shape and 0.266 ms at WM-SFT, where the
+// Q/dO stream, the products and the element pass each took about a third;
+// on wgmma 0.067 and 0.220 ms.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_bwd.so flash_bwd.cu
-// Interface: plain C (flash_bwd_dq_bf16, flash_bwd_dkv_bf16), loaded with
-// ctypes; each launches on the given stream, never synchronises, and
-// returns cudaGetLastError().
+// Interface: plain C (flash_bwd_setup, flash_bwd_dq_bf16,
+// flash_bwd_dkv_bf16), loaded with ctypes; each launch function launches on
+// the given stream, never synchronises, and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 using namespace nvcuda;
 
@@ -66,26 +103,25 @@ constexpr int NWARPS = 4;      // 16 rows per warp
 constexpr int NTHREADS = NWARPS * 32;
 constexpr float EXP_FLOOR = -80.0f;
 
-// Shared-memory layout (bytes), the same for both kernels: four bf16 row
-// tiles (the block's own two, the streamed two), two f32 score tiles, two
-// bf16 tiles for the element pass's outputs, and two f32 per-query vectors.
-// Padding breaks bank conflicts and keeps every 16-row WMMA fragment base
-// 32-byte aligned.  After the loop the score tiles hold the f32 output tile
-// (ld D + 4), which fits in the two of them for D <= 128.
+// #2's shared-memory layout (bytes): four bf16 row tiles (the block's own
+// Q and dO, the streamed K and V), two f32 score tiles, a bf16 tile for the
+// element pass's dS, and two f32 per-query vectors.  Padding breaks bank
+// conflicts and keeps every 16-row WMMA fragment base 32-byte aligned.
+// After the loop the score tiles hold the f32 output tile (ld D + 4), which
+// fits in the two of them for D <= 128.
 template <int D> struct Smem {
   static constexpr int LD = D + 8;     // bf16 row tiles
   static constexpr int LD_S = BT + 4;  // f32 score tiles
   static constexpr int LD_P = BT + 8;  // bf16 element-pass tiles
   static constexpr int LD_O = D + 4;   // f32 output staging
   static constexpr int TILE = BT * LD * 2;
-  static constexpr int A_OFF = 0;                    // own tile 1 (Q or K)
-  static constexpr int B_OFF = A_OFF + TILE;         // own tile 2 (dO or V)
-  static constexpr int C_OFF = B_OFF + TILE;         // streamed tile 1 (K or Q)
-  static constexpr int E_OFF = C_OFF + TILE;         // streamed tile 2 (V or dO)
-  static constexpr int S_OFF = E_OFF + TILE;         // f32 S (or S^T)
-  static constexpr int DP_OFF = S_OFF + BT * LD_S * 4;  // f32 dP (or dP^T)
-  static constexpr int P_OFF = DP_OFF + BT * LD_S * 4;  // bf16 p^T (#3 only)
-  static constexpr int DS_OFF = P_OFF + BT * LD_P * 2;  // bf16 dS (or dS^T)
+  static constexpr int A_OFF = 0;                    // own tile 1 (Q)
+  static constexpr int B_OFF = A_OFF + TILE;         // own tile 2 (dO)
+  static constexpr int C_OFF = B_OFF + TILE;         // streamed tile 1 (K)
+  static constexpr int E_OFF = C_OFF + TILE;         // streamed tile 2 (V)
+  static constexpr int S_OFF = E_OFF + TILE;         // f32 S
+  static constexpr int DP_OFF = S_OFF + BT * LD_S * 4;  // f32 dP
+  static constexpr int DS_OFF = DP_OFF + BT * LD_S * 4;  // bf16 dS
   static constexpr int LSE_OFF = DS_OFF + BT * LD_P * 2;
   static constexpr int DELTA_OFF = LSE_OFF + BT * 4;
   static constexpr int BYTES = DELTA_OFF + BT * 4;
@@ -272,8 +308,111 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 }
 
 // --------------------------------------------------------------- #3: dK, dV
+namespace dkv {
+
+constexpr int BQ = 64;  // queries of a streamed tile
+constexpr int HALF = 32;  // queries multiplied at a time
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float EXP2_FLOOR = EXP_FLOOR * LOG2E;  // exp(max(x, -80)) = 2^max(x log2 e, -80 log2 e)
+constexpr int MAX_SPLITS = 4;                   // blocks of a key tile: one cluster
+// wgmma's shared-memory matrix descriptor of a tile in the 128-byte
+// swizzle layout (rows of 128 bytes, 16-byte chunk c of row r at c ^ r % 8,
+// on a 1024-byte boundary) from `saddr`: the 8-row groups 1024 bytes apart;
+// the leading byte offset is unused, the operand being one 128-byte row
+// wide (measured: 16, 1024 and 2048 give the same bits).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  constexpr uint64_t LBO = 16 >> 4, SBO = 1024 >> 4;
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | LBO << 16 | SBO << 32 | (uint64_t)1 << 62;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (64 x N, f32, the warpgroup's accumulator: warp w rows 16w .. 16w + 15
+// in mma.sync's m16n8 layout, n8 tile j in d[j]) += A (registers, mma.sync's
+// A fragment per warp) times B (N x 16 at `desc`; TB: B's N dimension is
+// contiguous in memory).
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                         uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32, 0>(float (&d)[4][4], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64, 1>(float (&d)[8][4], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// Shared memory (bytes) from a 1024-byte boundary: the block's K and V
+// tiles, two stages of the streamed Q and dO tiles, then each stage's f32
+// lse and delta; rows of D bf16, XOR-swizzled in 16-byte chunks.  With
+// splits, the ranks' f32 dK/dV (fragment-major, 2 x 64 x D x 4 bytes) reuse
+// the stages after the loop.
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+struct Cfg {
+  static constexpr int ROW = D * 2;
+  static constexpr int TILE = 64 * ROW;
+  static constexpr int K_OFF = 0, V_OFF = TILE;
+  static constexpr int STAGE0 = 2 * TILE;
+  static constexpr int Q = 0, DO = TILE;  // in a stage
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int ROWS0 = STAGE0 + 2 * STAGE;  // lse then delta of stage s at ROWS0 + 512 s
+  static constexpr int LSE = 0, DELTA = BQ * 4;
+  static constexpr int BYTES = ROWS0 + 2 * 2 * BQ * 4 + 1024;  // + alignment of the base
+  static constexpr int SLOTS = 2 * (D / 8) * 2;  // (dK or dV, n8 tile, row half) of a thread
+  static_assert(SLOTS * NTHREADS * 2 * 4 <= 2 * STAGE, "the reduction must fit the stages");
+};
+
+// 64 rows of D bf16 (global row stride `gstride` elements) into a swizzled
+// shared tile by cp.async; rows at or beyond `valid` are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* src, int64_t gstride,
+                                          int valid) {
+  constexpr int CH = D / 8;
+  for (int idx = threadIdx.x; idx < 64 * CH; idx += NTHREADS) {
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = r < valid;
+    cp_async16(dst + swz(r, c, D * 2), ok ? src + r * gstride + c * 8 : src, ok);
+  }
+}
+
+// grid (splits, B * Hkv, key tiles), cluster (splits, 1, 1): the key tile
+// is the slowest axis, so the low (under causal masking, heaviest) tiles
+// start first; rank blockIdx.x takes every splits-th (query head, query
+// tile) pair of the tile.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, D <= 64 ? 3 : 2)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
@@ -281,105 +420,285 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                      const int* __restrict__ kv_lens, const int* __restrict__ q_offset,
                      const int* __restrict__ kv_starts, int Sq, int Sk, int Hq, int Hkv,
                      float scale, int causal) {
-  using L = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + L::A_OFF);
-  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + L::B_OFF);
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + L::C_OFF);
-  __nv_bfloat16* do_s = reinterpret_cast<__nv_bfloat16*>(smem + L::E_OFF);
-  float* st_s = reinterpret_cast<float*>(smem + L::S_OFF);
-  float* dpt_s = reinterpret_cast<float*>(smem + L::DP_OFF);
-  __nv_bfloat16* pt_s = reinterpret_cast<__nv_bfloat16*>(smem + L::P_OFF);
-  __nv_bfloat16* dst_s = reinterpret_cast<__nv_bfloat16*>(smem + L::DS_OFF);
-  float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
-  float* delta_s = reinterpret_cast<float*>(smem + L::DELTA_OFF);
+  using C = Cfg<D>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // wgmma's 128-byte swizzle reads address bits, so tiles sit on 1024 bytes
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t s_base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (s_base - raw);
+  const uint32_t k_s = s_base + C::K_OFF, v_s = s_base + C::V_OFF;
 
-  const int k0 = blockIdx.x * BT;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+  const int rank = blockIdx.x, splits = gridDim.x;
+  const int hk = blockIdx.y % Hkv, b = blockIdx.y / Hkv;
+  const int k0 = blockIdx.z * 64;
   const int G = Hq / Hkv;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row0 = warp * 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, qd = lane & 3;
 
   const int kv_len = min(kv_lens[b], Sk);
   const int kv_start = max(kv_starts[b], 0);
   const int q_off = q_offset[b];
-  const int k_rows = min(BT, Sk - k0);
+  const int k_rows = min(64, Sk - k0);
   const int64_t q_stride = (int64_t)Hq * D;
   const int64_t kv_stride = (int64_t)Hkv * D;
-  const int64_t kv_base = ((int64_t)b * Sk + k0) * Hkv + hk;
+  const int64_t kv_row0 = ((int64_t)b * Sk + k0) * Hkv + hk;  // (row, head) of the tile's first key
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.0f);
-    wmma::fill_fragment(dv_acc[j], 0.0f);
+  // The query tiles that can see a key of this tile (causal: those whose
+  // last query is at or past the tile's first key), for every query head of
+  // the group; none if the tile holds no valid key (then dK = dV = 0).
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  int qt_begin = 0;
+  if (causal) {
+    const int need = k0 - q_off - (BQ - 1);  // q0 >= need
+    qt_begin = q_off + Sq - 1 < k0 ? n_qt : (need <= 0 ? 0 : (need + BQ - 1) / BQ);
   }
-
-  // Does this key tile hold a valid key at all?  (Else dK = dV = 0.)
   const bool live = k0 < kv_len && k0 + k_rows > kv_start;
-  if (live) {
-    load_tile<D>(k_s, k + kv_base * D, kv_stride, k_rows);
-    load_tile<D>(v_s, v + kv_base * D, kv_stride, k_rows);
-    const int n_qt = (Sq + BT - 1) / BT;
-    for (int g = 0; g < G; ++g) {
-      const int h = hk * G + g;
-      for (int qt = 0; qt < n_qt; ++qt) {
-        const int q0 = qt * BT;
-        const int q_rows = min(BT, Sq - q0);
-        // causal: skip query tiles whose last query precedes this tile's
-        // first key (uniform over the block)
-        if (causal && q_off + q0 + q_rows - 1 < k0) continue;
-        __syncthreads();  // every warp is done with the previous Q/dO tile
-        const int64_t q_base = ((int64_t)b * Sq + q0) * Hq + h;
-        load_tile<D>(q_s, q + q_base * D, q_stride, q_rows);
-        load_tile<D>(do_s, dout + q_base * D, q_stride, q_rows);
-        for (int r = threadIdx.x; r < BT; r += NTHREADS) {
-          lse_s[r] = r < q_rows ? lse[q_base + (int64_t)r * Hq] : 0.0f;
-          delta_s[r] = r < q_rows ? delta[q_base + (int64_t)r * Hq] : 0.0f;
-        }
-        __syncthreads();
+  const int n_live = live ? n_qt - qt_begin : 0;
+  const int n_pairs = G * n_live;
+  const int my_pairs = n_pairs > rank ? (n_pairs - rank + splits - 1) / splits : 0;
 
-        row_dots<D>(st_s + row0 * L::LD_S, k_s + row0 * L::LD, q_s);    // S^T = K Q^T
-        row_dots<D>(dpt_s + row0 * L::LD_S, v_s + row0 * L::LD, do_s);  // dP^T = V dO^T
-        __syncwarp();
+  // Pair j of this rank: pair index rank + j * splits, head-major.
+  auto load_pair = [&](int j, int stage) {
+    const int i = rank + j * splits;
+    const int h = hk * G + i / n_live, q0 = (qt_begin + i % n_live) * BQ;
+    const int q_rows = min(BQ, Sq - q0);
+    const int64_t row0 = ((int64_t)b * Sq + q0) * Hq + h;
+    const uint32_t st = s_base + C::STAGE0 + stage * C::STAGE;
+    load_rows<D>(st + C::Q, q + row0 * D, q_stride, q_rows);
+    load_rows<D>(st + C::DO, dout + row0 * D, q_stride, q_rows);
+    const int r = threadIdx.x % BQ;
+    const bool ok = r < q_rows;
+    const float* src = (threadIdx.x < BQ ? lse : delta) + (ok ? row0 + (int64_t)r * Hq : 0);
+    cp_async4(s_base + C::ROWS0 + stage * 2 * BQ * 4 + (threadIdx.x < BQ ? C::LSE : C::DELTA)
+                  + r * 4, src, ok);
+  };
+  if (my_pairs > 0) {
+    load_rows<D>(k_s, k + kv_row0 * D, kv_stride, k_rows);
+    load_rows<D>(v_s, v + kv_row0 * D, kv_stride, k_rows);
+    load_pair(0, 0);
+  }
+  cp_async_commit();
 
-        for (int r = 0; r < 16; ++r) {
-          const int row = row0 + r;
-          const int kv_pos = k0 + row;
-          const bool k_ok = kv_pos >= kv_start && kv_pos < kv_len;
+  // This warp's keys: kp0 .. kp0 + 15; a thread holds keys g and g + 8.
+  const int r0 = warp * 16;
+  const int kp0 = k0 + r0;
+  const bool warp_live = kp0 < kv_len && kp0 + 15 >= kv_start;
+  const bool key_edge = kp0 < kv_start || kp0 + 16 > kv_len;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
-          for (int c2 = 0; c2 < 2; ++c2) {
-            const int col = lane + 32 * c2;
-            const int q_pos = q_off + q0 + col;
-            const bool ok = k_ok && col < q_rows && (!causal || q_pos >= kv_pos);
-            float p = 0.0f, ds = 0.0f;
-            if (ok) {
-              p = expf(fmaxf(st_s[row * L::LD_S + col] * scale - lse_s[col], EXP_FLOOR));
-              ds = p * (dpt_s[row * L::LD_S + col] - delta_s[col]) * scale;
-            }
-            pt_s[row * L::LD_P + col] = __float2bfloat16(p);
-            dst_s[row * L::LD_P + col] = __float2bfloat16(ds);
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
+  const float scale_log2 = scale * LOG2E;
+
+  // ldmatrix addressing (lane's row and chunk within a 16 x 16 block).
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;  // A: K/V rows; Q/dO^T: queries
+  const int lchunk = lane >> 4;
+  const int brow = (lane & 7) + (lane >> 4) * 8;        // B: queries of two n8 tiles
+  const int bchunk = (lane >> 3) & 1;
+
+  // At D = 64 the products run on wgmma (the tiles are 128-byte swizzle
+  // atoms), with K and V as A fragments in registers: the warp's 16 keys
+  // are the same for every pair, so they are read once (at D = 128 they
+  // would not fit beside dK and dV, and are read per pair by ldmatrix).
+  constexpr bool WG = D == 64;
+  uint32_t ka[WG ? D / 16 : 1][4], va[WG ? D / 16 : 1][4];
+
+  for (int j = 0; j < my_pairs; ++j) {
+    const int stage = j & 1;
+    cp_async_wait<0>();  // pair j has landed
+    __syncthreads();      // ... for every thread, and every warp is done with pair j - 1
+    // pair j + 1 flies during this pair's products, into pair j - 1's stage
+    if (j + 1 < my_pairs) load_pair(j + 1, stage ^ 1);
+    cp_async_commit();
+    if constexpr (WG) {
+      if (j == 0) {  // K and V landed with pair 0
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          ldsm_x4(ka[kk], k_s + swz(r0 + lrow, 2 * kk + lchunk, C::ROW));
+          ldsm_x4(va[kk], v_s + swz(r0 + lrow, 2 * kk + lchunk, C::ROW));
+        }
+      }
+    }
+
+    const int i = rank + j * splits;
+    const int q0 = (qt_begin + i % n_live) * BQ;
+    const int qp0 = q_off + q0;  // position of the tile's first query
+    // a warp whose keys are all invalid skips the pair (on wgmma the
+    // warpgroup multiplies together, and the masks give such keys 0)
+    if (!WG && !warp_live) continue;
+    const uint32_t st = s_base + C::STAGE0 + stage * C::STAGE;
+    const uint32_t q_s = st + C::Q, do_s = st + C::DO;
+    const float* lse_s = reinterpret_cast<const float*>(smem + C::ROWS0 + stage * 2 * BQ * 4);
+    const float* dl_s = lse_s + BQ;
+
+    // The tile's queries 32 at a time (fewer live registers: three blocks
+    // fit on an SM).  A half whose last query precedes the first key of the
+    // warp (of the block, on wgmma) gets exactly nothing under causal masking.
+#pragma unroll
+    for (int hq = 0; hq < BQ / HALF; ++hq) {
+      const int h0 = hq * HALF;  // the half's first query in the tile
+      if (causal && qp0 + h0 + HALF - 1 < (WG ? k0 : kp0)) continue;
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries each
+      float s[HALF / 8][4], dp[HALF / 8][4];
+#pragma unroll
+      for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+      if constexpr (WG) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_rs<HALF, 0>(s, ka[kk], desc_sw128(q_s + h0 * C::ROW + 32 * kk));
+          wgmma_rs<HALF, 0>(dp, va[kk], desc_sw128(do_s + h0 * C::ROW + 32 * kk));
+        }
+        wgmma_commit_wait();
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t kf[4], vf[4];
+          ldsm_x4(kf, k_s + swz(r0 + lrow, 2 * kk + lchunk, C::ROW));
+          ldsm_x4(vf, v_s + swz(r0 + lrow, 2 * kk + lchunk, C::ROW));
+#pragma unroll
+          for (int np = 0; np < HALF / 16; ++np) {
+            uint32_t qb[4], ob[4];
+            ldsm_x4(qb, q_s + swz(h0 + 16 * np + brow, 2 * kk + bchunk, C::ROW));
+            ldsm_x4(ob, do_s + swz(h0 + 16 * np + brow, 2 * kk + bchunk, C::ROW));
+            mma_bf16(s[2 * np], kf, qb[0], qb[1]);
+            mma_bf16(s[2 * np + 1], kf, qb[2], qb[3]);
+            mma_bf16(dp[2 * np], vf, ob[0], ob[1]);
+            mma_bf16(dp[2 * np + 1], vf, ob[2], ob[3]);
           }
         }
-        __syncwarp();
+      }
 
-        acc_product<D>(dv_acc, pt_s + row0 * L::LD_P, do_s);  // dV += p^T dO
-        acc_product<D>(dk_acc, dst_s + row0 * L::LD_P, q_s);  // dK += dS^T Q
+      // The element pass: p into s, dS into dp.  Element e of n8 tile n is
+      // key kp0 + g + 8 (e >> 1), query q0 + h0 + 8n + 2 qd + (e & 1).
+      const bool edge = key_edge || q0 + h0 + HALF > Sq || (causal && qp0 + h0 < kp0 + 15);
+#pragma unroll
+      for (int n = 0; n < HALF / 8; ++n) {
+        const int col = h0 + 8 * n + 2 * qd;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(dl_s + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float l = (e & 1) ? l2.y : l2.x, dl = (e & 1) ? d2.y : d2.x;
+          bool ok = true;
+          if (edge) {
+            const int kp = kp0 + g + 8 * (e >> 1), qi = q0 + col + (e & 1);
+            ok = kp >= kv_start && kp < kv_len && qi < Sq && (!causal || q_off + qi >= kp);
+          }
+          const float p =
+              ok ? exp2_approx(fmaxf(fmaf(s[n][e], scale_log2, -l * LOG2E), EXP2_FLOOR)) : 0.0f;
+          dp[n][e] = ok ? p * (dp[n][e] - dl) * scale : 0.0f;
+          s[n][e] = p;
+        }
+      }
+
+      // dV += p^T dO and dK += dS^T Q: the accumulators of n8 tiles 2u,
+      // 2u + 1 are the A fragment of the k16 step u (queries h0 + 16u ..).
+      uint32_t pa[HALF / 16][4], da[HALF / 16][4];
+#pragma unroll
+      for (int u = 0; u < HALF / 16; ++u) {
+        pa[u][0] = pack_bf16(s[2 * u][0], s[2 * u][1]);
+        pa[u][1] = pack_bf16(s[2 * u][2], s[2 * u][3]);
+        pa[u][2] = pack_bf16(s[2 * u + 1][0], s[2 * u + 1][1]);
+        pa[u][3] = pack_bf16(s[2 * u + 1][2], s[2 * u + 1][3]);
+        da[u][0] = pack_bf16(dp[2 * u][0], dp[2 * u][1]);
+        da[u][1] = pack_bf16(dp[2 * u][2], dp[2 * u][3]);
+        da[u][2] = pack_bf16(dp[2 * u + 1][0], dp[2 * u + 1][1]);
+        da[u][3] = pack_bf16(dp[2 * u + 1][2], dp[2 * u + 1][3]);
+      }
+      if constexpr (WG) {
+        // B = dO or Q with the queries as K: their rows are 128-byte
+        // swizzled atoms of 8 queries (MN-major)
+        wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < HALF / 16; ++u) {
+          wgmma_rs<D, 1>(dv_acc, pa[u], desc_sw128(do_s + (h0 + 16 * u) * C::ROW));
+          wgmma_rs<D, 1>(dk_acc, da[u], desc_sw128(q_s + (h0 + 16 * u) * C::ROW));
+        }
+        wgmma_commit_wait();
+      } else {
+#pragma unroll
+        for (int u = 0; u < HALF / 16; ++u) {
+#pragma unroll
+          for (int jd = 0; jd < D / 16; ++jd) {
+            uint32_t ob[4], qb[4];
+            ldsm_x4_t(ob, do_s + swz(h0 + 16 * u + lrow, 2 * jd + lchunk, C::ROW));
+            ldsm_x4_t(qb, q_s + swz(h0 + 16 * u + lrow, 2 * jd + lchunk, C::ROW));
+            mma_bf16(dv_acc[2 * jd], pa[u], ob[0], ob[1]);
+            mma_bf16(dv_acc[2 * jd + 1], pa[u], ob[2], ob[3]);
+            mma_bf16(dk_acc[2 * jd], da[u], qb[0], qb[1]);
+            mma_bf16(dk_acc[2 * jd + 1], da[u], qb[2], qb[3]);
+          }
+        }
       }
     }
   }
+  cp_async_wait<0>();
 
-  __syncthreads();  // the score tiles become the output staging
-  float* stage = st_s;
-  store_rows<D>(dk_acc, stage, dk + kv_base * D, kv_stride, row0, k_rows);
-  store_rows<D>(dv_acc, stage, dv + kv_base * D, kv_stride, row0, k_rows);
+  // Epilogue: element e of n8 tile j is key k0 + r0 + g + 8 (e >> 1),
+  // column 8j + 2 qd + (e & 1); a thread stores bf16 pairs.
+  __nv_bfloat16* dk_row = dk + kv_row0 * D + 2 * qd;
+  __nv_bfloat16* dv_row = dv + kv_row0 * D + 2 * qd;
+  auto store = [&](int j, int half, float k_lo, float k_hi, float v_lo, float v_hi) {
+    const int row = r0 + g + 8 * half;
+    if (row >= k_rows) return;
+    *reinterpret_cast<uint32_t*>(dk_row + row * kv_stride + 8 * j) = pack_bf16(k_lo, k_hi);
+    *reinterpret_cast<uint32_t*>(dv_row + row * kv_stride + 8 * j) = pack_bf16(v_lo, v_hi);
+  };
+  if (splits == 1) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        store(j, half, dk_acc[j][2 * half], dk_acc[j][2 * half + 1], dv_acc[j][2 * half],
+              dv_acc[j][2 * half + 1]);
+      }
+    return;
+  }
+  // With splits: every rank stores its f32 dK/dV fragment-major, slot
+  // (dK or dV, j, half) of thread t as a float2 at red[slot][t]; after a
+  // cluster barrier rank r sums slots (j, half) with (2 j + half) % splits
+  // == r over the ranks in rank order and stores them.
+  __syncthreads();  // every warp is done with the stages
+  float2* red = reinterpret_cast<float2*>(smem + C::STAGE0);
+  constexpr int PAIRS = D / 8 * 2;  // (j, half) slots of dK, then of dV
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      red[(2 * j + half) * NTHREADS + threadIdx.x] =
+          make_float2(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
+      red[(PAIRS + 2 * j + half) * NTHREADS + threadIdx.x] =
+          make_float2(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
+    }
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  cluster.sync();  // every rank's partials are complete
+  for (int sl = rank; sl < PAIRS; sl += splits) {
+    float2 sk = make_float2(0.0f, 0.0f), sv = make_float2(0.0f, 0.0f);
+    for (int r = 0; r < splits; ++r) {
+      const float2 a = *cluster.map_shared_rank(red + sl * NTHREADS + threadIdx.x, r);
+      const float2 c = *cluster.map_shared_rank(red + (PAIRS + sl) * NTHREADS + threadIdx.x, r);
+      sk.x += a.x, sk.y += a.y, sv.x += c.x, sv.y += c.y;
+    }
+    store(sl / 2, sl % 2, sk.x, sk.y, sv.x, sv.y);
+  }
+  cluster.sync();  // no block leaves while another reads its partials
 }
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}  // namespace dkv
+
+// Raises the dynamic shared-memory limit of every instance to what it uses.
+template <int D>
+cudaError_t setup_one() {
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Smem<D>::BYTES);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(dkv::flash_bwd_dkv_kernel<D>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, dkv::Cfg<D>::BYTES);
 }
 
 template <int D>
@@ -387,11 +706,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       const void* lse, const void* delta, void* dq, const void* kv_lens,
                       const void* q_offset, const void* kv_starts, int B, int Sq, int Sk,
                       int Hq, int Hkv, float scale, int causal, cudaStream_t stream) {
-  constexpr int bytes = Smem<D>::BYTES;
-  cudaError_t err = set_smem(flash_bwd_dq_kernel<D>, bytes);
-  if (err != cudaSuccess) return err;
   dim3 grid((Sq + BT - 1) / BT, Hq, B);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
+  flash_bwd_dq_kernel<D><<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -405,23 +721,41 @@ template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv,
                        const void* kv_lens, const void* q_offset, const void* kv_starts, int B,
-                       int Sq, int Sk, int Hq, int Hkv, float scale, int causal,
+                       int Sq, int Sk, int Hq, int Hkv, float scale, int causal, int splits,
                        cudaStream_t stream) {
-  constexpr int bytes = Smem<D>::BYTES;
-  cudaError_t err = set_smem(flash_bwd_dkv_kernel<D>, bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sk + BT - 1) / BT, Hkv, B);
-  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      static_cast<const int*>(kv_lens), static_cast<const int*>(q_offset),
-      static_cast<const int*>(kv_starts), Sq, Sk, Hq, Hkv, scale, causal);
-  return cudaGetLastError();
+  if (splits < 1 || splits > dkv::MAX_SPLITS) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, B * Hkv, (Sk + 63) / 64);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = dkv::Cfg<D>::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, dkv::flash_bwd_dkv_kernel<D>, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), static_cast<const int*>(kv_lens),
+      static_cast<const int*>(q_offset), static_cast<const int*>(kv_starts), Sq, Sk, Hq, Hkv,
+      scale, causal);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
+
+// Raises the dynamic shared-memory limits of both kernels' instances; called
+// once per device when the library is loaded.
+extern "C" int flash_bwd_setup() {
+  cudaError_t err = setup_one<64>();
+  if (err == cudaSuccess) err = setup_one<128>();
+  return static_cast<int>(err);
+}
 
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq,
@@ -442,19 +776,20 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
   return static_cast<int>(err);
 }
 
+// #3 over `splits` blocks (one cluster) per key tile, 1 to 4.
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv,
                                   const void* kv_lens, const void* q_offset,
                                   const void* kv_starts, int B, int Sq, int Sk, int Hq, int Hkv,
-                                  int D, float scale, int causal, void* stream) {
+                                  int D, float scale, int causal, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 64) {
     err = launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, kv_lens, q_offset, kv_starts, B, Sq,
-                         Sk, Hq, Hkv, scale, causal, s);
+                         Sk, Hq, Hkv, scale, causal, splits, s);
   } else if (D == 128) {
     err = launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, kv_lens, q_offset, kv_starts, B,
-                          Sq, Sk, Hq, Hkv, scale, causal, s);
+                          Sq, Sk, Hq, Hkv, scale, causal, splits, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -30,342 +30,79 @@
 //     both residual adds in bf16.
 //
 // Design.  The Pallas kernels run grid=(1,) and keep a whole layer's
-// weights in VMEM.  Here every product is tiled over the card.
-//   * #8: one launch, a block of 4 warps per (head tile of D = 64 columns:
-//     the Hq q heads, then the Hkv k heads, then the Hkv v heads; 64-row
-//     tile), looping over the contraction in 64-deep chunks.  Per chunk it
-//     converts the int8 weight tile to bf16 in shared memory and builds the
-//     bf16 activation tile ((x * r) * w on the fly, each row's r computed
-//     at the block's start from the whole row), and each warp multiplies
-//     its 16-row strip with WMMA (bf16 in, f32 accumulate); the next
-//     chunk's global loads are issued into registers before the current
-//     chunk's products.  Rope and quantisation need only the head's own 64
-//     lanes, so they run in the block's epilogue: a warp per row, lane l
-//     owning columns l and l + 32 (rope partners).  k/v and their scales are
-//     written through strides, so the caller can point them at the KV cache.
-//   * #9: three launches of one split-K streaming product (o_mlp_product),
-//     since the middle RMSNorm needs the whole H-wide row of x1 and the down
-//     projection all I columns of m: O_PROJ (x1 = x + qdot(attn, Wo)),
-//     GATE_UP (each block recomputes its tokens' r from x1; m = silu-gated
-//     g * u) and DOWN (out = x1 + qdot(m, Wd)).  Each computes Y^T = W^T X^T
-//     with mma.sync m16n8k16 (bf16 in, f32 accumulate): the weight's output
-//     columns fill the M = 16 side and the N tokens the n = 8 side, so at
-//     N = 10 six of 16 token columns are padding (#8's WMMA tile pads 64
-//     rows).  A block of 4 warps owns 64 output columns, a K slice and a
-//     group of 8, 16 or 32 tokens; the grid is column tile x K split x token
-//     group, the splits chosen by the wrapper for about one block per SM (at
-//     N = 10: 8, 2 and 8 splits, 128 blocks per launch).  The K slice streams
-//     through a shared-memory ring (8 stages, 4 for GATE_UP's two weights)
-//     by 16-byte cp.async.cg: a stage holds a 64-row chunk of int8 weights,
-//     the block's activation rows for those 64 k and, for GATE_UP, the norm
-//     weights.  Warp w multiplies k16 step w of every chunk; its A fragments
-//     are widened int8 -> bf16 in registers at fragment load (byte permutes
-//     and an exact f32 bias trick), never through a bf16 copy of the tile.
-//     Each warp stores its accumulators fragment-major (conflict-free) and
-//     the four are added in warp order.  The K splits of a column tile are
-//     one thread-block cluster: after a cluster barrier every rank takes a
-//     slice of the tile's outputs and sums the ranks' partials from
-//     distributed shared memory in rank order, so the result is the same
-//     bits on every run, and runs the epilogue there, once per output
-//     element: bf16(acc) times the bf16 scale, then the bf16 residual or
-//     g * bf16(sigmoid_f32(g)) * u.
+// weights in VMEM.  Here both are launches of one split-K streaming product
+// (`streaming_product<KIND, NT8>`): #8 is one launch (QKV), #9 three, since
+// the middle RMSNorm needs the whole H-wide row of x1 and the down
+// projection all I columns of m: O_PROJ (x1 = x + qdot(attn, Wo)), GATE_UP
+// (m = silu-gated g * u) and DOWN (out = x1 + qdot(m, Wd)).  Each computes
+// Y^T = W^T X^T with mma.sync m16n8k16 (bf16 in, f32 accumulate): the
+// weight's output columns fill the M = 16 side and the N tokens the n = 8
+// side, so at N = 10 six of 16 token columns are padding.  A block of 4
+// warps owns 64 output columns (for QKV one head: the Hq q heads, then the
+// Hkv k heads, then the Hkv v heads, the weight chosen per head tile), a K
+// slice and a group of 8, 16 or 32 tokens; the grid is column tile x K
+// split x token group, the splits chosen by the wrapper for about two
+// blocks per SM for QKV (48 heads x 4 splits at N = 10) and one for #9 (8,
+// 2 and 8 splits at N = 10; two per SM ran slower there).  The
+// K slice streams through a shared-memory ring (8 stages, 4 for GATE_UP's
+// two weights) by 16-byte cp.async.cg: a stage holds a 64-row chunk of int8
+// weights, the block's activation rows for those 64 k and, for QKV and
+// GATE_UP, the norm weights.  QKV and GATE_UP recompute their tokens' RMS
+// factor r from the whole row while the first chunks fly, and form the
+// normalised activation bf16((x * r) * w) as a stage is read.  Warp w
+// multiplies k16 step w of every chunk; its A fragments are widened int8 ->
+// bf16 in registers at fragment load (byte permutes and an exact f32 bias
+// trick), never through a bf16 copy of the tile.  Each warp stores its
+// accumulators fragment-major (conflict-free) and the four are added in
+// warp order.  The K splits of a column tile are one thread-block cluster:
+// after a cluster barrier the ranks read the splits' partials from
+// distributed shared memory and sum them in rank order, so the result is
+// the same bits on every run.  #9's ranks each take a slice of the tile's
+// outputs: bf16(acc) times the bf16 scale, then the bf16 residual or g *
+// bf16(sigmoid_f32(g)) * u.  #8's ranks take whole tokens, a warp per token
+// with lane l owning columns l and l + 32 (rope partners), so rope and the
+// head's amax stay in one warp: q is stored rope'd, k/v quantised with
+// their scales through strides, so the caller can point them at the KV
+// cache.
 // Weights are read in place at the pointer the caller gives (a layer's
 // slice of a stacked tensor or a per-layer tensor), never copied.
 //
 // What bounds it on an H100.  At decode widths (N = B*Sq from 1 to 896) the
 // products are below the card's 295 flop/byte ridge, so device memory
 // bounds them: #8 reads H*(Hq+2Hkv)*D int8 weight bytes (3.1 MB at the WM's
-// H 1024, 16/16 x 64), #9 (Hq*D + 3I)*H (13.6 MB, 4.1 us at 3.35 TB/s).
-// #8 keeps its first design (48 blocks at small N, one chunk in flight).
-// #9 has a launch's whole K slice in flight per block (32-64 KB at N = 10);
-// what keeps it above its byte bound (kernel_trace.py on an H100 80GB
-// HBM3 at 700 W, N = 10, PERF.md) is a fixed chain per launch, about
-// 1,800-4,700 SM cycles to the first chunk, 900-1,600 at the cluster
-// barrier and 1,800-4,700 in the epilogue, and a weight stream of 1.0-1.3
-// TB/s.  At N > 32 each token group re-reads the weights, from L2.
+// H 1024, 16/16 x 64, 0.94 us at 3.35 TB/s), #9 (Hq*D + 3I)*H (13.6 MB,
+// 4.1 us).  A launch has each block's whole K slice in flight at N = 10
+// (16-64 KB); what keeps them above their byte bounds (kernel_trace.py on
+// an H100 80GB HBM3 at 700 W, N = 10, PERF.md) is a fixed chain per
+// launch, about 1,800-5,200 SM cycles to the first chunk (the RMS pre-pass
+// included), 1,000-1,300 at the cluster barrier and 2,100-4,900 in the
+// epilogue, and a weight stream of 1.0-1.3 TB/s.  Beyond 16 (#8) or 32
+// (#9) tokens each token group re-reads the weights, from L2.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_decode_layer.so fused_decode_layer.cu
-// Interface: plain C (fused_qkv_bf16, fused_o_mlp_bf16, fused_o_mlp_setup),
+// Interface: plain C (fused_qkv_bf16, fused_o_mlp_bf16, fused_decode_layer_setup),
 // loaded with ctypes; each launches on the given stream, never
 // synchronises, and returns cudaGetLastError().
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
-
 namespace {
-
-constexpr int BM = 64;        // rows of a tile
-constexpr int BN = 64;        // columns of a tile (one head of D = 64)
-constexpr int BK = 64;        // contraction chunk
-constexpr int NTHREADS = 128;  // 4 warps, one 16-row strip each
-constexpr int LDA = BK + 8;   // bf16, padded against bank conflicts
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;   // f32
 
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// One chunk of the activation tile in registers: 64 rows x 64 bf16 =
-// 512 16-byte vectors, 4 per thread.
-struct ARegs {
-  uint4 v[4];
-};
-// One chunk of the weight tile: 64 rows x 64 int8 = 256 vectors, 2 per thread.
-struct BRegs {
-  uint4 v[2];
-};
-
-__device__ __forceinline__ void load_a(ARegs& r, const __nv_bfloat16* __restrict__ a, int lda,
-                                       int m0, int N, int k0) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;  // 0..511
-    const int row = idx / 8, col = (idx % 8) * 8;
-    r.v[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + row < N) {
-      r.v[i] = *reinterpret_cast<const uint4*>(a + (int64_t)(m0 + row) * lda + k0 + col);
-    }
-  }
-}
-
-__device__ __forceinline__ void load_b(BRegs& r, const int8_t* __restrict__ w, int ldw, int k0,
-                                       int n0) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;  // 0..255
-    const int row = idx / 4, col = (idx % 4) * 16;
-    r.v[i] = *reinterpret_cast<const uint4*>(w + (int64_t)(k0 + row) * ldw + n0 + col);
-  }
-}
-
-// Registers -> the bf16 activation tile.  With `rms`, element (m, k) becomes
-// bf16((x * r[m]) * w[k0 + k]) in f32 (RMSNorm of the row, r precomputed).
-__device__ __forceinline__ void store_a(__nv_bfloat16* a_s, const ARegs& r,
-                                        const float* __restrict__ rms,
-                                        const __nv_bfloat16* __restrict__ norm_w, int k0) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;
-    const int row = idx / 8, col = (idx % 8) * 8;
-    uint4 v = r.v[i];
-    if (rms != nullptr) {
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
-      const float rr = rms[row];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float w = __bfloat162float(norm_w[k0 + col + j]);
-        e[j] = __float2bfloat16(__fmul_rn(__fmul_rn(__bfloat162float(e[j]), rr), w));
-      }
-    }
-    *reinterpret_cast<uint4*>(a_s + row * LDA + col) = v;
-  }
-}
-
-// Registers -> the weight tile, int8 widened to bf16 (exact for |v| <= 127).
-__device__ __forceinline__ void store_b(__nv_bfloat16* b_s, const BRegs& r) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;
-    const int row = idx / 4, col = (idx % 4) * 16;
-    const int8_t* e = reinterpret_cast<const int8_t*>(&r.v[i]);
-    __align__(16) __nv_bfloat16 out[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) out[j] = __float2bfloat16(static_cast<float>(e[j]));
-    uint4* dst = reinterpret_cast<uint4*>(b_s + row * LDB + col);
-    dst[0] = reinterpret_cast<const uint4*>(out)[0];
-    dst[1] = reinterpret_cast<const uint4*>(out)[1];
-  }
-}
-
-// r[m] = 1 / sqrt(mean(x[m]^2) + eps) for the block's rows (0 for rows >= N).
-__device__ void row_rms(float* rms_s, const __nv_bfloat16* __restrict__ x, int ldx, int m0,
-                        int N, int H, float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int row = warp; row < BM; row += NTHREADS / 32) {
-    float acc = 0.0f;
-    if (m0 + row < N) {
-      const __nv_bfloat16* xr = x + (int64_t)(m0 + row) * ldx;
-      for (int k = lane; k < H; k += 32) {
-        const float v = __bfloat162float(xr[k]);
-        acc = __fadd_rn(acc, __fmul_rn(v, v));
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      const float var = __fdiv_rn(acc, static_cast<float>(H));
-      rms_s[row] = m0 + row < N ? __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps))) : 0.0f;
-    }
-  }
-}
-
-// Shared memory of one block: the A/B chunk tiles during the loop, the f32
-// output tiles after it (aliased), and the rows' RMS factors.
-constexpr int A_BYTES = BM * LDA * 2;
-constexpr int B_BYTES = BK * LDB * 2;
-constexpr int C_BYTES = BM * LDC * 4;
-constexpr int LOOP_BYTES = A_BYTES + 2 * B_BYTES;
-constexpr int TILE_BYTES = (LOOP_BYTES > 2 * C_BYTES ? LOOP_BYTES : 2 * C_BYTES);
-
-// The block's (BM x BN) tile(s) of A @ W over K, into c_s (f32, row-major,
-// LDC).  With `w2`, a second product over the same A into c2_s (gate and
-// up share their normalised input).
-template <bool TWO>
-__device__ void gemm_tile(unsigned char* smem, float* c_s, float* c2_s,
-                          const __nv_bfloat16* __restrict__ a, int lda, int m0, int N, int K,
-                          const int8_t* __restrict__ w, const int8_t* __restrict__ w2, int ldw,
-                          int n0, const float* rms, const __nv_bfloat16* __restrict__ norm_w) {
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* b_s = reinterpret_cast<__nv_bfloat16*>(smem + A_BYTES);
-  __nv_bfloat16* b2_s = reinterpret_cast<__nv_bfloat16*>(smem + A_BYTES + B_BYTES);
-  const int warp = threadIdx.x / 32;
-  const bool live = m0 + warp * 16 < N;  // a strip of rows >= N only multiplies zeros
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BN / 16], acc2[TWO ? BN / 16 : 1];
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-  for (int j = 0; j < (TWO ? BN / 16 : 1); ++j) wmma::fill_fragment(acc2[j], 0.0f);
-
-  ARegs ar;
-  BRegs br, br2;
-  load_a(ar, a, lda, m0, N, 0);
-  load_b(br, w, ldw, 0, n0);
-  if (TWO) load_b(br2, w2, ldw, 0, n0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    store_a(a_s, ar, rms, norm_w, k0);
-    store_b(b_s, br);
-    if (TWO) store_b(b2_s, br2);
-    __syncthreads();
-    if (k0 + BK < K) {  // the next chunk's loads fly during this chunk's products
-      load_a(ar, a, lda, m0, N, k0 + BK);
-      load_b(br, w, ldw, k0 + BK, n0);
-      if (TWO) load_b(br2, w2, ldw, k0 + BK, n0);
-    }
-    if (live) {
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, a_s + warp * 16 * LDA + kk * 16, LDA);
-#pragma unroll
-        for (int j = 0; j < BN / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-          wmma::load_matrix_sync(bf, b_s + kk * 16 * LDB + j * 16, LDB);
-          wmma::mma_sync(acc[j], af, bf, acc[j]);
-          if (TWO) {
-            wmma::load_matrix_sync(bf, b2_s + kk * 16 * LDB + j * 16, LDB);
-            wmma::mma_sync(acc2[j], af, bf, acc2[j]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  // c_s / c2_s alias the chunk tiles: every warp is past its last product.
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) {
-    wmma::store_matrix_sync(c_s + warp * 16 * LDC + j * 16, acc[j], LDC, wmma::mem_row_major);
-    if (TWO) {
-      wmma::store_matrix_sync(c2_s + warp * 16 * LDC + j * 16, acc2[j], LDC,
-                              wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-}
-
-// qdot's epilogue for one accumulator: bf16(bf16(acc) * scale).
-__device__ __forceinline__ float qscale(float acc, __nv_bfloat16 s) {
-  return bf16r(__fmul_rn(bf16r(acc), __bfloat162float(s)));
-}
-
-// ------------------------------------------------------------------ kernel #8
-__global__ void __launch_bounds__(NTHREADS)
-qkv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ cos_t,
-           const float* __restrict__ sins_t, const __nv_bfloat16* __restrict__ norm_w,
-           const int8_t* __restrict__ wq, const __nv_bfloat16* __restrict__ sq,
-           const int8_t* __restrict__ wk, const __nv_bfloat16* __restrict__ sk,
-           const int8_t* __restrict__ wv, const __nv_bfloat16* __restrict__ sv,
-           __nv_bfloat16* __restrict__ q_out, int8_t* __restrict__ k_out,
-           int8_t* __restrict__ v_out, __nv_bfloat16* __restrict__ ks_out,
-           __nv_bfloat16* __restrict__ vs_out, int N, int Sq, int H, int Hq, int Hkv,
-           int64_t kv_bs, int64_t sc_bs, int64_t sc_hs, float eps) {
-  __shared__ __align__(128) unsigned char smem[TILE_BYTES];
-  __shared__ float rms_s[BM];
-  constexpr int D = BN;
-  const int t = blockIdx.x;  // head tile: q heads, then k heads, then v heads
-  const int m0 = blockIdx.y * BM;
-  const int HqD = Hq * D, KD = Hkv * D;
-  int kind, head;  // 0 q, 1 k, 2 v
-  const int8_t* w;
-  const __nv_bfloat16* s;
-  int ldw;
-  if (t < Hq) {
-    kind = 0, head = t, w = wq, s = sq, ldw = HqD;
-  } else if (t < Hq + Hkv) {
-    kind = 1, head = t - Hq, w = wk, s = sk, ldw = KD;
-  } else {
-    kind = 2, head = t - Hq - Hkv, w = wv, s = sv, ldw = KD;
-  }
-  const int n0 = head * D;
-
-  row_rms(rms_s, x, H, m0, N, H, eps);
-  __syncthreads();
-  float* c_s = reinterpret_cast<float*>(smem);
-  gemm_tile<false>(smem, c_s, nullptr, x, H, m0, N, H, w, nullptr, ldw, n0, rms_s, norm_w);
-
-  // Epilogue: a warp per row; lane owns columns lane and lane + 32.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const __nv_bfloat16 s0 = s[n0 + lane], s1 = s[n0 + lane + 32];
-  for (int row = warp; row < BM; row += NTHREADS / 32) {
-    const int n = m0 + row;
-    if (n >= N) break;
-    float y0 = qscale(c_s[row * LDC + lane], s0);
-    float y1 = qscale(c_s[row * LDC + lane + 32], s1);
-    if (kind < 2) {  // rope: partner of lane l is lane l ^ 32, here the other column
-      const int64_t tb = (int64_t)n * HqD + n0;  // tables repeat per head (period D)
-      const float c0 = cos_t[tb + lane], c1 = cos_t[tb + lane + 32];
-      const float z0 = sins_t[tb + lane], z1 = sins_t[tb + lane + 32];
-      const float r0 = __fadd_rn(__fmul_rn(y0, c0), __fmul_rn(y1, z0));
-      const float r1 = __fadd_rn(__fmul_rn(y1, c1), __fmul_rn(y0, z1));
-      if (kind == 0) {
-        q_out[(int64_t)n * HqD + n0 + lane] = __float2bfloat16(r0);
-        q_out[(int64_t)n * HqD + n0 + lane + 32] = __float2bfloat16(r1);
-        continue;
-      }
-      y0 = bf16r(r0);  // rope returns bf16; the quantiser reads it in f32
-      y1 = bf16r(r1);
-    }
-    float amax = fmaxf(fabsf(y0), fabsf(y1));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    }
-    const float sc = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
-    const float q0 = fminf(fmaxf(rintf(__fdiv_rn(y0, sc)), -127.0f), 127.0f);
-    const float q1 = fminf(fmaxf(rintf(__fdiv_rn(y1, sc)), -127.0f), 127.0f);
-    const int b = n / Sq, sidx = n % Sq;
-    int8_t* dst = (kind == 1 ? k_out : v_out) + b * kv_bs + (int64_t)sidx * KD + n0;
-    dst[lane] = static_cast<int8_t>(q0);
-    dst[lane + 32] = static_cast<int8_t>(q1);
-    if (lane == 0) {
-      (kind == 1 ? ks_out : vs_out)[b * sc_bs + head * sc_hs + sidx] = __float2bfloat16(sc);
-    }
-  }
-}
-
-// ------------------------------------------------------------------ kernel #9
-// Three launches of one split-K streaming product, `o_mlp_product<KIND,
-// NT8>`: O_PROJ (x1 = x + qdot(attn, Wo)), GATE_UP (m = silu-gated
-// qdot(rmsnorm(x1), Wg / Wu)) and DOWN (out = x1 + qdot(m, Wd)).  A block
-// owns 64 output columns, a K slice of `chunks` 64-row chunks and a group of
-// TN = 8 * NT8 tokens (grid: column tile x K split x token group).
+// ------------------------------------------------------------ kernels #8, #9
+// One split-K streaming product, `streaming_product<KIND, NT8>`: #8 is the
+// QKV launch (RMSNorm + q/k/v + rope + k/v quantisation), #9 the O_PROJ (x1
+// = x + qdot(attn, Wo)), GATE_UP (m = silu-gated qdot(rmsnorm(x1), Wg / Wu))
+// and DOWN (out = x1 + qdot(m, Wd)) launches.  A block owns 64 output
+// columns, a K slice of `chunks` 64-row chunks and a group of TN = 8 * NT8
+// tokens (grid: column tile x K split x token group).
 namespace omlp {
 
 constexpr int BN = 64;          // output columns of a block: 4 m16 tiles
@@ -375,17 +112,18 @@ constexpr int LDW = BN + 16;    // int8 bytes per weight row (conflict-free 8-by
 constexpr int LDX = BK + 8;     // bf16 per activation row (conflict-free 4-byte loads)
 constexpr int MAX_SPLITS = 8;   // K splits of a launch: a portable cluster
 
-enum Kind { O_PROJ = 0, GATE_UP = 1, DOWN = 2 };
+enum Kind { O_PROJ = 0, GATE_UP = 1, DOWN = 2, QKV = 3 };
 
 template <int KIND, int NT8>
 struct Layout {
+  static constexpr bool NORM = KIND == GATE_UP || KIND == QKV;  // RMSNorm of the activation
   static constexpr int NW = KIND == GATE_UP ? 2 : 1;  // weight matrices streamed
   static constexpr int STAGES = NW == 2 ? 4 : 8;       // chunks in the shared-memory ring
   static constexpr int TN = 8 * NT8;                   // tokens of a block
   static constexpr int W_BYTES = BK * LDW;
   static constexpr int X_OFF = NW * W_BYTES;
   static constexpr int NORM_OFF = X_OFF + TN * LDX * 2;
-  static constexpr int STAGE = NORM_OFF + (KIND == GATE_UP ? BK * 2 : 0);
+  static constexpr int STAGE = NORM_OFF + (NORM ? BK * 2 : 0);
   static constexpr int RING = STAGES * STAGE;
   static constexpr int SLOTS = NW * 4 * NT8 * 4;  // accumulators of a thread
   static constexpr int RED = 4 * SLOTS * 32 * 4;   // every warp's, fragment-major
@@ -393,16 +131,29 @@ struct Layout {
 };
 
 struct Params {
-  const __nv_bfloat16* act;     // (N, K): attn, x1 (normalised on the fly) or m
-  const int8_t* w0;             // (K, cols): Wo, Wg or Wd
+  const __nv_bfloat16* act;     // (N, K): attn, x1 or x (normalised on the fly) or m
+  const int8_t* w0;             // (K, cols): Wo, Wg, Wd or Wq
   const __nv_bfloat16* s0;      // (cols,)
-  const int8_t* w1;             // (K, cols): Wu (GATE_UP only)
+  const int8_t* w1;             // (K, cols): Wu (GATE_UP) or Wk (QKV)
   const __nv_bfloat16* s1;
-  const __nv_bfloat16* norm_w;  // (K,) post-attention norm weight (GATE_UP only)
+  const __nv_bfloat16* norm_w;  // (K,) the norm weight (GATE_UP, QKV)
   const __nv_bfloat16* resid;   // (N, cols): x (O_PROJ) or x1 (DOWN)
-  __nv_bfloat16* out;           // (N, cols): x1, m or the layer's output
+  __nv_bfloat16* out;           // (N, cols): x1, m, the layer's output or q (QKV)
   int N, K, cols, splits, chunks;
   float eps;
+  // QKV only: Wv, the rope tables, the k/v outputs and their strides (row
+  // b of k/v at b * kv_bs, unit-stride (Sq, Hkv * D) inside; scale (b, head,
+  // s) at b * sc_bs + head * sc_hs + s)
+  const int8_t* w2;             // (K, Hkv * D)
+  const __nv_bfloat16* s2;
+  const float* cos_t;           // (N, Hq * D) f32 per-lane cos and signed sin
+  const float* sins_t;
+  int8_t* k_out;
+  int8_t* v_out;
+  __nv_bfloat16* ks_out;
+  __nv_bfloat16* vs_out;
+  int Sq, Hq, Hkv;
+  int64_t kv_bs, sc_bs, sc_hs;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
@@ -466,22 +217,23 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const unsigned char*
 }
 
 // Chunk `kc` (rows kc..kc+63 of K) into a ring stage by 16-byte cp.async:
-// the weight tile(s), 64 rows x 64 int8 ...
+// the weight tile(s), 64 rows x 64 int8 of `w` (row stride `ldw`) ...
 template <int KIND, int NT8>
-__device__ __forceinline__ void load_weights(unsigned char* st, const Params& p, int kc, int n0) {
+__device__ __forceinline__ void load_weights(unsigned char* st, const Params& p, const int8_t* w,
+                                             int ldw, int kc, int n0) {
   using L = Layout<KIND, NT8>;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int idx = threadIdx.x + i * NTHREADS;  // 0..255
     const int r = idx >> 2, c = (idx & 3) * 16;
-    const int64_t gofs = (int64_t)(kc + r) * p.cols + n0 + c;
-    cp_async16(st + r * LDW + c, p.w0 + gofs, true);
+    const int64_t gofs = (int64_t)(kc + r) * ldw + n0 + c;
+    cp_async16(st + r * LDW + c, w + gofs, true);
     if constexpr (L::NW == 2) cp_async16(st + L::W_BYTES + r * LDW + c, p.w1 + gofs, true);
   }
 }
 
 // ... and the block's TN activation rows (zero-filled past N) and, for
-// GATE_UP, the 64 norm weights.
+// GATE_UP and QKV, the 64 norm weights.
 template <int KIND, int NT8>
 __device__ __forceinline__ void load_acts(unsigned char* st, const Params& p, int kc, int t0) {
   using L = Layout<KIND, NT8>;
@@ -492,7 +244,7 @@ __device__ __forceinline__ void load_acts(unsigned char* st, const Params& p, in
     cp_async16(st + L::X_OFF + (r * LDX + c) * 2, p.act + (ok ? (int64_t)tok * p.K + kc + c : 0),
                ok);
   }
-  if constexpr (KIND == GATE_UP) {
+  if constexpr (L::NORM) {
     if (threadIdx.x < 8) {
       cp_async16(st + L::NORM_OFF + threadIdx.x * 16, p.norm_w + kc + threadIdx.x * 8, true);
     }
@@ -510,20 +262,35 @@ __device__ __forceinline__ uint32_t norm_pair(uint32_t x, float r, uint32_t w) {
 }
 
 template <int KIND, int NT8>
-__global__ void __launch_bounds__(NTHREADS) o_mlp_product(const Params p) {
+__global__ void __launch_bounds__(NTHREADS) streaming_product(const Params p) {
   using L = Layout<KIND, NT8>;
   constexpr int NW = L::NW, TN = L::TN, STAGES = L::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float rms_s[TN];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
-  const int n0 = blockIdx.x * BN, split = blockIdx.y, t0 = blockIdx.z * TN;
+  const int split = blockIdx.y, t0 = blockIdx.z * TN;
+  // The block's weight and its first column: column tile blockIdx.x of w0,
+  // or for QKV head tile blockIdx.x (the Hq q heads, then the Hkv k heads,
+  // then the Hkv v heads), one head of BN columns of Wq, Wk or Wv.
+  const int8_t* w = p.w0;
+  const __nv_bfloat16* wscale = p.s0;
+  int ldw = p.cols, n0 = blockIdx.x * BN, kind = 0, head = 0;
+  if constexpr (KIND == QKV) {
+    const int t = blockIdx.x;
+    kind = t < p.Hq ? 0 : (t < p.Hq + p.Hkv ? 1 : 2);
+    head = kind == 0 ? t : (kind == 1 ? t - p.Hq : t - p.Hq - p.Hkv);
+    w = kind == 0 ? p.w0 : (kind == 1 ? p.w1 : p.w2);
+    wscale = kind == 0 ? p.s0 : (kind == 1 ? p.s1 : p.s2);
+    ldw = (kind == 0 ? p.Hq : p.Hkv) * BN;
+    n0 = head * BN;
+  }
   const int kc0 = split * p.chunks * BK;
 
   // The first STAGES chunks in flight, one commit group per chunk.
 #pragma unroll
   for (int s = 0; s < STAGES; ++s) {
-    if (s < p.chunks) load_weights<KIND, NT8>(smem + s * L::STAGE, p, kc0 + s * BK, n0);
+    if (s < p.chunks) load_weights<KIND, NT8>(smem + s * L::STAGE, p, w, ldw, kc0 + s * BK, n0);
   }
 #pragma unroll
   for (int s = 0; s < STAGES; ++s) {
@@ -532,8 +299,8 @@ __global__ void __launch_bounds__(NTHREADS) o_mlp_product(const Params p) {
   }
 
 
-  if constexpr (KIND == GATE_UP) {
-    // r = 1 / sqrt(mean(x1^2) + eps) over the whole row (K = H) while the
+  if constexpr (L::NORM) {
+    // r = 1 / sqrt(mean(x^2) + eps) over the whole row (K = H) while the
     // first chunks fly; 0 for tokens >= N.  PER threads share a token, each
     // summing every PER-th 8-element vector (8 loads in flight), then a
     // shuffle tree: a fixed order.
@@ -591,7 +358,7 @@ __global__ void __launch_bounds__(NTHREADS) o_mlp_product(const Params p) {
           reinterpret_cast<const uint32_t*>(xs + (8 * n + g) * LDX + 16 * warp + 2 * q);
       b[n][0] = xr[0];
       b[n][1] = xr[4];
-      if constexpr (KIND == GATE_UP) {
+      if constexpr (L::NORM) {
         const uint32_t* nw =
             reinterpret_cast<const uint32_t*>(st + L::NORM_OFF) + 8 * warp + q;
         const float r = rms_s[8 * n + g];
@@ -611,7 +378,7 @@ __global__ void __launch_bounds__(NTHREADS) o_mlp_product(const Params p) {
     __syncthreads();  // every warp is done with this stage before it is refilled
     if (c + STAGES < p.chunks) {
       unsigned char* st_next = smem + (c % STAGES) * L::STAGE;
-      load_weights<KIND, NT8>(st_next, p, kc0 + (c + STAGES) * BK, n0);
+      load_weights<KIND, NT8>(st_next, p, w, ldw, kc0 + (c + STAGES) * BK, n0);
       load_acts<KIND, NT8>(st_next, p, kc0 + (c + STAGES) * BK, t0);
     }
     cp_async_commit();
@@ -641,58 +408,113 @@ __global__ void __launch_bounds__(NTHREADS) o_mlp_product(const Params p) {
                red[3 * SLOTS * 32 + idx];
   }
 
-  // Epilogue, once per output element, spread over the splits: this block
-  // takes items [e0, e1) of the (t, n, e, lane) accumulators of one weight
-  // (GATE_UP's g and u together); item `it` is token 8n + 2q + (e & 1) and
-  // column 8g + 2t + (e >> 1) of accumulator slot it / 32, lane it % 32.
-  constexpr int PER_W = 16 * NT8 * 32;  // items
-  constexpr int ITEMS = (PER_W + NTHREADS - 1) / NTHREADS;
-  const int e0 = PER_W * split / p.splits, e1 = PER_W * (split + 1) / p.splits;
+  // The K splits of a column tile are one thread-block cluster (rank =
+  // split): an accumulator's sum over the ranks, from distributed shared
+  // memory, in rank order, so the result does not depend on timing.
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  auto split_sum = [&](float* mine) {
+    float v[MAX_SPLITS];
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r) {
+      if (r < p.splits) v[r] = p.splits > 1 ? *cluster.map_shared_rank(mine, r) : *mine;
+    }
+    float sum = 0.0f;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r) {
+      if (r < p.splits) sum += v[r];
+    }
+    return sum;
+  };
   if (p.splits > 1) {
     cluster.sync();  // every split's sums are complete
   } else {
     __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const int it = e0 + threadIdx.x + i * NTHREADS, sl = it / 32, ln = it % 32;
-    const int tok = 8 * ((sl / 4) % NT8) + 2 * (ln & 3) + (sl & 1);
-    const int col = 8 * (ln >> 2) + 2 * (sl / (4 * NT8)) + ((sl >> 1) & 1);
-    if (it >= e1 || t0 + tok >= p.N) continue;
-    // s0 and s1 (GATE_UP) or s0 and the residual
-    const float s0v = __bfloat162float(p.s0[n0 + col]);
-    const float s1v = KIND == GATE_UP
-                          ? __bfloat162float(p.s1[n0 + col])
-                          : __bfloat162float(p.resid[(int64_t)(t0 + tok) * p.cols + n0 + col]);
-    float sum[NW];
-#pragma unroll
-    for (int wi = 0; wi < NW; ++wi) {
-      // The K splits of a column tile are one thread-block cluster (rank =
-      // split): the sum over ranks, from distributed shared memory, in rank
-      // order, so the result does not depend on timing.
-      float* mine = red + wi * PER_W + it;
-      float v[MAX_SPLITS];
-#pragma unroll
-      for (int r = 0; r < MAX_SPLITS; ++r) {
-        if (r < p.splits) v[r] = p.splits > 1 ? *cluster.map_shared_rank(mine, r) : *mine;
+  if constexpr (KIND == QKV) {
+    // #8's epilogue, once per token, spread over the splits: the group's
+    // token tok goes to rank (tok / 4) % splits, warp tok % 4.  Lane l owns
+    // columns l and l + 32, so the rope partner of column l (l ^ 32) is the
+    // lane's other column and the head's amax a warp reduction.  Column c
+    // of token tok sits in accumulator slot (t, n, e) = ((c % 8) / 2, tok /
+    // 8, tok % 2 + 2 (c % 2)) of lane (g, q) = (c / 8, (tok % 8) / 2).
+    const float s_lo = __bfloat162float(wscale[n0 + lane]);
+    const float s_hi = __bfloat162float(wscale[n0 + lane + 32]);
+    const int HqD = p.Hq * BN, KD = p.Hkv * BN;
+    for (int tok = 4 * split + warp; tok < TN; tok += 4 * p.splits) {
+      const int n = t0 + tok;
+      if (n >= p.N) break;
+      auto at = [&](int c) {
+        const int sl = (((c & 7) >> 1) * NT8 + (tok >> 3)) * 4 + ((tok & 1) | ((c & 1) << 1));
+        return red + sl * 32 + (c >> 3) * 4 + ((tok & 7) >> 1);
+      };
+      // qdot's rounding, bf16(bf16(acc) * scale)
+      float y0 = bf16r(__fmul_rn(bf16r(split_sum(at(lane))), s_lo));
+      float y1 = bf16r(__fmul_rn(bf16r(split_sum(at(lane + 32))), s_hi));
+      if (kind < 2) {  // rope: out = t * cos + t[l ^ 32] * sins
+        const int64_t tb = (int64_t)n * HqD + n0;  // the tables repeat per head (period D)
+        const float c0 = p.cos_t[tb + lane], c1 = p.cos_t[tb + lane + 32];
+        const float z0 = p.sins_t[tb + lane], z1 = p.sins_t[tb + lane + 32];
+        const float r0 = __fadd_rn(__fmul_rn(y0, c0), __fmul_rn(y1, z0));
+        const float r1 = __fadd_rn(__fmul_rn(y1, c1), __fmul_rn(y0, z1));
+        if (kind == 0) {
+          p.out[(int64_t)n * HqD + n0 + lane] = __float2bfloat16(r0);
+          p.out[(int64_t)n * HqD + n0 + lane + 32] = __float2bfloat16(r1);
+          continue;
+        }
+        y0 = bf16r(r0);  // rope returns bf16; the quantiser reads it in f32
+        y1 = bf16r(r1);
       }
-      sum[wi] = 0.0f;
+      float amax = fmaxf(fabsf(y0), fabsf(y1));
 #pragma unroll
-      for (int r = 0; r < MAX_SPLITS; ++r) {
-        if (r < p.splits) sum[wi] += v[r];
+      for (int off = 16; off > 0; off >>= 1) {
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      }
+      const float sc = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+      const float q0 = fminf(fmaxf(rintf(__fdiv_rn(y0, sc)), -127.0f), 127.0f);
+      const float q1 = fminf(fmaxf(rintf(__fdiv_rn(y1, sc)), -127.0f), 127.0f);
+      const int b = n / p.Sq, sidx = n % p.Sq;
+      int8_t* dst = (kind == 1 ? p.k_out : p.v_out) + b * p.kv_bs + (int64_t)sidx * KD + n0;
+      dst[lane] = static_cast<int8_t>(q0);
+      dst[lane + 32] = static_cast<int8_t>(q1);
+      if (lane == 0) {
+        (kind == 1 ? p.ks_out : p.vs_out)[b * p.sc_bs + head * p.sc_hs + sidx] =
+            __float2bfloat16(sc);
       }
     }
-    // qdot's rounding, bf16(bf16(acc) * scale), then the residual (O_PROJ,
-    // DOWN) or the gated SiLU (GATE_UP), in the reference's order.
-    const int64_t o = (int64_t)(t0 + tok) * p.cols + n0 + col;
-    const float a0 = bf16r(__fmul_rn(bf16r(sum[0]), s0v));
-    if constexpr (KIND == GATE_UP) {
-      const float uv = bf16r(__fmul_rn(bf16r(sum[NW - 1]), s1v));
-      const float sig = bf16r(__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-a0))));
-      p.out[o] = __float2bfloat16(__fmul_rn(bf16r(__fmul_rn(a0, sig)), uv));
-    } else {
-      p.out[o] = __float2bfloat16(__fadd_rn(s1v, a0));
+  } else {
+    // #9's epilogue, once per output element, spread over the splits: this
+    // block takes items [e0, e1) of the (t, n, e, lane) accumulators of one
+    // weight (GATE_UP's g and u together); item `it` is token 8n + 2q + (e &
+    // 1) and column 8g + 2t + (e >> 1) of accumulator slot it / 32, lane it %
+    // 32.
+    constexpr int PER_W = 16 * NT8 * 32;  // items
+    constexpr int ITEMS = (PER_W + NTHREADS - 1) / NTHREADS;
+    const int e0 = PER_W * split / p.splits, e1 = PER_W * (split + 1) / p.splits;
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const int it = e0 + threadIdx.x + i * NTHREADS, sl = it / 32, ln = it % 32;
+      const int tok = 8 * ((sl / 4) % NT8) + 2 * (ln & 3) + (sl & 1);
+      const int col = 8 * (ln >> 2) + 2 * (sl / (4 * NT8)) + ((sl >> 1) & 1);
+      if (it >= e1 || t0 + tok >= p.N) continue;
+      // s0 and s1 (GATE_UP) or s0 and the residual
+      const float s0v = __bfloat162float(p.s0[n0 + col]);
+      const float s1v = KIND == GATE_UP
+                            ? __bfloat162float(p.s1[n0 + col])
+                            : __bfloat162float(p.resid[(int64_t)(t0 + tok) * p.cols + n0 + col]);
+      float sum[NW];
+#pragma unroll
+      for (int wi = 0; wi < NW; ++wi) sum[wi] = split_sum(red + wi * PER_W + it);
+      // qdot's rounding, bf16(bf16(acc) * scale), then the residual (O_PROJ,
+      // DOWN) or the gated SiLU (GATE_UP), in the reference's order.
+      const int64_t o = (int64_t)(t0 + tok) * p.cols + n0 + col;
+      const float a0 = bf16r(__fmul_rn(bf16r(sum[0]), s0v));
+      if constexpr (KIND == GATE_UP) {
+        const float uv = bf16r(__fmul_rn(bf16r(sum[NW - 1]), s1v));
+        const float sig = bf16r(__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-a0))));
+        p.out[o] = __float2bfloat16(__fmul_rn(bf16r(__fmul_rn(a0, sig)), uv));
+      } else {
+        p.out[o] = __float2bfloat16(__fadd_rn(s1v, a0));
+      }
     }
   }
   if (p.splits > 1) cluster.sync();  // no block leaves while another reads its sums
@@ -700,7 +522,7 @@ __global__ void __launch_bounds__(NTHREADS) o_mlp_product(const Params p) {
 
 template <int KIND, int NT8>
 cudaError_t setup_one() {
-  return cudaFuncSetAttribute(o_mlp_product<KIND, NT8>,
+  return cudaFuncSetAttribute(streaming_product<KIND, NT8>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               Layout<KIND, NT8>::BYTES);
 }
@@ -729,7 +551,7 @@ cudaError_t launch_one(const Params& p, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, o_mlp_product<KIND, NT8>, p);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, streaming_product<KIND, NT8>, p);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -752,23 +574,37 @@ cudaError_t launch(Params p, int nt8, cudaStream_t st) {
 
 }  // namespace
 
+// The launch of #8: grid (Hq + 2 Hkv head tiles, `splits` K slices (a
+// cluster each), token groups of 8 * nt8).  k/v and their scales go
+// through the strides kv_bs (rows of k/v), sc_bs and sc_hs (rows and heads
+// of the scales).
 extern "C" int fused_qkv_bf16(const void* x, const void* cos_t, const void* sins_t,
                               const void* norm_w, const void* wq, const void* sq, const void* wk,
                               const void* sk, const void* wv, const void* sv, void* q_out,
                               void* k_out, void* v_out, void* ks_out, void* vs_out, int N, int Sq,
                               int H, int Hq, int Hkv, int64_t kv_bs, int64_t sc_bs,
-                              int64_t sc_hs, float eps, void* stream) {
-  dim3 grid(Hq + 2 * Hkv, (N + BM - 1) / BM);
-  qkv_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sins_t), static_cast<const __nv_bfloat16*>(norm_w),
-      static_cast<const int8_t*>(wq), static_cast<const __nv_bfloat16*>(sq),
-      static_cast<const int8_t*>(wk), static_cast<const __nv_bfloat16*>(sk),
-      static_cast<const int8_t*>(wv), static_cast<const __nv_bfloat16*>(sv),
-      static_cast<__nv_bfloat16*>(q_out), static_cast<int8_t*>(k_out),
-      static_cast<int8_t*>(v_out), static_cast<__nv_bfloat16*>(ks_out),
-      static_cast<__nv_bfloat16*>(vs_out), N, Sq, H, Hq, Hkv, kv_bs, sc_bs, sc_hs, eps);
-  return static_cast<int>(cudaGetLastError());
+                              int64_t sc_hs, int nt8, int splits, float eps, void* stream) {
+  using namespace omlp;
+  using bf = __nv_bfloat16;
+  Params p{};
+  p.act = static_cast<const bf*>(x);
+  p.norm_w = static_cast<const bf*>(norm_w);
+  p.w0 = static_cast<const int8_t*>(wq);
+  p.s0 = static_cast<const bf*>(sq);
+  p.w1 = static_cast<const int8_t*>(wk);
+  p.s1 = static_cast<const bf*>(sk);
+  p.w2 = static_cast<const int8_t*>(wv);
+  p.s2 = static_cast<const bf*>(sv);
+  p.cos_t = static_cast<const float*>(cos_t);
+  p.sins_t = static_cast<const float*>(sins_t);
+  p.out = static_cast<bf*>(q_out);
+  p.k_out = static_cast<int8_t*>(k_out);
+  p.v_out = static_cast<int8_t*>(v_out);
+  p.ks_out = static_cast<bf*>(ks_out);
+  p.vs_out = static_cast<bf*>(vs_out);
+  p.N = N, p.K = H, p.cols = (Hq + 2 * Hkv) * BN, p.splits = splits, p.eps = eps;
+  p.Sq = Sq, p.Hq = Hq, p.Hkv = Hkv, p.kv_bs = kv_bs, p.sc_bs = sc_bs, p.sc_hs = sc_hs;
+  return static_cast<int>(launch<QKV>(p, nt8, static_cast<cudaStream_t>(stream)));
 }
 
 // The three launches of #9 on one stream: O_PROJ, GATE_UP, DOWN, each over
@@ -820,11 +656,12 @@ extern "C" int fused_o_mlp_bf16(const void* attn, const void* x, const void* wo,
   return static_cast<int>(launch<DOWN>(c, nt8, st));
 }
 
-// Raises the dynamic shared-memory limit of every #9 instance to what it
-// uses; called once per device when the library is loaded.
-extern "C" int fused_o_mlp_setup() {
+// Raises the dynamic shared-memory limit of every #8 and #9 instance to
+// what it uses; called once per device when the library is loaded.
+extern "C" int fused_decode_layer_setup() {
   cudaError_t err = omlp::setup_kind<omlp::O_PROJ>();
   if (err == cudaSuccess) err = omlp::setup_kind<omlp::GATE_UP>();
   if (err == cudaSuccess) err = omlp::setup_kind<omlp::DOWN>();
+  if (err == cudaSuccess) err = omlp::setup_kind<omlp::QKV>();
   return static_cast<int>(err);
 }

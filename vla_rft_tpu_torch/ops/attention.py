@@ -18,7 +18,9 @@ q[:, 0], for chunked prefill); optional causal masking.
 * `flash_bwd_dq` / `flash_bwd_dkv` wrap the CUDA kernels in
   `csrc/flash_bwd.cu` (ports of `_dq_kernel` and `_dkv_kernel`), counted in
   `bwd_dq_launches` / `bwd_dkv_launches`; `flash_bwd` computes delta and
-  launches both.
+  launches both.  `dkv_plan` is #3's launch plan: its 64-key tiles and the
+  blocks (one cluster) that share each tile's (query head, query tile)
+  pairs.
 * `FlashAttention` is the autograd Function around them: the forward runs
   #1 (or the twin with its LSE), the backward #2 and #3 (or the backward
   twin), as the reference's `jax.custom_vjp` does.
@@ -34,6 +36,7 @@ flags, so an unchanged tree does not rebuild).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -43,6 +46,9 @@ from vla_rft_tpu_torch.ops import cuda_build
 NEG_INF = -1e30
 
 SUPPORTED_HEAD_DIMS = (64, 128)
+TILE = 64  # queries or keys of a kernel tile
+H100_SMS = 132  # #3's plan is made for the device's SM count; this when none is given
+DKV_MAX_SPLITS = 4  # blocks per key tile of #3: one cluster
 
 # kernel launches since the count was last set to 0 (read by chip_smoke.py):
 # the forward (#1), the backward's dQ (#2) and dK/dV (#3)
@@ -53,6 +59,7 @@ bwd_dkv_launches = 0
 _lib = None
 _bwd_lib = None
 _ready = set()  # device indices whose forward shared-memory limits are set
+_bwd_sms = {}  # device index -> SM count, once the backward's shared-memory limits are set
 
 
 # ================================================================ plain twin
@@ -197,12 +204,50 @@ def _load_bwd():
     global _bwd_lib
     if _bwd_lib is None:
         lib = cuda_build.load("flash_bwd")
-        tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        lib.flash_bwd_dq_bf16.argtypes = [ctypes.c_void_p] * 10 + tail
-        lib.flash_bwd_dkv_bf16.argtypes = [ctypes.c_void_p] * 11 + tail
-        lib.flash_bwd_dq_bf16.restype = lib.flash_bwd_dkv_bf16.restype = ctypes.c_int
+        tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int]
+        lib.flash_bwd_dq_bf16.argtypes = [ctypes.c_void_p] * 10 + tail + [ctypes.c_void_p]
+        lib.flash_bwd_dkv_bf16.argtypes = ([ctypes.c_void_p] * 11 + tail
+                                           + [ctypes.c_int, ctypes.c_void_p])
+        lib.flash_bwd_setup.argtypes = []
+        for fn in (lib.flash_bwd_dq_bf16, lib.flash_bwd_dkv_bf16, lib.flash_bwd_setup):
+            fn.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
+
+
+def _bwd_device_lib(dev: torch.device):
+    """The backward's library, with its shared-memory limits set once on
+    `dev`, and the device's SM count."""
+    lib = _load_bwd()
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _bwd_sms:
+        with torch.cuda.device(idx):
+            rc = lib.flash_bwd_setup()
+        if rc != 0:
+            raise RuntimeError(f"flash_bwd: setup failed with CUDA error {rc}")
+        _bwd_sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return lib, _bwd_sms[idx]
+
+
+@functools.lru_cache(maxsize=256)
+def dkv_plan(B: int, Sk: int, Hq: int, Hkv: int, sms: int = H100_SMS) -> dict:
+    """The launch plan of kernel #3: one block per (64-key tile, kv head,
+    batch row) or, where those blocks would not fill the three per SM that
+    fit and the kv group has several query heads, `splits` blocks per key
+    tile (a power of two, at most DKV_MAX_SPLITS and the group size G), one
+    cluster, rank r taking the tile's (query head, query tile) pairs r, r +
+    splits, ... in head-major order (at the VLA-adapter shape 4 splits ran
+    faster than 2 and 1 on an H100: PERF.md §6).  The key tile is the
+    grid's slowest axis, so under causal masking the low tiles, which the
+    most query tiles see, start first.  Returns {"key_tiles", "splits",
+    "grid": (splits, B * Hkv, key_tiles)}.  Cached: callers must not change
+    the result."""
+    key_tiles = -(-Sk // TILE)
+    tiles, cap = B * Hkv * key_tiles, min(Hq // Hkv, DKV_MAX_SPLITS)
+    splits = 1
+    while 2 * splits <= cap and tiles * splits < 3 * sms:
+        splits *= 2
+    return {"key_tiles": key_tiles, "splits": splits, "grid": (splits, B * Hkv, key_tiles)}
 
 
 def _row_arg(x, B: int, default: int, device) -> torch.Tensor:
@@ -304,7 +349,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False, kv_lens=None,
     _check_rows_f32("flash_bwd_dq", q, (("lse", lse), ("delta", delta)))
     scale = D ** -0.5 if scale is None else scale
     kl, qo, ks = _rows(B, Sk, q.device, kv_lens, q_offset, kv_starts)
-    lib = _load_bwd()
+    lib, _ = _bwd_device_lib(q.device)
     dq = torch.empty_like(q)
     rc = lib.flash_bwd_dq_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -322,18 +367,23 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False, kv_lens=None
                   q_offset=None, kv_starts=None,
                   scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel #3: dk, dv (B, Sk, Hkv, D) bf16, each summed over the
-    query heads of its kv group; inputs as `flash_bwd_dq`."""
+    query heads of its kv group; inputs as `flash_bwd_dq`, q/k/v/dO on
+    16-byte boundaries.  The plan is `dkv_plan`'s."""
     global bwd_dkv_launches
     B, Sq, Sk, Hq, Hkv, D = _check("flash_bwd_dkv", q, k, v, (("do", do),))
     _check_rows_f32("flash_bwd_dkv", q, (("lse", lse), ("delta", delta)))
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_bwd_dkv: {name} must start on a 16-byte boundary")
     scale = D ** -0.5 if scale is None else scale
     kl, qo, ks = _rows(B, Sk, q.device, kv_lens, q_offset, kv_starts)
-    lib = _load_bwd()
+    lib, sms = _bwd_device_lib(q.device)
+    plan = dkv_plan(B, Sk, Hq, Hkv, sms)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = lib.flash_bwd_dkv_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), kl.data_ptr(), qo.data_ptr(),
-        ks.data_ptr(), B, Sq, Sk, Hq, Hkv, D, float(scale), int(bool(causal)),
+        ks.data_ptr(), B, Sq, Sk, Hq, Hkv, D, float(scale), int(bool(causal)), plan["splits"],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:

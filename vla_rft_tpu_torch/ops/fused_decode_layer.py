@@ -23,10 +23,11 @@ view, so nothing is copied.
 * `fused_qkv_kernel` / `fused_o_mlp_kernel` launch csrc/fused_decode_layer.cu
   and count every CUDA launch in `qkv_launches` (1 per call) and
   `o_mlp_launches` (`O_MLP_LAUNCHES` = 3 per call: o_proj + residual,
-  gate/up + silu, down + residual).  #9 is a split-K product: `o_mlp_plan`
-  picks its token tile and the K splits of each launch (a thread-block
-  cluster per column tile, reduced in split order), so that each launch
-  runs about one block per SM.
+  gate/up + silu, down + residual).  Both are launches of one split-K
+  streaming product: `qkv_plan` / `o_mlp_plan` pick the token tile and the
+  K splits of each launch (a thread-block cluster per column or head tile,
+  reduced in split order), so that a launch runs about one block per SM
+  (#9) or two (#8).
 * `fused_rmsnorm_qkv` / `fused_o_mlp` are the front ends: a CUDA tensor
   always goes to the kernel (or raises), a CPU tensor to the twin;
   `impl="plain"` asks for the twin on either device.
@@ -55,15 +56,16 @@ HEAD_DIM = 64  # the kernels' head tile
 TILE = 64  # columns of a product tile and depth of a contraction chunk
 O_MLP_LAUNCHES = 3
 H100_SMS = 132  # the grid is planned for the device's SM count; this when none is given
-TOKEN_TILES = (8, 16, 32)  # #9's tokens per block (8 * nt8)
-MAX_SPLITS = 8  # #9's K splits per launch: one portable cluster
+TOKEN_TILES = (8, 16, 32)  # tokens per block of #9 (8 * nt8)
+QKV_TOKEN_TILES = (8, 16)  # tokens per block of #8
+MAX_SPLITS = 8  # K splits per launch: one portable cluster
 
 # kernel launches since the counts were last set to 0 (read by chip_smoke.py)
 qkv_launches = 0
 o_mlp_launches = 0
 
 _lib = None
-_sms: Dict[int, int] = {}  # device index -> SM count, once #9's shared-memory limits are set
+_sms: Dict[int, int] = {}  # device index -> SM count, once the shared-memory limits are set
 
 
 def rope_tables(positions: torch.Tensor, theta: float, num_heads: int,
@@ -144,57 +146,91 @@ def fused_o_mlp_plain(attn, x, wo, so, norm_w, wg, sg, wu, su, wd, sd, *, eps: f
     return (x1 + qdot(m, wd, sd)).reshape(B, Sq, H).to(x.dtype)
 
 
-# ================================================================ #9's plan
+# ====================================================== #8's and #9's plans
+def _token_tile(N: int, tiles=TOKEN_TILES) -> Tuple[int, int]:
+    """(tokens per block, token groups): the smallest of `tiles` that holds
+    N, the largest beyond."""
+    tile = next((t for t in tiles if N <= t), tiles[-1])
+    return tile, -(-N // tile)
+
+
+def _launch(k: int, tiles: int, groups: int, blocks: int) -> dict:
+    """One launch of the streaming product over K = k, `tiles` column (or
+    head) tiles and `groups` token groups: the K splits are the largest
+    divisor of its k / 64 chunks, at most MAX_SPLITS, that keeps tiles x
+    groups x splits within `blocks`."""
+    chunks = k // TILE
+    want = max(1, blocks // (tiles * groups))
+    splits = max(d for d in range(1, min(chunks, MAX_SPLITS) + 1)
+                 if chunks % d == 0 and d <= want)
+    return {"k": k, "cols": tiles * TILE, "splits": splits, "chunks": chunks // splits,
+            "grid": (tiles, splits, groups)}
+
+
+@functools.lru_cache(maxsize=256)
+def qkv_plan(N: int, Hq: int, Hkv: int, H: int, sms: int = H100_SMS) -> dict:
+    """The launch plan of kernel #8 at N = B*Sq tokens: the token tile (8
+    or 16 tokens, the smallest that holds N, 16 beyond) and the K splits of
+    the one launch over Hq + 2 Hkv head tiles of 64 columns (the q heads,
+    then the k heads, then the v heads), for up to two blocks per SM; at
+    the WM's N = 10, 48 heads x 4 splits.  (On an H100 at N = 10, 4 splits
+    ran faster than 2 and 1; at N = 128, 16-token tiles faster than 32:
+    PERF.md §6.)  Returns {"token_tile", "token_groups", "head_tiles",
+    "k", "cols", "splits", "chunks", "grid"}; the splits of a head tile run
+    as one cluster.  Cached: callers must not change the result."""
+    tile, groups = _token_tile(N, QKV_TOKEN_TILES)
+    tiles = Hq + 2 * Hkv
+    return {"token_tile": tile, "token_groups": groups, "head_tiles": tiles,
+            **_launch(H, tiles, groups, 2 * sms)}
+
+
 @functools.lru_cache(maxsize=256)
 def o_mlp_plan(N: int, HqD: int, H: int, I: int, sms: int = H100_SMS) -> dict:
     """The launch plan of kernel #9 at N = B*Sq tokens: one token tile for
-    the three launches (8, 16 or 32 tokens, the smallest that holds N, 32
-    beyond) and, per launch, the number of K splits: the largest divisor of
-    its K / 64 chunks, at most MAX_SPLITS, that keeps column tiles x token
-    groups x splits within one block per SM (two per SM measured slower:
-    the clusters ran in two waves).  Returns {"token_tile",
-    "token_groups", "launches": {name: {k, cols, splits, chunks, grid}}};
-    the splits of a column tile run as one cluster.  Cached (the decode
-    loop asks once per layer): callers must not change the result."""
-    tile = next((t for t in TOKEN_TILES if N <= t), TOKEN_TILES[-1])
-    groups = -(-N // tile)
-    launches = {}
-    for name, k, cols in (("o_proj", HqD, H), ("gate_up", H, I), ("down", I, H)):
-        chunks, tiles = k // TILE, cols // TILE
-        want = max(1, sms // (tiles * groups))
-        splits = max(d for d in range(1, min(chunks, MAX_SPLITS) + 1)
-                     if chunks % d == 0 and d <= want)
-        launches[name] = {"k": k, "cols": cols, "splits": splits, "chunks": chunks // splits,
-                          "grid": (tiles, splits, groups)}
+    the three launches and, per launch, the number of K splits (`_launch`)
+    for at most one block per SM (two per SM measured slower: the clusters
+    ran in two waves).
+    Returns {"token_tile", "token_groups", "launches": {name: {k, cols,
+    splits, chunks, grid}}}; the splits of a column tile run as one
+    cluster.  Cached (the decode loop asks once per layer): callers must not
+    change the result."""
+    tile, groups = _token_tile(N)
+    launches = {name: _launch(k, cols // TILE, groups, sms)
+                for name, k, cols in (("o_proj", HqD, H), ("gate_up", H, I), ("down", I, H))}
     return {"token_tile": tile, "token_groups": groups, "launches": launches}
 
 
 # ==================================================================== kernels
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the library's entry points."""
+    lib.fused_qkv_bf16.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                                   + [ctypes.c_int64] * 3 + [ctypes.c_int] * 2
+                                   + [ctypes.c_float, ctypes.c_void_p])
+    lib.fused_o_mlp_bf16.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+                                     + [ctypes.c_float, ctypes.c_void_p])
+    lib.fused_decode_layer_setup.argtypes = []
+    for fn in (lib.fused_qkv_bf16, lib.fused_o_mlp_bf16, lib.fused_decode_layer_setup):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = cuda_build.load("fused_decode_layer")
-        lib.fused_qkv_bf16.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-                                       + [ctypes.c_int64] * 3 + [ctypes.c_float, ctypes.c_void_p])
-        lib.fused_qkv_bf16.restype = ctypes.c_int
-        lib.fused_o_mlp_bf16.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
-                                         + [ctypes.c_float, ctypes.c_void_p])
-        lib.fused_o_mlp_bf16.restype = lib.fused_o_mlp_setup.restype = ctypes.c_int
-        lib.fused_o_mlp_setup.argtypes = []
-        _lib = lib
+        _lib = _bind(cuda_build.load("fused_decode_layer"))
     return _lib
 
 
-def _o_mlp_lib(dev: torch.device):
-    """The library, with #9's shared-memory limits set once on `dev`, and
-    the device's SM count."""
+def _device_lib(dev: torch.device):
+    """The library, with the shared-memory limits of #8 and #9 set once on
+    `dev`, and the device's SM count."""
     lib = _load()
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if idx not in _sms:
         with torch.cuda.device(idx):
-            rc = lib.fused_o_mlp_setup()
+            rc = lib.fused_decode_layer_setup()
         if rc != 0:
-            raise RuntimeError(f"fused o/mlp kernel: setup failed with CUDA error {rc}")
+            raise RuntimeError(f"fused decode kernels: setup failed with CUDA error {rc}")
         _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return lib, _sms[idx]
 
@@ -215,7 +251,7 @@ def _check_x(x):
 
 
 def _check_aligned(named):
-    """#9 copies 16-byte vectors: every (name, tensor) must start on a
+    """#8 and #9 copy 16-byte vectors: every (name, tensor) must start on a
     16-byte boundary (a layer's slice w[li] of a stacked tensor does)."""
     for name, t in named:
         if t.data_ptr() % 16:
@@ -247,8 +283,9 @@ def fused_qkv_kernel(x, rope_cos, rope_sins, norm_w, wq, sq, wk, sk, wv, sv, *, 
                      out: Optional[Tuple[torch.Tensor, ...]] = None):
     """Launch kernel #8; same arguments and results as
     `fused_rmsnorm_qkv_plain`, all on one CUDA device, D = 64, widths
-    multiples of 64.  With `out`, k/v and their scales are written into
-    those views (see the module docstring) and returned."""
+    multiples of 64, x, the weights and the norm weight on 16-byte
+    boundaries.  With `out`, k/v and their scales are written into those
+    views (see the module docstring) and returned."""
     global qkv_launches
     _check_x(x)
     B, Sq, H = x.shape
@@ -265,6 +302,9 @@ def fused_qkv_kernel(x, rope_cos, rope_sins, norm_w, wq, sq, wk, sk, wv, sv, *, 
         _check_weight(name, w, s, H, dev)
         if w.shape[1] != width:
             raise ValueError(f"fused decode kernel: {name} has {w.shape[1]} columns, not {width}")
+    _check_aligned((("x", x), ("wq", wq), ("wk", wk), ("wv", wv), ("norm weight", norm_w)))
+    lib, sms = _device_lib(dev)
+    plan = qkv_plan(N, num_heads, num_kv_heads, H, sms)
     q = torch.empty((B, Sq, HqD), dtype=torch.bfloat16, device=dev)
     if out is None:
         k8, v8 = (torch.empty((B, Sq, KD), dtype=torch.int8, device=dev) for _ in range(2))
@@ -278,12 +318,13 @@ def fused_qkv_kernel(x, rope_cos, rope_sins, norm_w, wq, sq, wk, sk, wv, sv, *, 
             _check_out(name, t, torch.bfloat16, (B, num_kv_heads, Sq), dev, 1)
         if v8.stride() != k8.stride() or vs.stride() != ks.stride():
             raise ValueError("fused decode kernel: k and v outputs must share their strides")
-    rc = _load().fused_qkv_bf16(
+    rc = lib.fused_qkv_bf16(
         x.data_ptr(), rope_cos.data_ptr(), rope_sins.data_ptr(), norm_w.data_ptr(),
         wq.data_ptr(), sq.data_ptr(), wk.data_ptr(), sk.data_ptr(), wv.data_ptr(), sv.data_ptr(),
         q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(), vs.data_ptr(),
         N, Sq, H, num_heads, num_kv_heads, k8.stride(0), ks.stride(0), ks.stride(1),
-        float(eps), torch.cuda.current_stream(dev).cuda_stream,
+        plan["token_tile"] // 8, plan["splits"], float(eps),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"fused qkv kernel: launch failed with CUDA error {rc}")
@@ -313,7 +354,7 @@ def fused_o_mlp_kernel(attn, x, wo, so, norm_w, wg, sg, wu, su, wd, sd, *, eps: 
         raise ValueError("fused decode kernel: o/gate/up/down widths do not chain")
     _check_aligned((("attn", attn), ("x", x), ("wo", wo), ("wg", wg), ("wu", wu), ("wd", wd),
                     ("norm weight", norm_w)))
-    lib, sms = _o_mlp_lib(dev)
+    lib, sms = _device_lib(dev)
     plan = o_mlp_plan(N, HqD, H, I, sms)
     x1 = torch.empty((N, H), dtype=torch.bfloat16, device=dev)
     m = torch.empty((N, I), dtype=torch.bfloat16, device=dev)
