@@ -22,15 +22,21 @@ Phases, one JSON line each:
                   shape (B 4 x 1663, 16/16 heads) beside the twin's, the
                   autograd backward of scaled_dot_product_attention's (a
                   yardstick only, forward + backward replayed from a CUDA
-                  graph less the forward) and the bound; #3's launch plan
-                  and three calls of it giving the same bits (its cluster
-                  split is reduced in a fixed order);
+                  graph less the forward) and the bound; #2's and #3's
+                  launch plans and three calls of each giving the same bits
+                  (#3's cluster split is reduced in a fixed order, #2 has
+                  no split);
   4. decode     - the split-cache decode kernels (#4 with a shared prefix, #5
                   without) against their twins over int8 and bf16 caches, Sq 1
                   and 7, uniform and per-row prefix maps, shared_starts,
                   kv_starts (also cutting the window to a few keys or none),
-                  ragged lengths and GQA 14/2, and their time at the WM's
-                  mid-rollout shape;
+                  ragged lengths, GQA 14/2, the configured 128-row WM call
+                  (16 prefixes of 8 rows) and one prefix shared by 40 rows
+                  (more than a chunk); their time at the WM's mid-rollout
+                  shape (#4 also at 128 rows) with the launch plan, each
+                  timed shape held against the twin and called three times
+                  for the same bits (the key splits are merged in rank
+                  order);
      decode_heads - the same for #6 / #7 over the same draws in the 'heads'
                   cache layout (rows, Hkv, S, D);
      fused_decode_attention - the cache-writing one-token decode (#10)
@@ -132,8 +138,9 @@ O_TOL = 2e-2  # bf16 O (2^-8 relative) and bf16 P in the P.V product
 LSE_TOL = 1e-3  # f32 LSE; scores are exact bf16 products summed in f32
 HIDDEN_TOL = 5e-2  # kernel vs plain path, relative to max|hidden|, 24 bf16 layers
 ACTION_TOL = 5e-2  # normalized actions after 10 bf16 Euler steps
-# decode kernel vs twin: both dequantise to bf16 and attend in f32 with P in
-# f32, so they differ by f32 summation order before O is rounded to bf16:
+# decode kernel vs twin: both dequantise to bf16 and attend in f32, the twin
+# with P in f32 and the kernel with P in two bf16 terms (16 bits), so they
+# differ by that and by f32 summation order before O is rounded to bf16:
 # |dO| <= DEC_RTOL * |O| + DEC_ATOL, one bf16 ulp plus a small floor
 DEC_RTOL, DEC_ATOL = 2 ** -7, 2e-3
 # WM kernel path vs plain path, max|d logits| / max|logits|: 24 bf16 layers
@@ -159,6 +166,9 @@ SFT_VLM_LR, SFT_EXPERT_LR = 5e-3, 1e-4
 WM_SFT_ROWS, WM_SFT_PROMPT, WM_SFT_LEN = 4, 1095, 1663
 
 WM_PREFIX = 1088  # shared prompt head: 1024 ctx tokens + the 64 dyn tokens of frame 0
+# the configured WM call of 128 rows (rollout.micro_batch_size): a 64-sequence
+# step's policy rows (16 samples x n = 4) then their gt rows, in that order
+B128_PREFIX_MAP = [i // 4 % 16 for i in range(128)]
 N_SAMPLES, N_ROLLOUTS = 2, 4
 # fused decode kernels vs twins: both round every product and residual to
 # bf16 in the reference's order and differ only in the order of f32 sums,
@@ -491,14 +501,16 @@ def phase_flash_bwd(attention) -> dict:
         entry = {"B": B, "S": S, "kv_len": kv_len, "Hq": Hq, "Hkv": Hkv, "D": 64, "causal": True,
                  "plain_ms": plain_ms, "library_ms": library_ms}
         dkv = lambda: attention.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        if not repeats_bit_for_bit(dkv):
-            raise AssertionError(f"flash_bwd_dkv at {shape}: three calls gave different bits")
+        dq = lambda: attention.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        for name, fn in (("flash_bwd_dkv", dkv), ("flash_bwd_dq", dq)):
+            if not repeats_bit_for_bit(fn):
+                raise AssertionError(f"{name} at {shape}: three calls gave different bits")
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         timed[shape] = {
-            "dq": {**entry, "kernel_ms": graph_ms(
-                lambda: attention.flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
-                "eager_ms": cuda_ms(lambda: attention.flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
-                **bound(*work["dq"])},
+            "dq": {**entry, "kernel_ms": graph_ms(dq), "eager_ms": cuda_ms(dq),
+                   "repeats_bit_for_bit": True,
+                   "plan": attention.dq_plan(B, S, Hq, True),
+                   **bound(*work["dq"])},
             "dkv": {**entry, "kernel_ms": graph_ms(dkv), "eager_ms": cuda_ms(dkv),
                     "repeats_bit_for_bit": True, "plan": attention.dkv_plan(B, S, Hq, Hkv, sms),
                     **bound(*work["dkv"])},
@@ -590,7 +602,7 @@ def phase_serving(attention) -> dict:
 
 
 def _decode_inputs(dec, gen, *, int8, B, Sq, G, Hkv, Sr, shared, own, starts=None, pm=None,
-                   Sp=1152, shared_len=WM_PREFIX, per_row=False, heads=False):
+                   Sp=1152, shared_len=WM_PREFIX, per_row=False, heads=False, n_prefix=2):
     """Random inputs of one decode call: (kernel fn, twin fn, info, tensors).
     `dec` is the layout's module (ops/decode_attention_hd.py, or with `heads`
     ops/decode_attention.py, whose caches are the same draws transposed to
@@ -617,7 +629,7 @@ def _decode_inputs(dec, gen, *, int8, B, Sq, G, Hkv, Sr, shared, own, starts=Non
                           dtype=torch.int32)
     t = {"q": q, "ck": ck, "cv": cv, "sc": sc, "own": own}
     if shared:
-        (sck, scv), ssc = cache(2, Sp)
+        (sck, scv), ssc = cache(n_prefix, Sp)
         pm = torch.tensor(pm, device=dev, dtype=torch.int32)
         kv_lens = shared_len + own
         kw = dict(shared_len=shared_len, kv_lens=kv_lens, q_offset=kv_lens - Sq,
@@ -638,6 +650,8 @@ def phase_decode(dec, heads: bool = False) -> dict:
     """The split-cache decode kernels against their twins, then timed: #4 /
     #5 over the 'hd' cache, or with `heads` #6 / #7 over the 'heads' cache
     (`dec` the layout's module), on the same cases."""
+    from vla_rft_tpu_torch.ops.decode_attention_hd import decode_plan
+
     gen = torch.Generator(device="cuda").manual_seed(3)
     B = N_SAMPLES * (N_ROLLOUTS + 1)
     uniform = [0] * 5 + [1] * 5  # each sample's 4 rollouts, then its gt row
@@ -666,6 +680,14 @@ def phase_decode(dec, heads: bool = False) -> dict:
         cases.append(dict(int8=int8, B=B, Sq=7, G=1, Hkv=16, Sr=1408, shared=False,
                           own=[1379, 9, 800, 1408, 1200, 64, 1000, 1379, 999, 500],
                           starts=[1378, 6, 797, 1400, 1199, 63, 990, 1372, 998, 495]))
+    # the configured 128-row WM call (a 64-sequence step's policy rows, then
+    # its gt rows: 16 prefixes each shared by 8 rows that are not adjacent)
+    # and one prefix shared by 40 rows (chunks of 16 rows read it 3 times)
+    cases.append(dict(int8=True, B=128, Sq=1, G=1, Hkv=16, Sr=384, shared=True, n_prefix=16,
+                      pm=B128_PREFIX_MAP, own=[7 + (37 * i) % 378 for i in range(128)],
+                      starts=[(5 * i) % 13 for i in range(128)]))
+    cases.append(dict(int8=False, B=40, Sq=1, G=1, Hkv=16, Sr=384, shared=True, pm=[1] * 40,
+                      own=[1 + (53 * i) % 384 for i in range(40)], starts=[0] * 40))
     # GQA 14/2 (the policy's head layout) on both kernels
     cases.append(dict(int8=True, B=4, Sq=7, G=7, Hkv=2, Sr=256, shared=True, pm=[0, 0, 1, 1],
                       own=[7, 100, 256, 31], starts=[0, 0, 2, 2]))
@@ -688,20 +710,33 @@ def phase_decode(dec, heads: bool = False) -> dict:
 
     # Time at the WM's mid-rollout shape: 10 rows (2 samples x (4 + gt)),
     # 2 prefixes of 1088 valid positions, own length 7 + 4 * 71 = 291 (frame
-    # 4 of 8), one query, int8 cache.  #5 at the plain route's shape: the
-    # whole 1095 + 4 * 71 = 1379-token context in each row's cache.
+    # 4 of 8), one query, int8 cache; the shared route also at the
+    # configured 128 rows per WM call (16 prefixes of 8 rows).  #5 at the
+    # plain route's shape: the whole 1095 + 4 * 71 = 1379-token context in
+    # each row's cache.  Each is also held against its twin and called three
+    # times for the same bits.
     mid = 7 + 4 * 71
     timed = {}
     for key, case in (("shared", dict(int8=True, B=B, Sq=1, G=1, Hkv=16, Sr=384, shared=True,
                                       pm=uniform, own=[mid] * B)),
+                      ("shared_b128", dict(int8=True, B=128, Sq=1, G=1, Hkv=16, Sr=384,
+                                           shared=True, n_prefix=16, pm=B128_PREFIX_MAP,
+                                           own=[mid] * 128)),
                       ("plain", dict(int8=True, B=B, Sq=1, G=1, Hkv=16, Sr=1408, shared=False,
                                      own=[1095 + mid - 7] * B))):
         kern, twin, info, t = _decode_inputs(dec, gen, heads=heads, **case)
+        o, ref = kern(), twin().float()
+        if not bool((((o.float() - ref).abs()) <= DEC_RTOL * ref.abs() + DEC_ATOL).all()):
+            raise AssertionError(f"decode timed case {key}: max|dO| "
+                                 f"{(o.float() - ref).abs().max().item()}")
+        if not repeats_bit_for_bit(kern):
+            raise AssertionError(f"decode timed case {key}: three calls gave different bits")
+        Bt = case["B"]
         L = case["own"][0]
         seq = (lambda c, n: c[:, :, :n]) if heads else (lambda c, n: c[:, :n])
         k_all = dec.dequantize(seq(t["ck"], L), t["sc"][0][:, :, :L], 64, torch.bfloat16)
         v_all = dec.dequantize(seq(t["cv"], L), t["sc"][1][:, :, :L], 64, torch.bfloat16)
-        positions = B * L  # distinct cache positions the call must read
+        positions = Bt * L  # distinct cache positions the call must read
         if key == "shared":
             pm = t["pm"].long()
             k_sh = dec.dequantize(seq(t["sck"], WM_PREFIX), t["ssc"][0][:, :, :WM_PREFIX], 64,
@@ -714,12 +749,17 @@ def phase_decode(dec, heads: bool = False) -> dict:
         # that skips the dequantisation (the port never calls it)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (t["q"], k_all, v_all))
         keys = k_all.shape[1]
-        nbytes = positions * 2 * 16 * (64 + 2) + 2 * 2 * B * 16 * 64  # int8 K/V + bf16 scales, q, O
-        flops = 4 * 64 * B * 16 * keys
+        # int8 K/V + bf16 scales, q, O
+        nbytes = positions * 2 * 16 * (64 + 2) + 2 * 2 * Bt * 16 * 64
+        flops = 4 * 64 * Bt * 16 * keys
+        n_prefix = case.get("n_prefix", 2) if case["shared"] else 0
+        plan = decode_plan(Bt, 1, 1, 16, case["Sr"], case["shared"], n_prefix,
+                           WM_PREFIX if case["shared"] else 0,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
         timed[key] = {**info, "keys_per_row": keys, "kernel_ms": graph_ms(kern),
                       "eager_ms": cuda_ms(kern, 100), "plain_ms": graph_ms(twin, 10),
                       "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-                      **bound(nbytes, flops)}
+                      "repeats_bit_for_bit": True, "plan": plan, **bound(nbytes, flops)}
     out = {"phase": "decode_heads" if heads else "decode", "cases": results, "max_abs_err": err,
            "tolerance": f"|dO| <= {DEC_RTOL} * |O| + {DEC_ATOL}", "timed": timed}
     emit(out)
@@ -1698,6 +1738,10 @@ def main() -> int:
         entry("decode_shared_hd", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:226",
               wm_launches["decode_shared_hd"], decode["max_abs_err"]["shared"],
               decode["timed"]["shared"]),
+        {**entry("decode_shared_hd@b128", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:226",
+                 0, decode["max_abs_err"]["shared"], decode["timed"]["shared_b128"]),
+         "shape": f"B=128 Sq=1 Hq=Hkv=16 D=64 int8, 16 prefixes of {WM_PREFIX} (8 rows each) "
+                  f"+ 291 own: the configured rows of a WM call; the main path runs B=10"},
         entry("decode_hd", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:272",
               plain["launches"]["decode_hd"], decode["max_abs_err"]["plain"],
               decode["timed"]["plain"]),

@@ -9,8 +9,9 @@ that has only PyTorch (tests/conftest.py imports JAX, hence --noconftest):
 Tolerances: O is bf16 (2^-8 relative) and the flash kernel rounds P to
 bf16 for the P.V product, so its O gets atol/rtol 2e-2; the LSE is f32 from
 exact bf16 products summed in f32, so it gets atol 1e-3.  The decode kernels
-keep P in f32 and differ from their twins only by f32 summation order before
-O is rounded to bf16, so their O gets rtol 2^-7 (one bf16 ulp) and atol 2e-3.
+keep P to 16 bits (two bf16 terms) and differ from their twins by that and by
+f32 summation order before O is rounded to bf16, so their O gets rtol 2^-7
+(one bf16 ulp) and atol 2e-3.
 The flash backward kernels round p and dS to bf16 for their second products
 and dq/dk/dv to bf16 at the end, and sum in f32 in another order than the
 f32 twin: each gradient gets max|d| <= 2^-7 max|ref| + 1e-3.  The fused
@@ -913,3 +914,84 @@ def test_fused_decode_attention_refuses_what_the_kernel_does_not_take(cuda_devic
         tfda.fused_decode_attention_kernel(q, kv, kv, ck.transpose(3, 4), ck.clone(), 0, 3)
     with pytest.raises(ValueError, match="kv heads"):
         tfda.fused_decode_attention_kernel(z(2, 1, 40, 64), kv, kv, ck, ck.clone(), 0, 3)
+
+
+# ------------------------------- the redesigned #2 and decode kernel (#4-#7)
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("name,B,Sq,Sk,Hq,Hkv,D,kw", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_flash_bwd_dq_repeats_bit_for_bit_and_zeroes_masked_rows(cuda_device, name, B, Sq, Sk,
+                                                                  Hq, Hkv, D, kw, causal):
+    """#2 has no split and no atomics: three calls give the same bits; a
+    batch row without a valid key gets dQ = 0 exactly."""
+    q, k, v, do = _bwd_inputs(cuda_device, B, Sq, Sk, Hq, Hkv, D, seed=5)
+    args = {k_: torch.tensor(v_, device=cuda_device) for k_, v_ in kw.items()}
+    o, lse = tattn.flash_fwd(q, k, v, causal=causal, **args)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    runs = [tattn.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, **args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    if name == "fully_masked_row":  # row 1 has no valid key
+        assert bool((runs[0][1] == 0).all())
+
+
+def _decode_call(dev, gen, layout, B, Sq, G, Hkv, Sr, n_prefix, pm, int8, shared_len=250, Sp=256):
+    """(kernel call, twin call) of one decode case on the 'hd' or 'heads'
+    layout: ragged own lengths, cut starts, one row without a valid key."""
+    mod = theads if layout == "heads" else tdec
+    conv = (lambda c: _to_heads(c, Hkv)) if layout == "heads" else (lambda c: c)
+    q, (ck, cv), sc = _decode_inputs(dev, gen, B, Sq, Hkv * G, Hkv, Sr, int8)
+    ck, cv = conv(ck), conv(cv)
+    own = torch.tensor([Sq + (37 * b) % (Sr - Sq + 1) for b in range(B)], device=dev)
+    starts = torch.tensor([(7 * b) % 11 for b in range(B)], device=dev)
+    scales = None if sc is None else tuple(sc)
+    if pm is None:
+        starts[1] = own[1]  # no valid key
+        kw = dict(kv_lens=own, q_offset=own - Sq, kv_starts=starts, scales=scales)
+        return (lambda: mod.decode_kernel(q, ck, cv, **kw),
+                lambda: mod.decode_plain(q, ck, cv, **kw))
+    _, (sck, scv), ssc = _decode_inputs(dev, gen, 1, Sq, Hkv * G, Hkv, Sp, int8, rows=n_prefix)
+    sck, scv = conv(sck), conv(scv)
+    pm = torch.tensor(pm, device=dev)
+    kv_lens = shared_len + own
+    starts[1] = kv_lens[1]  # no valid key
+    kw = dict(shared_len=shared_len, kv_lens=kv_lens, q_offset=kv_lens - Sq, shared_starts=starts,
+              scales=scales, shared_scales=None if ssc is None else tuple(ssc))
+    return (lambda: mod.decode_shared_kernel(q, ck, cv, sck, scv, pm, **kw),
+            lambda: mod.decode_shared_plain(q, ck, cv, sck, scv, pm, **kw))
+
+
+REDESIGN_DECODE_CASES = [
+    # (name, B, Sq, G, Hkv, Sr, n_prefix, prefix_map or None, int8): the
+    # configured 128-row WM call (a 64-sequence step's policy rows, then its
+    # gt rows), prefix groups of more than MAX_NQ (64) query rows (80 rows of
+    # one query; 12 rows of 7), the main path's 10 rows, and #5 / #7
+    ("b128_int8", 128, 1, 1, 16, 200, 16, [i // 4 % 16 for i in range(128)], True),
+    ("b128_bf16", 128, 1, 1, 8, 200, 16, [i // 4 % 16 for i in range(128)], False),
+    ("group_of_80", 80, 1, 1, 4, 120, 2, [0] * 79 + [1], True),
+    ("group_of_12_sq7", 12, 7, 1, 4, 120, 1, [0] * 12, True),
+    ("g4_sq5", 6, 5, 4, 2, 120, 2, [0, 0, 0, 1, 1, 1], False),  # 3 rows of 20 in 4 m16 tiles
+    ("b10", 10, 1, 1, 16, 200, 2, [0] * 5 + [1] * 5, True),
+    ("plain_b10", 10, 1, 1, 16, 300, 0, None, True),
+    ("plain_gqa_sq7", 4, 7, 7, 2, 120, 0, None, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["hd", "heads"])
+@pytest.mark.parametrize("name,B,Sq,G,Hkv,Sr,n_prefix,pm,int8", REDESIGN_DECODE_CASES,
+                         ids=[c[0] for c in REDESIGN_DECODE_CASES])
+def test_decode_kernel_matches_twin_and_repeats_bit_for_bit(cuda_device, layout, name, B, Sq, G,
+                                                            Hkv, Sr, n_prefix, pm, int8):
+    """The split-cache decode kernel (prefix read once per chunk of a prefix
+    group, keys split over a cluster merged in rank order) against its twin
+    within the decode tolerance, three calls with the same bits, and 0 for
+    the row without a valid key."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B + Sq + G)
+    kern, twin = _decode_call(cuda_device, gen, layout, B, Sq, G, Hkv, Sr, n_prefix, pm, int8)
+    runs = [kern() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    ref = twin()
+    torch.testing.assert_close(runs[0].float(), ref.float(), **DEC_TOL)
+    assert bool((runs[0][1] == 0).all())

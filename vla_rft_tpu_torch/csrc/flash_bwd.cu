@@ -17,14 +17,31 @@
 //     of the kv group.  f32 accumulation, bf16 dq/dk/dv out.
 //
 // Design.
-//   #2: the first design.  A block of 4 warps per (64-query tile, query
-//       head, batch row), 64-row tiles staged in shared memory, WMMA bf16
-//       products (16x16x16, f32 accumulate), each warp owning 16 rows end
-//       to end.  It keeps Q, dO, lse and delta of its tile in shared memory
-//       and loops over the 64-key K/V tiles that hold a valid key for some
-//       query of the tile: S = Q K^T and dP = dO V^T go to f32 shared
-//       memory, the element pass turns them into dS (bf16), and dQ += dS K
-//       accumulates in registers.
+//   #2: register-resident, #3's design turned around.  A block of 4 warps
+//       (one warpgroup) owns a 64-query tile of one query head and batch
+//       row, each warp 16 queries; the tile's Q and dO are staged once
+//       in shared memory (read into A fragments by ldmatrix) and its lse and
+//       delta sit in registers.  It streams the 64-key K/V
+//       tiles that hold a valid key for some query of the tile through a
+//       cp.async double-buffered ring (the next tile flies during this
+//       tile's products).  Per tile:
+//         S = Q K^T, dP = dO V^T   into registers, Q/dO as A, K/V as B: at
+//                   D = 64 on wgmma m64n64k16 (B the swizzled K/V rows, D
+//                   as the reduction), at D = 128 on mma.sync m16n8k16 with
+//                   ldmatrix, 32 keys at a time;
+//         p, dS     the element pass on the accumulators, as #3's: p =
+//                   2^max(s scale log2 e - lse log2 e, -80 log2 e), exactly
+//                   0 on masked lanes, dS = p (dP - delta) scale; masks only
+//                   where the tile cuts a kv_starts / kv_lens edge, the
+//                   ragged last query tile or the warp's causal diagonal;
+//         dQ += dS K   dS rounded to bf16 straight from the accumulator
+//                   layout into A fragments, K as B with the keys as the
+//                   reduction: at D = 64 on wgmma m64n64k16 (K transposed,
+//                   MN-major, as #3 takes dO), at D = 128 by ldmatrix.trans.
+//       dQ never leaves registers until the epilogue; no atomics, so dq is
+//       the same bits on every run.  The query tile is the grid's slowest
+//       axis and, under causal masking, the last tiles (which see the most
+//       keys) start first.
 //   #3: register-resident.  A block of 4 warps (one warpgroup) owns a
 //       64-key tile of one kv head and batch row, each warp 16 keys; its K
 //       and V tiles are staged once, and it walks the (query head of the kv
@@ -72,13 +89,15 @@
 // about 46 MB of q/k/v/o/dO/dq/dk/dv, about 260 FLOP per byte: near the
 // card's ~295 FLOP/byte bf16 ridge, so both bounds are ~12-14 us.  At the
 // WM-SFT shape (B = 4, S = 1663, 16/16 heads) it is about 79 GFLOP against
-// 110 MB, bound by operations (~80 us).  #3 pays one MUFU.EX2 a score (16
-// a clock per SM) and, at D = 64, wgmma from registers and shared memory.
-// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md): with its
-// products on mma.sync (each warp reading all of Q and dO by ldmatrix) #3
-// took 0.079 ms at the VLA-adapter shape and 0.266 ms at WM-SFT, where the
-// Q/dO stream, the products and the element pass each took about a third;
-// on wgmma 0.067 and 0.220 ms.
+// 110 MB, bound by operations (~80 us).  Both kernels pay one MUFU.EX2 a
+// score (16 a clock per SM) beside their products; #2 does three products
+// where #3 does four and streams K/V instead of Q/dO/lse/delta.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md): #3 on
+// wgmma took 0.067 ms at the VLA-adapter shape and 0.220 ms at WM-SFT
+// (on mma.sync 0.079 / 0.266, where the Q/dO stream, the products and the
+// element pass each took about a third); #2's first design (WMMA 16x16x16
+// with S and dP through f32 shared memory and a scalar element pass) took
+// 0.154 / 0.71 ms, this one 0.040 / 0.149 ms (PERF.md section 6, PR 11).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_bwd.so flash_bwd.cu
@@ -89,232 +108,17 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BT = 64;         // rows per tile (queries or keys)
-constexpr int NWARPS = 4;      // 16 rows per warp
+constexpr int NWARPS = 4;  // one warpgroup, 16 rows per warp
 constexpr int NTHREADS = NWARPS * 32;
 constexpr float EXP_FLOOR = -80.0f;
-
-// #2's shared-memory layout (bytes): four bf16 row tiles (the block's own
-// Q and dO, the streamed K and V), two f32 score tiles, a bf16 tile for the
-// element pass's dS, and two f32 per-query vectors.  Padding breaks bank
-// conflicts and keeps every 16-row WMMA fragment base 32-byte aligned.
-// After the loop the score tiles hold the f32 output tile (ld D + 4), which
-// fits in the two of them for D <= 128.
-template <int D> struct Smem {
-  static constexpr int LD = D + 8;     // bf16 row tiles
-  static constexpr int LD_S = BT + 4;  // f32 score tiles
-  static constexpr int LD_P = BT + 8;  // bf16 element-pass tiles
-  static constexpr int LD_O = D + 4;   // f32 output staging
-  static constexpr int TILE = BT * LD * 2;
-  static constexpr int A_OFF = 0;                    // own tile 1 (Q)
-  static constexpr int B_OFF = A_OFF + TILE;         // own tile 2 (dO)
-  static constexpr int C_OFF = B_OFF + TILE;         // streamed tile 1 (K)
-  static constexpr int E_OFF = C_OFF + TILE;         // streamed tile 2 (V)
-  static constexpr int S_OFF = E_OFF + TILE;         // f32 S
-  static constexpr int DP_OFF = S_OFF + BT * LD_S * 4;  // f32 dP
-  static constexpr int DS_OFF = DP_OFF + BT * LD_S * 4;  // bf16 dS
-  static constexpr int LSE_OFF = DS_OFF + BT * LD_P * 2;
-  static constexpr int DELTA_OFF = LSE_OFF + BT * 4;
-  static constexpr int BYTES = DELTA_OFF + BT * 4;
-  static_assert(BT * LD_O * 4 <= 2 * BT * LD_S * 4, "output staging must fit the score tiles");
-};
-
-// Copy a (BT, D) bf16 tile from global memory (row stride `gstride`
-// elements) into shared memory, 16 bytes per thread per step; rows at or
-// beyond `valid_rows` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t gstride, int valid_rows) {
-  constexpr int VEC = 8;
-  constexpr int PER_ROW = D / VEC;
-  for (int idx = threadIdx.x; idx < BT * PER_ROW; idx += NTHREADS) {
-    const int r = idx / PER_ROW;
-    const int c = (idx % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid_rows) val = *reinterpret_cast<const uint4*>(src + r * gstride + c);
-    *reinterpret_cast<uint4*>(dst + r * Smem<D>::LD + c) = val;
-  }
-}
-
-// out_w (16 x D, f32 fragments) += A_w (16 x BT, bf16 row-major, ld LD_P)
-// times B (BT x D, bf16 row-major, ld LD).
-template <int D>
-__device__ __forceinline__ void acc_product(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16],
-    const __nv_bfloat16* a, const __nv_bfloat16* b) {
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-    wmma::load_matrix_sync(af, a + kk * 16, Smem<D>::LD_P);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-      wmma::load_matrix_sync(bf, b + (kk * 16) * Smem<D>::LD + j * 16, Smem<D>::LD);
-      wmma::mma_sync(acc[j], af, bf, acc[j]);
-    }
-  }
-}
-
-// out_w (16 x BT, f32 in shared memory, ld LD_S) = A_w (16 x D rows of a
-// bf16 tile) times B^T, where B is a (BT, D) bf16 tile: row i of the output
-// is the dot products of row i of A with every row of B.
-template <int D>
-__device__ __forceinline__ void row_dots(float* out, const __nv_bfloat16* a,
-                                         const __nv_bfloat16* b) {
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-    wmma::fill_fragment(sf, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-      wmma::load_matrix_sync(af, a + kk * 16, Smem<D>::LD);
-      wmma::load_matrix_sync(bf, b + (j * 16) * Smem<D>::LD + kk * 16, Smem<D>::LD);
-      wmma::mma_sync(sf, af, bf, sf);
-    }
-    wmma::store_matrix_sync(out + j * 16, sf, Smem<D>::LD_S, wmma::mem_row_major);
-  }
-}
-
-// Write a warp's 16 accumulated rows as bf16: fragments -> f32 staging in
-// shared memory (ld LD_O) -> rows [row0, row0 + 16) of `dst` (row stride
-// `gstride`), skipping rows at or beyond `valid_rows`.
-template <int D>
-__device__ __forceinline__ void store_rows(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16], float* stage,
-    __nv_bfloat16* dst, int64_t gstride, int row0, int valid_rows) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::store_matrix_sync(stage + row0 * Smem<D>::LD_O + j * 16, acc[j], Smem<D>::LD_O,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int r = 0; r < 16; ++r) {
-    const int row = row0 + r;
-    if (row >= valid_rows) break;
-    for (int c = lane; c < D; c += 32) {
-      dst[row * gstride + c] = __float2bfloat16(stage[row * Smem<D>::LD_O + c]);
-    }
-  }
-  __syncwarp();
-}
-
-// ------------------------------------------------------------------ #2: dQ
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, const int* __restrict__ kv_lens,
-                    const int* __restrict__ q_offset, const int* __restrict__ kv_starts,
-                    int Sq, int Sk, int Hq, int Hkv, float scale, int causal) {
-  using L = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + L::A_OFF);
-  __nv_bfloat16* do_s = reinterpret_cast<__nv_bfloat16*>(smem + L::B_OFF);
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + L::C_OFF);
-  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + L::E_OFF);
-  float* s_s = reinterpret_cast<float*>(smem + L::S_OFF);
-  float* dp_s = reinterpret_cast<float*>(smem + L::DP_OFF);
-  __nv_bfloat16* ds_s = reinterpret_cast<__nv_bfloat16*>(smem + L::DS_OFF);
-  float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
-  float* delta_s = reinterpret_cast<float*>(smem + L::DELTA_OFF);
-
-  const int q0 = blockIdx.x * BT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row0 = warp * 16;
-
-  const int kv_len = min(kv_lens[b], Sk);
-  const int kv_start = max(kv_starts[b], 0);
-  const int q_off = q_offset[b];
-  const int q_rows = min(BT, Sq - q0);
-  const int64_t q_stride = (int64_t)Hq * D;
-  const int64_t kv_stride = (int64_t)Hkv * D;
-  const int64_t q_base = ((int64_t)b * Sq + q0) * Hq + h;  // (row, head) of the tile's first query
-
-  load_tile<D>(q_s, q + q_base * D, q_stride, q_rows);
-  load_tile<D>(do_s, dout + q_base * D, q_stride, q_rows);
-  for (int r = threadIdx.x; r < BT; r += NTHREADS) {
-    lse_s[r] = r < q_rows ? lse[q_base + (int64_t)r * Hq] : 0.0f;
-    delta_s[r] = r < q_rows ? delta[q_base + (int64_t)r * Hq] : 0.0f;
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  // Key tiles that can hold a valid key for some query of this tile.
-  const int t_begin = kv_start / BT;
-  int t_end = (kv_len + BT - 1) / BT;
-  if (causal) {
-    const int last_q = q_off + q0 + q_rows - 1;
-    t_end = min(t_end, last_q < 0 ? 0 : last_q / BT + 1);
-  }
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * BT;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    const int64_t kv_base = ((int64_t)b * Sk + k0) * Hkv + hk;
-    load_tile<D>(k_s, k + kv_base * D, kv_stride, Sk - k0);
-    load_tile<D>(v_s, v + kv_base * D, kv_stride, Sk - k0);
-    __syncthreads();
-
-    row_dots<D>(s_s + row0 * L::LD_S, q_s + row0 * L::LD, k_s);    // S = Q K^T
-    row_dots<D>(dp_s + row0 * L::LD_S, do_s + row0 * L::LD, v_s);  // dP = dO V^T
-    __syncwarp();
-
-    for (int r = 0; r < 16; ++r) {
-      const int row = row0 + r;
-      const int q_pos = q_off + q0 + row;
-      const bool q_ok = row < q_rows;
-      const float l = lse_s[row];
-      const float dl = delta_s[row];
-#pragma unroll
-      for (int c2 = 0; c2 < 2; ++c2) {
-        const int col = lane + 32 * c2;
-        const int kv_pos = k0 + col;
-        const bool ok = q_ok && kv_pos >= kv_start && kv_pos < kv_len &&
-                        (!causal || q_pos >= kv_pos);
-        float ds = 0.0f;
-        if (ok) {
-          const float p = expf(fmaxf(s_s[row * L::LD_S + col] * scale - l, EXP_FLOOR));
-          ds = p * (dp_s[row * L::LD_S + col] - dl) * scale;
-        }
-        ds_s[row * L::LD_P + col] = __float2bfloat16(ds);
-      }
-    }
-    __syncwarp();
-
-    acc_product<D>(acc, ds_s + row0 * L::LD_P, k_s);  // dQ += dS K
-  }
-
-  __syncthreads();  // the score tiles become the output staging
-  store_rows<D>(acc, s_s, dq + q_base * D, q_stride, row0, q_rows);
-}
-
-// --------------------------------------------------------------- #3: dK, dV
-namespace dkv {
-
-constexpr int BQ = 64;  // queries of a streamed tile
-constexpr int HALF = 32;  // queries multiplied at a time
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float EXP2_FLOOR = EXP_FLOOR * LOG2E;  // exp(max(x, -80)) = 2^max(x log2 e, -80 log2 e)
-constexpr int MAX_SPLITS = 4;                   // blocks of a key tile: one cluster
 // wgmma's shared-memory matrix descriptor of a tile in the 128-byte
 // swizzle layout (rows of 128 bytes, 16-byte chunk c of row r at c ^ r % 8,
 // on a 1024-byte boundary) from `saddr`: the 8-row groups 1024 bytes apart;
@@ -330,6 +134,25 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit_wait() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// The compiler takes a wgmma's registers as read and written when it is
+// issued, but the warpgroup reads its A fragments and writes its
+// accumulators until the wait: after the wait, these empty asm statements
+// "write" them, so no read of an accumulator moves above the wait and no
+// A fragment's register is reused before it.
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[n][e])::"memory");
 }
 
 // d (64 x N, f32, the warpgroup's accumulator: warp w rows 16w .. 16w + 15
@@ -374,6 +197,276 @@ __device__ __forceinline__ void wgmma_rs<64, 1>(float (&d)[8][4], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<64, 0>(float (&d)[8][4], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// 64 rows of D bf16 (global row stride `gstride` elements) into a swizzled
+// shared tile by cp.async; rows at or beyond `valid` are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* src, int64_t gstride,
+                                          int valid) {
+  constexpr int CH = D / 8;
+  for (int idx = threadIdx.x; idx < 64 * CH; idx += NTHREADS) {
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = r < valid;
+    cp_async16(dst + swz(r, c, D * 2), ok ? src + r * gstride + c * 8 : src, ok);
+  }
+}
+
+
+// ------------------------------------------------------------------ #2: dQ
+namespace bwd_dq {
+
+// Shared memory (bytes) from a 1024-byte boundary: the block's Q and dO
+// tiles, then two stages of the streamed K and V tiles; rows of D bf16,
+// XOR-swizzled in 16-byte chunks (at D = 64 wgmma's 128-byte swizzle).
+template <int D>
+struct Cfg {
+  static constexpr int ROW = D * 2;
+  static constexpr int TILE = 64 * ROW;
+  static constexpr int Q_OFF = 0, DO_OFF = TILE;
+  static constexpr int STAGE0 = 2 * TILE;
+  static constexpr int K = 0, V = TILE;  // in a stage
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int BYTES = STAGE0 + 2 * STAGE + 1024;  // + alignment of the base
+};
+
+// grid (Hq, B, query tiles): the query tile is the slowest axis and, under
+// causal masking, runs from the last tile (which sees the most keys) down.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 2)
+flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, const int* __restrict__ kv_lens,
+                    const int* __restrict__ q_offset, const int* __restrict__ kv_starts,
+                    int Sq, int Sk, int Hq, int Hkv, float scale, int causal) {
+  using C = Cfg<D>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // wgmma's 128-byte swizzle reads address bits, so tiles sit on 1024 bytes
+  const uint32_t s_base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = s_base + C::Q_OFF, do_s = s_base + C::DO_OFF;
+
+  const int n_qt = (Sq + 63) / 64;
+  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.z) : static_cast<int>(blockIdx.z);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, qd = lane & 3;
+
+  const int q0 = qt * 64;
+  const int q_rows = min(64, Sq - q0);
+  const int kv_len = min(kv_lens[b], Sk);
+  const int kv_start = max(kv_starts[b], 0);
+  const int q_off = q_offset[b];
+  const int64_t q_stride = (int64_t)Hq * D;
+  const int64_t kv_stride = (int64_t)Hkv * D;
+  const int64_t row0 = ((int64_t)b * Sq + q0) * Hq + h;  // (row, head) of the tile's first query
+
+  // Key tiles that can hold a valid key for some query of this tile.
+  const int t_begin = kv_start / 64;
+  int t_end = (kv_len + 63) / 64;
+  if (causal) {
+    const int last_q = q_off + q0 + q_rows - 1;
+    t_end = min(t_end, last_q < 0 ? 0 : last_q / 64 + 1);
+  }
+  const int n_t = max(0, t_end - t_begin);
+
+  auto load_kv = [&](int t, int stage) {
+    const int k0 = t * 64;
+    const int64_t kv_row0 = ((int64_t)b * Sk + k0) * Hkv + hk;
+    const uint32_t st = s_base + C::STAGE0 + stage * C::STAGE;
+    load_rows<D>(st + C::K, k + kv_row0 * D, kv_stride, Sk - k0);
+    load_rows<D>(st + C::V, v + kv_row0 * D, kv_stride, Sk - k0);
+  };
+  load_rows<D>(q_s, q + row0 * D, q_stride, q_rows);
+  load_rows<D>(do_s, dout + row0 * D, q_stride, q_rows);
+  if (n_t > 0) load_kv(t_begin, 0);
+  cp_async_commit();
+
+  // This warp's queries: r0 .. r0 + 15 of the tile; a thread holds rows
+  // r0 + g and r0 + g + 8.
+  const int r0 = warp * 16;
+  float lse_l2[2], dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + g + 8 * hf;
+    const bool ok = r < q_rows;
+    lse_l2[hf] = ok ? lse[row0 + (int64_t)r * Hq] * LOG2E : 0.0f;
+    dl[hf] = ok ? delta[row0 + (int64_t)r * Hq] : 0.0f;
+  }
+  const float scale_log2 = scale * LOG2E;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  // ldmatrix addressing (lane's row and chunk within a 16 x 16 block).
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;  // A: Q/dO rows; K^T: keys
+  const int lchunk = lane >> 4;
+  const int brow = (lane & 7) + (lane >> 4) * 8;        // B: keys of two n8 tiles
+  const int bchunk = (lane >> 3) & 1;
+
+  // At D = 64 the products run on wgmma with Q and dO as A fragments in
+  // registers (at D = 128 on mma.sync, the fragments read per k16 step).
+  constexpr bool WG = D == 64;
+  uint32_t qa[WG ? D / 16 : 1][4], oa[WG ? D / 16 : 1][4];
+
+  // The element pass on NT n8 tiles of S and dP (keys key0 + 8 n ..): p
+  // into dS in place, then dS as A fragments, k16 step u = n8 tiles 2u, 2u + 1.
+  auto element_pass = [&](auto& s, auto& dp, auto& da, int key0, bool edge) {
+    constexpr int NT = sizeof(s) / sizeof(s[0]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        bool ok = true;
+        if (edge) {
+          const int kp = key0 + 8 * n + 2 * qd + (e & 1), qi = q0 + r0 + g + 8 * hf;
+          ok = kp >= kv_start && kp < kv_len && qi < Sq && (!causal || q_off + qi >= kp);
+        }
+        const float p =
+            ok ? exp2_approx(fmaxf(fmaf(s[n][e], scale_log2, -lse_l2[hf]), EXP2_FLOOR)) : 0.0f;
+        dp[n][e] = ok ? p * (dp[n][e] - dl[hf]) * scale : 0.0f;
+      }
+#pragma unroll
+    for (int u = 0; u < NT / 2; ++u) {
+      da[u][0] = pack_bf16(dp[2 * u][0], dp[2 * u][1]);
+      da[u][1] = pack_bf16(dp[2 * u][2], dp[2 * u][3]);
+      da[u][2] = pack_bf16(dp[2 * u + 1][0], dp[2 * u + 1][1]);
+      da[u][3] = pack_bf16(dp[2 * u + 1][2], dp[2 * u + 1][3]);
+    }
+  };
+
+  for (int j = 0; j < n_t; ++j) {
+    const int stage = j & 1;
+    cp_async_wait<0>();  // tile j has landed
+    if constexpr (WG) fence_proxy_async();  // ... where wgmma reads it
+    __syncthreads();      // ... for every thread, and every warp is done with tile j - 1
+    // tile j + 1 flies during this tile's products, into tile j - 1's stage
+    if (j + 1 < n_t) load_kv(t_begin + j + 1, stage ^ 1);
+    cp_async_commit();
+    if constexpr (WG) {
+      // read every tile: the fragments held across iterations from an
+      // ldmatrix of the first one only came back wrong on the card
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        ldsm_x4(qa[kk], q_s + swz(r0 + lrow, 2 * kk + lchunk, C::ROW));
+        ldsm_x4(oa[kk], do_s + swz(r0 + lrow, 2 * kk + lchunk, C::ROW));
+      }
+    }
+    const int k0 = (t_begin + j) * 64;
+    const uint32_t k_s = s_base + C::STAGE0 + stage * C::STAGE + C::K;
+    const uint32_t v_s = s_base + C::STAGE0 + stage * C::STAGE + C::V;
+    // masks only where the tile cuts a kv_starts / kv_lens edge, the ragged
+    // last query tile or the causal diagonal of the warp's queries
+    const bool edge = k0 < kv_start || k0 + 64 > kv_len || r0 + 16 > q_rows ||
+                      (causal && q_off + q0 + r0 < k0 + 63);
+    if constexpr (WG) {
+      // S = Q K^T and dP = dO V^T: 64 queries x 64 keys each, K/V as B
+      // with D as K (their rows are 128-byte swizzle atoms)
+      float s[8][4], dp[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_rs<64, 0>(s, qa[kk], desc_sw128(k_s + 32 * kk));
+        wgmma_rs<64, 0>(dp, oa[kk], desc_sw128(v_s + 32 * kk));
+      }
+      wgmma_commit_wait();
+      hold(s), hold(dp);
+      uint32_t da[4][4];
+      element_pass(s, dp, da, k0, edge);
+      // dQ += dS K: B = K with the keys as K (transposed, MN-major)
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < 4; ++u) wgmma_rs<D, 1>(acc, da[u], desc_sw128(k_s + 16 * u * C::ROW));
+      wgmma_commit_wait();
+      hold(acc), hold(da);
+    } else {
+      // 32 keys at a time (fewer live registers beside dQ's 64 floats)
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh) {
+        float s[4][4], dp[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t qf[4], of[4];
+          ldsm_x4(qf, q_s + swz(r0 + lrow, 2 * kk + lchunk, C::ROW));
+          ldsm_x4(of, do_s + swz(r0 + lrow, 2 * kk + lchunk, C::ROW));
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t kb[4], vb[4];
+            ldsm_x4(kb, k_s + swz(32 * kh + 16 * np + brow, 2 * kk + bchunk, C::ROW));
+            ldsm_x4(vb, v_s + swz(32 * kh + 16 * np + brow, 2 * kk + bchunk, C::ROW));
+            mma_bf16(s[2 * np], qf, kb[0], kb[1]);
+            mma_bf16(s[2 * np + 1], qf, kb[2], kb[3]);
+            mma_bf16(dp[2 * np], of, vb[0], vb[1]);
+            mma_bf16(dp[2 * np + 1], of, vb[2], vb[3]);
+          }
+        }
+        uint32_t da[2][4];
+        element_pass(s, dp, da, k0 + 32 * kh, edge);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int jd = 0; jd < D / 16; ++jd) {
+            uint32_t kb[4];
+            ldsm_x4_t(kb, k_s + swz(32 * kh + 16 * u + lrow, 2 * jd + lchunk, C::ROW));
+            mma_bf16(acc[2 * jd], da[u], kb[0], kb[1]);
+            mma_bf16(acc[2 * jd + 1], da[u], kb[2], kb[3]);
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // Epilogue: element e of n8 tile j is query r0 + g + 8 (e >> 1), column
+  // 8j + 2 qd + (e & 1); a thread stores bf16 pairs.
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + g + 8 * hf;
+    if (r >= q_rows) continue;
+    __nv_bfloat16* dst = dq + (row0 + (int64_t)r * Hq) * D + 2 * qd;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(acc[j][2 * hf], acc[j][2 * hf + 1]);
+  }
+}
+
+}  // namespace bwd_dq
+
+// --------------------------------------------------------------- #3: dK, dV
+namespace dkv {
+
+constexpr int BQ = 64;  // queries of a streamed tile
+constexpr int HALF = 32;  // queries multiplied at a time
+constexpr int MAX_SPLITS = 4;                   // blocks of a key tile: one cluster
+
 // Shared memory (bytes) from a 1024-byte boundary: the block's K and V
 // tiles, two stages of the streamed Q and dO tiles, then each stage's f32
 // lse and delta; rows of D bf16, XOR-swizzled in 16-byte chunks.  With
@@ -393,19 +486,6 @@ struct Cfg {
   static constexpr int SLOTS = 2 * (D / 8) * 2;  // (dK or dV, n8 tile, row half) of a thread
   static_assert(SLOTS * NTHREADS * 2 * 4 <= 2 * STAGE, "the reduction must fit the stages");
 };
-
-// 64 rows of D bf16 (global row stride `gstride` elements) into a swizzled
-// shared tile by cp.async; rows at or beyond `valid` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* src, int64_t gstride,
-                                          int valid) {
-  constexpr int CH = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * CH; idx += NTHREADS) {
-    const int r = idx / CH, c = idx % CH;
-    const bool ok = r < valid;
-    cp_async16(dst + swz(r, c, D * 2), ok ? src + r * gstride + c * 8 : src, ok);
-  }
-}
 
 // grid (splits, B * Hkv, key tiles), cluster (splits, 1, 1): the key tile
 // is the slowest axis, so the low (under causal masking, heaviest) tiles
@@ -507,6 +587,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   for (int j = 0; j < my_pairs; ++j) {
     const int stage = j & 1;
     cp_async_wait<0>();  // pair j has landed
+    if constexpr (WG) fence_proxy_async();  // ... where wgmma reads it
     __syncthreads();      // ... for every thread, and every warp is done with pair j - 1
     // pair j + 1 flies during this pair's products, into pair j - 1's stage
     if (j + 1 < my_pairs) load_pair(j + 1, stage ^ 1);
@@ -553,6 +634,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
           wgmma_rs<HALF, 0>(dp, va[kk], desc_sw128(do_s + h0 * C::ROW + 32 * kk));
         }
         wgmma_commit_wait();
+        hold(s), hold(dp);
       } else {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
@@ -619,6 +701,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
           wgmma_rs<D, 1>(dk_acc, da[u], desc_sw128(q_s + (h0 + 16 * u) * C::ROW));
         }
         wgmma_commit_wait();
+        hold(dv_acc), hold(dk_acc), hold(pa), hold(da);
       } else {
 #pragma unroll
         for (int u = 0; u < HALF / 16; ++u) {
@@ -693,9 +776,9 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 // Raises the dynamic shared-memory limit of every instance to what it uses.
 template <int D>
 cudaError_t setup_one() {
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(bwd_dq::flash_bwd_dq_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Smem<D>::BYTES);
+                                         bwd_dq::Cfg<D>::BYTES);
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(dkv::flash_bwd_dkv_kernel<D>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, dkv::Cfg<D>::BYTES);
@@ -706,8 +789,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       const void* lse, const void* delta, void* dq, const void* kv_lens,
                       const void* q_offset, const void* kv_starts, int B, int Sq, int Sk,
                       int Hq, int Hkv, float scale, int causal, cudaStream_t stream) {
-  dim3 grid((Sq + BT - 1) / BT, Hq, B);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
+  dim3 grid(Hq, B, (Sq + 63) / 64);
+  bwd_dq::flash_bwd_dq_kernel<D><<<grid, NTHREADS, bwd_dq::Cfg<D>::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash kernels
-// (flash_fwd.cu: #1; flash_bwd.cu: #3): shared-memory addresses and the
-// 16-byte-chunk XOR swizzle, cp.async copies (a false predicate zero-fills),
-// ldmatrix, mma.sync m16n8k16 with bf16 inputs and f32 accumulation, EX2 and
-// bf16 packing.  Every function is inline in an anonymous namespace, so each
+// (flash_fwd.cu: #1; flash_bwd.cu: #2, #3) and the decode kernel
+// (decode_attend.cuh: #4-#7): shared-memory addresses and the 16-byte-chunk
+// XOR swizzle, cp.async copies (a false predicate zero-fills) and the proxy
+// fence that shows them to wgmma, ldmatrix, mma.sync m16n8k16 with bf16
+// inputs and f32 accumulation, EX2 and bf16 packing.  Every function is inline in an anonymous namespace, so each
 // including file has its own copy.
 
 #pragma once
@@ -37,6 +38,12 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// wgmma reads its shared-memory operands through the async proxy: a thread's
+// completed writes (cp.async, st.shared) reach it only after this fence, which
+// the writing thread issues before the barrier that hands the tile over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {

@@ -20,7 +20,7 @@ q[:, 0], for chunked prefill); optional causal masking.
   `bwd_dq_launches` / `bwd_dkv_launches`; `flash_bwd` computes delta and
   launches both.  `dkv_plan` is #3's launch plan: its 64-key tiles and the
   blocks (one cluster) that share each tile's (query head, query tile)
-  pairs.
+  pairs; `dq_plan` is #2's: its grid and the order of its query tiles.
 * `FlashAttention` is the autograd Function around them: the forward runs
   #1 (or the twin with its LSE), the backward #2 and #3 (or the backward
   twin), as the reference's `jax.custom_vjp` does.
@@ -250,6 +250,19 @@ def dkv_plan(B: int, Sk: int, Hq: int, Hkv: int, sms: int = H100_SMS) -> dict:
     return {"key_tiles": key_tiles, "splits": splits, "grid": (splits, B * Hkv, key_tiles)}
 
 
+def dq_plan(B: int, Sq: int, Hq: int, causal: bool) -> dict:
+    """The launch plan of kernel #2, as csrc/flash_bwd.cu launches it: one
+    block per (64-query tile, query head, batch row), grid (Hq, B,
+    query_tiles), the query tile the slowest axis.  Under causal masking
+    grid index z runs query tile query_tiles - 1 - z, so the last tiles,
+    which see the most keys, start first.  Returns {"query_tiles", "grid",
+    "tile_order"} (tile_order[z]: the query tile of grid index z)."""
+    n_qt = -(-Sq // TILE)
+    order = list(range(n_qt))
+    return {"query_tiles": n_qt, "grid": (Hq, B, n_qt),
+            "tile_order": order[::-1] if causal else order}
+
+
 def _row_arg(x, B: int, default: int, device) -> torch.Tensor:
     if x is None:
         return torch.full((B,), default, dtype=torch.int32, device=device)
@@ -343,10 +356,14 @@ def flash_fwd(
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False, kv_lens=None,
                  q_offset=None, kv_starts=None, scale: Optional[float] = None) -> torch.Tensor:
     """Launch kernel #2: dq (B, Sq, Hq, D) bf16 from bf16 q, k, v, dO and the
-    f32 forward LSE and delta = sum_D dO * O, both (B, Sq, Hq)."""
+    f32 forward LSE and delta = sum_D dO * O, both (B, Sq, Hq); q/k/v/dO on
+    16-byte boundaries.  The plan is `dq_plan`'s."""
     global bwd_dq_launches
     B, Sq, Sk, Hq, Hkv, D = _check("flash_bwd_dq", q, k, v, (("do", do),))
     _check_rows_f32("flash_bwd_dq", q, (("lse", lse), ("delta", delta)))
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_bwd_dq: {name} must start on a 16-byte boundary")
     scale = D ** -0.5 if scale is None else scale
     kl, qo, ks = _rows(B, Sk, q.device, kv_lens, q_offset, kv_starts)
     lib, _ = _bwd_device_lib(q.device)

@@ -23,6 +23,9 @@ p is a TPU trick and is not ported.
   in `shared_launches` / `plain_launches`.  `_launch` checks and launches
   for both cache layouts: ops/decode_attention.py (kernels #6 / #7 over
   the 'heads' layout, csrc/decode_heads.cu) goes through it too.
+  `decode_plan` is the kernel's launch plan: its chunks of rows that share
+  a prefix, the grid slots that hold them, and the key splits (one
+  cluster) over each chunk's 128-key tiles.
 * `decode_attention_shared_hd` / `decode_attention_hd` are the front ends:
   a CUDA tensor always goes to the kernel (or raises), a CPU tensor to the
   twin; `impl="plain"` asks for the twin on either device.
@@ -30,6 +33,7 @@ p is a TPU trick and is not ported.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -38,14 +42,21 @@ from vla_rft_tpu_torch.ops import cuda_build
 from vla_rft_tpu_torch.ops.attention import _row_arg, attention_plain
 
 HEAD_DIM = 64
-MAX_QUERY_ROWS = 64  # G * Sq per (row, kv head) block
+MAX_QUERY_ROWS = 64  # query rows of a block: a chunk's rows times G * Sq
 MAX_SQ = 8
+KEY_TILE = 128  # keys of a tile
+MAX_SPLITS = 8  # blocks of a chunk: one cluster (the portable limit)
+MAX_ROWS = 1024  # batch rows and prefix rows the kernel's chunk search takes
+H100_SMS = 132  # the plan is made for the device's SM count; this when none is given
+TARGET_BLOCKS_PER_SM = 4  # the splits aim at this many blocks per SM ...
+MIN_TILES_PER_SPLIT = 3  # ... with at least this many key tiles each
 
 # kernel launches since the counts were last set to 0 (read by chip_smoke.py)
 shared_launches = 0
 plain_launches = 0
 
 _libs = {}  # library name -> its loaded C entry point
+_sms = {}  # device index -> SM count
 
 
 # ================================================================ plain twins
@@ -105,11 +116,59 @@ def _load(layout: str = "hd"):
     if name not in _libs:
         fn = getattr(cuda_build.load(name), name)
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
+            ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _libs[name] = fn
     return _libs[name]
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_plan(B: int, Sq: int, G: int, Hkv: int, Sr: int, shared: bool, n_prefix: int = 0,
+                shared_len: int = 0, sms: int = H100_SMS) -> dict:
+    """The launch plan of the decode kernel (#4-#7): grid (splits, Hkv,
+    slots), cluster (splits, 1, 1).
+
+    * `chunk_rows`: with a shared prefix, the rows of one prefix group are
+      cut in row order into chunks of this many rows, as many as fill the
+      kernel's query tile: `m_tiles` m16 tiles, 1 when one row's G * Sq
+      query rows fit 16 (16 rows at G * Sq = 1), else 4 (MAX_QUERY_ROWS);
+      each chunk reads its prefix tiles once for all its rows.  Without
+      one, a chunk is one row.
+    * `slots`: grid slots for the chunks.  The kernel finds its chunk from
+      prefix_map on the device (group u's chunks follow group u - 1's);
+      sum_u ceil(n_u / chunk_rows) <= min(B, n_prefix + B // chunk_rows),
+      and slots past the last chunk return at once.
+    * `splits`: ranks of a chunk's cluster, each taking a contiguous share
+      of the chunk's key tiles (prefix tiles, then each row's own tiles),
+      merged in rank order: enough to give about TARGET_BLOCKS_PER_SM
+      blocks per SM over the slots (a block of int8 tiles holds a 50 KB
+      ring and at most 128 registers a thread: four fit on an SM), at most
+      MAX_SPLITS and at most one per MIN_TILES_PER_SPLIT tiles of a chunk
+      (estimated from shared_len, Sr and the mean group size; the kernel
+      counts them from the rows).  On an H100 this picks the fastest of 1,
+      2, 3, 4 and 8 splits at the WM's B = 10 with and without a prefix and
+      at 128 rows (PERF.md section 6, PR 11).
+    Cached: callers must not change the result."""
+    gsq = G * Sq
+    m_tiles = 1 if gsq <= 16 else 4
+    tiles_per_row = -(-Sr // KEY_TILE)
+    if shared:
+        chunk_rows = (16 * m_tiles) // gsq
+        slots = min(B, n_prefix + B // chunk_rows)
+        tiles = -(-shared_len // KEY_TILE) + min(chunk_rows, -(-B // n_prefix)) * tiles_per_row
+    else:
+        chunk_rows, slots, tiles = 1, B, tiles_per_row
+    splits = max(1, min(MAX_SPLITS, tiles // MIN_TILES_PER_SPLIT,
+                        -(-TARGET_BLOCKS_PER_SM * sms // (slots * Hkv))))
+    return {"chunk_rows": chunk_rows, "m_tiles": m_tiles, "slots": slots, "splits": splits,
+            "grid": (splits, Hkv, slots)}
+
+
+def _device_sms(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def _cache_dims(c, layout: str, D: int):
@@ -142,6 +201,8 @@ def _check_cache(name, c, s, q, layout):
     elif c.dtype != torch.bfloat16 or s is not None:
         raise ValueError(f"decode kernel: {name} must be int8 with scales or bf16 without, "
                          f"got {c.dtype}")
+    if c.data_ptr() % 16:
+        raise ValueError(f"decode kernel: {name} must start on a 16-byte boundary")
     return dims
 
 
@@ -150,13 +211,17 @@ def _launch(q, ck, cv, scales, shared, prefix_map, shared_len, kv_lens, q_offset
     """Check the arguments and launch the decode kernel of `layout` (#4 / #5
     for "hd", #6 / #7 for "heads"); `shared` is (sck, scv, ssk, ssv) or
     None."""
-    if not q.is_cuda or q.dtype != torch.bfloat16 or q.dim() != 4 or not q.is_contiguous():
+    if q.dtype != torch.bfloat16 or q.dim() != 4 or not q.is_contiguous():
         raise ValueError("decode kernel: q must be a contiguous 4-D bf16 CUDA tensor")
     B, Sq, Hq, D = q.shape
     if D != HEAD_DIM:
         raise ValueError(f"decode kernel: head dim {D} != {HEAD_DIM}")
     if not 1 <= Sq <= MAX_SQ:
         raise ValueError(f"decode kernel: {Sq} query positions, the kernel takes 1..{MAX_SQ}")
+    if not q.is_cuda:
+        raise ValueError("decode kernel: q must be a contiguous 4-D bf16 CUDA tensor")
+    if q.data_ptr() % 16:
+        raise ValueError("decode kernel: q must start on a 16-byte boundary")
     sk, sv = scales if scales is not None else (None, None)
     rows, Sr, Hkv = _check_cache("k cache", ck, sk, q, layout)
     _check_cache("v cache", cv, sv, q, layout)
@@ -177,11 +242,17 @@ def _launch(q, ck, cv, scales, shared, prefix_map, shared_len, kv_lens, q_offset
                              "and heads")
         if not 0 <= shared_len <= Sp:
             raise ValueError(f"decode kernel: shared_len {shared_len} outside the prefix cache")
+        n_prefix = sck.shape[0]
+        if n_prefix < 1 or max(B, n_prefix) > MAX_ROWS:
+            raise ValueError(f"decode kernel: {B} rows over {n_prefix} prefixes, the kernel "
+                             f"takes at most {MAX_ROWS} of each")
         pm = _row_arg(prefix_map, B, 0, dev)
         sh_ptrs = (sck.data_ptr(), scv.data_ptr(), ssk.data_ptr() if int8 else null,
                    ssv.data_ptr() if int8 else null, pm.data_ptr())
     else:
-        sh_ptrs, Sp = (null,) * 5, 0
+        sh_ptrs, Sp, n_prefix = (null,) * 5, 0, 0
+    plan = decode_plan(B, Sq, Hq // Hkv, Hkv, Sr, shared is not None, n_prefix, int(shared_len),
+                       _device_sms(dev))
     kl = _row_arg(kv_lens, B, 0, dev)
     qo = _row_arg(q_offset, B, 0, dev)
     ks = _row_arg(kv_starts, B, 0, dev)
@@ -192,7 +263,8 @@ def _launch(q, ck, cv, scales, shared, prefix_map, shared_len, kv_lens, q_offset
         sk.data_ptr() if int8 else null, sv.data_ptr() if int8 else null, *sh_ptrs,
         kl.data_ptr(), qo.data_ptr(), ks.data_ptr(),
         B, Sq, Hq, Hkv, D, Sr, Sp, int(shared_len), int(int8), int(shared is not None),
-        float(D ** -0.5), torch.cuda.current_stream(dev).cuda_stream,
+        float(D ** -0.5), n_prefix, plan["chunk_rows"], plan["slots"], plan["splits"],
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"decode kernel: launch failed with CUDA error {rc}")
