@@ -40,11 +40,15 @@ Phases, one JSON line each:
      decode_heads - the same for #6 / #7 over the same draws in the 'heads'
                   cache layout (rows, Hkv, S, D);
      fused_decode_attention - the cache-writing one-token decode (#10)
-                  against its twin on bf16 and f32 caches at rows 0, 1,
-                  mid-window and last, kv_starts at or past the row, GQA
-                  14/2: written rows bit-equal, #7 over the cache #10 wrote
-                  agrees; its time at WM width (B 10, 16/16 x 64, S 1664);
-                  no main path launches it (the reference's neither);
+                  against its twin on bf16 and f32 caches and q in all four
+                  pairings at rows 0, 1, mid-window and last, kv_starts at
+                  or past the row, GQA 14/2, 8 ranks with empty ranges, D
+                  32 and 128 with 16 query heads a kv head, 128 rows:
+                  written rows and three calls bit-equal, #7 over the cache
+                  #10 wrote agrees; its time with the split plan at WM
+                  width (B 10, 16/16 x 64, S 1664, row 1379), at the
+                  configured 128 rows and at GQA 14/2; no main path
+                  launches it (the reference's neither);
   5. fused_decode - the fused decode-layer kernels of the int8-weight WM
                   (#8 RMSNorm + q/k/v + rope + k/v quantisation, #9 o_proj +
                   MLP, three launches) against their twins on one WM layer
@@ -1378,79 +1382,128 @@ def fda_work(B, Hq, Hkv, D, idx, kv_starts, elem: int):
 
 
 def phase_fused_decode_attention(fda, heads) -> dict:
-    """Kernel #10 against its twin on bf16 and f32 caches: the written rows
-    bit-equal, the output within the decode tolerance (f32: 1e-5); #7 over
-    the cache #10 wrote agrees with it; then timed at the WM's width."""
+    """Kernel #10 against its twin on bf16 and f32 caches and q, in all four
+    pairings: the written rows bit-equal, three calls the same bits (the
+    ranks are merged in rank order), the output within the decode tolerance
+    (1e-5 when cache and q are both f32); #7 over the cache #10 wrote agrees
+    with it; then timed at the WM's width, at the configured 128 rows of a
+    WM call and at Qwen2.5-0.5B's head layout (GQA 14/2), each with the
+    wrapper's split plan."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
-    B, L, S, li = 10, 2, 1664, 1
+    L, S, li = 2, 1664, 1
+    bf, f32 = torch.bfloat16, torch.float32
+    s10 = [0, 7, 1379, 1500, 0, 3, 1378, 0, 100, 0]
     cases = [
-        # (cache dtype, Hq, Hkv, idx, kv_starts): rows 0, 1, mid-window, the
-        # last; starts at or past the row (only the current token); GQA 14/2
-        (torch.bfloat16, 16, 16, 0, [0] * B),
-        (torch.bfloat16, 16, 16, 1, [0, 1] * 5),
-        (torch.bfloat16, 16, 16, 1379, [0, 7, 1379, 1500, 0, 3, 1378, 0, 100, 0]),
-        (torch.bfloat16, 16, 16, S - 1, [0, S - 1, 5, 0, 9, 0, 0, 1, 2, 3]),
-        (torch.float32, 16, 16, 1379, [0, 7, 1379, 1500, 0, 3, 1378, 0, 100, 0]),
-        (torch.float32, 16, 16, S - 1, [0] * B),
-        (torch.bfloat16, 14, 2, 700, [0, 0, 13, 699, 700, 0, 0, 5, 0, 0]),
-        (torch.float32, 14, 2, 0, [0] * B),
+        # (cache dtype, q dtype, B, Hq, Hkv, D, idx, kv_starts, splits or None
+        # for the plan): rows 0, 1, mid-window, the last; starts at or past
+        # the row (only the current token); GQA 14/2; ranks without a tile
+        # (8 ranks at rows 1, 100 and 129, starts at or past the row); the
+        # mixed pairings; D 32 and 128 with 16 query heads a kv head; the
+        # configured 128 rows
+        (bf, bf, 10, 16, 16, 64, 0, [0] * 10, None),
+        (bf, bf, 10, 16, 16, 64, 1, [0, 1] * 5, None),
+        (bf, bf, 10, 16, 16, 64, 1379, s10, None),
+        (bf, bf, 10, 16, 16, 64, S - 1, [0, S - 1, 5, 0, 9, 0, 0, 1, 2, 3], None),
+        (f32, f32, 10, 16, 16, 64, 1379, s10, None),
+        (f32, f32, 10, 16, 16, 64, S - 1, [0] * 10, None),
+        (bf, bf, 10, 14, 2, 64, 700, [0, 0, 13, 699, 700, 0, 0, 5, 0, 0], None),
+        (f32, f32, 10, 14, 2, 64, 0, [0] * 10, None),
+        (bf, bf, 10, 16, 16, 64, 1, [0, 1, 2, 0, 0, 0, 1, 0, 0, 0], 8),
+        (bf, bf, 10, 16, 16, 64, 100, [0, 99, 100, 150, 0, 50, 0, 0, 0, 7], 8),
+        (bf, bf, 10, 16, 16, 64, 129, [0, 1, 128, 129, 200, 0, 0, 0, 64, 0], 8),
+        (f32, f32, 4, 4, 2, 128, 129, [0, 129, 1, 100], 8),
+        (bf, f32, 10, 16, 16, 64, 1379, s10, None),
+        (f32, bf, 10, 16, 16, 64, 1379, s10, None),
+        (bf, bf, 4, 32, 2, 32, 900, [0, 5, 899, 0], None),
+        (bf, bf, 4, 32, 2, 128, 900, [0, 5, 899, 0], None),
+        (f32, f32, 4, 32, 2, 128, 900, [0, 5, 899, 0], None),
+        (bf, bf, 128, 16, 16, 64, 1379, [(37 * i) % 1500 for i in range(128)], None),
     ]
     results, err = [], 0.0
     fda.launches = 0  # no main path launches #10: its count is this loop's
-    for dt, Hq, Hkv, idx, starts in cases:
-        rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(dt)
-        ck, cv = rnd(L, B, Hkv, S, 64), rnd(L, B, Hkv, S, 64)
-        q, kn, vn = rnd(B, 1, Hq, 64), rnd(B, 1, Hkv, 64), rnd(B, 1, Hkv, 64)
+    for cdt, qdt, B, Hq, Hkv, D, idx, starts, splits in cases:
+        rnd = lambda dt, *sh: torch.randn(*sh, generator=gen, device=dev).to(dt)
+        ck, cv = rnd(cdt, L, B, Hkv, S, D), rnd(cdt, L, B, Hkv, S, D)
+        q, kn, vn = rnd(qdt, B, 1, Hq, D), rnd(cdt, B, 1, Hkv, D), rnd(cdt, B, 1, Hkv, D)
         ks = torch.tensor(starts, dtype=torch.int32, device=dev)
         rck, rcv = ck.clone(), cv.clone()
-        o, _, _ = fda.fused_decode_attention_kernel(q, kn, vn, ck, cv, li, idx, ks)
+        outs = [fda.fused_decode_attention_kernel(q, kn, vn, ck, cv, li, idx, ks,
+                                                  splits=splits)[0] for _ in range(3)]
         torch.cuda.synchronize()
+        o = outs[0]
         ref = fda.fused_decode_attention_plain(q, kn, vn, rck, rcv, li, idx, ks)[0].float()
         d = (o.float() - ref).abs()
-        rtol, atol = (DEC_RTOL, DEC_ATOL) if dt == torch.bfloat16 else (1e-5, 1e-5)
+        both_f32 = cdt == f32 and qdt == f32
+        rtol, atol = (1e-5, 1e-5) if both_f32 else (DEC_RTOL, DEC_ATOL)
         rows_equal = torch.equal(ck, rck) and torch.equal(cv, rcv)
-        if not (rows_equal and bool(torch.isfinite(o.float()).all())
+        repeats = all(torch.equal(o, x) for x in outs[1:])
+        name = (f"cache {cdt} q {qdt} B {B} {Hq}/{Hkv} x {D} idx {idx} "
+                f"splits {splits or 'plan'}")
+        if not (rows_equal and repeats and bool(torch.isfinite(o.float()).all())
                 and bool((d <= rtol * ref.abs() + atol).all())):
-            raise AssertionError(f"fused_decode_attention case {dt} {Hq}/{Hkv} idx {idx}: "
-                                 f"max|dO| {d.max().item()}, rows equal {rows_equal}")
-        entry = {"dtype": str(dt).split(".")[-1], "Hq": Hq, "Hkv": Hkv, "cache_index": idx,
-                 "kv_starts": starts, "max_abs_err": d.max().item(),
-                 "written_rows_bit_equal": rows_equal}
-        if dt == torch.bfloat16 and Hq == Hkv:  # #7 over the cache #10 wrote
+            raise AssertionError(f"fused_decode_attention case {name}: max|dO| "
+                                 f"{d.max().item()}, rows equal {rows_equal}, "
+                                 f"repeats {repeats}")
+        entry = {"cache": str(cdt).split(".")[-1], "q": str(qdt).split(".")[-1], "B": B,
+                 "Hq": Hq, "Hkv": Hkv, "D": D, "cache_index": idx, "kv_starts": starts[:10],
+                 "splits": splits or fda.split_plan(B, Hq, Hkv, D, idx, cdt,
+                                                    fda._device_sms(dev))["splits"],
+                 "max_abs_err": d.max().item(), "written_rows_bit_equal": rows_equal,
+                 "three_calls_bit_equal": repeats}
+        if cdt == bf and qdt == bf and Hq == Hkv and D == 64:  # #7 over the cache #10 wrote
             o7 = heads.decode_kernel(q, ck[li], cv[li], kv_lens=torch.full_like(ks, idx + 1),
                                      q_offset=torch.full_like(ks, idx),
                                      kv_starts=torch.clamp(ks, max=idx))
             d7 = (o7.float() - o.float()).abs()
             if not bool((d7 <= DEC_RTOL * o.float().abs() + DEC_ATOL).all()):
-                raise AssertionError(f"#7 over #10's cache, idx {idx}: {d7.max().item()}")
+                raise AssertionError(f"#7 over #10's cache, {name}: {d7.max().item()}")
             entry["max_abs_diff_vs_decode_heads"] = d7.max().item()
         err = max(err, d.max().item())
         results.append(entry)
+        del ck, cv, rck, rcv
     launches = fda.launches
 
-    # time at the WM's width: 10 rows, 16/16 heads of 64, S 1664, bf16, the
-    # plain route's mid-rollout position (1095 + 4 * 71 = 1379 cached rows)
+    # timed, bf16 cache, D 64, S 1664, the plain route's mid-rollout position
+    # (1095 + 4 * 71 = 1379 cached rows), kv_starts 0: (a) the WM's 10 rows,
+    # (b) the configured 128 rows of a WM call, (c) Qwen2.5-0.5B's 14/2 heads
+    timed = {}
     idx = 1379
-    ck, cv = (torch.randn(L, B, 16, S, 64, generator=gen, device=dev).bfloat16() for _ in range(2))
-    q = torch.randn(B, 1, 16, 64, generator=gen, device=dev).bfloat16()
-    kn, vn = (torch.randn(B, 1, 16, 64, generator=gen, device=dev).bfloat16() for _ in range(2))
-    ks = torch.zeros(B, dtype=torch.int32, device=dev)
-    kern = lambda: fda.fused_decode_attention_kernel(q, kn, vn, ck, cv, li, idx, ks)
-    twin = lambda: fda.fused_decode_attention_plain(q, kn, vn, ck, cv, li, idx, ks)
-    # SDPA over the written cache's valid rows (a yardstick that skips the
-    # write; the port never calls it)
-    qt, kt, vt = q.transpose(1, 2), ck[li, :, :, :idx + 1], cv[li, :, :, :idx + 1]
-    nbytes, flops = fda_work(B, 16, 16, 64, idx, ks, 2)
-    timed = {"B": B, "Hq": 16, "Hkv": 16, "D": 64, "S": S, "cache_index": idx, "dtype": "bf16",
-             "kernel_ms": graph_ms(kern), "eager_ms": cuda_ms(kern, 100),
-             "plain_ms": graph_ms(twin, 10),
-             "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-             **bound(nbytes, flops)}
+    for key, B, Hq, Hkv in (("wm", 10, 16, 16), ("b128", 128, 16, 16), ("gqa14_2", 10, 14, 2)):
+        ck, cv = (torch.randn(L, B, Hkv, S, 64, generator=gen, device=dev).bfloat16()
+                  for _ in range(2))
+        q = torch.randn(B, 1, Hq, 64, generator=gen, device=dev).bfloat16()
+        kn, vn = (torch.randn(B, 1, Hkv, 64, generator=gen, device=dev).bfloat16()
+                  for _ in range(2))
+        ks = torch.zeros(B, dtype=torch.int32, device=dev)
+        kern = lambda: fda.fused_decode_attention_kernel(q, kn, vn, ck, cv, li, idx, ks)
+        twin = lambda: fda.fused_decode_attention_plain(q, kn, vn, ck, cv, li, idx, ks)
+        o, ref = kern()[0].float(), twin()[0].float()
+        if not bool(((o - ref).abs() <= DEC_RTOL * ref.abs() + DEC_ATOL).all()):
+            raise AssertionError(f"fused_decode_attention timed shape {key}: "
+                                 f"{(o - ref).abs().max().item()}")
+        if not repeats_bit_for_bit(lambda: kern()[0]):
+            raise AssertionError(f"fused_decode_attention timed shape {key}: calls differ")
+        # SDPA over the written cache's valid rows (a yardstick that skips the
+        # write; the port never calls it)
+        qt, kt, vt = q.transpose(1, 2), ck[li, :, :, :idx + 1], cv[li, :, :, :idx + 1]
+        nbytes, flops = fda_work(B, Hq, Hkv, 64, idx, ks, 2)
+        timed[key] = {
+            "B": B, "Hq": Hq, "Hkv": Hkv, "D": 64, "S": S, "cache_index": idx, "dtype": "bf16",
+            "plan": fda.split_plan(B, Hq, Hkv, 64, idx, torch.bfloat16, fda._device_sms(dev)),
+            "kernel_ms": graph_ms(kern), "eager_ms": cuda_ms(kern, 100),
+            "plain_ms": graph_ms(twin, 10 if B <= 10 else 3),
+            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=Hq != Hkv)),
+            "max_abs_err": (o - ref).abs().max().item(), "three_calls_bit_equal": True,
+            **bound(nbytes, flops)}
+        del ck, cv, qt, kt, vt
+        torch.cuda.empty_cache()
     out = {"phase": "fused_decode_attention", "cases": results, "launches": launches,
            "max_abs_err": err,
-           "tolerance": f"bf16 |dO| <= {DEC_RTOL} * |O| + {DEC_ATOL}, f32 1e-5 * |O| + 1e-5; "
-                        f"written rows bit-equal", "timed": timed}
+           "tolerance": f"|dO| <= {DEC_RTOL} * |O| + {DEC_ATOL} (bf16 cache or q), "
+                        f"1e-5 * |O| + 1e-5 (both f32); written rows and three calls "
+                        f"bit-equal", "timed": timed}
     emit(out)
     return out
 
@@ -1729,6 +1782,17 @@ def main() -> int:
                          f"kernel's over {GRPO_STEPS} grpo steps, all at N=10 (B=10, Sq=1)"
                          + (f", {fdl.O_MLP_LAUNCHES} per call" if key == "o_mlp" else ""),
                 "launches_at_this_shape": grpo_n[f"fused_{key}"] if N == 10 else 0})
+    fda_src = "vla_rft_tpu_torch/csrc/fused_decode_attention.cu"
+    fda_entries = [
+        {**entry(name, fda_src, "vla_rft_tpu/ops/fused_decode_attention.py:31",
+                 fused_attn["launches"], fused_attn["max_abs_err"], fused_attn["timed"][key]),
+         "shape": f"B={t['B']} Hq={t['Hq']} Hkv={t['Hkv']} D=64 S=1664 bf16, row 1379, "
+                  f"{t['plan']['splits']} split(s); no main path launches it (the reference "
+                  f"calls it only from its tests): launches are its own phase's"}
+        for name, key in (("fused_decode_attention", "wm"),
+                          ("fused_decode_attention@b128", "b128"),
+                          ("fused_decode_attention@gqa14_2", "gqa14_2"))
+        for t in (fused_attn["timed"][key],)]
     emit({"kernels": [
         entry("flash_fwd", flash_src, "vla_rft_tpu/ops/attention.py:108",
               serving["main_path_launches"], flash["max_abs_err_o"], flash["timed"]["serving"]),
@@ -1757,11 +1821,7 @@ def main() -> int:
                  decode_heads["timed"]["plain"]),
          "shape": "B=10 Sq=1 Hq=Hkv=16 D=64 int8, 1379 keys; launches: wm_plain_heads "
                   "(2 rows, 2 frames)"},
-        {**entry("fused_decode_attention", "vla_rft_tpu_torch/csrc/fused_decode_attention.cu",
-                 "vla_rft_tpu/ops/fused_decode_attention.py:31", fused_attn["launches"],
-                 fused_attn["max_abs_err"], fused_attn["timed"]),
-         "shape": "B=10 Hq=Hkv=16 D=64 S=1664 bf16, row 1379; no main path launches it (the "
-                  "reference calls it only from its tests): launches are its own phase's"},
+        *fda_entries,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

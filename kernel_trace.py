@@ -1,8 +1,8 @@
 """Where the time of kernels #8 (RMSNorm + q/k/v + rope + quantisation),
-#9 (o_proj + MLP) and the split-cache decode kernel (#4-#7) goes on the
-card, per block.
+#9 (o_proj + MLP), the split-cache decode kernel (#4-#7) and the
+cache-writing decode kernel (#10) goes on the card, per block.
 
-    python3 kernel_trace.py [--decode-only]
+    python3 kernel_trace.py [--decode-only | --fda-only | --fda-variants]
 
 Builds a copy of vla_rft_tpu_torch/csrc/fused_decode_layer.cu with a stamp
 at each phase boundary of `streaming_product` (thread 0 of every block
@@ -37,12 +37,40 @@ cycles of each phase:
   cluster    waiting at the cluster barrier for the other key splits
   epilogue   the ordered merge over the ranks, O stored, the last barrier
 
-then the card's name and power limit.  The stamped copies are built into
-vla_rft_tpu_torch/_build/ (ignored by git).  Needs a CUDA device and nvcc.
+Then the same for a stamped copy of csrc/fused_decode_attention.cu (#10),
+run with the wrapper's split plan at the WM width (B 10, 16/16 heads of 64,
+S 1664, row 1379, bf16 cache) and at the configured 128 rows: per call the
+blocks, their start spread, the span and median block time (us,
+%globaltimer), and the median SM cycles of each phase:
+
+  setup      kv_starts, q and the first tiles' copies issued, q landed, the
+             current token's scores (last rank), q's fragments
+  first      the first tile in flight until it landed (blocks with a tile)
+  tiles      the rest of the rank's tiles streamed and multiplied
+  merge      the warps' states stored and merged in warp order, the current
+             token folded in (last rank)
+  cluster    waiting at the cluster barrier for the other ranks (0 with
+             one rank: its merge stores O)
+  epilogue   the ordered merge over the ranks, O stored, the row written
+             (rank 0), the last barrier
+
+and the block times on SMs that hold one of the launch's blocks against
+those on SMs that hold two or more (each block records %smid).
+`--fda-variants` instead times #10 from CUDA-graph replay at those two
+shapes and at GQA 14/2 (B 10, 14/2 heads), scaled_dot_product_attention
+beside it: 1-8 ranks per cluster, then copies of the source edited as
+FDA_VARIANTS lists (2- or 4-stage ring, 8 warps, kv_starts not read, no
+products or no copies: the last two timing only) in turns with the built
+kernel.
+
+then the card's name and power limit.  `--decode-only` / `--fda-only` trace
+only those.  The stamped copies are built into vla_rft_tpu_torch/_build/
+(ignored by git).  Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import os
 import subprocess
@@ -294,6 +322,217 @@ def trace_decode(lib, dec, gen) -> list:
     return out
 
 
+# ------------------------------------------------ the cache-writing decode (#10)
+FDA_STAMPS = 10  # 0 and 7 %globaltimer at the start and end, 8 clock64 at the start
+FDA_PHASES = {"setup": (8, 1), "first": (1, 2), "tiles": (2, 3), "merge": (3, 4),
+              "cluster": (4, 5), "epilogue": (5, 6)}
+_FDA_DEFS = _DEC_DEFS.replace("dec_stamps", "fda_stamps").replace(
+    f"{DEC_STAMPS}]", f"{FDA_STAMPS}]").replace(f"* {DEC_STAMPS} +", f"* {FDA_STAMPS} +")
+_FDA_EDITS = [
+    ("namespace {\n\nconstexpr int NWARPS", "namespace {\n" + _FDA_DEFS + "\nconstexpr int NWARPS"),
+    ("  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;\n  Q* q_s",
+     "  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;\n  STAMP(0); STAMP(8);\n"
+     "  Q* q_s"),
+    ("  // setup done\n", "  STAMP(1);\n"),
+    ("    __syncthreads();              // ... for every thread; every warp is done with tile t"
+     " - 1\n",
+     "    __syncthreads();              // ... for every thread; every warp is done with tile t"
+     " - 1\n    if (it == 0) STAMP(2);\n"),
+    ("  // tiles done\n", "  STAMP(3);\n"),
+    ("  // warp merge done\n", "  STAMP(4);\n"),
+    ("  // cluster wait done\n", "  STAMP(5);\n"),
+    ("  if (splits > 1) cluster_wait();  // no block leaves while another reads its state\n}",
+     "  if (splits > 1) cluster_wait();  // no block leaves while another reads its state\n"
+     "  STAMP(6); STAMP(7);\n}"),
+]
+
+
+# (anchor, text) edits of #10's source for the timed variants (--fda-variants);
+# the `timing only` ones give wrong results by design
+FDA_VARIANTS = {
+    "stages2": [("  static constexpr int STAGES = 3;",
+                 "  static constexpr int STAGES = (sizeof(T) == 2 && D == 64) ? 2 : 3;")],
+    "stages4": [("  static constexpr int STAGES = 3;",
+                 "  static constexpr int STAGES = (sizeof(T) == 2 && D == 64) ? 4 : 3;")],
+    "warps8": [("constexpr int NWARPS = 4;", "constexpr int NWARPS = 8;")],
+    "kv_starts_not_read": [("  const int lo = min(max(a.kv_starts[b], 0), a.idx);",
+                            "  const int lo = 0;  // right only when kv_starts is 0")],
+    "no_products (timing only)": [
+        ("      w.tile(st, kw0, jw, a.idx, G > 8, scale_log2, lane);\n", "")],
+    "no_copies (timing only)": [
+        ("      cp_async16(st + dst, ck + off, ok);\n"
+         "      cp_async16(st + TL::KV + dst, cv + off, ok);\n", "      (void)dst; (void)off;\n")],
+}
+# the stamped build also records each block's SM in its last stamp
+_FDA_SMID = ("  T* vn_s = kn_s + D;\n",
+             "  T* vn_s = kn_s + D;\n  if (threadIdx.x == 0) {\n    unsigned sm;\n"
+             "    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
+             f"    const int lb = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);\n"
+             f"    if (lb < {MAX_BLOCKS}) fda_stamps[lb * {FDA_STAMPS} + 9] = sm;\n  }}\n")
+
+
+def build_fda(cuda_build, fda, builds: dict) -> dict:
+    """Build copies of #10's source, one nvcc each, all started together:
+    builds = {name: (edits, stamped)}, the edits applied first, then with
+    `stamped` the phase stamps and the SM record.  Returns {name: CDLL}
+    with `fused_decode_attention` bound as the wrapper binds it."""
+    src0 = (cuda_build.CSRC / "fused_decode_attention.cu").read_text()
+    procs = {}
+    for name, (edits, stamped) in builds.items():
+        src = src0
+        for anchor, repl in [*edits, *(_FDA_EDITS + [_FDA_SMID] if stamped else [])]:
+            if src.count(anchor) != 1:
+                raise RuntimeError(f"kernel_trace: anchor not found once in the source: {anchor!r}")
+            src = src.replace(anchor, repl)
+        if stamped:
+            src += ('\nextern "C" int fda_stamps_copy(void* host, size_t bytes) {\n'
+                    '  return static_cast<int>(cudaMemcpyFromSymbol(host, fda_stamps, bytes));\n}\n'
+                    'extern "C" int fda_stamps_clear(size_t bytes) {\n'
+                    '  void* p;\n  cudaGetSymbolAddress(&p, fda_stamps);\n'
+                    '  return static_cast<int>(cudaMemset(p, 0, bytes));\n}\n')
+        out = cuda_build.BUILD_DIR / f"fda_{hashlib.sha256(src.encode()).hexdigest()[:12]}"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "mma_sm90.cuh").write_text((cuda_build.CSRC / "mma_sm90.cuh").read_text())
+        (out / "fused_decode_attention.cu").write_text(src)
+        so = out / "libfused_decode_attention_variant.so"
+        procs[name] = (so, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so),
+             str(out / "fused_decode_attention.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel_trace: nvcc failed for {name}\n{log}")
+        lib = ctypes.CDLL(str(so))
+        lib.fused_decode_attention.argtypes = fda._load().argtypes
+        lib.fused_decode_attention.restype = ctypes.c_int
+        if builds[name][1]:
+            for fn, args in (("fda_stamps_copy", [ctypes.c_void_p, ctypes.c_size_t]),
+                             ("fda_stamps_clear", [ctypes.c_size_t])):
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def build_fda_stamped(cuda_build, fda, edits=()) -> ctypes.CDLL:
+    """Build the stamped copy of #10 (with `edits`, more (anchor, text)
+    pairs, applied first) and make `fda`'s wrapper launch it."""
+    lib = build_fda(cuda_build, fda, {"stamped": (list(edits), True)})["stamped"]
+    fda._fn = lib.fused_decode_attention  # the wrapper launches the stamped copy
+    return lib
+
+
+def _fda_inputs(gen, B, Hq, Hkv, S=1664, D=64):
+    dev = torch.device("cuda")
+    ck, cv = (torch.randn(2, B, Hkv, S, D, generator=gen, device=dev).bfloat16()
+              for _ in range(2))
+    q = torch.randn(B, 1, Hq, D, generator=gen, device=dev).bfloat16()
+    kn, vn = (torch.randn(B, 1, Hkv, D, generator=gen, device=dev).bfloat16() for _ in range(2))
+    return q, kn, vn, ck, cv, torch.zeros(B, dtype=torch.int32, device=dev)
+
+
+def trace_fda(lib, fda, gen, shapes=((10, 16, 16), (128, 16, 16)), splits=None) -> list:
+    """One record per (B, Hq, Hkv) in `shapes`: #10 at S 1664, row 1379,
+    bf16, D 64, kv_starts 0, with the wrapper's plan (or `splits`): the
+    phases, and the block times on SMs that hold one block against those
+    on SMs that hold more."""
+    S, idx, D, li = 1664, 1379, 64, 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for B, Hq, Hkv in shapes:
+        q, kn, vn, ck, cv, ks = _fda_inputs(gen, B, Hq, Hkv, S, D)
+        R = splits or fda.split_plan(B, Hq, Hkv, D, idx, torch.bfloat16, sms)["splits"]
+        call = lambda: fda.fused_decode_attention_kernel(q, kn, vn, ck, cv, li, idx, ks,
+                                                         splits=R)
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        nbytes = MAX_BLOCKS * FDA_STAMPS * 8
+        if lib.fda_stamps_clear(nbytes) != 0:
+            raise RuntimeError("kernel_trace: clearing the stamps failed")
+        call()
+        torch.cuda.synchronize()
+        buf = np.zeros(MAX_BLOCKS * FDA_STAMPS, dtype=np.uint64)
+        if lib.fda_stamps_copy(buf.ctypes.data, buf.nbytes) != 0:
+            raise RuntimeError("kernel_trace: reading the stamps failed")
+        t = buf.reshape(MAX_BLOCKS, FDA_STAMPS).astype(np.int64)
+        t = t[t[:, 7] != 0]
+        t[:, 5] = np.where(t[:, 5] != 0, t[:, 5], t[:, 4])  # one rank: no cluster barrier
+        start, end = t[:, 0], t[:, 7]
+        tiled = t[t[:, 2] != 0]  # the blocks that had a tile
+        cyc = {}
+        for ph, (a, b) in FDA_PHASES.items():
+            rows = tiled if ph in ("first", "tiles") else t
+            if ph == "merge":  # from the end of the tiles (of the setup without a tile)
+                d = rows[:, 4] - np.where(rows[:, 3] != 0, rows[:, 3], rows[:, 1])
+            else:
+                d = rows[:, b] - rows[:, a]
+            cyc[ph] = float(np.median(d)) if len(d) else None
+        per_sm = np.bincount(t[:, 9])[t[:, 9]]  # blocks of the launch on each block's SM
+        sharing = {}
+        for label, sel in (("alone", per_sm == 1), ("shared", per_sm > 1)):
+            if sel.any():
+                sharing[label] = {"blocks": int(sel.sum()),
+                                  "block_us_median": float(np.median(end[sel] - start[sel])) / 1e3,
+                                  "last_end_us": float(end[sel].max() - start.min()) / 1e3}
+        out.append({"kernel": "fused_decode_attention", "B": B, "Hq": Hq, "Hkv": Hkv,
+                    "splits": R, "blocks": int(t.shape[0]),
+                    "blocks_with_a_tile": int(tiled.shape[0]),
+                    "start_spread_us": float(start.max() - start.min()) / 1e3,
+                    "span_us": float(end.max() - start.min()) / 1e3,
+                    "block_us_median": float(np.median(end - start)) / 1e3,
+                    "cycles_median": cyc, "by_blocks_on_the_sm": sharing})
+    return out
+
+
+def fda_variants(cuda_build, fda, gen) -> list:
+    """#10 timed from CUDA-graph replay (chip_smoke.graph_ms) at (a) B 10,
+    16/16 heads, (b) B 128, 16/16, (c) B 10, 14/2 (bf16, D 64, S 1664, row
+    1379, kv_starts 0), SDPA beside: the ranks per cluster 1-8 on the
+    built kernel, then the FDA_VARIANTS copies against it in turns (the
+    built kernel, each variant, the variants again in reverse, the built
+    kernel), each with the wrapper's plan and its max |dO| against the
+    twin."""
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+
+    idx, li = 1379, 1
+    data = {k: _fda_inputs(gen, *shape) for k, shape in
+            (("a", (10, 16, 16)), ("b", (128, 16, 16)), ("c", (10, 14, 2)))}
+    out = []
+    for k, (q, kn, vn, ck, cv, ks) in data.items():
+        rec = {"experiment": "splits", "shape": k, "B": q.shape[0], "Hq": q.shape[2],
+               "Hkv": ck.shape[2]}
+        for R in (1, 2, 4, 7, 8):
+            rec[f"R{R}"] = cs.graph_ms(lambda: fda.fused_decode_attention_kernel(
+                q, kn, vn, ck, cv, li, idx, ks, splits=R))
+        qt, kt, vt = q.transpose(1, 2), ck[li, :, :, :idx + 1], cv[li, :, :, :idx + 1]
+        rec["sdpa"] = cs.graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=qt.shape[1] != kt.shape[1]))
+        out.append(rec)
+    built = fda._load()
+    libs = build_fda(cuda_build, fda, {n: (e, False) for n, e in FDA_VARIANTS.items()})
+    fns = {"built": built, **{n: lib.fused_decode_attention for n, lib in libs.items()}}
+    names = list(FDA_VARIANTS)
+    turns = ["built", *names, *names[::-1], "built"]
+    res = {k: {n: [] for n in fns} for k in data}
+    err = {k: {} for k in data}
+    for n in turns:
+        fda._fn = fns[n]
+        for k, (q, kn, vn, ck, cv, ks) in data.items():
+            call = lambda: fda.fused_decode_attention_kernel(q, kn, vn, ck, cv, li, idx, ks)
+            if n not in err[k]:
+                ref = fda.fused_decode_attention_plain(q, kn, vn, ck, cv, li, idx, ks)[0]
+                err[k][n] = (call()[0].float() - ref.float()).abs().max().item()
+            res[k][n].append(cs.graph_ms(call))
+    fda._fn = built
+    out.append({"experiment": "variants", "turns": turns, "ms": res, "max_abs_err": err})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_trace: no CUDA device", file=sys.stderr)
@@ -303,15 +542,29 @@ def main() -> int:
     from vla_rft_tpu_torch.ops import fused_decode_layer as fdl
 
     from vla_rft_tpu_torch.ops import decode_attention_hd as dec
+    from vla_rft_tpu_torch.ops import fused_decode_attention as fda
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    if "--decode-only" not in sys.argv:
+    if "--fda-variants" in sys.argv:
+        for rec in fda_variants(cuda_build, fda, gen):
+            print(json.dumps(rec), flush=True)
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+        return 0
+    only = {"--decode-only", "--fda-only"} & set(sys.argv)
+    if not only:
         lib = build_stamped(cuda_build, fdl)
         for N in (10, 128):
             print(json.dumps(trace(lib, fdl, N, gen)), flush=True)
-    dlib = build_decode_stamped(cuda_build, dec)
-    for rec in trace_decode(dlib, dec, gen):
-        print(json.dumps(rec), flush=True)
+    if not only or "--decode-only" in only:
+        dlib = build_decode_stamped(cuda_build, dec)
+        for rec in trace_decode(dlib, dec, gen):
+            print(json.dumps(rec), flush=True)
+    if not only or "--fda-only" in only:
+        flib = build_fda_stamped(cuda_build, fda)
+        for rec in trace_fda(flib, fda, gen):
+            print(json.dumps(rec), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     return 0

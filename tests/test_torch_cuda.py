@@ -916,6 +916,80 @@ def test_fused_decode_attention_refuses_what_the_kernel_does_not_take(cuda_devic
         tfda.fused_decode_attention_kernel(z(2, 1, 40, 64), kv, kv, ck, ck.clone(), 0, 3)
 
 
+# ------------------------------------------------------------ the redesigned #10
+FDA_REDESIGN_CASES = [
+    # (name, cache dtype, q dtype, B, G, Hkv, D, idx, kv_starts, splits or
+    # None for the plan): ranks with empty ranges (8 ranks at rows 1, 100
+    # and 129, starts at or past the row), the mixed pairings, D 32 and 128
+    # with 16 query heads a kv head, the configured 128 rows of a WM call
+    ("r8_idx1", "bfloat16", "bfloat16", 4, 1, 16, 64, 1, [0, 1, 2, 0], 8),
+    ("r8_idx100", "bfloat16", "bfloat16", 4, 1, 16, 64, 100, [0, 99, 100, 150], 8),
+    ("r8_idx129", "bfloat16", "bfloat16", 4, 2, 8, 64, 129, [0, 128, 129, 64], 8),
+    ("r8_idx129_f32_d128", "float32", "float32", 3, 2, 2, 128, 129, [0, 129, 100], 8),
+    ("bf16_cache_f32_q", "bfloat16", "float32", 3, 7, 2, 64, 1379, [0, 13, 1379], None),
+    ("f32_cache_bf16_q", "float32", "bfloat16", 3, 7, 2, 64, 1379, [0, 13, 1379], None),
+    ("d32_g16", "bfloat16", "bfloat16", 3, 16, 2, 32, 900, [0, 5, 899], None),
+    ("d128_g16", "bfloat16", "bfloat16", 3, 16, 2, 128, 900, [0, 5, 899], None),
+    ("d128_g16_f32", "float32", "float32", 3, 16, 2, 128, 900, [0, 5, 899], 3),
+    ("d32_g16_f32_q", "bfloat16", "float32", 3, 16, 2, 32, 900, [0, 5, 899], 5),
+    ("b128", "bfloat16", "bfloat16", 128, 1, 16, 64, 1379, [(37 * i) % 1500 for i in range(128)],
+     None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cdt,qdt,B,G,Hkv,D,idx,starts,splits", FDA_REDESIGN_CASES,
+                         ids=[c[0] for c in FDA_REDESIGN_CASES])
+def test_fused_decode_attention_redesign_matches_twin_and_repeats(cuda_device, name, cdt, qdt, B,
+                                                                   G, Hkv, D, idx, starts,
+                                                                   splits):
+    """#10 split over a cluster: the written rows bit-equal to the twin's,
+    three calls with the same inputs give the same bits (ranks merged in
+    rank order, no atomics), the output within the decode tolerance when
+    the cache or q is bf16 and 1e-5 when both are f32; a (row, head) whose
+    window is empty gives the current token's v; #7 over the cache #10
+    wrote agrees where it takes the cache (bf16, D 64, G 1)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B + G + D + idx)
+    L, S, li = 2, 1664, 1
+    cdt, qdt = getattr(torch, cdt), getattr(torch, qdt)
+    rnd = lambda dt, *s: torch.randn(*s, generator=gen, device=cuda_device).to(dt)
+    ck, cv = rnd(cdt, L, B, Hkv, S, D), rnd(cdt, L, B, Hkv, S, D)
+    q, kn, vn = rnd(qdt, B, 1, Hkv * G, D), rnd(cdt, B, 1, Hkv, D), rnd(cdt, B, 1, Hkv, D)
+    ks = torch.tensor(starts, device=cuda_device)
+    rck, rcv = ck.clone(), cv.clone()
+    before = tfda.launches
+    runs = [tfda.fused_decode_attention_kernel(q, kn, vn, ck, cv, li, idx, ks, splits=splits)[0]
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert tfda.launches == before + 3
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    ref, _, _ = tfda.fused_decode_attention_plain(q, kn, vn, rck, rcv, li, idx, ks)
+    assert torch.equal(ck, rck) and torch.equal(cv, rcv)
+    both_f32 = cdt == torch.float32 and qdt == torch.float32
+    tol = dict(atol=1e-5, rtol=1e-5) if both_f32 else DEC_TOL
+    torch.testing.assert_close(runs[0].float(), ref.float(), **tol)
+    for b in range(B):
+        if starts[b] >= idx:  # only the current token: its v, per query head
+            torch.testing.assert_close(runs[0][b, 0].float(),
+                                       vn[b, 0].float().repeat_interleave(G, dim=0), **tol)
+    if cdt == qdt == torch.bfloat16 and D == 64 and G == 1:
+        o7 = theads.decode_kernel(q, ck[li], cv[li], kv_lens=torch.full_like(ks, idx + 1),
+                                  q_offset=torch.full_like(ks, idx),
+                                  kv_starts=torch.clamp(ks, max=idx))
+        torch.testing.assert_close(o7.float(), runs[0].float(), **DEC_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_decode_attention_refuses_a_split_count_outside_the_cluster(cuda_device):
+    z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16, device=cuda_device)
+    q, kv, ck = z(2, 1, 4, 64), z(2, 1, 2, 64), z(1, 2, 2, 16, 64)
+    before = tfda.launches
+    for bad in (0, tfda.MAX_SPLITS + 1):
+        with pytest.raises(ValueError, match="splits"):
+            tfda.fused_decode_attention_kernel(q, kv, kv, ck, ck.clone(), 0, 3, splits=bad)
+    assert tfda.launches == before
+
+
 # ------------------------------- the redesigned #2 and decode kernel (#4-#7)
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
