@@ -11,8 +11,9 @@ Phases, one JSON line each:
   2. flash      - the flash kernel (#1) against its plain PyTorch twin on the
                   card over masked, padded and ragged cases and the WM's
                   1088-token prefill; three calls at each timed shape give
-                  the same bits; its time at the serving and the WM
-                  prefill shapes beside the twin's, scaled_dot_product_attention's
+                  the same bits; its time at the serving, the WM prefill
+                  and the wm_logprob forward (8 x 1663) shapes beside the
+                  twin's, scaled_dot_product_attention's
                   (a yardstick only: the port never calls it) and the bound;
   3. flash_bwd  - the flash backward kernels (#2 dQ, #3 dK/dV) against their
                   plain twin over the flash phase's masked, padded, ragged,
@@ -33,7 +34,8 @@ Phases, one JSON line each:
                   ragged lengths, GQA 14/2, the configured 128-row WM call
                   (16 prefixes of 8 rows) and one prefix shared by 40 rows
                   (more than a chunk); their time at the WM's mid-rollout
-                  shape (#4 also at 128 rows) with the launch plan, each
+                  shape (#4 also at 128 rows and at the speculative verify
+                  call: 10 rows of Sq 5 at 10 offsets) with the launch plan, each
                   timed shape held against the twin and called three times
                   for the same bits (the key splits are merged in rank
                   order);
@@ -102,6 +104,25 @@ Phases, one JSON line each:
                   every other kernel 0; a profiler window of 16 decode
                   calls; the 'heads' route against the 'hd' route on the
                   same weights and frame 0's calls;
+     grpo_variants - the trainer's other settings through the same entry
+                  point, one step of 2 x 4 each (no learning-rate warm-up,
+                  so that the step moves every trained leaf), exact
+                  launches per step:
+                  ReMax with the int8 WM and validation first (one WM call
+                  of 12 rows: each sample's 4 rollouts, its greedy baseline
+                  and its gt row; the val frame grid's PNG decoded with
+                  zlib), the action-space reward (#1 24, no WM), the
+                  wm_logprob reward (one full WM forward: #1 24 + 24; the
+                  reward kernel vs plain route <= 5e-2) and speculative
+                  decoding (k = 4, int8 weights on the module route: #4 24
+                  x the rollout's calls, #8 / #9 0; verify calls, drafts
+                  accepted, acceptance rate); then the greedy rollout with
+                  and without speculation (2 frames: the first token that
+                  differs, every verify chunk's logits vs the one-token
+                  calls <= 5e-2) and one verify call of Sq = 5 whose 10 rows
+                  stand at 10 offsets on the 'hd' and 'heads' layouts,
+                  kernel vs plain route (logits <= 5e-2, layer 0's cache
+                  bit-equal, only the call's positions written);
  11. sft        - the supervised fine-tuning path at libero width through
                   trainer/main_sft.run: 3 vla_adapter steps of B = 16 (the
                   config's train_batch_size) with the vision towers frozen,
@@ -393,11 +414,15 @@ def phase_flash(attention) -> dict:
                         "max_abs_err_lse": e_l})
 
     # time at the serving shape (one request, S = 96 text + 256 patches,
-    # 14/2 heads) and at the WM prefill shape (2 x 1088 queries, 16/16 heads)
+    # 14/2 heads), at the WM prefill shape (2 x 1088 queries, 16/16 heads)
+    # and at the wm_logprob reward's full WM forward (compute_log_prob: 8
+    # rows of the whole 1663-token sequence)
     timed = {}
     for shape, B, Sq, Sk, Hq, Hkv, kv_len in (("serving", 1, 352, 352, 14, 2, 352),
                                                ("wm_prefill", 2, WM_PREFIX, 1152, 16, 16,
-                                                WM_PREFIX)):
+                                                WM_PREFIX),
+                                               ("wm_logprob", N_SAMPLES * N_ROLLOUTS, WM_SFT_LEN,
+                                                WM_SFT_LEN, 16, 16, WM_SFT_LEN)):
         q = torch.randn(B, Sq, Hq, D, generator=gen, device=dev).bfloat16()
         k = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
         v = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
@@ -407,18 +432,27 @@ def phase_flash(attention) -> dict:
         # SDPA over the valid keys only (a yardstick: the port never calls it)
         qt, kt, vt = (x[:, :kv_len].transpose(1, 2) for x in (q, k, v))
         kern = lambda: attention.flash_fwd(q, k, v, causal=True, **rows)
+        twin = lambda: attention.attention_plain(q, k, v, causal=True, return_lse=True, **rows)
+        # held against the twin at this very shape: at 1663 the last tile is ragged
+        o, lse = kern()
+        o_ref, lse_ref = twin()
+        e_o = (o.float() - o_ref.float()).abs().max().item()
+        e_l = (lse - lse_ref).abs().max().item()
+        if not (e_o <= O_TOL and e_l <= LSE_TOL and torch.isfinite(o.float()).all()):
+            raise AssertionError(f"flash at {shape}: max|dO|={e_o} max|dLSE|={e_l}")
+        del o, lse, o_ref, lse_ref
         if not repeats_bit_for_bit(kern):
             raise AssertionError(f"flash at {shape}: three calls gave different bits")
         kernel_ms = graph_ms(kern)
         eager_ms = cuda_ms(kern)
-        plain_ms = graph_ms(lambda: attention.attention_plain(q, k, v, causal=True,
-                                                              return_lse=True, **rows), 5)
+        plain_ms = graph_ms(twin, 5)
         library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                                      enable_gqa=True))
         nbytes, flops = flash_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"],
                                    True)
         timed[shape] = {"B": B, "Sq": Sq, "Sk": Sk, "kv_len": kv_len, "Hq": Hq, "Hkv": Hkv,
-                        "D": D, "causal": True, "repeats_bit_for_bit": True,
+                        "D": D, "causal": True, "max_abs_err_o": e_o, "max_abs_err_lse": e_l,
+                        "repeats_bit_for_bit": True,
                         "kernel_ms": kernel_ms, "eager_ms": eager_ms,
                         "plain_ms": plain_ms,
                         "library_ms": library_ms, **bound(nbytes, flops)}
@@ -764,10 +798,52 @@ def phase_decode(dec, heads: bool = False) -> dict:
                       "eager_ms": cuda_ms(kern, 100), "plain_ms": graph_ms(twin, 10),
                       "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
                       "repeats_bit_for_bit": True, "plan": plan, **bound(nbytes, flops)}
+    if not heads:
+        timed["spec5"] = _time_spec5(dec, gen, B, uniform, mid)
     out = {"phase": "decode_heads" if heads else "decode", "cases": results, "max_abs_err": err,
            "tolerance": f"|dO| <= {DEC_RTOL} * |O| + {DEC_ATOL}", "timed": timed}
     emit(out)
     return out
+
+
+def _time_spec5(dec, gen, B, pm, mid) -> dict:
+    """#4 at the speculative rollout's verify call: B rows of Sq = 5 (a
+    pending token and 4 drafts), each at its own offset (own lengths mid - 4
+    .. mid + 5), 2 prefixes of 1088, int8; held against its twin, three
+    calls for the same bits, then timed beside the twin and SDPA over K/V
+    already dequantised (a per-row boolean mask: the port never calls it)."""
+    from vla_rft_tpu_torch.ops.decode_attention_hd import decode_plan
+
+    Sq, Sr = 5, 384
+    own = [mid - 4 + r for r in range(B)]
+    kern, twin, info, t = _decode_inputs(dec, gen, int8=True, B=B, Sq=Sq, G=1, Hkv=16, Sr=Sr,
+                                         shared=True, pm=pm, own=own, per_row=True)
+    o, ref = kern(), twin().float()
+    err = (o.float() - ref).abs().max().item()
+    if not bool((((o.float() - ref).abs()) <= DEC_RTOL * ref.abs() + DEC_ATOL).all()):
+        raise AssertionError(f"decode spec5: max|dO| {err}")
+    if not repeats_bit_for_bit(kern):
+        raise AssertionError("decode spec5: three calls gave different bits")
+    pml = t["pm"].long()
+    deq = lambda c, s_, n: dec.dequantize(c[:, :n], s_[:, :, :n], 64, torch.bfloat16)
+    k_all = torch.cat([deq(t["sck"], t["ssc"][0], WM_PREFIX)[pml], deq(t["ck"], t["sc"][0], Sr)], 1)
+    v_all = torch.cat([deq(t["scv"], t["ssc"][1], WM_PREFIX)[pml], deq(t["cv"], t["sc"][1], Sr)], 1)
+    # query i of row b (position WM_PREFIX + own[b] - Sq + i) sees keys up to itself
+    kv_len = WM_PREFIX + t["own"]
+    qpos = kv_len[:, None] - Sq + torch.arange(Sq, device="cuda")[None]
+    mask = torch.arange(k_all.shape[1], device="cuda")[None, None] <= qpos[..., None]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (t["q"], k_all, v_all))
+    positions = int(t["own"].sum()) + int(pml.unique().numel()) * WM_PREFIX
+    nbytes = positions * 2 * 16 * (64 + 2) + 2 * 2 * B * Sq * 16 * 64
+    flops = 4 * 64 * 16 * int(mask.sum())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {**info, "own": own, "max_abs_err": err, "kernel_ms": graph_ms(kern), "eager_ms": cuda_ms(kern, 100),
+            "plain_ms": graph_ms(twin, 10),
+            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask[:, None])),
+            "repeats_bit_for_bit": True,
+            "plan": decode_plan(B, Sq, 1, 16, Sr, True, 2, WM_PREFIX, sms),
+            **bound(nbytes, flops)}
 
 
 def wm_inputs(b, seed: int = 0):
@@ -1184,13 +1260,14 @@ def phase_fused_decode(fdl) -> dict:
 GRPO_STEPS = 2
 
 
-def _drive_grpo(mods, argv, expect_fn):
-    """GRPO_STEPS steps of main_vla_rft_grpo.run(argv) at the libero preset
+def _drive_grpo(mods, argv, expect_fn, n_steps: int = GRPO_STEPS):
+    """n_steps steps of main_vla_rft_grpo.run(argv) at the libero preset
     with every kernel count set to 0 just before each step and read just
-    after it; each step's launches must equal expect_fn(trainer), its
-    metrics be finite, every trained expert leaf must move and every frozen
-    leaf stay bit-identical.  Returns (trainer, step records, expected
-    launches, run seconds, expert leaves, frozen leaves)."""
+    after it; each step's launches must equal expect_fn(trainer, its
+    record), its metrics be finite, every trained expert leaf must move and
+    every frozen leaf stay bit-identical.  Returns (trainer, step records,
+    the last step's expected launches, run seconds, expert leaves, frozen
+    leaves)."""
     import tempfile
 
     from vla_rft_tpu_torch.trainer import main_vla_rft_grpo
@@ -1198,7 +1275,7 @@ def _drive_grpo(mods, argv, expect_fn):
     ckpt_dir = tempfile.mkdtemp(prefix="grpo_ckpt_")
     argv = argv + [f"data.train_batch_size={N_SAMPLES}",
                    f"actor_rollout_ref.rollout.n={N_ROLLOUTS}",
-                   f"trainer.total_training_steps={GRPO_STEPS}",
+                   f"trainer.total_training_steps={n_steps}",
                    f"trainer.default_local_dir={ckpt_dir}"]
     start, steps = {}, []
 
@@ -1224,8 +1301,8 @@ def _drive_grpo(mods, argv, expect_fn):
     tr = main_vla_rft_grpo.run(argv, on_start, on_step_start, on_step_end)
     run_s = time.perf_counter() - t0
     b = tr.bundle
-    expect = expect_fn(tr)
     for s in steps:
+        expect = expect_fn(tr, s)
         if s["launches"] != expect:
             raise AssertionError(f"grpo step {s['step']}: launches {s['launches']}, "
                                  f"expected {expect}")
@@ -1271,7 +1348,7 @@ def phase_grpo(mods) -> dict:
 
     fdl = mods[3]
 
-    def expect_fn(tr):
+    def expect_fn(tr, _):
         # #1: the Qwen context forward and the WM's shared-prefix prefill; #4:
         # the prompt tails' prefill (7 tokens, unfused) and every fused call
         b = tr.bundle
@@ -1325,7 +1402,7 @@ def phase_grpo_heads(mods) -> dict:
     same weights and frame 0's tokens."""
     from vla_rft_tpu_torch.models.transformer import Decoder
 
-    def expect_fn(tr):
+    def expect_fn(tr, _):
         # #1: the Qwen context forward and the WM's shared-prefix prefill; #6:
         # the prompt tails' prefill (7 tokens) and every decode call
         b = tr.bundle
@@ -1368,6 +1445,344 @@ def phase_grpo_heads(mods) -> dict:
                                   "tolerance": WM_LOGIT_TOL}}
     emit(out)
     del tr, wm_hd
+    return out
+
+
+def read_png(path):
+    """(H, W, 3) uint8 of an 8-bit RGB PNG of filter-0 rows (the port's
+    writer), decoded with zlib; every chunk's CRC checked."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    i, chunks = 8, {}
+    while i < len(data):
+        (n,) = struct.unpack(">I", data[i:i + 4])
+        kind, body = data[i + 4:i + 8], data[i + 8:i + 8 + n]
+        if struct.unpack(">I", data[i + 8 + n:i + 12 + n])[0] != zlib.crc32(kind + body):
+            raise AssertionError(f"{path}: bad CRC in {kind}")
+        chunks[kind] = chunks.get(kind, b"") + body
+        i += 12 + n
+    W, H, depth, colour = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(H, 1 + 3 * W)
+    if (depth, colour) != (8, 2) or b"IEND" not in chunks or (raw[:, 0] != 0).any():
+        raise AssertionError(f"{path}: not an 8-bit RGB PNG of filter-0 rows")
+    return raw[:, 1:].reshape(H, W, 3)
+
+
+class _Recorder:
+    """A Decoder that records (ids, cache_index, logits) of every cached
+    call that returns logits, and is otherwise the model it wraps."""
+
+    def __init__(self, wm):
+        self.wm, self.calls = wm, []
+
+    def __getattr__(self, name):
+        return getattr(self.wm, name)
+
+    def __call__(self, ids, **kw):
+        out = self.wm(ids, **kw)
+        if kw.get("cache") is not None and kw.get("compute_logits", True):
+            self.calls.append((ids, kw["cache_index"], out[0], kw.get("logits_last_only", False)))
+        return out
+
+
+def _spec_vs_plain(wm_q, roll, rows, k: int) -> dict:
+    """The greedy rollout (2 frames) of `rows` with speculation (k drafts)
+    and without, both on the module route (fused_layers off): each row's
+    first token where they differ, if any, and every verify chunk's logits
+    against the plain rollout's one-token calls at the same positions, as
+    far as the chunk's tokens are the plain rollout's and lie before its
+    row's first difference."""
+    from vla_rft_tpu_torch.workers.wm_rollout import generate_sequences
+
+    Fn, V, A = 2, roll.interact_max_tokens, roll.action_dim
+    cfg = dataclasses.replace(roll, do_sample=False, num_frames=Fn,
+                              response_length=Fn * (V + A), fused_layers=False)
+    pm = torch.as_tensor(rows.prefix_map, dtype=torch.int32, device="cuda")
+    P = roll.prompt_length
+    rec, stats = {}, {}
+    with torch.no_grad():
+        for name, kk in (("plain", 0), ("spec", k)):
+            r = rec[name] = _Recorder(wm_q)
+            out = generate_sequences(r, torch.Generator(device="cuda"), rows.tails, rows.actions,
+                                     dataclasses.replace(cfg, speculative_k=kk),
+                                     shared_prefix=rows.prefixes, prefix_map=pm,
+                                     stats=stats.setdefault(name, {}))
+            r.tokens = out
+    plain, spec = rec["plain"].tokens, rec["spec"].tokens
+    B, T = plain.shape
+    # each row's first differing token (T where the row agrees throughout):
+    # a row's cache history is the plain rollout's only below it
+    differs = (plain != spec).cpu()
+    first = torch.where(differs.any(1), differs.int().argmax(1), torch.full((B,), T)).tolist()
+    # the plain rollout's logits by the absolute position of the token fed
+    # (its one-token calls), (B, positions, vocab)
+    ones = [(int(ci), logits[:, 0]) for ids, ci, logits, _ in rec["plain"].calls
+            if ids.shape[1] == 1]
+    index = {pos: i for i, (pos, _) in enumerate(ones)}
+    ref = torch.stack([lg for _, lg in ones], 1)
+    seq = torch.cat([torch.zeros(B, P, dtype=plain.dtype), plain.cpu()], 1)
+    agree = [P + f for f in first]
+    errs = []
+    for ids, ci, logits, _ in rec["spec"].calls:
+        if not isinstance(ci, torch.Tensor):
+            continue  # the prompt tail and the action calls
+        ids_c, ci_c, sel = ids.cpu(), ci.cpu(), []
+        for b in range(B):  # a row's chunk as far as it is the plain rollout's tokens
+            for t in range(ids.shape[1]):
+                pos = int(ci_c[b]) + t
+                if pos >= agree[b] or pos not in index or int(ids_c[b, t]) != int(seq[b, pos]):
+                    break
+                sel.append((b, t, index[pos]))
+        if sel:
+            bb, tt, ii = (torch.tensor(x, device="cuda") for x in zip(*sel))
+            r = ref[bb, ii]
+            errs.append((logits[bb, tt] - r).abs().amax(-1) / r.abs().amax(-1))
+    errs = torch.cat(errs) if errs else torch.zeros(0)
+    if errs.numel() == 0 or errs.max().item() > WM_LOGIT_TOL:
+        raise AssertionError(f"verify chunks vs one-token decode: {errs.numel()} positions, "
+                             f"max rel {errs.max().item() if errs.numel() else None} > "
+                             f"{WM_LOGIT_TOL}")
+    return {"rows": B, "frames": Fn, "k": k, "tokens_equal": first == [T] * B,
+            "first_difference_per_row": [None if f == T else f for f in first],
+            "positions_compared": errs.numel(),
+            "max_rel_logit_err": errs.max().item(), "spec_stats": stats["spec"],
+            "plain_calls": stats["plain"]["calls"], "tolerance": WM_LOGIT_TOL}
+
+
+def _per_row_verify(wm_q, rows, mods, gen, Sq: int = 5) -> dict:
+    """One verify call of Sq tokens whose rows stand at as many different
+    cache offsets, over the shared prefix, on the 'hd' and the 'heads'
+    layout (the same int8 weights), kernel route vs attn_impl="plain":
+    logits within WM_LOGIT_TOL; layer 0's cache (whose k / v both routes
+    compute from the same embeddings and quantise in the same torch code)
+    bit-equal; in every layer only the verify call's positions written;
+    #4 / #6 launched once per layer by the kernel route, never by the plain
+    one."""
+    from vla_rft_tpu_torch.models.transformer import Decoder
+
+    P0, P = rows.prefixes.shape[1], rows.prefixes.shape[1] + rows.tails.shape[1]
+    B, L = rows.tails.shape[0], wm_q.cfg.num_layers
+    pm = torch.as_tensor(rows.prefix_map, dtype=torch.int32, device="cuda")
+    warm = 12  # one-token steps before the verify call
+    steps = torch.randint(0, 4375, (B, warm), generator=gen, device="cuda")
+    chunk = torch.randint(0, 4375, (B, Sq), generator=gen, device="cuda")
+    ci = P + 3 + torch.arange(B, dtype=torch.int32, device="cuda")  # B offsets
+    out = {}
+    for layout in ("hd", "heads"):
+        wmod = wm_q
+        if layout == "heads":
+            with torch.device("cuda"):
+                wmod = Decoder(dataclasses.replace(wm_q.cfg, kv_layout="heads"))
+            wmod.load_state_dict(wm_q.state_dict(), strict=True)
+            wmod.eval().requires_grad_(False)
+        seq_ax = wmod.cache_seq_axes()
+        res = {}
+        for impl in ("auto", "plain"):
+            wmod.attn_impl = impl
+            try:
+                with torch.no_grad():
+                    shared = wmod.init_cache(rows.prefixes.shape[0], P0)
+                    wmod(rows.prefixes, cache=shared, cache_index=0, compute_logits=False)
+                    kw = dict(shared_cache=shared, shared_len=P0, prefix_map=pm)
+                    cache = wmod.init_cache(B, P - P0 + warm + 2 * B)
+                    wmod(rows.tails, cache=cache, cache_index=P0, kv_lens=P, compute_logits=False,
+                         **kw)
+                    for i in range(warm):
+                        wmod(steps[:, i:i + 1], cache=cache, cache_index=P + i,
+                             compute_logits=False, **kw)
+                    before = [c.clone() for c in cache]
+                    torch.cuda.synchronize()
+                    _zero_decode_counts(mods)
+                    logits = wmod(chunk, cache=cache, cache_index=ci, kv_lens=ci + Sq, **kw)[0]
+                    torch.cuda.synchronize()
+                    counts = _decode_counts(mods)
+            finally:
+                wmod.attn_impl = "auto"
+            # the own-cache positions each route changed, per (layer, row, position)
+            changed = torch.zeros(L, B, cache[0].shape[seq_ax[0]], dtype=torch.bool,
+                                  device="cuda")
+            for a, b0, ax in zip(cache, before, seq_ax):
+                changed |= (a != b0).movedim(ax, 2).flatten(3).any(-1)
+            res[impl] = (logits.float(), cache, counts, changed)
+        (k, ck, kc, kchg), (p, cp, pc, pchg) = res["auto"], res["plain"]
+        key = "decode_shared_heads" if layout == "heads" else "decode_shared_hd"
+        if kc != _expect(**{key: L}) or pc != _expect():
+            raise AssertionError(f"per-row verify ({layout}): launches {kc} / {pc}")
+        expect_pos = torch.zeros_like(kchg[0])
+        for b in range(B):
+            expect_pos[b, int(ci[b]) - P0:int(ci[b]) - P0 + Sq] = True
+        rel = ((k - p).abs().max() / p.abs().max()).item()
+        layer0_equal = all(torch.equal(a[0], b0[0]) for a, b0 in zip(ck, cp))
+        only_written = all(bool((chg & ~expect_pos[None]).sum() == 0) for chg in (kchg, pchg))
+        equal_int8 = float(sum((a[1:] == b0[1:]).sum().item() for a, b0 in zip(ck[:2], cp[:2]))
+                           / sum(a[1:].numel() for a in ck[:2]))
+        if not (rel <= WM_LOGIT_TOL and layer0_equal and only_written
+                and bool(torch.isfinite(k).all())):
+            raise AssertionError(f"per-row verify ({layout}): rel {rel}, layer 0 equal "
+                                 f"{layer0_equal}, only the call's positions written "
+                                 f"{only_written}")
+        out[layout] = {"rows": B, "Sq": Sq, "offsets": ci.tolist(), "launches": kc,
+                       "max_rel_logit_err": rel, "layer0_cache_bit_equal": layer0_equal,
+                       "only_the_calls_positions_written": only_written,
+                       "layers_1_up_int8_values_equal_share": equal_int8}
+        if layout == "heads":
+            del wmod
+    out["tolerance"] = WM_LOGIT_TOL
+    return out
+
+
+def phase_grpo_variants(mods) -> dict:
+    """The GRPO trainer's other settings through the CLI entry point at the
+    libero preset, one step of 2 samples x n = 4 each with
+    lr_warmup_steps=0 (the default warm-up starts at 0, and the one step
+    must move every trained leaf), exact launches per step (every other
+    kernel 0):
+      remax      algorithm.adv_estimator=remax with the int8-weight WM and
+                 validation first (val_before_train, val_iters 1, the frame
+                 grid): one WM call of 12 rows (each sample's 4 rollouts, its
+                 greedy baseline and its gt row), #1 24 + 24, #4 24 x 521,
+                 #8 24 x 520, #9 3 x 24 x 520; the baseline metric finite; the
+                 PNG decodes to the grid's shape;
+      ac_reward  trainer.use_ac_reward: #1 24 (the Qwen encode) and nothing
+                 else;
+      wm_logprob trainer.reward_fn=wm_logprob: #1 24 + 24 (one full WM
+                 forward), nothing else; the reward from the kernel route
+                 against attn_impl="plain" on a next batch's rows;
+      spec       world_model_rollout.rollout.speculative_k=4 with the
+                 int8-weight WM (the module route: #8 / #9 off): #1 24 + 24,
+                 #4 24 x the rollout's calls; the verify calls, drafts
+                 accepted and acceptance rate.
+    Then on the spec run's int8 WM: the greedy rollout with and without
+    speculation (2 frames; every verify chunk's logits against the
+    one-token calls) and one per-row verify call on both layouts, kernel
+    route vs plain."""
+    import glob
+    import tempfile
+
+    from vla_rft_tpu_torch.workers.reward import wm_logprob_reward
+
+    fdl = mods[3]
+    out = {"phase": "grpo_variants", "preset": "libero", "samples": N_SAMPLES, "n": N_ROLLOUTS}
+
+    def run(name, argv, expect_fn, check=None):
+        # no warm-up, so that the one step moves every trained leaf
+        argv = argv + ["actor_rollout_ref.actor.optim.lr_warmup_steps=0"]
+        tr, steps, expect, run_s, n_expert, n_frozen = _drive_grpo(mods, argv, expect_fn, 1)
+        rec = {"argv": argv, "run_s": run_s, "steps": steps, "expected_launches": expect,
+               "expert_leaves_moved": n_expert, "frozen_leaves_bit_identical": n_frozen}
+        if check is not None:
+            rec.update(check(tr, steps[0]["metrics"]))
+        out[name] = rec
+        return tr
+
+    def fused_expect(tr, _):
+        b = tr.bundle
+        L, roll = b.wm_cfg.num_layers, b.roll_cfg
+        calls = roll.num_frames * (roll.interact_max_tokens + 1)
+        return _expect(flash_fwd=b.vla_cfg.llm.num_layers + L, decode_shared_hd=L * (calls + 1),
+                       fused_qkv=L * calls, fused_o_mlp=fdl.O_MLP_LAUNCHES * L * calls)
+
+    img_dir = tempfile.mkdtemp(prefix="val_frames_")
+
+    def remax_check(tr, m):
+        b = tr.bundle
+        rows = N_SAMPLES * (N_ROLLOUTS + 2)
+        calls = 1 + b.roll_cfg.num_frames * (b.roll_cfg.interact_max_tokens + 1)
+        (png,) = glob.glob(os.path.join(img_dir, "*.png"))
+        shape = read_png(png).shape
+        want = (3 * b.image_size, b.reward_cfg.num_frames * b.image_size, 3)
+        if not (m["wm_rollout/rows"] == rows and m["wm_rollout/calls"] == calls
+                and np.isfinite(m["critic/reward_baseline/mean"]) and shape == want):
+            raise AssertionError(f"remax: rows {m['wm_rollout/rows']} calls "
+                                 f"{m['wm_rollout/calls']} baseline "
+                                 f"{m['critic/reward_baseline/mean']} png {shape} != {want}")
+        return {"wm_rows_per_call": rows, "reward_baseline_mean": m["critic/reward_baseline/mean"],
+                "png": os.path.basename(png), "png_shape": list(shape)}
+
+    tr = run("remax", ["algorithm.adv_estimator=remax",
+                       "world_model_rollout.rollout.weights_int8=true",
+                       "trainer.val_before_train=true", "trainer.val_iters=1",
+                       f"trainer.img_save_dir={img_dir}"], fused_expect, remax_check)
+    out["wm_layers"] = tr.bundle.wm_cfg.num_layers
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tr = run("ac_reward", ["trainer.use_ac_reward=true"],
+             lambda tr, _: _expect(flash_fwd=tr.bundle.vla_cfg.llm.num_layers))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def logprob_check(tr, m):
+        # the reward of a next batch's rows, kernel route vs plain (outside
+        # the main path)
+        from vla_rft_tpu_torch.models.action_head import sample_noisy_actions
+        from vla_rft_tpu_torch.trainer.grpo_trainer import process_stage
+        from vla_rft_tpu_torch.workers.flow_actor import rollout_from_hidden
+
+        b, n = tr.bundle, N_ROLLOUTS
+        with torch.no_grad():
+            batch = tr.put_batch(tr.dataset.next_batch())
+            gen = torch.Generator(device="cuda").manual_seed(23)
+            hidden = tr.encode(batch).repeat_interleave(n, 0)
+            noise = sample_noisy_actions(gen, batch["actions"].repeat_interleave(n, 0),
+                                         b.expert_cfg)
+            acts = rollout_from_hidden(b.expert, gen, hidden, noise["noise"],
+                                       batch["proprio"].repeat_interleave(n, 0),
+                                       b.expert_cfg.num_flow_steps)["predicted_actions"]
+            ids = process_stage(b, tr.action_ranges, batch["raw_pixel_values"], acts,
+                                batch["actions"], n, True)["input_ids"]
+            r = {}
+            for impl in ("auto", "plain"):
+                b.wm.attn_impl = impl
+                try:
+                    r[impl] = wm_logprob_reward(b.wm, b.proc_cfg, b.reward_cfg, ids,
+                                                b.roll_cfg.prompt_length)[0][:, -1]
+                finally:
+                    b.wm.attn_impl = "auto"
+        rel = ((r["auto"] - r["plain"]).abs().max() / r["plain"].abs().max()).item()
+        if not (rel <= WM_LOGIT_TOL and bool(torch.isfinite(r["auto"]).all())):
+            raise AssertionError(f"wm_logprob reward, kernel vs plain: rel {rel}")
+        return {"reward_kernel_vs_plain": {"rows": int(ids.shape[0]), "tokens": int(ids.shape[1]),
+                                           "max_rel_err": rel, "reward": r["auto"].tolist(),
+                                           "tolerance": WM_LOGIT_TOL},
+                "wm_dyn_logprob_mean": m["critic/wm_dyn_logprob/mean"]}
+
+    tr = run("wm_logprob", ["trainer.reward_fn=wm_logprob"],
+             lambda tr, _: _expect(flash_fwd=tr.bundle.vla_cfg.llm.num_layers
+                                   + tr.bundle.wm_cfg.num_layers), logprob_check)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    k = 4
+
+    def spec_expect(tr, s):
+        b = tr.bundle
+        return _expect(flash_fwd=b.vla_cfg.llm.num_layers + b.wm_cfg.num_layers,
+                       decode_shared_hd=b.wm_cfg.num_layers * int(s["metrics"]["wm_rollout/calls"]))
+
+    def spec_check(tr, m):
+        keys = ("rows", "calls", "verify_calls", "proposed", "accepted", "acceptance_rate")
+        rec = {key: m[f"wm_rollout/{key}"] for key in keys}
+        print(f"grpo_variants spec: {rec['verify_calls']:.0f} verify calls, "
+              f"{rec['accepted']:.0f} of {rec['proposed']:.0f} drafts accepted "
+              f"(rate {rec['acceptance_rate']:.4f})", flush=True)
+        return {"rollout": rec}
+
+    tr = run("spec", [f"world_model_rollout.rollout.speculative_k={k}",
+                      "world_model_rollout.rollout.weights_int8=true"], spec_expect, spec_check)
+    wm_q = tr._wm_gen_model()
+    rows, gen = _next_rollout_rows(tr, 24)
+    out["spec_vs_plain_greedy"] = _spec_vs_plain(wm_q, tr.bundle.roll_cfg, rows, k)
+    out["per_row_verify"] = _per_row_verify(wm_q, rows, mods, gen, Sq=1 + k)
+    emit(out)
+    del tr, wm_q
     return out
 
 
@@ -1740,6 +2155,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     grpo_heads = timed("grpo_heads", phase_grpo_heads, mods)
     torch.cuda.empty_cache()
+    variants = timed("grpo_variants", phase_grpo_variants, mods)
+    torch.cuda.empty_cache()
     sft = timed("sft", phase_sft, attention)
     emit({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t0, 1),
           "allocated_gib_after_phase": held})
@@ -1771,6 +2188,9 @@ def main() -> int:
                for k in grpo_heads["steps"][0]["launches"]}
     fused_src = "vla_rft_tpu_torch/csrc/fused_decode_layer.cu"
     grpo_n = {k: sum(s["launches"][k] for s in grpo["steps"]) for k in grpo["steps"][0]["launches"]}
+    logprob_n = variants["wm_logprob"]["steps"][0]["launches"]
+    spec_n = variants["spec"]["steps"][0]["launches"]
+    spec_roll = variants["spec"]["rollout"]
     fused_entries = []
     for kernel, key, line in (("fused_rmsnorm_qkv", "qkv", 117), ("fused_o_mlp", "o_mlp", 162)):
         for N in (10, 128):
@@ -1795,10 +2215,19 @@ def main() -> int:
         for t in (fused_attn["timed"][key],)]
     emit({"kernels": [
         entry("flash_fwd", flash_src, "vla_rft_tpu/ops/attention.py:108",
-              serving["main_path_launches"], flash["max_abs_err_o"], flash["timed"]["serving"]),
+              serving["main_path_launches"], flash["timed"]["serving"]["max_abs_err_o"],
+              flash["timed"]["serving"]),
         {**entry("flash_fwd@wm_prefill", flash_src, "vla_rft_tpu/ops/attention.py:108",
-                 wm_launches["flash_fwd"], flash["max_abs_err_o"], flash["timed"]["wm_prefill"]),
+                 wm_launches["flash_fwd"], flash["timed"]["wm_prefill"]["max_abs_err_o"],
+                 flash["timed"]["wm_prefill"]),
          "shape": "B=2 Sq=1088 Sk=1152 Hq=Hkv=16 D=64 causal"},
+        {**entry("flash_fwd@wm_logprob", flash_src, "vla_rft_tpu/ops/attention.py:108",
+                 logprob_n["flash_fwd"], flash["timed"]["wm_logprob"]["max_abs_err_o"],
+                 flash["timed"]["wm_logprob"]),
+         "shape": f"B={N_SAMPLES * N_ROLLOUTS} Sq=Sk={WM_SFT_LEN} Hq=Hkv=16 D=64 causal: "
+                  f"compute_log_prob's WM forward; launches: the grpo_variants wm_logprob step, "
+                  f"the Qwen encode's 24 (another shape) included",
+         "launches_at_this_shape": variants["wm_layers"]},
         entry("decode_shared_hd", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:226",
               wm_launches["decode_shared_hd"], decode["max_abs_err"]["shared"],
               decode["timed"]["shared"]),
@@ -1806,6 +2235,14 @@ def main() -> int:
                  0, decode["max_abs_err"]["shared"], decode["timed"]["shared_b128"]),
          "shape": f"B=128 Sq=1 Hq=Hkv=16 D=64 int8, 16 prefixes of {WM_PREFIX} (8 rows each) "
                   f"+ 291 own: the configured rows of a WM call; the main path runs B=10"},
+        {**entry("decode_shared_hd@spec5", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:226",
+                 spec_n["decode_shared_hd"], decode["timed"]["spec5"]["max_abs_err"],
+                 decode["timed"]["spec5"]),
+         "shape": f"B=10 Sq=5 Hq=Hkv=16 D=64 int8, 2 prefixes of {WM_PREFIX} + 287..296 own, "
+                  f"a different offset per row: the speculative rollout's verify call (k=4); "
+                  f"launches: the grpo_variants spec step (prompt tail and action calls "
+                  f"included)",
+         "launches_at_this_shape": variants["wm_layers"] * int(spec_roll["verify_calls"])},
         entry("decode_hd", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:272",
               plain["launches"]["decode_hd"], decode["max_abs_err"]["plain"],
               decode["timed"]["plain"]),

@@ -1069,3 +1069,72 @@ def test_decode_kernel_matches_twin_and_repeats_bit_for_bit(cuda_device, layout,
     ref = twin()
     torch.testing.assert_close(runs[0].float(), ref.float(), **DEC_TOL)
     assert bool((runs[0][1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["hd", "heads"])
+@pytest.mark.parametrize("Sq", [3, 5])
+def test_per_row_verify_call_kernels_match_the_plain_route(cuda_device, layout, Sq):
+    """One call of Sq tokens whose 8 rows stand at 8 different cache offsets
+    over a shared prefix (the speculative rollout's verify call), through
+    #4 ('hd') or #6 ('heads') vs through the twins, on a 2-layer WM-width
+    decoder with an int8 cache: logits within 2e-2 of max|logits|, as the
+    other cached-decoder test; layer 0's cache bit-equal (both routes
+    quantise the same k / v, computed from the embeddings, in the same
+    torch code); in both layers only the call's positions written; the
+    kernel launched once per layer, the twin never on the kernel route."""
+    cfg = TransformerConfig(vocab_size=512, hidden_size=1024, intermediate_size=1024,
+                            num_layers=2, num_heads=16, num_kv_heads=16, kv_cache_dtype="int8",
+                            kv_layout=layout)
+    with torch.device(cuda_device):
+        dec = init_random_(Decoder(cfg), seed=3)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    B, P0, T, warm = 8, 96, 7, 10
+    head = torch.randint(0, 512, (2, P0), generator=gen, device=cuda_device)
+    tail = torch.randint(0, 512, (B, T), generator=gen, device=cuda_device)
+    steps = torch.randint(0, 512, (B, warm), generator=gen, device=cuda_device)
+    chunk = torch.randint(0, 512, (B, Sq), generator=gen, device=cuda_device)
+    pm = torch.tensor([0] * 4 + [1] * 4, dtype=torch.int32, device=cuda_device)
+    ci = P0 + T + 2 + torch.arange(B, dtype=torch.int32, device=cuda_device)
+    count = (lambda: theads.shared_heads_launches) if layout == "heads" else (
+        lambda: tdec.shared_launches)
+    seq_axes = dec.cache_seq_axes()
+    res = {}
+    with torch.no_grad():
+        for impl in ("auto", "plain"):
+            dec.attn_impl = impl
+            shared = dec.init_cache(2, P0)
+            dec(head, cache=shared, cache_index=0, compute_logits=False)
+            kw = dict(shared_cache=shared, shared_len=P0, prefix_map=pm)
+            cache = dec.init_cache(B, T + warm + 16)
+            dec(tail, cache=cache, cache_index=P0, compute_logits=False, **kw)
+            for i in range(warm):
+                dec(steps[:, i:i + 1], cache=cache, cache_index=P0 + T + i, compute_logits=False,
+                    **kw)
+            before = [c.clone() for c in cache]
+            c0 = count()
+            logits = dec(chunk, cache=cache, cache_index=ci, kv_lens=ci + Sq, **kw)[0].float()
+            torch.cuda.synchronize()
+            changed = sum((a != b).movedim(ax, 2).flatten(3).any(-1).int()
+                          for a, b, ax in zip(cache, before, seq_axes)) > 0
+            res[impl] = (logits, cache, count() - c0, changed)
+    dec.attn_impl = "auto"
+    (k, kc, kn, kchg), (p, pc, pn, pchg) = res["auto"], res["plain"]
+    assert (kn, pn) == (cfg.num_layers, 0)
+    assert ((k - p).abs().max() / p.abs().max()).item() < 2e-2
+    for a, b in zip(kc, pc):
+        assert torch.equal(a[0], b[0])
+    # the own-cache positions the call writes; layer 0's k / v depend only on
+    # the token and its position, so they change where the token does
+    expect = torch.zeros_like(kchg[0])
+    new_token = torch.zeros_like(kchg[0])
+    before_ids = torch.cat([tail, steps], 1).cpu()
+    for b in range(B):
+        w0 = int(ci[b]) - P0
+        expect[b, w0:w0 + Sq] = True
+        for t in range(Sq):
+            new_token[b, w0 + t] = (w0 + t >= before_ids.shape[1]
+                                    or int(before_ids[b, w0 + t]) != int(chunk[b, t]))
+    for chg in (kchg, pchg):
+        assert not bool((chg & ~expect[None]).any())
+        assert bool(chg[0][new_token].all())

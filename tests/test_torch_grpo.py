@@ -562,10 +562,16 @@ def test_cli_refuses_what_is_not_ported_and_runs_without_a_card_only_on_request(
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main_vla_rft_grpo.run(["--preset=tiny", "trainer.total_training_steps=1"])
     for override, what in (("data.video.dataset_path=/data/libero", "RLDS"),
-                           ("algorithm.adv_estimator=remax", "remax"),
-                           ("trainer.use_ac_reward=true", "use_ac_reward"),
-                           ("trainer.reward_fn=wm_logprob", "wm_logprob"),
-                           ("trainer.val_before_train=true", "validation"),
                            ("world_model_rollout.model.path=/ckpt/wm", "not ported")):
         with pytest.raises(NotImplementedError, match=what):
             main_vla_rft_grpo.run(["--preset=tiny", "--device=cpu", override])
+    # a verify call of 1 + 8 tokens is longer than the decode kernels take
+    from vla_rft_tpu_torch.trainer.config_check import validate_config
+
+    spec = lambda k: vla_rft_default_config().apply_overrides(
+        [f"world_model_rollout.rollout.speculative_k={k}"])
+    assert [p for p in validate_config(spec(8)) if "speculative_k (8)" in p and "Sq <= 8" in p]
+    assert not [p for p in validate_config(spec(7)) if "speculative_k" in p]
+    with pytest.raises(ValueError, match="speculative_k"):
+        main_vla_rft_grpo.run(["--preset=tiny", "--device=cpu",
+                               "world_model_rollout.rollout.speculative_k=8"])

@@ -194,6 +194,7 @@ def wm_reward_configs(preset: str = "libero", config: WMRewardConfig = WMRewardC
         num_frames=num_frames, interact_max_tokens=config.interact_max_tokens,
         action_dim=config.action_dim, temperature=config.temperature, top_k=config.top_k,
         top_p=config.top_p, do_sample=config.do_sample, cache_segments=config.cache_segments,
+        speculative_k=config.speculative_k,
     )
     reward_cfg = RewardConfig(
         reward_fn=config.reward_fn, lpips_weight=config.lpips_weight,

@@ -39,13 +39,20 @@ is the rollout's decode call on that model: per layer kernel #8
 (RMSNorm + q/k/v + rope + k/v quantisation, writing the cache), the decode
 attention #4 / #5 and kernel #9 (o_proj + MLP) on the card.
 `decode_step_fused` takes the "hd" layout only, as the reference's does.
-Not ported: per-row cache offsets (speculative decode), Ulysses.
+Per-row cache offsets (a (B,) `cache_index`, the speculative rollout's
+verify calls): each row's positions and causal mask start at its own
+offset, and its S new k/v rows (int8 values and their scales, in either
+layout, in the own cache of a split cache) are scattered to its own
+positions, a start that would not fit clamped as the reference's
+dynamic_update_slice clamps it; the decode kernels take the per-row
+q_offset and kv_lens as they are.  `decode_step_fused` takes an int offset.
+Not ported: Ulysses.
 """
 from __future__ import annotations
 
 import dataclasses
 import numbers
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -240,7 +247,7 @@ class CacheArgs:
     """What one forward with a KV cache passes to every layer; the per-row
     values are (B,) int32 tensors on the model's device."""
     cache: Tuple[torch.Tensor, ...]
-    cache_index: int
+    cache_index: Union[int, torch.Tensor]  # an int, or (B,) per-row offsets
     kv_lens_eff: torch.Tensor  # min(kv_lens, cache_index + S)
     q_offset: torch.Tensor  # cache_index, per row
     kv_starts: torch.Tensor  # absolute start of the valid keys
@@ -281,12 +288,34 @@ class Attention(nn.Module):
         w0 = c.cache_index - (c.shared_len if c.shared_cache is not None else 0)
         heads = cfg.kv_layout == "heads"
         ops = dec_heads if heads else dec_attn
+        if isinstance(w0, torch.Tensor):
+            # per-row offsets: row b's S positions start at w0[b], clamped
+            # into the cache as the reference's dynamic_update_slice clamps
+            Sc = c.cache[0].shape[3 if heads else 2]
+            pos = (w0.long().clamp(0, Sc - S)[:, None]
+                   + torch.arange(S, device=k.device)[None])  # (B, S)
+            rows = torch.arange(B, device=k.device)[:, None]
+
+        def put(cache, x, seq_axis: int):
+            """x (B, S, ...) position-major into layer li of `cache`, whose
+            sequence axis (after the layer) is 1 ("hd" values) or 2 ("heads"
+            values, and the (B, Hkv, S) scales of both layouts)."""
+            c = cache[li]
+            if not isinstance(w0, torch.Tensor):
+                if seq_axis == 1:
+                    c[:, w0:w0 + S] = x
+                else:
+                    c[:, :, w0:w0 + S] = x.transpose(1, 2)
+            elif seq_axis == 1:
+                c[rows, pos] = x
+            else:  # the advanced indices around the slice put (B, S) first
+                c[rows, :, pos] = x
 
         def write(cache, x):  # (B, S, Hkv, D) into layer li at w0, in the layout
             if heads:
-                cache[li, :, :, w0:w0 + S] = x.transpose(1, 2)
+                put(cache, x, 2)
             else:
-                cache[li, :, w0:w0 + S] = x.reshape(B, S, nkv * hd)
+                put(cache, x.reshape(B, S, nkv * hd), 1)
 
         int8 = cfg.kv_cache_dtype == "int8"
         if int8:
@@ -295,8 +324,8 @@ class Attention(nn.Module):
             vq, vs = quantize_kv(v)
             write(ck, kq)
             write(cv, vq)
-            sk[li, :, :, w0:w0 + S] = ks.transpose(1, 2)
-            sv[li, :, :, w0:w0 + S] = vs.transpose(1, 2)
+            put(sk, ks, 2)
+            put(sv, vs, 2)
             scales = (sk[li], sv[li])
         else:
             ck, cv = c.cache
@@ -402,7 +431,7 @@ class Decoder(nn.Module):
         compute_logits: bool = True,
         embed_only: bool = False,
         cache: Optional[Tuple[torch.Tensor, ...]] = None,
-        cache_index: int = 0,
+        cache_index: Union[int, torch.Tensor] = 0,
         logits_last_only: bool = False,
         kv_starts=None,
         shared_cache: Optional[Tuple[torch.Tensor, ...]] = None,
@@ -413,7 +442,10 @@ class Decoder(nn.Module):
         """embed_only -> token embeddings (B, S, H); otherwise
         (logits (B, S or 1, V) f32 or None, hidden (B, S, H) after the final
         norm).  With `cache`, positions start at `cache_index` and kv_lens
-        defaults to cache_index + S."""
+        defaults to cache_index + S.  `cache_index` is an int, or a (B,)
+        tensor of per-row offsets (the speculative rollout's verify calls,
+        where rows advance at different rates): row b's positions, cache
+        writes and causal mask then start at cache_index[b]."""
         cfg = self.cfg
         if embed_only:
             return self.embed_tokens(input_ids)
@@ -421,19 +453,23 @@ class Decoder(nn.Module):
             inputs_embeds = self.embed_tokens(input_ids)
         B, S, _ = inputs_embeds.shape
         dev = inputs_embeds.device
-        off = cache_index if cache is not None else 0
-        positions = (torch.arange(S, dtype=torch.int32, device=dev) + off)[None].expand(B, S)
-
         rows = lambda x: _rows(x, B, dev)
+        off = cache_index if cache is not None else 0
+        if isinstance(off, torch.Tensor):  # per-row offsets (speculative verify calls)
+            off = rows(off)
+            positions = torch.arange(S, dtype=torch.int32, device=dev)[None] + off[:, None]
+        else:
+            positions = (torch.arange(S, dtype=torch.int32, device=dev) + off)[None].expand(B, S)
+
         kv_lens = rows(off + S if kv_lens is None else kv_lens)
         c = None
         if cache is not None:
             if not causal:
                 raise ValueError("a forward with a KV cache is causal")
             c = CacheArgs(
-                cache=cache, cache_index=cache_index,
-                kv_lens_eff=torch.clamp(kv_lens, max=cache_index + S),
-                q_offset=rows(cache_index), kv_starts=rows(0 if kv_starts is None else kv_starts),
+                cache=cache, cache_index=off,
+                kv_lens_eff=torch.minimum(kv_lens, rows(off + S)),
+                q_offset=rows(off), kv_starts=rows(0 if kv_starts is None else kv_starts),
                 shared_cache=shared_cache, shared_len=shared_len,
                 prefix_map=None if prefix_map is None else rows(prefix_map),
                 shared_starts=rows(0 if shared_starts is None else shared_starts),

@@ -5,7 +5,9 @@ top_p = 0.8, temperature 1, top_k off).  Top-p keeps the reference's
 sort-free bisection, so the filtered logits equal the reference's, ties at
 the boundary all kept.  Sampling draws Gumbel noise from an explicit
 `torch.Generator` (the reference's `jax.random.categorical` is Gumbel-max
-too; the bits differ, the distribution does not).
+too; the bits differ, the distribution does not).  `uniform` and
+`categorical` are the speculative rollout's acceptance draw and its draw
+from the residual logits, from the caller's generator too.
 """
 from __future__ import annotations
 
@@ -54,6 +56,16 @@ def sample_token(gen: torch.Generator, logits: torch.Tensor, temperature: float 
     ties)."""
     if not do_sample or temperature == 0:
         return logits.argmax(dim=-1).to(torch.int32)
-    fl = filtered_logits(logits, temperature, top_k, top_p)
-    u = torch.rand(fl.shape, generator=gen, device=fl.device).clamp_(min=1e-20)
-    return (fl - torch.log(-torch.log(u))).argmax(dim=-1).to(torch.int32)
+    return categorical(gen, filtered_logits(logits, temperature, top_k, top_p))
+
+
+def categorical(gen: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
+    """int32 draws (...) from softmax(logits) over the last axis, by
+    Gumbel-max (the reference's `jax.random.categorical`)."""
+    u = uniform(gen, logits.shape, logits.device).clamp_(min=1e-20)
+    return (logits.float() - torch.log(-torch.log(u))).argmax(dim=-1).to(torch.int32)
+
+
+def uniform(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """f32 draws in [0, 1) (the reference's `jax.random.uniform`)."""
+    return torch.rand(shape, generator=gen, device=device)

@@ -4,7 +4,24 @@ layout, checked before any model is built (an off-by-one in the layout
 silently destroys rewards)."""
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
+
+from vla_rft_tpu_torch.ops.decode_attention_hd import MAX_SQ
+
+# a verify call of the speculative WM rollout sends 1 + k tokens a row to the
+# decode kernel (#4 / #6), which takes at most MAX_SQ
+MAX_SPECULATIVE_K = MAX_SQ - 1
+
+
+def speculative_k_problem(config) -> Optional[str]:
+    """The problem with world_model_rollout.rollout.speculative_k, if any
+    (the trainer refuses it)."""
+    spec_k = int(config.world_model_rollout.rollout.get("speculative_k", 0) or 0)
+    if spec_k <= MAX_SPECULATIVE_K:
+        return None
+    return (f"world_model_rollout.rollout.speculative_k ({spec_k}) > {MAX_SPECULATIVE_K}: a "
+            f"verify call of 1 + k tokens exceeds the decode kernel's Sq <= {MAX_SQ} "
+            f"(ops/decode_attention_hd.py MAX_SQ)")
 
 
 def validate_config(config, n_devices: int = 1) -> List[str]:
@@ -38,6 +55,9 @@ def validate_config(config, n_devices: int = 1) -> List[str]:
     wm_roll = config.world_model_rollout.rollout
     if int(wm_roll.get("decode_block_b", 1) or 1) < 1:
         problems.append("world_model_rollout.rollout.decode_block_b must be >= 1")
+    spec = speculative_k_problem(config)
+    if spec:
+        problems.append(spec)
     # WM chunks are cut on group boundaries (n, or n + 1 with the gt row),
     # so a chunk must hold at least one group
     wm_mb = int(wm_roll.get("micro_batch_size", 0) or 0)

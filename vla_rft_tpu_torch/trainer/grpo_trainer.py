@@ -7,43 +7,59 @@ reference's `_sync` at a stage boundary is a device synchronize, so the
 
   encode_context  one frozen-VLM context forward per unique sample
   ac_rollout      sample_noisy_actions (after repeating each sample n times),
-                  the stochastic flow rollout with the sigma net
+                  the stochastic flow rollout with the sigma net; with ReMax
+                  also the deterministic Euler chain per unique sample (the
+                  greedy baseline, from its own noise)
   log_prob        the old log-probs of the chain (and the reference expert's
                   with use_kl_loss)
+  ac_reward       with trainer.use_ac_reward: the action-space reward (l1 /
+                  mse / huber), and no process / WM / adv stage
   process         tokenize each sample's frames once, the ctx_msp sequences
-                  of every rollout and the gt action tokens
+                  of every rollout (with ReMax each sample's baseline row
+                  after its n rollouts: groups of n + 1) and the gt action
+                  tokens
   wm_rollout      one shared-prefix WM rollout over each chunk of rollout
-                  groups: each sample's n policy rows, then its gt-action row
-                  (gt_branch_per_sample), its decode calls on the card
-                  through kernel #4 ('hd' KV cache, the default) or #6
+                  groups: each sample's n (n + 1 with ReMax) policy rows,
+                  then its gt-action row (gt_branch_per_sample; under
+                  speculation the gt rows follow all policy rows), its
+                  decode calls on the card through kernel #4 ('hd' KV
+                  cache, the default) or #6
                   (world_model_rollout.rollout.kv_layout=heads); with
                   weights_int8 the int8 WM, whose 'hd' decode calls run
-                  kernels #8, #4 and #9 (a 'heads' cache takes the
-                  unfused int8 route, as in the reference)
+                  kernels #8, #4 and #9 (a 'heads' cache and speculative
+                  decoding take the unfused int8 route, as in the
+                  reference; a verify call runs #4 / #6 at Sq = 1 + k).
+                  With trainer.reward_fn=wm_logprob this stage is one
+                  teacher-forced WM forward (kernel #1) that gives the
+                  reward, and there is no rollout
   adv             context features and gt frames decoded once per sample,
-                  the MSP reward (MAE + LPIPS) per reward chunk
-  (advantage)     GRPO over the n rollouts of each sample
+                  the MSP reward (MAE + LPIPS) per reward chunk; ReMax
+                  strips the baseline rows after it
+  (advantage)     GRPO over the n rollouts of each sample (or another
+                  algorithm.adv_estimator; ReMax against the baseline)
   update_actor    dual-clip PPO over mini-batches of micro-batches, per
                   module clipping, two-group AdamW, skip on non-finite
 
 The stage compositions of the reward path (`process_stage`, `wm_rows`,
 `wm_rollout_stage`, `reward_stage`) are module functions over a bundle, so
-a caller holding only the WM-side models can drive them too.
+a caller holding only the WM-side models can drive them too.  `validate()`
+runs the rollout, the WM and the reward on the val stream without an
+update; `fit` calls it with trainer.val_before_train (val_only stops there)
+and every trainer.test_freq steps.
 
 Random draws: each step's generators are seeded from (seed, step, stream)
 (the reference folds its key with the step, so a resumed run replays the
 same draws); the WM gets one generator per chunk, as the reference folds in
 the chunk index.  `training_step(..., pinned=...)` takes the noise dict,
-the flow rollout's Gaussian draws and the PPO order from a caller instead
-(a test hands it JAX's).  Not ported yet (they raise): REMAX advantages,
-the action-space reward (use_ac_reward), the wm_logprob reward,
-`validate()` and speculative WM decoding.
+the flow rollout's Gaussian draws, the ReMax baseline's start and the PPO
+order from a caller instead (a test hands it JAX's).  The trainer refuses a
+speculative_k above 7 (config_check).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,19 +72,24 @@ from vla_rft_tpu_torch.models.action_head import sample_noisy_actions
 from vla_rft_tpu_torch.models.factory import ModelBundle, build_models
 from vla_rft_tpu_torch.models.transformer import Decoder, quantize_decoder_params
 from vla_rft_tpu_torch.trainer import core_algos
-from vla_rft_tpu_torch.trainer.config_check import validate_config
+from vla_rft_tpu_torch.trainer.config_check import speculative_k_problem, validate_config
 from vla_rft_tpu_torch.trainer.metric_utils import compute_throughput_metrics
 from vla_rft_tpu_torch.trainer.optim import apply_updates_with_skip, make_optimizer
 from vla_rft_tpu_torch.utils.checkpoint import CheckpointManager, should_save
+from vla_rft_tpu_torch.utils.generations_logger import save_frame_grid
 from vla_rft_tpu_torch.utils.timers import timer, timing_metrics
 from vla_rft_tpu_torch.utils.tracking import Tracking, reduce_metrics
 from vla_rft_tpu_torch.workers import flow_actor
 from vla_rft_tpu_torch.workers.processor import (add_context_frame, ctx_msp_process,
-                                                 discretize_actions)
-from vla_rft_tpu_torch.workers.reward import detokenize_response_frames, msp_reward
+                                                 discretize_actions, split_response_tokens)
+from vla_rft_tpu_torch.workers.reward import (ac_reward, detokenize_response_frames, msp_reward,
+                                              wm_logprob_reward)
 from vla_rft_tpu_torch.workers.wm_rollout import generate_sequences
 
-STREAMS = {"noise": 0, "roll": 1, "wm": 2, "shuffle": 3}
+STREAMS = {"noise": 0, "roll": 1, "wm": 2, "shuffle": 3, "val": 4}
+# the chunk index of the ReMax baseline's noise generator on the "noise"
+# stream (the reference's fold_in(r_noise, 1_000_003))
+REMAX_BASELINE_CHUNK = 1_000_003
 
 
 def _sync(device: torch.device) -> None:
@@ -119,12 +140,14 @@ class WMRows:
 
 
 def wm_rows(b, wm_inputs: Dict[str, torch.Tensor], n_wm: int, use_gt_ac: bool,
-            gt_per_sample: bool) -> WMRows:
+            gt_per_sample: bool, interleave_gt: bool = True) -> WMRows:
     """The prompt head (everything before the first frame's action tokens)
     is shared by a sample's rows and prefilled once per sample.  With
-    gt_per_sample each sample's gt-action row rides right after its n
-    policy rows (groups of n + 1); with a gt row per rollout the gt rows
-    follow all policy rows."""
+    gt_per_sample each sample's gt-action row rides right after its n_wm
+    policy rows (groups of n_wm + 1), or with `interleave_gt` off (the
+    speculative rollout's layout in the reference) after all policy rows
+    (groups of n_wm); with a gt row per rollout the gt rows follow all
+    policy rows."""
     rc = b.roll_cfg
     prompt = wm_inputs["input_ids"][:, : rc.prompt_length]
     total = prompt.shape[0]
@@ -135,12 +158,15 @@ def wm_rows(b, wm_inputs: Dict[str, torch.Tensor], n_wm: int, use_gt_ac: bool,
     if gt_per_sample:
         B_u = total // n_wm
         gt_u = wm_inputs["gt_action_ids"][::n_wm]  # (B_u, T, A)
-        order = np.concatenate([np.concatenate([np.arange(s * n_wm, (s + 1) * n_wm),
-                                                [total + s]]) for s in range(B_u)])
+        if interleave_gt:
+            order = np.concatenate([np.concatenate([np.arange(s * n_wm, (s + 1) * n_wm),
+                                                    [total + s]]) for s in range(B_u)])
+        else:
+            order = np.arange(total + B_u)
         o = torch.as_tensor(order, device=dev)
         return WMRows(prompt[::n_wm, :p0], np.concatenate([pm, np.arange(B_u)])[order],
                       torch.cat([tails, gt_u[:, 0]])[o], torch.cat([actions, gt_u])[o],
-                      n_wm + 1, order, total)
+                      n_wm + 1 if interleave_gt else n_wm, order, total)
     if use_gt_ac:
         return WMRows(prompt[::n_wm, :p0], np.concatenate([pm, pm]), torch.cat([tails, tails]),
                       torch.cat([actions, wm_inputs["gt_action_ids"]]), n_wm,
@@ -149,10 +175,12 @@ def wm_rows(b, wm_inputs: Dict[str, torch.Tensor], n_wm: int, use_gt_ac: bool,
 
 
 def wm_rollout_stage(b, wm: Decoder, rows: WMRows, rows_per_call: int,
-                     chunk_generator: Callable[[int], torch.Generator]):
+                     chunk_generator: Callable[[int], torch.Generator],
+                     stats: Optional[dict] = None):
     """The WM rollout of `rows`, chunked on group boundaries into calls of
-    at most `rows_per_call` rows, call ci sampling from chunk_generator(ci).
-    Returns (responses of the policy rows, of the gt rows or None)."""
+    at most `rows_per_call` rows, call ci sampling from chunk_generator(ci);
+    `stats` sums every call's counts (generate_sequences).  Returns
+    (responses of the policy rows, of the gt rows or None)."""
     dev = rows.tails.device
     step_rows = max(rows.group, (rows_per_call // rows.group) * rows.group)
     outs = []
@@ -162,7 +190,7 @@ def wm_rollout_stage(b, wm: Decoder, rows: WMRows, rows_per_call: int,
         outs.append(generate_sequences(
             wm, chunk_generator(ci), rows.tails[sl], rows.actions[sl], b.roll_cfg,
             shared_prefix=rows.prefixes[torch.as_tensor(uniq, device=dev)],
-            prefix_map=torch.as_tensor(local, dtype=torch.int32, device=dev)))
+            prefix_map=torch.as_tensor(local, dtype=torch.int32, device=dev), stats=stats))
     both = torch.cat(outs, dim=0)[torch.as_tensor(np.argsort(rows.order), device=dev)]
     gt = both[rows.total:] if both.shape[0] > rows.total else None
     return both[:rows.total], gt
@@ -211,14 +239,17 @@ class VLARFTGRPOTrainer:
     def __init__(self, config: Config, preset: str = "libero", dataset=None,
                  action_ranges: Optional[np.ndarray] = None,
                  params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                 seed: Optional[int] = None, device="cuda"):
+                 seed: Optional[int] = None, device="cuda", val_dataset=None):
         """`params` maps some of vla / expert / wm / tokenizer / lpips to
         state dicts that replace the seeded random weights (a converted
-        checkpoint, or a test's)."""
+        checkpoint, or a test's).  `validate()` draws from `val_dataset`;
+        with neither dataset given it is a second synthetic stream on seed
+        trainer.seed + 99991 (held out: never trained on), and with only a
+        training dataset it is that one (val/on_train_stream = 1)."""
         self.config = config
         self.device = resolve_device(device)
         self._seed = seed if seed is not None else config.trainer.get("seed", 0)
-        _refuse_unported(config)
+        _refuse(config)
         self.bundle: ModelBundle = build_models(config, preset, device=self.device,
                                                 seed=self._seed)
         b = self.bundle
@@ -229,6 +260,11 @@ class VLARFTGRPOTrainer:
             action_chunk=b.expert_cfg.num_actions_chunk, action_dim=b.expert_cfg.action_dim,
             proprio_dim=b.vla_cfg.proprio_dim, num_images=b.vla_cfg.num_images,
             seed=config.trainer.get("seed", 0)))
+        if val_dataset is None and dataset is None:
+            val_dataset = SyntheticVLADataset(dataclasses.replace(
+                self.dataset.cfg, seed=config.trainer.get("seed", 0) + 99991))
+        self.val_dataset = val_dataset if val_dataset is not None else self.dataset
+        self._val_on_train_stream = val_dataset is None
         if action_ranges is None:
             path = config.processor.get("action_ranges_path", None)
             action_ranges = (load_action_ranges(path) if path
@@ -321,6 +357,19 @@ class VLARFTGRPOTrainer:
             return adv.repeat_interleave(reps, -1), ret.repeat_interleave(reps, -1)
         raise NotImplementedError(est)
 
+    def advantage_remax(self, token_level_rewards, reward_baselines):
+        """ReMax for the VLA loop (the reference's extension, grpo_trainer.py
+        :663-698): each row's score (its reward sum) at the last entry of the
+        (B, chunk * action_dim) grid, minus its sample's greedy baseline."""
+        b = self.bundle
+        chunk_dims = b.expert_cfg.num_actions_chunk * b.expert_cfg.action_dim
+        scores = token_level_rewards.float().sum(-1)
+        grid = torch.zeros((scores.shape[0], chunk_dims), dtype=torch.float32,
+                           device=scores.device)
+        grid[:, -1] = scores
+        return core_algos.compute_remax_outcome_advantage(grid, reward_baselines.float(),
+                                                          torch.ones_like(grid))
+
     def _update(self, stacked: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """One PPO mini-batch: gradients accumulated over its M micro-batches
         (each divided by M, in f32), then one clipped, guarded step."""
@@ -392,8 +441,10 @@ class VLARFTGRPOTrainer:
         device).  `step` seeds the step's generators.  `pinned` may hold
         "noise" (the sample_noisy_actions dict of the B*n rollout rows),
         "flow_eps" ((K, B*n, C, A) Gaussian draws of the flow rollout),
-        "rollout" (its result: predicted_actions and x_chain) and
-        "ppo_order" (the row order of the PPO epoch), replacing the draws."""
+        "rollout" (its result: predicted_actions and x_chain), with ReMax
+        "base_noise" ((B, C, A), the baseline chain's start) or
+        "base_actions" (its result), and "ppo_order" (the row order of the
+        PPO epoch), replacing the draws."""
         cfg, b, dev = self.config, self.bundle, self.device
         pinned = pinned or {}
         actor = cfg.actor_rollout_ref.actor
@@ -401,6 +452,7 @@ class VLARFTGRPOTrainer:
         roll = cfg.world_model_rollout.rollout
         use_gt_ac = bool(roll.w_gt_ac and cfg.processor.use_img_gt_ac)
         gt_per_sample = use_gt_ac and bool(roll.get("gt_branch_per_sample", True))
+        use_remax = cfg.algorithm.adv_estimator == "remax"
         expert = b.expert
         metrics: Dict[str, Any] = {}
         timing: Dict[str, float] = {}
@@ -426,6 +478,20 @@ class VLARFTGRPOTrainer:
                 out = pinned.get("rollout") or flow_actor.rollout_from_hidden(
                     expert, self._generator(step, "roll"), hidden, noise_dict["noise"],
                     proprio_rep, b.expert_cfg.num_flow_steps, eps=pinned.get("flow_eps"))
+                base_actions = None
+                if use_remax:
+                    # the greedy baseline: the deterministic Euler chain per
+                    # unique sample from its own noise
+                    base_actions = pinned.get("base_actions")
+                    if base_actions is None:
+                        base_noise = pinned.get("base_noise")
+                        if base_noise is None:
+                            base_noise = sample_noisy_actions(
+                                self._generator(step, "noise", REMAX_BASELINE_CHUNK),
+                                gt_actions, b.expert_cfg)["noise"]
+                        base_actions = flow_actor.rollout_from_hidden(
+                            expert, None, hidden_unique, base_noise, batch["proprio"],
+                            b.expert_cfg.num_flow_steps, deterministic=True)["predicted_actions"]
                 _sync(dev)
             actor_batch.update(out)
             actor_batch["gt_actions"] = gt_rep
@@ -441,30 +507,82 @@ class VLARFTGRPOTrainer:
                 _sync(dev)
             if next_batch_np is not None:
                 self._prefetched_batch = self.put_batch(next_batch_np)
-            # 4 --- tokenize
-            with timer("process", timing):
-                wm_inputs = process_stage(b, self.action_ranges, batch["raw_pixel_values"],
-                                          actor_batch["predicted_actions"], gt_actions, n,
-                                          use_gt_ac)
-                _sync(dev)
-            # 5 --- WM rollout (+ the gt branch), chunked on group boundaries
-            with timer("wm_rollout", timing):
-                rows = wm_rows(b, wm_inputs, n, use_gt_ac, gt_per_sample)
-                responses, gt_responses = wm_rollout_stage(
-                    b, self._wm_gen_model(), rows,
-                    int(roll.get("micro_batch_size", 16) or 16),
-                    lambda ci: self._generator(step, "wm", ci))
-                _sync(dev)
-            # 6 --- reward per chunk of tokenizer_micro_batch_size rows
-            with timer("adv", timing):
-                rw = int(cfg.processor.get("tokenizer_micro_batch_size", 8) or 8)
-                token_level_rewards, r_metrics = reward_stage(
-                    b, wm_inputs, responses, gt_responses, n, use_gt_ac, gt_per_sample, rw)
-                _sync(dev)
-                metrics.update(r_metrics)
+            baseline_scores = None  # ReMax: the greedy baseline's score per sample (B,)
+            if cfg.trainer.use_ac_reward:
+                # the action-space reward: no tokenizer or WM stage
+                with timer("ac_reward", timing):
+                    token_level_rewards, r_metrics = ac_reward(
+                        gt_rep, actor_batch["predicted_actions"], cfg.trainer.ac_reward_type)
+                    metrics.update({k: float(v) for k, v in r_metrics.items()})
+                    if use_remax:
+                        base_rt, _ = ac_reward(gt_actions, base_actions,
+                                               cfg.trainer.ac_reward_type)
+                        baseline_scores = base_rt.float().sum(-1)
+            else:
+                # ReMax: each sample's greedy baseline row rides after its n
+                # rollouts (groups of n + 1) through every reward path and is
+                # stripped after the reward
+                n_wm = n + 1 if use_remax else n
+                pa = actor_batch["predicted_actions"]
+                wm_actions = (torch.cat([pa.reshape(B, n, *pa.shape[1:]),
+                                         base_actions[:, None].to(pa.dtype)], dim=1)
+                              .reshape(B * n_wm, *pa.shape[1:]) if use_remax else pa)
+                # 4 --- tokenize
+                with timer("process", timing):
+                    wm_inputs = process_stage(b, self.action_ranges, batch["raw_pixel_values"],
+                                              wm_actions, gt_actions, n_wm, use_gt_ac)
+                    _sync(dev)
+                if cfg.trainer.reward_fn == "wm_logprob":
+                    # one teacher-forced WM forward over the recorded future
+                    # replaces the rollout and the detokenise / LPIPS reward
+                    with timer("wm_rollout", timing):
+                        token_level_rewards, r_metrics = wm_logprob_reward(
+                            b.wm, b.proc_cfg, b.reward_cfg, wm_inputs["input_ids"],
+                            b.roll_cfg.prompt_length)
+                        _sync(dev)
+                    with timer("adv", timing):
+                        metrics.update({k: float(v) for k, v in r_metrics.items()})
+                        # the msp path's metric families, for one schema
+                        metrics.setdefault("critic/recon_loss/mean", 0.0)
+                        metrics.setdefault("critic/perceptual_loss/mean", 0.0)
+                else:
+                    # 5 --- WM rollout (+ the gt branch), chunked on group boundaries
+                    with timer("wm_rollout", timing):
+                        rows = wm_rows(b, wm_inputs, n_wm, use_gt_ac, gt_per_sample,
+                                       interleave_gt=b.roll_cfg.speculative_k == 0)
+                        wm_stats = {}
+                        responses, gt_responses = wm_rollout_stage(
+                            b, self._wm_gen_model(), rows,
+                            int(roll.get("micro_batch_size", 16) or 16),
+                            lambda ci: self._generator(step, "wm", ci), stats=wm_stats)
+                        _sync(dev)
+                    metrics["wm_rollout/rows"] = float(wm_stats["rows"])
+                    metrics["wm_rollout/calls"] = float(wm_stats["calls"])
+                    if b.roll_cfg.speculative_k:
+                        metrics.update({f"wm_rollout/{k}": float(wm_stats[k])
+                                        for k in ("verify_calls", "proposed", "accepted")})
+                        metrics["wm_rollout/acceptance_rate"] = (
+                            wm_stats["accepted"] / max(wm_stats["proposed"], 1))
+                    # 6 --- reward per chunk of tokenizer_micro_batch_size rows
+                    with timer("adv", timing):
+                        rw = int(cfg.processor.get("tokenizer_micro_batch_size", 8) or 8)
+                        token_level_rewards, r_metrics = reward_stage(
+                            b, wm_inputs, responses, gt_responses, n_wm, use_gt_ac,
+                            gt_per_sample, rw)
+                        _sync(dev)
+                        metrics.update(r_metrics)
+                if use_remax:  # strip the baseline rows back out
+                    tl = token_level_rewards.reshape(B, n + 1, -1)
+                    baseline_scores = tl[:, -1].float().sum(-1)
+                    token_level_rewards = tl[:, :-1].reshape(B * n, -1)
             # 7 --- advantage over the groups of n rollouts
-            group_ids = torch.arange(B, device=dev).repeat_interleave(n)
-            advantages, returns = self.advantage(token_level_rewards, group_ids, B)
+            if use_remax:
+                advantages, returns = self.advantage_remax(
+                    token_level_rewards, baseline_scores.repeat_interleave(n))
+                metrics["critic/reward_baseline/mean"] = float(baseline_scores.mean())
+            else:
+                group_ids = torch.arange(B, device=dev).repeat_interleave(n)
+                advantages, returns = self.advantage(token_level_rewards, group_ids, B)
             actor_batch["advantages"] = advantages
             # 8 --- PPO update
             with timer("update_actor", timing):
@@ -514,14 +632,22 @@ class VLARFTGRPOTrainer:
     def fit(self, logger: Optional[Tracking] = None,
             on_step_start: Optional[Callable[[int], None]] = None,
             on_step_end: Optional[Callable[[int, Dict[str, float]], None]] = None):
-        """Resume (resume_mode auto), then train to total_training_steps,
-        logging each step and saving on the configured cadence.
-        `on_step_start(step)` / `on_step_end(step, metrics)` bracket each
-        training_step (a caller reading clocks or counters)."""
+        """Resume (resume_mode auto), validate first with val_before_train
+        (and stop there with val_only), then train to total_training_steps,
+        logging each step, validating every test_freq steps and saving on
+        the configured cadence.  `on_step_start(step)` / `on_step_end(step,
+        metrics)` bracket each training_step (a caller reading clocks or
+        counters; validation runs outside them)."""
         cfg = self.config
         logger = logger or Tracking(cfg.trainer.project_name, cfg.trainer.experiment_name,
                                     cfg.trainer.logger)
         self._load_checkpoint()
+        if cfg.trainer.get("val_before_train", False):
+            logger.log(self.validate(), self.global_steps)
+            if cfg.trainer.get("val_only", False):
+                logger.finish()
+                return
+        test_freq = cfg.trainer.get("test_freq", -1)
         self.global_steps += 1
         batch = self.dataset.next_batch()
         self._prefetched_batch = None
@@ -537,6 +663,8 @@ class VLARFTGRPOTrainer:
             if on_step_end is not None:
                 on_step_end(self.global_steps, metrics)
             batch = self._prefetched_batch if nxt is not None else None
+            if test_freq > 0 and self.global_steps % test_freq == 0:
+                metrics.update(self.validate())
             logger.log(metrics, self.global_steps)
             if should_save(self.global_steps, self.total_training_steps, cfg.trainer.save_freq,
                            cfg.trainer.save_last_freq, cfg.trainer.save_last_num):
@@ -564,22 +692,80 @@ class VLARFTGRPOTrainer:
         self.global_steps = int(state["step"])
         self.dataset.load_state_dict({k: int(v) for k, v in state["dataloader"].items()})
 
-    def validate(self, *args, **kwargs):
-        raise NotImplementedError("validate() is not ported yet")
+    # -------------------------------------------------------------- validate
+    @torch.no_grad()
+    def validate(self, pinned: Optional[Sequence[Dict[str, Any]]] = None) -> Dict[str, float]:
+        """The reference's validate (grpo_trainer.py:1066-1162): val_iters
+        batches of the val stream through the flow rollout, one WM rollout
+        of all rows (and one of the gt-action rows with use_gt_ac) and the
+        MSP reward, no update; the first batch's predicted and real frames
+        of row 0 go to trainer.img_save_dir as a PNG grid.  Returns val/*
+        metrics averaged over the batches.  `pinned[i]` may hold "noise"
+        and "rollout" for batch i, as training_step's does."""
+        cfg, b = self.config, self.bundle
+        n = cfg.actor_rollout_ref.rollout.n
+        roll = cfg.world_model_rollout.rollout
+        use_gt_ac = bool(roll.w_gt_ac and cfg.processor.use_img_gt_ac)
+        pc, rc = b.proc_cfg, b.roll_cfg
+        scores, losses = [], {}
+        for it in range(cfg.trainer.val_iters):
+            p = pinned[it] if pinned else {}
+            gen = lambda k: self._generator(0, "val", 4 * it + k)
+            batch = self.put_batch(self.val_dataset.next_batch())
+            hidden = self.encode(batch).repeat_interleave(n, 0)
+            gt_rep = batch["actions"].repeat_interleave(n, 0)
+            noise = p.get("noise")
+            if noise is None:
+                noise = sample_noisy_actions(gen(0), gt_rep, b.expert_cfg)["noise"]
+            out = p.get("rollout") or flow_actor.rollout_from_hidden(
+                b.expert, gen(1), hidden, noise, batch["proprio"].repeat_interleave(n, 0),
+                b.expert_cfg.num_flow_steps)
+            wm_inputs = process_stage(b, self.action_ranges, batch["raw_pixel_values"],
+                                      out["predicted_actions"], batch["actions"], n, use_gt_ac)
+            prompt = wm_inputs["input_ids"][:, :rc.prompt_length]
+            p0 = rc.prompt_length - pc.action_dim
+            pm = torch.arange(prompt.shape[0] // n, dtype=torch.int32,
+                              device=self.device).repeat_interleave(n)
+            wm = self._wm_gen_model()
+            rollout = lambda actions, g: generate_sequences(
+                wm, g, prompt[:, p0:], actions, rc, shared_prefix=prompt[::n, :p0],
+                prefix_map=pm)
+            responses = rollout(wm_inputs["action_ids"], gen(2))
+            gt_responses = rollout(wm_inputs["gt_action_ids"], gen(3)) if use_gt_ac else None
+            real = (None if use_gt_ac
+                    else wm_inputs["pixels_w_ctx_unique"][:, 2:].repeat_interleave(n, 0))
+            reward, r_metrics = msp_reward(b.tokenizer, b.lpips, pc, b.reward_cfg, responses,
+                                           wm_inputs["ctx_tokens"], real_frames=real,
+                                           gt_responses=gt_responses)
+            scores += reward.float().sum(-1).tolist()
+            for k, v in r_metrics.items():
+                losses.setdefault(k, []).append(float(v))
+            img_dir = cfg.trainer.get("img_save_dir", None)
+            if img_dir and it == 0:
+                self._save_val_frames(img_dir, wm_inputs["ctx_tokens"][:1], responses,
+                                      gt_responses, real, float(reward[0].sum()))
+        return {"val/reward": float(np.mean(scores)),
+                "val/on_train_stream": float(self._val_on_train_stream),
+                **{f"val/{k}": float(np.mean(v)) for k, v in losses.items()}}
+
+    def _save_val_frames(self, img_dir, ctx_tokens, responses, gt_responses, real,
+                         reward: float) -> str:
+        """Row 0's predicted frames against its real ones (the gt rollout's
+        frames with use_gt_ac), as one PNG grid."""
+        b = self.bundle
+        pc, Fn = b.proc_cfg, b.reward_cfg.num_frames
+        ctx_raw = ctx_tokens - pc.visual_token_num
+        frames = lambda resp: b.tokenizer.detokenize(
+            ctx_raw, split_response_tokens(pc, resp[:1], Fn)).float()[0, 1:].cpu().numpy()
+        real_px = (frames(gt_responses) if gt_responses is not None
+                   else real[0].float().cpu().numpy())
+        return save_frame_grid(real_px, frames(responses),
+                               f"{img_dir}/{self.global_steps}_val_frames.png", reward=reward)
 
 
-NOT_PORTED = {
-    "algorithm.adv_estimator=remax": lambda c: c.algorithm.adv_estimator == "remax",
-    "trainer.use_ac_reward": lambda c: bool(c.trainer.use_ac_reward),
-    "trainer.reward_fn=wm_logprob": lambda c: c.trainer.reward_fn == "wm_logprob",
-    "validation (trainer.val_before_train / test_freq)": lambda c: bool(
-        c.trainer.get("val_before_train", False)) or c.trainer.get("test_freq", -1) > 0,
-    "world_model_rollout.rollout.speculative_k > 0": lambda c: int(
-        c.world_model_rollout.rollout.get("speculative_k", 0) or 0) > 0,
-}
-
-
-def _refuse_unported(config: Config) -> None:
-    for what, hit in NOT_PORTED.items():
-        if hit(config):
-            raise NotImplementedError(f"{what} is not ported yet")
+def _refuse(config: Config) -> None:
+    """What the port does not run: a verify call longer than the decode
+    kernels take (the reference only warns and falls back to its XLA path)."""
+    problem = speculative_k_problem(config)
+    if problem:
+        raise ValueError(problem)

@@ -8,8 +8,15 @@ Usage (the reference's dotted overrides and defaults):
       [world_model_rollout.rollout.kv_layout=hd|heads] [--preset=libero|tiny] [--device=cpu]
 
 The device defaults to the card; `--device=cpu` runs the plain PyTorch path.
-Data comes from `data/synthetic.py`; a non-empty data.video.dataset_path
-(RLDS) is not ported yet and raises, as do configured checkpoint paths
+Every algorithm setting of the reference's trainer runs:
+algorithm.adv_estimator (grpo, rloo, reinforce_plus_plus[_baseline],
+remax), trainer.use_ac_reward, trainer.reward_fn (mae, mse, wm_logprob),
+world_model_rollout.rollout.speculative_k (0..7), and validation
+(trainer.val_before_train, trainer.val_only, trainer.test_freq,
+trainer.val_iters, trainer.img_save_dir for the frame grids).
+Data comes from `data/synthetic.py` (validation from a held-out synthetic
+stream); a non-empty data.video.dataset_path (RLDS) is not ported yet and
+raises, as do configured checkpoint paths
 (actor_rollout_ref.model.ckpt_path, world_model_rollout.model.path,
 processor.tokenizer.path, processor.lpips_path): weights are seeded random
 (trainer.seed), as the reference's without converted checkpoints.

@@ -1,8 +1,8 @@
 """Training metric families (port of the step-metric part of
 vla_rft_tpu/trainer/metric_utils.py, verl's metric_utils): reward /
 advantage / return statistics and throughput.  The validation metrics
-(bootstrap best-of-n, majority vote) belong to `validate()`, which is not
-ported yet."""
+(bootstrap best-of-n, majority vote) have no caller in the GRPO trainer;
+they come with the PPO trainer that calls them."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -53,3 +53,4 @@ def compute_throughput_metrics(timing: Dict[str, float], num_sequences: int, num
         out["perf/wm_frames_per_sec_per_chip"] = (
             num_sequences * num_frames / timing["wm_rollout"] / n_devices)
     return out
+

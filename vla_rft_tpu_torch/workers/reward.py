@@ -1,11 +1,16 @@
-"""MSP reward: decode WM responses to frames and score them against real frames.
+"""Rewards of the GRPO step: the MSP reward, the WM log-prob reward and the
+action-space reward.
 
-Port of the msp part of vla_rft_tpu/workers/reward.py: split each response
+Port of vla_rft_tpu/workers/reward.py.  `msp_reward`: split each response
 into per-frame visual tokens, FSQ-decode them with the compressive
 tokenizer (the context decode's features computed once per unique sample
 and gathered per row), per-frame reconstruction loss (mae or mse) plus
 LPIPS, weighted, aggregated over frames (mean, last or discounted), and the
-negated loss written at the last response token.
+negated loss written at the last response token.  `wm_logprob_reward`: the
+teacher-forced WM log-likelihood of the recorded future under the policy's
+action tokens, one WM forward (`wm_rollout.compute_log_prob`) instead of a
+decode loop.  `ac_reward`: the element-wise negative l1 / mse / huber loss
+between predicted and recorded actions.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 from vla_rft_tpu_torch.models.lpips import LPIPS
 from vla_rft_tpu_torch.models.tokenizers import CompressiveVQModelFSQ
 from vla_rft_tpu_torch.workers.processor import ProcessorConfig, split_response_tokens
+from vla_rft_tpu_torch.workers.wm_rollout import compute_log_prob
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +87,8 @@ def msp_reward(tokenizer: CompressiveVQModelFSQ, lpips: LPIPS, proc_cfg: Process
                ctx_tokens: Optional[torch.Tensor] = None,
                real_frames: Optional[torch.Tensor] = None,
                gt_responses: Optional[torch.Tensor] = None, ctx_feats=None,
-               ctx_map: Optional[torch.Tensor] = None
+               ctx_map: Optional[torch.Tensor] = None, gt_map: Optional[torch.Tensor] = None,
+               gt_feat_idx: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (reward (B, response_length) f32, metrics).
 
@@ -90,7 +97,9 @@ def msp_reward(tokenizer: CompressiveVQModelFSQ, lpips: LPIPS, proc_cfg: Process
     skipped (features of unique samples, gathered per row); otherwise
     `ctx_tokens` (B, 1, Nc, offset) are decoded in full.  The real frames
     are `real_frames`, or the decode of `gt_responses` (one decoder call
-    for both branches)."""
+    for both branches).  With `gt_map`, `gt_responses` holds U unique gt
+    rollouts, decoded with the context rows `gt_feat_idx` (U,) (default:
+    the rows' own), and row i is scored against decoded gt row gt_map[i]."""
     Fn = reward_cfg.num_frames
     vis = split_response_tokens(proc_cfg, responses, Fn)
     B = vis.shape[0]
@@ -105,8 +114,11 @@ def msp_reward(tokenizer: CompressiveVQModelFSQ, lpips: LPIPS, proc_cfg: Process
 
     if gt_responses is not None:
         gt_vis = split_response_tokens(proc_cfg, gt_responses, Fn)
-        both = detok(torch.cat([vis, gt_vis]), torch.cat([row_map, row_map])).clamp(0.0, 1.0)
+        gfm = gt_feat_idx.long() if gt_feat_idx is not None else row_map
+        both = detok(torch.cat([vis, gt_vis]), torch.cat([row_map, gfm])).clamp(0.0, 1.0)
         pred, real = both[:B], both[B:]
+        if gt_map is not None:
+            real = real[gt_map.long()]
     else:
         if real_frames is None:
             raise ValueError("msp_reward needs real_frames or gt_responses")
@@ -119,3 +131,49 @@ def msp_reward(tokenizer: CompressiveVQModelFSQ, lpips: LPIPS, proc_cfg: Process
     reward[:, -1] = -loss.float()
     return reward, {"critic/recon_loss/mean": recon.float().mean(),
                     "critic/perceptual_loss/mean": perc.float().mean()}
+
+
+@torch.no_grad()
+def wm_logprob_reward(wm, proc_cfg: ProcessorConfig, reward_cfg: RewardConfig,
+                      input_ids: torch.Tensor, prompt_length: int, temperature: float = 1.0
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's extension reward (reward.py:183-227): the mean
+    log-prob of each frame's dyn tokens in the teacher-forced WM forward
+    over `input_ids` (B, prompt + response), the recorded frames' tokens
+    interleaved with the policy's action tokens (ctx_msp_process's layout),
+    aggregated over frames as the msp reward's loss is, at the last
+    response token.  Returns (reward (B, response_length) f32, metrics)."""
+    resp_len = input_ids.shape[1] - prompt_length
+    lp = compute_log_prob(wm, input_ids, resp_len, temperature)
+    Fn, tpf = reward_cfg.num_frames, proc_cfg.tokens_per_frame
+    per_frame = tpf + proc_cfg.action_dim
+    if resp_len != Fn * per_frame:
+        raise ValueError(f"response length {resp_len} != {Fn} frames x {per_frame}")
+    # the dyn tokens only: the action tokens are the policy's own inputs
+    frame_ll = lp.reshape(lp.shape[0], Fn, per_frame)[:, :, :tpf].mean(dim=-1)  # (B, F)
+    agg = aggregate_msp(-frame_ll, reward_cfg)
+    reward = torch.zeros((input_ids.shape[0], resp_len), dtype=torch.float32,
+                         device=input_ids.device)
+    reward[:, -1] = -agg
+    return reward, {"critic/wm_dyn_logprob/mean": frame_ll.mean()}
+
+
+def ac_reward(gt_actions: torch.Tensor, predicted_actions: torch.Tensor,
+              reward_type: str = "l1", huber_delta: float = 1.0
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The action-space reward (reference reward.py:230-253): the negative
+    element-wise l1 / mse / huber loss of (B, C, A) predicted vs recorded
+    actions in f32, (B, C * A), and the loss's mean."""
+    B = gt_actions.shape[0]
+    diff = predicted_actions.reshape(B, -1).float() - gt_actions.reshape(B, -1).float()
+    absd = diff.abs()
+    if reward_type == "l1":
+        loss = absd
+    elif reward_type == "mse":
+        loss = diff ** 2
+    elif reward_type == "huber":
+        loss = torch.where(absd <= huber_delta, 0.5 * diff ** 2,
+                           huber_delta * (absd - 0.5 * huber_delta))
+    else:
+        raise ValueError(reward_type)
+    return -loss, {f"critic/{reward_type}_loss/mean": loss.mean()}

@@ -1,7 +1,7 @@
 """World-model interactive rollout: eager decode with a growing KV cache.
 
-Port of vla_rft_tpu/workers/wm_rollout.py (`generate_sequences` without the
-speculative path).  The reference
+Port of vla_rft_tpu/workers/wm_rollout.py (`generate_sequences` and
+`compute_log_prob`).  The reference
 compiles the loop with `lax.scan`; here it is a Python loop over frames and
 tokens: per frame `interact_max_tokens` sampled visual tokens, each fed back
 as a one-token decode call, then the policy's `action_dim` action tokens
@@ -22,10 +22,25 @@ clamp (`prefix_run`) is not needed: the CUDA kernel reads prefix_map per row.
 With an int8-weight WM (`weights_int8`), an int8 KV cache in the 'hd'
 layout and no qkv bias, every decode call on the card goes through
 `decode_step_fused` (kernels #8, #4 or #5, and #9 per layer); on the CPU,
-and with the 'heads' layout anywhere, the calls take the unfused int8
-route (`Decoder.forward` with `QuantLinear`), as the reference's do
-(vla_rft_tpu/workers/wm_rollout.py:198-206).  The prompt prefill always takes the unfused route (kernel #1 for
-attention).
+with the 'heads' layout anywhere, with `fused_layers` off and under
+speculation, the calls take the unfused int8 route (`Decoder.forward` with
+`QuantLinear`), as the reference's do
+(vla_rft_tpu/workers/wm_rollout.py:198-206).  The prompt prefill always
+takes the unfused route (kernel #1 for attention).
+
+With `speculative_k = k > 0` a frame is decoded by verify calls (reference
+:219-319): each row's drafts are the same frame positions' tokens of the
+previous frame (the prompt's dyn_0 tokens for the first frame), and one
+call sends `[pending, k drafts]` (1 + k tokens, kernel #4 / #6 at Sq = 1 +
+k) at the row's own cache offset: rows accept different numbers of drafts
+and advance at different rates.  Drafts are accepted by exact rejection
+sampling (greedy: a draft is accepted when it is the argmax), the token
+after the accepted run is drawn from the residual with the rejected draft
+masked out, so the decode distribution is unchanged, and greedy tokens are
+plain decode's up to the rounding of a (1 + k)-token call against a
+one-token one (bit-equal in f32 on the CPU).  The host loops while some row has visual tokens left; rows
+that are done ride through the verify call and keep their state.  The
+frame ends with one action call `[pending, actions]` of 1 + A tokens.
 Each call samples from the one `torch.Generator` it is given; the trainer
 passes one per WM chunk.
 """
@@ -38,7 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from vla_rft_tpu_torch.models.transformer import Decoder, TransformerConfig, decode_step_fused
-from vla_rft_tpu_torch.ops.sampling import sample_token
+from vla_rft_tpu_torch.ops.masked import logprobs_from_logits
+from vla_rft_tpu_torch.ops.sampling import categorical, filtered_logits, sample_token, uniform
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +73,12 @@ class WMRolloutConfig:
     # the frame loop runs in this many segments, each with a cache sized to
     # its largest valid length (1 = one full-size cache)
     cache_segments: int = 4
+    # decode calls of an int8-weight WM through the fused layer kernels where
+    # `fused_route` allows them; False keeps every call on the module route
+    fused_layers: bool = True
+    # speculative decoding's draft length (0 = off); at most 7, so that a
+    # verify call of 1 + k tokens fits the decode kernel's Sq <= 8
+    speculative_k: int = 0
 
     @property
     def tokens_per_frame(self) -> int:
@@ -83,10 +105,14 @@ def grow_cache(cache: Tuple[torch.Tensor, ...], new_len: int, align: int,
     return tuple(out)
 
 
-def fused_route(cfg: TransformerConfig, on_cuda: bool) -> bool:
+def fused_route(cfg: TransformerConfig, on_cuda: bool,
+                roll: Optional[WMRolloutConfig] = None) -> bool:
     """Whether a rollout's decode calls go through `decode_step_fused`: an
     int8-weight WM with an int8 KV cache in the 'hd' layout and no qkv
-    bias, on the card (the reference's guard, wm_rollout.py:198-206)."""
+    bias, on the card, and given the rollout's config, `fused_layers` on and
+    no speculation (the reference's guard, wm_rollout.py:198-206)."""
+    if roll is not None and (not roll.fused_layers or roll.speculative_k > 0):
+        return False
     return bool(cfg.weights_int8 and cfg.kv_cache_dtype == "int8" and cfg.kv_layout == "hd"
                 and not cfg.qkv_bias and on_cuda)
 
@@ -111,10 +137,15 @@ def generate_sequences(
     cfg: WMRolloutConfig,
     shared_prefix: Optional[torch.Tensor] = None,  # (B_u, P0) unique prompt heads
     prefix_map=None,  # (B,) row -> unique prefix
+    stats: Optional[dict] = None,
 ) -> torch.Tensor:
     """Response tokens (B, num_frames * (V + A)), int32 as the reference
     returns them: per frame V sampled visual tokens then the A action tokens
-    of frame f + 1."""
+    of frame f + 1.  A `stats` dict gets this call's counts added to its
+    own: "rows", "calls" (every cached WM call after the shared prefix's
+    prefill: the prompt tail's, the decode calls, the verify calls and the
+    action calls), and under speculation "verify_calls", "proposed" and
+    "accepted" (drafts, summed over rows)."""
     B = action_ids.shape[0]
     dev = input_ids.device
     P0 = 0 if shared_prefix is None else shared_prefix.shape[1]
@@ -138,11 +169,13 @@ def generate_sequences(
         cache = wm.init_cache(B, P + bounds[0] * (V + A))
         logits, _ = wm(input_ids, cache=cache, cache_index=0, logits_last_only=True)
     last = logits[:, -1]
+    counts = {"rows": B, "calls": 1, "verify_calls": 0, "proposed": 0, "accepted": 0}
 
-    use_fused = fused_route(wm.cfg, input_ids.is_cuda)
+    use_fused = fused_route(wm.cfg, input_ids.is_cuda, cfg)
 
     def step(toks, ci, **kw):
         """One decode call: the fused kernels when eligible, else the module."""
+        counts["calls"] += 1
         if use_fused:
             return decode_step_fused(wm, toks, cache, ci, **shared_kw, **kw)
         return wm(toks, cache=cache, cache_index=ci, **shared_kw, **kw)
@@ -150,19 +183,104 @@ def generate_sequences(
     align = 128 if wm.cfg.kv_cache_dtype == "int8" else 8
     sample = lambda lg: sample_token(gen, lg, cfg.temperature, cfg.top_k, cfg.top_p,
                                      cfg.do_sample)
+    spec_k = int(cfg.speculative_k)
+    sampled = cfg.do_sample and cfg.temperature != 0
+
+    def spec_frame(last, draft_prev, base):
+        """The frame's V visual tokens by verify calls (reference :238-311).
+        Per row, `j` counts the tokens decided this frame (`pending`
+        included) and `pending` is the token at frame position j - 1 whose
+        k/v is not in the cache yet; position V - 1 is always a sampled
+        token (drafts are capped at V - 1 - j), so the action call can
+        prepend `pending` in every row."""
+        c = 1 + spec_k
+        pending = sample(last)
+        j = torch.ones(B, dtype=torch.long, device=dev)
+        buf = torch.zeros(B, V, dtype=torch.int32, device=dev)
+        buf[:, 0] = pending
+        ar_k = torch.arange(spec_k, device=dev)[None]
+        pos = torch.arange(V, device=dev)[None]
+        rows = torch.arange(B, device=dev)
+        while bool((j < V).any()):
+            done = j >= V
+            drafts = torch.gather(draft_prev, 1, (j[:, None] + ar_k).clamp(0, V - 1))  # (B, k)
+            pos0 = base + j - 1  # pending's absolute position, per row
+            counts["calls"] += 1
+            counts["verify_calls"] += 1
+            logits, _ = wm(torch.cat([pending[:, None], drafts], dim=1), cache=cache,
+                           cache_index=pos0, kv_lens=pos0 + c, **shared_kw)  # (B, c, vocab)
+            if sampled:
+                fl = filtered_logits(logits, cfg.temperature, cfg.top_k, cfg.top_p)
+                probs = torch.softmax(fl[:, :spec_k], dim=-1)
+                pd = torch.gather(probs, -1, drafts[..., None].long())[..., 0]
+                ok = uniform(gen, pd.shape, dev) < pd
+            else:
+                fl = logits.float()
+                ok = drafts == fl[:, :spec_k].argmax(dim=-1)
+            # drafts are proposed only for frame positions < V - 1
+            k_eff = (V - 1 - j).clamp(0, spec_k)
+            proposed = ar_k < k_eff[:, None]
+            n_acc = torch.cumprod((ok & proposed).to(torch.int32), dim=1).sum(dim=1)
+            counts["proposed"] += int(k_eff[~done].sum())
+            counts["accepted"] += int(n_acc[~done].sum())
+            l_acc = fl[rows, n_acc]  # the logits after the accepted run
+            d_acc = drafts[rows, n_acc.clamp(max=spec_k - 1)]
+            rejected = n_acc < k_eff  # stopped by a rejection, not by the cap
+            vocab = torch.arange(l_acc.shape[-1], device=dev)[None]
+            resid = torch.where(rejected[:, None] & (vocab == d_acc[:, None]),
+                                torch.full_like(l_acc, -1e30), l_acc)
+            t_star = (categorical(gen, resid) if sampled
+                      else resid.argmax(dim=-1).to(torch.int32))
+            live = ~done[:, None]
+            buf = torch.where((pos >= j[:, None]) & (pos < (j + n_acc)[:, None]) & live,
+                              draft_prev, buf)
+            buf = torch.where((pos == (j + n_acc)[:, None]) & live, t_star[:, None], buf)
+            pending = torch.where(done, pending, t_star)
+            j = torch.where(done, j, j + n_acc + 1)
+        return buf, pending
+
+    if spec_k:
+        # the first frame's drafts: the prompt's dyn_0 tokens, the shared
+        # prefix's last V columns or the V tokens before the prompt's actions
+        draft = (shared_prefix[:, -V:][pm.long()] if shared_prefix is not None
+                 else input_ids[:, P - A - V:P - A]).to(torch.int32)
     frames = []
     for f0, f1 in zip(f_starts, bounds):
         cache = grow_cache(cache, (P - P0) + f1 * (V + A), align, wm.cache_seq_axes())
         for f in range(f0, f1):
             base = P + f * (V + A)
-            toks = []
-            for i in range(V):
-                tok = sample(last)
-                logits, _ = step(tok[:, None], base + i)
-                last = logits[:, 0]
-                toks.append(tok)
             act = action_ids[:, f + 1].to(torch.int32)
-            logits, _ = step(act, base + V, logits_last_only=True)
+            if spec_k:
+                vis, pending = spec_frame(last, draft, base)
+                draft = vis
+                # pending's k/v rides along with the actions
+                logits, _ = step(torch.cat([pending[:, None], act], dim=1), base + V - 1,
+                                 logits_last_only=True)
+            else:
+                toks = []
+                for i in range(V):
+                    tok = sample(last)
+                    logits, _ = step(tok[:, None], base + i)
+                    last = logits[:, 0]
+                    toks.append(tok)
+                vis = torch.stack(toks, dim=1)
+                logits, _ = step(act, base + V, logits_last_only=True)
             last = logits[:, -1]
-            frames.append(torch.cat([torch.stack(toks, dim=1), act], dim=1))
+            frames.append(torch.cat([vis, act], dim=1))
+    if stats is not None:
+        for k, v in counts.items():
+            stats[k] = stats.get(k, 0) + v
     return torch.cat(frames, dim=1)
+
+
+@torch.no_grad()
+def compute_log_prob(wm: Decoder, input_ids: torch.Tensor, response_length: int,
+                     temperature: float = 1.0) -> torch.Tensor:
+    """The teacher-forced WM log-prob of every response token (B,
+    response_length) f32 (reference :364-379): one full forward over the
+    prompt and response (kernel #1 per layer on the card), the logits that
+    predict each response token divided by the temperature, then
+    `logprobs_from_logits`."""
+    logits, _ = wm(input_ids)
+    pred = logits[:, -response_length - 1:-1] / temperature
+    return logprobs_from_logits(pred, input_ids[:, -response_length:])
