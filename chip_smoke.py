@@ -123,6 +123,26 @@ Phases, one JSON line each:
                   stand at 10 offsets on the 'hd' and 'heads' layouts,
                   kernel vs plain route (logits <= 5e-2, layer 0's cache
                   bit-equal, only the call's positions written);
+     grpo_pretrained - the GRPO entry point from checkpoints: the port's
+                  five libero-width modules built with a second seed, every
+                  parameter perturbed so that no norm, bias or layer scale
+                  keeps init's constant, are
+                  written in the reference's formats by this script's own
+                  inverse of each layout (OpenVLA as two bf16 .safetensors
+                  shards, the action_head / proprio_projector /
+                  noisy_action_projector / sigma_net .pt files, the WM as
+                  bf16 .safetensors, the tokenizer as a .pt with config.json,
+                  LPIPS as a taming vgg.pth with heads); main_vla_rft_grpo.run
+                  loads them (the four checkpoint paths, weights_int8) into a
+                  trainer built from the first seed and takes one step:
+                  no parameter equal to what was written for it before the
+                  load, every one bit-equal to it after, the rollout's int8 WM equal to quantize_decoder_params
+                  of the loaded WM, the grpo phase's exact launches, finite
+                  metrics; then one step from the checkpoint without
+                  sigma_net--*.pt, whose sigma net keeps its first-seed
+                  initialisation; seconds to write and to
+                  load each family, bytes read, peak host RSS and peak
+                  device memory;
  11. sft        - the supervised fine-tuning path at libero width through
                   trainer/main_sft.run: 3 vla_adapter steps of B = 16 (the
                   config's train_batch_size) with the vision towers frozen,
@@ -141,10 +161,14 @@ repository beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import os
+import re
+import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -1260,10 +1284,11 @@ def phase_fused_decode(fdl) -> dict:
 GRPO_STEPS = 2
 
 
-def _drive_grpo(mods, argv, expect_fn, n_steps: int = GRPO_STEPS):
+def _drive_grpo(mods, argv, expect_fn, n_steps: int = GRPO_STEPS, check_start=None):
     """n_steps steps of main_vla_rft_grpo.run(argv) at the libero preset
-    with every kernel count set to 0 just before each step and read just
-    after it; each step's launches must equal expect_fn(trainer, its
+    (`check_start(trainer)` first runs on the trainer as the entry point
+    hands it over, after any checkpoint load) with every kernel count set to
+    0 just before each step and read just after it; each step's launches must equal expect_fn(trainer, its
     record), its metrics be finite, every trained expert leaf must move and
     every frozen leaf stay bit-identical.  Returns (trainer, step records,
     the last step's expected launches, run seconds, expert leaves, frozen
@@ -1280,6 +1305,8 @@ def _drive_grpo(mods, argv, expect_fn, n_steps: int = GRPO_STEPS):
     start, steps = {}, []
 
     def on_start(trainer):
+        if check_start is not None:
+            check_start(trainer)
         b = trainer.bundle
         for name in ("vla", "wm", "tokenizer", "lpips", "expert"):
             start[name] = {k: v.detach().clone() for k, v in getattr(b, name).state_dict().items()}
@@ -1786,6 +1813,440 @@ def phase_grpo_variants(mods) -> dict:
     return out
 
 
+# ------------------------------------------------------------------------
+# The reference's checkpoint formats, written from the port's modules by this
+# script's own inverse of each layout (no converter of the port, no JAX), so
+# that a loader which permutes, transposes or drops a weight shows up as a
+# parameter that differs from what was written for it.
+ST_DTYPES = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+             torch.int8: "I8", torch.int32: "I32", torch.int64: "I64", torch.uint8: "U8",
+             torch.bool: "BOOL"}
+# torchvision VGG16 `features` index of each LPIPS conv, and taming's slice of it
+VGG_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+VGG_SLICE_STARTS = (4, 9, 16, 23)
+TOKENIZER_LISTS = re.compile(
+    r"(down_blocks|up_blocks|resnets|attentions|downsamplers|upsamplers|cross_att_blocks)_(\d+)")
+
+
+def write_safetensors(path: str, sd: dict) -> int:
+    """A .safetensors file of `sd` (CPU tensors, each in its own dtype): the
+    little-endian u64 header length, the JSON header padded to 8 bytes, the
+    tensors' bytes in order.  Returns the bytes written."""
+    header, off = {}, 0
+    for k, t in sd.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [off, off + n]}
+        off += n
+    hb = json.dumps(header).encode()
+    hb += b" " * (-len(hb) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for t in sd.values():
+            if t.numel():
+                f.write(memoryview(t.contiguous().view(-1).view(torch.uint8).numpy()))
+    return 8 + len(hb) + off
+
+
+def _fuse(groups: dict, out: dict) -> None:
+    """{fused name: {"q"|"k"|"v": tensor}} -> out[fused name] = cat(q, k, v)."""
+    for name, parts in groups.items():
+        out[name] = torch.cat([parts["q"], parts["k"], parts["v"]], 0)
+
+
+def openvla_names(sd: dict) -> dict:
+    """The port's OpenVLA state dict under OpenVLAForActionPrediction's HF
+    names: timm towers (fused qkv, `patch_embed.proj`, `ls1.gamma`,
+    `reg_token`), the Qwen backbone under `language_model.model.`."""
+    out, fused = {}, {}
+    for k, v in sd.items():
+        if k.startswith("language_model."):
+            out["language_model.model." + k[len("language_model."):]] = v
+            continue
+        m = re.fullmatch(r"(vision_backbone\.\w+\.)(.+)", k)
+        if not m:  # projector.fc{1,2,3}, action_queries
+            out[k] = v
+            continue
+        tower, rest = m.groups()
+        b = re.fullmatch(r"blocks\.(\d+)\.(\w+)\.(weight|bias)", rest)
+        if rest == "reg_tokens":
+            rest = "reg_token"
+        elif rest.startswith("patch_embed."):
+            rest = "patch_embed.proj." + rest[len("patch_embed."):]
+        elif re.fullmatch(r"blocks\.\d+\.ls[12]_gamma", rest):
+            rest = rest.replace("_gamma", ".gamma")
+        elif b and b.group(2) in ("q", "k", "v"):
+            fused.setdefault(f"{tower}blocks.{b.group(1)}.attn.qkv.{b.group(3)}",
+                             {})[b.group(2)] = v
+            continue
+        elif b and b.group(2) == "proj":
+            rest = f"blocks.{b.group(1)}.attn.proj.{b.group(3)}"
+        elif b and b.group(2).startswith("mlp_"):
+            rest = f"blocks.{b.group(1)}.mlp.{b.group(2)[4:]}.{b.group(3)}"
+        out[tower + rest] = v
+    _fuse(fused, out)
+    return out
+
+
+def _dit_name(k: str) -> str:
+    """A port DiT name (after `dit.`) -> DiT_SingleTokenAction_OneCtx's."""
+    for a, b in ((r"t_embedder\.fc1\.", "t_embedder.mlp.0."),
+                 (r"t_embedder\.fc2\.", "t_embedder.mlp.2."),
+                 (r"final_adaLN\.", "final_layer.adaLN_modulation.1."),
+                 (r"final_linear\.", "final_layer.linear."),
+                 (r"(blocks\.\d+\.)adaLN_modulation\.", r"\1adaLN_modulation.1."),
+                 (r"(blocks\.\d+\.)mlp_(fc\d)\.", r"\1mlp.\2."),
+                 (r"(blocks\.\d+\.cross_attn\.)(v_proj|l_proj|values_l_proj|out_v_proj)\.",
+                  r"\1attn.\2.")):
+        k = re.sub("^" + a, b, k)
+    return k
+
+
+def expert_components(sd: dict) -> dict:
+    """The port's ActionExpert state dict as the reference's four component
+    checkpoints: {"action_head", "sigma_net", "proprio_projector",
+    "noisy_action_projector": state dict}."""
+    out = {c: {} for c in ("action_head", "sigma_net", "proprio_projector",
+                           "noisy_action_projector")}
+    for k, v in sd.items():
+        comp, rest = k.split(".", 1)
+        if comp in ("action_head", "sigma_net"):
+            head = "flow_predictor" if comp == "action_head" else "std_predictor"
+            out[comp][f"{head}.dit.{_dit_name(rest[len('dit.'):])}"] = v
+        else:
+            out[comp][rest] = v
+    return out
+
+
+def hf_decoder_names(sd: dict) -> dict:
+    """The port's Decoder state dict under HF LlamaForCausalLM's names."""
+    return {k if k == "lm_head.weight" else "model." + k: v for k, v in sd.items()}
+
+
+def tokenizer_names(sd: dict) -> dict:
+    """The port's tokenizer state dict under CompressiveVQModelFSQ's
+    (diffusers-style) names: numbered module lists, `to_out.0`, and each
+    cross-attention block's packed `att.in_proj_*` / `att.out_proj`."""
+    out, fused = {}, {}
+    for k, v in sd.items():
+        k = TOKENIZER_LISTS.sub(r"\1.\2", k).replace(".to_out.", ".to_out.0.")
+        m = re.fullmatch(r"(.+\.cross_att_blocks\.\d+\.)(q|k|v)_proj\.(weight|bias)", k)
+        if m:
+            fused.setdefault(f"{m.group(1)}att.in_proj_{m.group(3)}", {})[m.group(2)] = v
+            continue
+        out[k.replace(".out_proj.", ".att.out_proj.")] = v
+    _fuse(fused, out)
+    return out
+
+
+def lpips_names(sd: dict, slices: bool = True) -> dict:
+    """The port's LPIPS state dict under taming's `vgg.pth` names
+    (`net.sliceK.N.*`, or torchvision's `features.N.*`) with the heads as
+    `lin{i}.model.1.weight`."""
+    out = {}
+    for k, v in sd.items():
+        m = re.fullmatch(r"vgg\.conv(\d+)\.(weight|bias)", k)
+        if m:
+            idx = VGG_CONV_IDX[int(m.group(1))]
+            s = 1 + sum(idx >= b for b in VGG_SLICE_STARTS)
+            out[f"net.slice{s}.{idx}.{m.group(2)}" if slices
+                else f"features.{idx}.{m.group(2)}"] = v
+        else:
+            out[k.replace(".weight", ".model.1.weight")] = v
+    return out
+
+
+def write_reference_checkpoints(root: str, second: dict, st_dtype=torch.bfloat16) -> dict:
+    """Write the state dicts `second` ({vla, expert, wm, tokenizer, lpips:
+    CPU state dict}) under `root` in the reference's formats: OpenVLA as
+    two .safetensors shards in `st_dtype` plus the component .pt files in
+    `ckpt/`, the WM as one .safetensors in `st_dtype` in `wm/`, the tokenizer as `tokenizer/model.pt`
+    with a config.json, LPIPS as `lpips/vgg.pth`; and `ckpt_nosigma/`, the
+    same checkpoint without sigma_net--*.pt (links to ckpt/'s files).
+    Returns {"paths": {...}, "dtypes": {family: file dtype or None},
+    "write_s": {...}, "bytes": {...}}."""
+    paths = {k: os.path.join(root, k) for k in ("ckpt", "ckpt_nosigma", "wm", "tokenizer",
+                                                 "lpips")}
+    for d in paths.values():
+        os.makedirs(d, exist_ok=True)
+    write_s, nbytes = {}, {}
+
+    t0 = time.perf_counter()
+    names = openvla_names(second["vla"])
+    keys = list(names)
+    n = 0
+    for i in range(2):
+        part = {k: names[k].to(st_dtype) for k in keys[i::2]}
+        f = f"model-{i + 1:05d}-of-00002.safetensors"
+        n += write_safetensors(os.path.join(paths["ckpt"], f), part)
+        os.symlink(os.path.join(paths["ckpt"], f), os.path.join(paths["ckpt_nosigma"], f))
+    write_s["vla"], nbytes["vla"] = time.perf_counter() - t0, n
+
+    t0 = time.perf_counter()
+    n = 0
+    for comp, sd in expert_components(second["expert"]).items():
+        f = os.path.join(paths["ckpt"], f"{comp}--checkpoint.pt")
+        torch.save({"module." + k: v for k, v in sd.items()} if comp == "action_head" else sd, f)
+        n += os.path.getsize(f)
+        if comp != "sigma_net":
+            os.symlink(f, os.path.join(paths["ckpt_nosigma"], os.path.basename(f)))
+    write_s["expert"], nbytes["expert"] = time.perf_counter() - t0, n
+
+    t0 = time.perf_counter()
+    wm = {k: v.to(st_dtype) for k, v in hf_decoder_names(second["wm"]).items()}
+    nbytes["wm"] = write_safetensors(os.path.join(paths["wm"], "model.safetensors"), wm)
+    write_s["wm"] = time.perf_counter() - t0
+    del wm
+
+    t0 = time.perf_counter()
+    f = os.path.join(paths["tokenizer"], "model.pt")
+    torch.save({"state_dict": tokenizer_names(second["tokenizer"])}, f)
+    tok = second["tokenizer"]
+    channels = [int(tok[k].shape[0]) for k in sorted(tok) if re.fullmatch(
+        r"encoder\.down_blocks_\d+\.resnets_0\.conv1\.weight", k)]
+    lpb = len([k for k in tok if re.fullmatch(
+        r"encoder\.down_blocks_0\.resnets_\d+\.conv1\.weight", k)])
+    with open(os.path.join(paths["tokenizer"], "config.json"), "w") as cf:
+        json.dump({"block_out_channels": channels, "layers_per_block": lpb}, cf)
+    write_s["tokenizer"], nbytes["tokenizer"] = time.perf_counter() - t0, os.path.getsize(f)
+
+    t0 = time.perf_counter()
+    f = os.path.join(paths["lpips"], "vgg.pth")
+    torch.save(lpips_names(second["lpips"]), f)
+    write_s["lpips"], nbytes["lpips"] = time.perf_counter() - t0, os.path.getsize(f)
+    return {"paths": paths, "write_s": write_s, "bytes": nbytes,
+            "dtypes": {"vla": st_dtype, "wm": st_dtype}}
+
+
+@torch.no_grad()
+def perturb_(module, seed: int) -> None:
+    """Add 0.02 times a seeded standard normal to every floating parameter
+    of `module` in place.  init_random_ sets every norm weight and layer
+    scale to 1 and every bias to 0, in every layer and for every seed, so a
+    loader that swapped two of them, or read another layer's, would still
+    give the written values; after this no two of them agree."""
+    dev = next(module.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for p in module.parameters():
+        if p.is_floating_point():
+            r = torch.randn(p.shape, generator=gen, device=dev, dtype=torch.float32)
+            p.copy_(p.float() + 0.02 * r)
+
+
+def compare_written(trainer, second: dict, dtypes: dict, keep=()):
+    """(the parameters of the trainer's five modules that equal, bit for bit,
+    what was written for them; those that differ; the number compared): the
+    written value is `second`'s in its file's dtype, then in the parameter's
+    dtype; names under a `keep` prefix are skipped."""
+    same, differ = [], []
+    for fam, sd in second.items():
+        for k, p in getattr(trainer.bundle, fam).state_dict().items():
+            if keep and f"{fam}.{k}".startswith(keep):
+                continue
+            want = sd[k].to(dtypes.get(fam) or sd[k].dtype).to(device=p.device, dtype=p.dtype)
+            (same if torch.equal(p, want) else differ).append(f"{fam}.{k}")
+    return same, differ, len(same) + len(differ)
+
+
+@contextlib.contextmanager
+def before_load(check):
+    """Within the block, main_vla_rft_grpo.run calls `check(trainer)` on the
+    trainer it builds just before it loads the checkpoints into it."""
+    from vla_rft_tpu_torch.trainer import main_vla_rft_grpo
+
+    load = main_vla_rft_grpo._maybe_load_pretrained
+
+    def checked(trainer, config):
+        check(trainer)
+        return load(trainer, config)
+
+    main_vla_rft_grpo._maybe_load_pretrained = checked
+    try:
+        yield
+    finally:
+        main_vla_rft_grpo._maybe_load_pretrained = load
+
+
+def host_rss_gib() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 2 ** 30
+    raise RuntimeError("/proc/self/status has no VmRSS")
+
+
+class HostRssPeak:
+    """The largest resident set of this process over a window, sampled every
+    5 ms by a thread (the card's machine reports no VmHWM to reset)."""
+
+    def __init__(self, every_s: float = 0.005):
+        import threading
+
+        self.every_s, self.peak = every_s, host_rss_gib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+
+    def _sample(self):
+        while not self._stop.wait(self.every_s):
+            self.peak = max(self.peak, host_rss_gib())
+
+    def stop(self) -> float:
+        self._stop.set()
+        self._thread.join()
+        return max(self.peak, host_rss_gib())
+
+
+def phase_grpo_pretrained(mods) -> dict:
+    """The GRPO entry point from checkpoints at the libero width: the port's
+    five modules built with a second seed, every parameter perturbed
+    (perturb_: norms, biases and layer scales too), are written in the
+    reference's formats (write_reference_checkpoints), then
+    main_vla_rft_grpo.run loads them with the four checkpoint paths and
+    weights_int8=true into a trainer built from the first seed (trainer.seed
+    0) and takes one step.  Checks: before the load no parameter of vla /
+    expert / wm / tokenizer / lpips equals the array written for it, after
+    it every one does, bit for bit; the int8 WM the rollout decoded
+    with equals quantize_decoder_params of the loaded WM; the step's
+    launches are the grpo phase's (#1 24 + 24, #4 24 x 521, #8 24 x 520, #9
+    3 x 24 x 520); metrics finite.  Then one step from the checkpoint
+    without sigma_net--*.pt: the same parameters loaded, the sigma net at
+    its first-seed initialisation."""
+    import tempfile
+
+    from vla_rft_tpu_torch.config import vla_rft_default_config
+    from vla_rft_tpu_torch.models.action_head import ActionExpert
+    from vla_rft_tpu_torch.models.factory import build_models, init_random_
+    from vla_rft_tpu_torch.models.transformer import quantize_decoder_params
+
+    fdl = mods[3]
+    second_seed, families = 7, ("vla", "expert", "wm", "tokenizer", "lpips")
+    t0 = time.perf_counter()
+    b2 = build_models(vla_rft_default_config(), "libero", device="cuda", seed=second_seed)
+    for i, m in enumerate(families):
+        perturb_(getattr(b2, m), second_seed * 100 + i)
+    second = {m: {k: v.detach().cpu() for k, v in getattr(b2, m).state_dict().items()}
+              for m in families}
+    del b2
+    gc.collect()
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="grpo_pretrained_")
+    out = {"phase": "grpo_pretrained", "preset": "libero", "second_seed": second_seed,
+           "second_modules_s": build_s, "runs": {}}
+    try:
+        w = write_reference_checkpoints(root, second)
+        out["write_s"], out["file_bytes"] = w["write_s"], w["bytes"]
+        paths = w["paths"]
+
+        def argv(ckpt):
+            return ["world_model_rollout.rollout.weights_int8=true",
+                    "actor_rollout_ref.actor.optim.lr_warmup_steps=0",
+                    f"actor_rollout_ref.model.ckpt_path={ckpt}",
+                    f"world_model_rollout.model.path={paths['wm']}",
+                    f"processor.tokenizer.path={paths['tokenizer']}",
+                    f"processor.lpips_path={paths['lpips']}"]
+
+        def preload_check(rec, keep=()):
+            # the trainer's first-seed parameters differ from the files, so
+            # the bit-equality after the load shows that each one was loaded
+            def check(tr):
+                same, _, n = compare_written(tr, second, w["dtypes"], keep)
+                if same:
+                    raise AssertionError(f"parameters that hold the written value before the "
+                                         f"load: {same[:8]} ({len(same)} of {n})")
+                rec["parameters_differ_before_load"] = n
+            return check
+
+        def load_record(tr, keep=()):
+            # over the trainer's build and the load: run() hands the trainer
+            # to on_start right after the load
+            rec = {"host_peak_rss_gib": rss.stop(), "host_rss_before_gib": rss_before,
+                   "device_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "loaded": tr.pretrained}
+            _, bad, n = compare_written(tr, second, w["dtypes"], keep)
+            if bad or set(tr.pretrained) != set(families):
+                raise AssertionError(f"loaded parameters that differ from the files: {bad[:8]} "
+                                     f"({len(bad)} of {n}); families loaded "
+                                     f"{sorted(tr.pretrained)}")
+            rec["parameters_bit_equal"] = n
+            return rec
+
+        def fused_expect(tr, _):
+            b = tr.bundle
+            L, roll = b.wm_cfg.num_layers, b.roll_cfg
+            calls = roll.num_frames * (roll.interact_max_tokens + 1)
+            return _expect(flash_fwd=b.vla_cfg.llm.num_layers + L,
+                           decode_shared_hd=L * (calls + 1), fused_qkv=L * calls,
+                           fused_o_mlp=fdl.O_MLP_LAUNCHES * L * calls)
+
+        # one step from the full checkpoint
+        rec = {}
+
+        def check_full(tr):
+            rec.update(load_record(tr))
+
+        rss_before = host_rss_gib()
+        rss = HostRssPeak()
+        torch.cuda.reset_peak_memory_stats()
+        with before_load(preload_check(rec)):
+            tr, steps, expect, run_s, n_expert, n_frozen = _drive_grpo(
+                mods, argv(paths["ckpt"]), fused_expect, 1, check_full)
+        wm_q = tr._wm_q
+        q_want = quantize_decoder_params(tr.bundle.wm.state_dict(), wm_q.cfg)
+        q_bad = [k for k, v in wm_q.state_dict().items() if not torch.equal(v, q_want[k])]
+        if q_bad or set(q_want) != set(wm_q.state_dict()):
+            raise AssertionError(f"the rollout's int8 WM is not quantize_decoder_params of the "
+                                 f"loaded WM: {q_bad[:8]} ({len(q_bad)})")
+        rec.update({"run_s": run_s, "steps": steps, "expected_launches": expect,
+                    "expert_leaves_moved": n_expert, "frozen_leaves_bit_identical": n_frozen,
+                    "int8_wm_tensors_bit_equal": len(q_want)})
+        out["runs"]["with_sigma_net"] = rec
+        del tr, wm_q, q_want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the checkpoint without sigma_net--*.pt: the sigma net keeps its
+        # first-seed initialisation (the trainer's expert: trainer.seed + 1)
+        rec = {}
+
+        def check_nosigma(tr):
+            rec.update(load_record(tr, keep=("expert.sigma_net.",)))
+            with torch.device(tr.device):
+                init = init_random_(ActionExpert(tr.bundle.expert_cfg), tr._seed + 1)
+            init = {k: v for k, v in init.state_dict().items() if k.startswith("sigma_net.")}
+            got = tr.bundle.expert.state_dict()
+            bad = [k for k, v in init.items() if not torch.equal(got[k], v)]
+            if bad or not init:
+                raise AssertionError(f"sigma net not at its first-seed init: {bad[:8]}")
+            rec["sigma_net_at_first_seed_init"] = len(init)
+
+        rss_before = host_rss_gib()
+        rss = HostRssPeak()
+        torch.cuda.reset_peak_memory_stats()
+        with before_load(preload_check(rec, keep=("expert.sigma_net.",))):
+            _, steps, expect, run_s, _, _ = _drive_grpo(
+                mods, argv(paths["ckpt_nosigma"]), fused_expect, 1, check_nosigma)
+        rec.update({"run_s": run_s, "steps": steps, "expected_launches": expect})
+        out["runs"]["without_sigma_net"] = rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name, r in out["runs"].items():
+        print(f"grpo_pretrained {name}: load s " + ", ".join(
+            f"{f} {v['seconds']:.2f} ({v['bytes']} B)" for f, v in r["loaded"].items())
+              + f"; host RSS {r['host_rss_before_gib']:.2f} GiB before, peak "
+              f"{r['host_peak_rss_gib']:.2f} GiB over build + load; device peak "
+              f"{r['device_peak_gib']:.2f} GiB; parameters that differ from the files "
+              f"before the load {r['parameters_differ_before_load']}, bit-equal to them "
+              f"after {r['parameters_bit_equal']}", flush=True)
+    print("grpo_pretrained write s " + ", ".join(
+        f"{f} {v:.2f} ({out['file_bytes'][f]} B)" for f, v in out["write_s"].items()),
+          flush=True)
+    emit(out)
+    return out
+
+
 def fda_work(B, Hq, Hkv, D, idx, kv_starts, elem: int):
     """(bytes, flops) of one #10 call: q and the new K/V rows read, the rows
     written, the valid history [kv_starts[b], idx) of each (row, kv head)
@@ -2156,6 +2617,8 @@ def main() -> int:
     grpo_heads = timed("grpo_heads", phase_grpo_heads, mods)
     torch.cuda.empty_cache()
     variants = timed("grpo_variants", phase_grpo_variants, mods)
+    torch.cuda.empty_cache()
+    timed("grpo_pretrained", phase_grpo_pretrained, mods)
     torch.cuda.empty_cache()
     sft = timed("sft", phase_sft, attention)
     emit({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t0, 1),

@@ -1138,3 +1138,40 @@ def test_per_row_verify_call_kernels_match_the_plain_route(cuda_device, layout, 
     for chg in (kchg, pchg):
         assert not bool((chg & ~expect[None]).any())
         assert bool(chg[0][new_token].all())
+
+
+# ------------------------------------------------------ checkpoint loading
+@pytest.mark.cuda
+def test_safetensors_reader_loads_a_bf16_shard_onto_the_card(cuda_device, tmp_path):
+    """A BF16 shard read by the reader (no safetensors package on the card's
+    machine) and moved to the card is bit for bit what chip_smoke.py's
+    writer wrote."""
+    import chip_smoke
+    from vla_rft_tpu_torch.utils import weight_files
+
+    gen = torch.Generator().manual_seed(0)
+    sd = {"w": torch.randn(64, 96, generator=gen).bfloat16(),
+          "b": torch.randn(96, generator=gen).bfloat16(), "s": torch.tensor(3, dtype=torch.int64)}
+    path = str(tmp_path / "shard.safetensors")
+    chip_smoke.write_safetensors(path, sd)
+    got = {k: v.to(cuda_device) for k, v in weight_files.load_file(path).items()}
+    assert set(got) == set(sd)
+    for k, v in sd.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+        assert torch.equal(got[k].cpu().reshape(-1).view(torch.uint8),
+                           v.reshape(-1).view(torch.uint8)), k
+
+
+@pytest.mark.cuda
+def test_push_preset_on_the_card_raises_at_build_time(cuda_device):
+    """`push` (f32, heads of 32) has no kernel variants on the card: the
+    build refuses before making a module, naming what is missing."""
+    from vla_rft_tpu_torch.config import vla_rft_default_config
+    from vla_rft_tpu_torch.models.factory import build_models, build_policy
+
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(NotImplementedError, match=r"'push'.*flash kernel #1.*decode"):
+        build_models(vla_rft_default_config(), "push", device="cuda")
+    with pytest.raises(NotImplementedError, match="'push'"):
+        build_policy("push", device="cuda")
+    assert torch.cuda.memory_allocated() == before

@@ -555,16 +555,34 @@ def test_kv_layout_override_reaches_the_wm(layout):
     assert kv_shape == ((2, 2, 4, 8, 16) if layout == "heads" else (2, 2, 8, 64))
 
 
-def test_cli_refuses_what_is_not_ported_and_runs_without_a_card_only_on_request(monkeypatch):
+def test_cli_refuses_what_is_not_ported_and_runs_without_a_card_only_on_request(monkeypatch,
+                                                                               tmp_path):
+    from vla_rft_tpu_torch.models.factory import build_models
     from vla_rft_tpu_torch.trainer import main_vla_rft_grpo
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main_vla_rft_grpo.run(["--preset=tiny", "trainer.total_training_steps=1"])
-    for override, what in (("data.video.dataset_path=/data/libero", "RLDS"),
-                           ("world_model_rollout.model.path=/ckpt/wm", "not ported")):
-        with pytest.raises(NotImplementedError, match=what):
-            main_vla_rft_grpo.run(["--preset=tiny", "--device=cpu", override])
+    with pytest.raises(NotImplementedError, match="RLDS"):
+        main_vla_rft_grpo.run(["--preset=tiny", "--device=cpu",
+                               "data.video.dataset_path=/data/libero"])
+
+    # a WM directory without *.safetensors loads nothing, as the reference's
+    # glob: the trainer reaches on_start with its seeded weights
+    class Started(Exception):
+        pass
+
+    def on_start(tr):
+        fresh = build_models(tr.config, "tiny", device="cpu", seed=tr._seed).wm.state_dict()
+        assert tr.pretrained == {}
+        assert all(torch.equal(v, fresh[k]) for k, v in tr.bundle.wm.state_dict().items())
+        raise Started
+
+    (tmp_path / "wm").mkdir()
+    with pytest.raises(Started):
+        main_vla_rft_grpo.run(["--preset=tiny", "--device=cpu",
+                               *_tiny_overrides(tmp_path / "out"),
+                               f"world_model_rollout.model.path={tmp_path / 'wm'}"], on_start)
     # a verify call of 1 + 8 tokens is longer than the decode kernels take
     from vla_rft_tpu_torch.trainer.config_check import validate_config
 

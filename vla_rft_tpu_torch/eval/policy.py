@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from vla_rft_tpu_torch import resolve_device
 from vla_rft_tpu_torch.config import PolicyConfig
 from vla_rft_tpu_torch.data.prompting import build_vla_sample, pad_collate
+from vla_rft_tpu_torch.eval.libero_eval import center_crop_image
 from vla_rft_tpu_torch.models.factory import build_policy
 from vla_rft_tpu_torch.workers.predict import (
     invert_gripper_action,
@@ -35,51 +36,6 @@ from vla_rft_tpu_torch.workers.predict import (
 )
 
 QWEN_PAD_TOKEN_ID = 151643
-
-
-def crop_and_resize(image: np.ndarray, crop_scale: float) -> np.ndarray:
-    """openvla_utils.crop_and_resize without TF (a copy of
-    vla_rft_tpu/eval/libero_eval.py's): center-crop a float [0,1] image to a
-    box of side sqrt(crop_scale) and resize back with tf.image.crop_and_resize's
-    align-corners bilinear sampling.  image: (H, W, C) or (B, H, W, C)."""
-    squeeze = image.ndim == 3
-    if squeeze:
-        image = image[None]
-    b, h, w, c = image.shape
-    s = float(np.clip(np.sqrt(crop_scale), 0.0, 1.0))
-    y1, x1 = (1.0 - s) / 2.0, (1.0 - s) / 2.0
-    y2, x2 = y1 + s, x1 + s
-
-    def grid(n_out, n_in, lo, hi):
-        if n_out > 1:
-            return lo * (n_in - 1) + np.arange(n_out) * (hi - lo) * (n_in - 1) / (n_out - 1)
-        return np.full(1, 0.5 * (lo + hi) * (n_in - 1))
-
-    ys = grid(h, h, y1, y2)
-    xs = grid(w, w, x1, x2)
-    y0 = np.clip(np.floor(ys).astype(np.int64), 0, h - 1)
-    x0 = np.clip(np.floor(xs).astype(np.int64), 0, w - 1)
-    y1i = np.minimum(y0 + 1, h - 1)
-    x1i = np.minimum(x0 + 1, w - 1)
-    wy = (ys - y0).astype(np.float32)[None, :, None, None]
-    wx = (xs - x0).astype(np.float32)[None, None, :, None]
-    im = image.astype(np.float32)
-    top = im[:, y0][:, :, x0] * (1 - wx) + im[:, y0][:, :, x1i] * wx
-    bot = im[:, y1i][:, :, x0] * (1 - wx) + im[:, y1i][:, :, x1i] * wx
-    out = top * (1 - wy) + bot * wy
-    return out[0] if squeeze else out
-
-
-def center_crop_image(image: np.ndarray) -> np.ndarray:
-    """openvla_utils.center_crop_image: 0.9-area center crop + resize back,
-    uint8 in/out (convert_image_dtype saturate semantics)."""
-    x = np.asarray(image)
-    orig_uint8 = x.dtype == np.uint8
-    xf = x.astype(np.float32) / 255.0 if orig_uint8 else x.astype(np.float32)
-    out = np.clip(crop_and_resize(xf, 0.9), 0.0, 1.0)
-    if orig_uint8:
-        return np.clip(np.floor(out * 255.5), 0, 255).astype(np.uint8)
-    return out
 
 
 def assemble_pixels(observation: Dict[str, Any], num_images: int = 1,
@@ -125,9 +81,12 @@ def build_policy_fn(ckpt: str = "", num_flow_steps: int = 10, seed: int = 7,
                     num_images: int = 1, center_crop: bool = False,
                     preset: str = "libero", device="cuda",
                     ) -> Callable[[Dict[str, Any], str], np.ndarray]:
-    """Build the policy on `device` (seeded random weights) and return the
-    closed-over policy function.  `ckpt` supplies dataset_statistics.json
-    and, when `transformers` can load one, a tokenizer.
+    """Build the policy of `preset` ('libero', or 'tiny' / 'push' on the
+    CPU) on `device` with seeded random weights, as the reference does, and
+    return the closed-over policy function; views are resized to the
+    preset's resolution.  `ckpt` supplies dataset_statistics.json and, when
+    `transformers` can load one, a tokenizer; the weights are not read from
+    it (load them into `policy_fn.bundle`).
 
     Observation keys used: full_image (H, W, 3 uint8), proprio/state, and,
     when num_images > 1, every key containing 'wrist'.  The returned

@@ -12,7 +12,17 @@ Port of vla_rft_tpu/models/factory.py:
 * `build_models`: everything the GRPO trainer runs, from the config tree
   (the reference's `build_models`): the policy with a trainable action
   expert, and the WM, tokenizer and LPIPS, frozen;
-* preset 'tiny': the same topologies at test sizes, all f32.
+* preset 'tiny': the same topologies at test sizes, all f32;
+* preset 'push': the sizes of the MuJoCo push-env pipeline
+  (tools/rft_evidence.py, whose trained weights are in
+  artifacts/rft_evidence32/): 64 px views with 8 px patches, ViTs 64 wide x
+  3 deep, a Qwen stand-in 128 wide x 3 layers with 4 / 2 heads of 32, a DiT
+  64 / 3 / 4, a WM 128 / 512 / 4 layers / 2 heads, a tokenizer of
+  (16, 32, 32) channels with a 4 x 4 dyn grid, all f32.
+
+'tiny' and 'push' run on the CPU: their f32 compute and narrow heads are
+outside what the port's kernels take, and building 'push' on a CUDA device
+raises (`CPU_PRESETS`).
 
 Both make the modules directly on the target device and fill them with
 seeded random weights there (the convention of the reference's
@@ -36,11 +46,25 @@ from vla_rft_tpu_torch.models.lpips import LPIPS
 from vla_rft_tpu_torch.models.prismatic import OpenVLA, OpenVLAConfig
 from vla_rft_tpu_torch.models.tokenizers import CompressiveVQModelFSQ, TokenizerConfig
 from vla_rft_tpu_torch.models.transformer import Decoder, RMSNorm, TransformerConfig
+from vla_rft_tpu_torch.models.vit import ViTConfig
 from vla_rft_tpu_torch.workers.processor import ProcessorConfig
 from vla_rft_tpu_torch.workers.reward import RewardConfig
 from vla_rft_tpu_torch.workers.wm_rollout import WMRolloutConfig
 
-PRESETS = ("libero", "tiny")
+PRESETS = ("libero", "tiny", "push")
+# presets with no kernel variants on the card: what each would need
+CPU_PRESETS = {
+    "push": "f32 and head-dim-32 variants of the flash kernel #1 (csrc/flash_fwd.cu, the "
+            "policy's Qwen stand-in: 4 / 2 heads of 32) and f32 variants of the decode "
+            "kernels #4 / #5 (csrc/decode_hd.cu, the f32 world model)",
+}
+
+
+def _refuse_on_card(preset: str, dev: torch.device) -> None:
+    if dev.type == "cuda" and preset in CPU_PRESETS:
+        raise NotImplementedError(
+            f"preset {preset!r} runs on the CPU only (device='cpu'): the port has no "
+            f"{CPU_PRESETS[preset]}")
 
 
 @dataclasses.dataclass
@@ -66,6 +90,25 @@ def policy_configs(preset: str = "libero", config: PolicyConfig = PolicyConfig()
             num_actions_chunk=config.segment_length - 1, proprio_dim=vla_cfg.proprio_dim,
         )
         return vla_cfg, expert_cfg, 32, vla_cfg.siglip.image_size
+    if preset == "push":
+        f32 = dict(dtype=torch.float32, param_dtype=torch.float32)
+        vit = dict(image_size=64, patch_size=8, hidden_size=64, depth=3, num_heads=4,
+                   mlp_dim=128, **f32)
+        vla_cfg = OpenVLAConfig(
+            siglip=ViTConfig.siglip_so400m(**vit),
+            dino=ViTConfig.dinov2_large_reg4(**vit),
+            llm=TransformerConfig(
+                vocab_size=152000, hidden_size=128, intermediate_size=256, num_layers=3,
+                num_heads=4, num_kv_heads=2, qkv_bias=True, tie_word_embeddings=True, **f32,
+            ),
+            num_patches=64, num_tokens=8, num_images=num_images,
+        )
+        expert_cfg = ActionHeadConfig(
+            llm_dim=vla_cfg.llm.hidden_size, dit_hidden=64, dit_depth=3, dit_heads=4,
+            action_dim=action_dim, dtype=torch.float32,
+            num_actions_chunk=config.segment_length - 1, proprio_dim=vla_cfg.proprio_dim,
+        )
+        return vla_cfg, expert_cfg, 32, 64
     if preset == "libero":
         vla_cfg = OpenVLAConfig(num_images=num_images)
         expert_cfg = ActionHeadConfig(
@@ -110,6 +153,7 @@ def build_policy(preset: str = "libero", config: PolicyConfig = PolicyConfig(), 
     out of the update, as the reference's optax labels do)."""
     dev = resolve_device(device)
     vla_cfg, expert_cfg, seq_len, image_size = policy_configs(preset, config)
+    _refuse_on_card(preset, dev)
     with torch.device(dev):
         vla = OpenVLA(vla_cfg)
         expert = ActionExpert(expert_cfg)
@@ -177,6 +221,18 @@ def wm_reward_configs(preset: str = "libero", config: WMRewardConfig = WMRewardC
             max_att_resolution=8,
         )
         image_size, lpips_dtype = 32, torch.float32
+    elif preset == "push":
+        wm_cfg = TransformerConfig(
+            vocab_size=config.wm_vocab_size, hidden_size=128, intermediate_size=512,
+            num_layers=4, num_heads=2, num_kv_heads=2, dtype=torch.float32,
+            param_dtype=torch.float32, kv_layout=config.kv_layout,
+        )
+        tok_cfg = TokenizerConfig(
+            block_out_channels=(16, 32, 32), layers_per_block=1, latent_channels=4,
+            norm_num_groups=4, resolution=32, ctx_res=(8, 8), dyn_res=(4, 4), patch_size=2,
+            max_att_resolution=8,
+        )
+        image_size, lpips_dtype = 32, torch.float32
     elif preset == "libero":
         wm_cfg = TransformerConfig.wm_llama(vocab_size=config.wm_vocab_size,
                                             kv_cache_dtype="int8", kv_layout=config.kv_layout)
@@ -212,6 +268,7 @@ def build_wm_reward(preset: str = "libero", config: WMRewardConfig = WMRewardCon
     dev = resolve_device(device)
     wm_cfg, tok_cfg, proc_cfg, roll_cfg, reward_cfg, image_size, lpips_dtype = (
         wm_reward_configs(preset, config, tiny_data))
+    _refuse_on_card(preset, dev)
     if wm_overrides:
         wm_cfg = dataclasses.replace(wm_cfg, **wm_overrides)
     with torch.device(dev):
@@ -254,11 +311,11 @@ def build_models(config: Config, preset: str = "libero", *, device="cuda",
                  seed: int = 0) -> ModelBundle:
     """The GRPO trainer's modules from the config tree, on `device`, with
     seeded random weights: the VLM frozen, the action expert trainable (the
-    libero expert takes rollout.num_flow_steps; the tiny one keeps 10, as in
-    the reference), the WM (with world_model_rollout.model.size_overrides
+    libero and push experts take rollout.num_flow_steps; the tiny one keeps
+    10, as in the reference), the WM (with world_model_rollout.model.size_overrides
     and rollout.kv_layout), tokenizer and LPIPS frozen."""
     policy = build_policy(preset, PolicyConfig.from_config(config), device=device, seed=seed)
-    if preset == "libero":
+    if preset in ("libero", "push"):
         k = int(config.actor_rollout_ref.rollout.get("num_flow_steps", 10))
         policy.expert_cfg = dataclasses.replace(policy.expert_cfg, num_flow_steps=k)
     overrides = config.world_model_rollout.model.get("size_overrides", None)

@@ -149,7 +149,9 @@ def main(argv=None):
     import argparse
 
     p = argparse.ArgumentParser()
-    p.add_argument("--ckpt", default="", help="converted checkpoint dir ('' = random init smoke)")
+    p.add_argument("--ckpt", default="",
+                   help="directory read for dataset_statistics.json (action un-normalisation) "
+                        "and a tokenizer; the weights stay seeded random, as in the reference")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8777)
     p.add_argument("--num_flow_steps", type=int, default=10)

@@ -16,21 +16,44 @@ world_model_rollout.rollout.speculative_k (0..7), and validation
 trainer.val_iters, trainer.img_save_dir for the frame grids).
 Data comes from `data/synthetic.py` (validation from a held-out synthetic
 stream); a non-empty data.video.dataset_path (RLDS) is not ported yet and
-raises, as do configured checkpoint paths
-(actor_rollout_ref.model.ckpt_path, world_model_rollout.model.path,
-processor.tokenizer.path, processor.lpips_path): weights are seeded random
-(trainer.seed), as the reference's without converted checkpoints.
+raises.
+
+Weights are seeded random (trainer.seed) unless checkpoint paths are set;
+then the trainer is built, the checkpoints are loaded into its modules in
+place (`_maybe_load_pretrained`, the reference's), and training starts:
+  actor_rollout_ref.model.ckpt_path  a directory: OpenVLA `*.safetensors`
+      (merged; none loads nothing) and the component files action_head--*.pt,
+      proprio_projector--*.pt, noisy_action_projector--*.pt and, optionally,
+      sigma_net--*.pt (without it the sigma net keeps its initialisation;
+      without the other three the expert is not loaded);
+  world_model_rollout.model.path  a directory of HF LLaMA `*.safetensors`
+      (none loads nothing);
+  processor.tokenizer.path  a CompressiveVQModelFSQ weight file, or a
+      directory of them with an optional config.json (block_out_channels,
+      layers_per_block);
+  processor.lpips_path  a file or directory with VGG16 `features.N.*` or
+      taming `net.sliceK.N.*` weights and optional `lin{i}.model.1.weight`
+      heads (without them LPIPS keeps its heads).
+A tokenizer or LPIPS path that holds no weight file raises
+FileNotFoundError.  The KL reference policy (use_kl_loss) is the one built
+before the load, as in the reference.
 """
 from __future__ import annotations
 
+import gc
+import os
+import re
 import sys
-from typing import Callable, Dict, List, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from vla_rft_tpu_torch.config import vla_rft_default_config
+from torch import nn
+
+from vla_rft_tpu_torch import convert_weights as cw
+from vla_rft_tpu_torch.config import Config, vla_rft_default_config
+from vla_rft_tpu_torch.convert import flax_to_torch
 from vla_rft_tpu_torch.trainer.grpo_trainer import VLARFTGRPOTrainer
-
-CHECKPOINT_PATHS = ("actor_rollout_ref.model.ckpt_path", "world_model_rollout.model.path",
-                    "processor.tokenizer.path", "processor.lpips_path")
+from vla_rft_tpu_torch.utils import weight_files as wf
 
 
 def run(argv: Optional[List[str]] = None,
@@ -38,9 +61,11 @@ def run(argv: Optional[List[str]] = None,
         on_step_start: Optional[Callable[[int], None]] = None,
         on_step_end: Optional[Callable[[int, Dict[str, float]], None]] = None
         ) -> VLARFTGRPOTrainer:
-    """Parse flags and overrides, build the trainer, fit; returns the
-    trainer.  `on_start(trainer)` runs before the first step and the step
-    hooks bracket every training_step (see VLARFTGRPOTrainer.fit)."""
+    """Parse flags and overrides, build the trainer, load the configured
+    checkpoints into it, fit; returns the trainer (its `pretrained` holds
+    what each load read and took).  `on_start(trainer)` runs after the load,
+    before the first step, and the step hooks bracket every training_step
+    (see VLARFTGRPOTrainer.fit)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     preset, device = "libero", "cuda"
     for a in list(argv):
@@ -53,15 +78,141 @@ def run(argv: Optional[List[str]] = None,
     config = vla_rft_default_config().apply_overrides([a for a in argv if "=" in a])
     if config.data.video.dataset_path:
         raise NotImplementedError("RLDS data (data.video.dataset_path) is not ported yet")
-    for path in CHECKPOINT_PATHS:
-        if config.get_path(path):
-            raise NotImplementedError(f"loading {path} is not ported yet: weights are seeded "
-                                      f"random")
     trainer = VLARFTGRPOTrainer(config, preset=preset, device=device)
+    trainer.pretrained = _maybe_load_pretrained(trainer, config)
+    for family, rec in trainer.pretrained.items():
+        print(f"[load] {family}: {rec['tensors']} tensors, {rec['bytes']} bytes read in "
+              f"{rec['seconds']:.2f} s")
     if on_start is not None:
         on_start(trainer)
     trainer.fit(on_step_start=on_step_start, on_step_end=on_step_end)
     return trainer
+
+
+def _nbytes(path: str, patterns=wf.WEIGHT_PATTERNS) -> int:
+    return sum(os.path.getsize(f) for f in wf.weight_files(path, patterns))
+
+
+def _load_into(module: nn.Module, tree: Dict[str, Any], which: str,
+               keep: Tuple[str, ...] = ()) -> int:
+    """Copy a converted Flax-layout tree into `module`'s parameters in place
+    (each cast to the parameter's dtype and device).  Every parameter must
+    be in the tree except those under a `keep` prefix, which keep their
+    values; a name the module lacks raises.  Returns the tensors copied."""
+    sd = flax_to_torch(tree, which)
+    missing, unexpected = module.load_state_dict(sd, strict=False)
+    bad = [k for k in missing if not k.startswith(keep)] if keep else list(missing)
+    if bad or unexpected:
+        raise RuntimeError(f"loading {which}: missing {bad[:8]} ({len(bad)}), unexpected "
+                           f"{unexpected[:8]} ({len(unexpected)})")
+    return len(sd)
+
+
+def _maybe_load_pretrained(trainer: VLARFTGRPOTrainer, config: Config) -> Dict[str, dict]:
+    """Load the configured checkpoints into the trainer's modules in place
+    (the reference's `_maybe_load_pretrained`: its converters, then
+    `flax_to_torch`), one family at a time, each freed before the next.
+    The optimizer keeps pointing at the expert's parameters; the int8 WM
+    copy is re-quantised from the loaded WM at its next use.  Returns
+    {family: {"tensors", "bytes", "seconds"}} for what was loaded."""
+    b, report = trainer.bundle, {}
+
+    def done(family, t0, tensors, nbytes):
+        gc.collect()
+        report[family] = {"tensors": tensors, "bytes": nbytes,
+                          "seconds": time.perf_counter() - t0}
+
+    ckpt = config.actor_rollout_ref.model.ckpt_path
+    if ckpt:
+        t0 = time.perf_counter()
+        sd = wf.load_dir(ckpt)
+        if sd:
+            tree = cw.convert_openvla(sd, b.vla_cfg)
+            del sd
+            done("vla", t0, _load_into(b.vla, tree, "vla"), _nbytes(ckpt, ["*.safetensors"]))
+            del tree
+        # the component checkpoints (action_head--*.pt etc.)
+        t0 = time.perf_counter()
+        try:
+            files = {name: wf.find_checkpoint_file(ckpt, name) for name in
+                     ("action_head", "proprio_projector", "noisy_action_projector")}
+            try:
+                files["sigma_net"] = wf.find_checkpoint_file(ckpt, "sigma_net")
+            except FileNotFoundError:
+                pass
+            sds = {name: wf.load_torch_state_dict(f) for name, f in files.items()}
+            tree = cw.convert_action_expert(sds["action_head"], sds.get("sigma_net"),
+                                            sds["proprio_projector"],
+                                            sds["noisy_action_projector"], b.expert_cfg)
+            del sds
+            # without sigma_net--*.pt the sigma net keeps its initialisation
+            keep = () if "sigma_net" in files else ("sigma_net.",)
+            n = _load_into(b.expert, tree, "expert", keep)
+            done("expert", t0, n, sum(os.path.getsize(f) for f in files.values()))
+        except FileNotFoundError:
+            pass
+    wm_path = config.world_model_rollout.model.path
+    if wm_path:
+        t0 = time.perf_counter()
+        sd = wf.load_dir(wm_path)
+        if sd:
+            tree = cw.convert_hf_decoder(sd, b.wm_cfg)
+            del sd
+            done("wm", t0, _load_into(b.wm, tree, "wm"), _nbytes(wm_path, ["*.safetensors"]))
+            del tree
+
+    # the visual tokenizer: a diffusers-style directory (config.json + weight
+    # files) or one torch file
+    tok_path = config.processor.tokenizer.path
+    if tok_path:
+        t0 = time.perf_counter()
+        sd = wf.load_state_dicts(tok_path)
+        kw = {}
+        mcfg = wf.read_model_config(tok_path)
+        if "block_out_channels" in mcfg:
+            kw["n_blocks"] = len(mcfg["block_out_channels"])
+        if "layers_per_block" in mcfg:
+            kw["layers_per_block"] = int(mcfg["layers_per_block"])
+        tree = cw.convert_compressive_vq(sd, **kw)
+        del sd
+        done("tokenizer", t0, _load_into(b.tokenizer, tree, "tokenizer"),
+             _nbytes(tok_path))
+        del tree
+
+    # LPIPS: torchvision `features.N.*` or taming `net.sliceK.N.*` VGG16
+    # weights, plus optional `lin{i}.model.1.weight` heads
+    lpips_path = config.processor.get("lpips_path", None)
+    if lpips_path:
+        t0 = time.perf_counter()
+        vgg_sd, lin_sd = _split_lpips_sd(wf.load_state_dicts(lpips_path))
+        if not vgg_sd:
+            raise ValueError(
+                f"no VGG16 feature weights (features.N.* / net.sliceK.N.*) in {lpips_path}")
+        tree = cw.convert_lpips(vgg_sd, lin_sd or None)
+        del vgg_sd, lin_sd
+        # without heads in the file LPIPS keeps its own
+        keep = () if "lin0" in tree["params"] else ("lin",)
+        done("lpips", t0, _load_into(b.lpips, tree, "lpips", keep),
+             _nbytes(lpips_path))
+    return report
+
+
+def _split_lpips_sd(sd: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Partition an LPIPS state dict into torchvision-layout VGG conv weights
+    and lin heads.  Taming's vgg16 wrapper keeps the original `features`
+    index as the module name inside each slice (`net.slice2.5.weight` is
+    torchvision's `features.5.weight`), so slices translate by dropping the
+    slice prefix."""
+    vgg_sd, lin_sd = {}, {}
+    for k, v in sd.items():
+        m = re.fullmatch(r"(?:net\.)?slice\d+\.(\d+)\.(weight|bias)", k)
+        if m:
+            vgg_sd[f"features.{m.group(1)}.{m.group(2)}"] = v
+        elif k.startswith("features."):
+            vgg_sd[k] = v
+        elif re.match(r"lin\d+\.", k):
+            lin_sd[k] = v
+    return vgg_sd, lin_sd
 
 
 if __name__ == "__main__":
