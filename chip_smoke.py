@@ -6,8 +6,10 @@ Phases, one JSON line each:
   1. build      - nvcc builds the kernel libraries from the sources in this
                   checkout (vla_rft_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu,
                   decode_hd.cu, decode_heads.cu, fused_decode_layer.cu and
-                  fused_decode_attention.cu), one nvcc per source, started
-                  together;
+                  fused_decode_attention.cu), one nvcc per source, and g++ the
+                  data path's host libraries (tfrecord_reader.cc, and
+                  image_resize.cc: image_ops.cc's resize and crop), all
+                  started together;
   2. flash      - the flash kernel (#1) against its plain PyTorch twin on the
                   card over masked, padded and ragged cases and the WM's
                   1088-token prefill; three calls at each timed shape give
@@ -154,6 +156,22 @@ Phases, one JSON line each:
                   (and non-zero); 2 vla_flow steps (24 of #1, none of #2 or
                   #3); 2 next-token SFTTrainer steps of the 24-layer WM over
                   4 rows of 1663 tokens (24 of each kernel per step);
+     grpo_rlds  - the GRPO entry point on RLDS records (data.video.dataset_path)
+                  at the libero preset: the fixture's 256 px JPEG frames
+                  (tests/torch_fixtures/rlds/) decoded on the card's route,
+                  Pillow's libjpeg-turbo, bit-equal to the reference's pixels
+                  (nvJPEG's decode beside it, a yardstick); 2 shards x 3
+                  episodes x 40 steps written with the port's Example and
+                  TFRecord writers, read back by the native and the plain
+                  reader; the first two train batches (val_fraction 0.5,
+                  image_aug, the crc32 stub tokenizer) against the
+                  reference's digests in the fixture (integer fields by
+                  SHA-256, float fields within 1e-6); 2 grpo steps through
+                  main_vla_rft_grpo.run on the records, weights_int8 and
+                  val_before_train (one val batch from the val shard): the
+                  grpo phase's exact launches, finite metrics, moved / frozen
+                  leaves; the data's seconds (first batch, steady), host RSS
+                  and device peaks, the host libraries' build;
 then the card's name and power limit, the kernel table as one JSON line, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no `ok` line.  It needs a CUDA device and the rest of the
@@ -371,12 +389,18 @@ def bwd_work(q, k, kv_lens, kv_starts, q_offset, causal):
 
 
 def phase_build() -> dict:
+    from vla_rft_tpu_torch.data import image_ops, tfrecord
     from vla_rft_tpu_torch.ops import attention, cuda_build, decode_attention_hd
     from vla_rft_tpu_torch.ops import fused_decode_attention, fused_decode_layer
 
     t0 = time.perf_counter()
-    infos = cuda_build.build("flash_fwd", "flash_bwd", "decode_hd", "decode_heads",
-                             "fused_decode_layer", "fused_decode_attention")
+    # the data path's host libraries (g++; collected first, so their seconds
+    # are their own): the TFRecord scanner and the resize / crop of
+    # image_ops.cc (its JPEG decode needs libjpeg's headers, which the card's
+    # machine lacks: JPEG goes through Pillow there); then the kernels
+    infos = cuda_build.build("tfrecord_reader", "image_resize", "flash_fwd", "flash_bwd",
+                             "decode_hd", "decode_heads", "fused_decode_layer",
+                             "fused_decode_attention")
     wall = time.perf_counter() - t0
     attention._load()
     attention._load_bwd()
@@ -384,6 +408,8 @@ def phase_build() -> dict:
     decode_attention_hd._load("heads")
     fused_decode_layer._load()
     fused_decode_attention._load()
+    tfrecord._load()
+    image_ops._load("image_resize")
     libs = {}
     for name, info in infos.items():
         # ptxas's lines per kernel: its (mangled) name, then registers and spills
@@ -908,6 +934,20 @@ def _expect(**nonzero) -> dict:
                               "fused_o_mlp")}, **nonzero}
 
 
+def grpo_expect(fdl):
+    """A grpo step's launches: #1 for the Qwen context forward and the WM's
+    shared-prefix prefill; #4 for the prompt tails' prefill (7 tokens,
+    unfused) and every fused call, #8 and #9 for every fused call."""
+    def expect_fn(tr, _):
+        b = tr.bundle
+        L, roll = b.wm_cfg.num_layers, b.roll_cfg
+        fused_calls = roll.num_frames * (roll.interact_max_tokens + 1)
+        return _expect(flash_fwd=b.vla_cfg.llm.num_layers + L,
+                       decode_shared_hd=L * (fused_calls + 1), fused_qkv=L * fused_calls,
+                       fused_o_mlp=fdl.O_MLP_LAUNCHES * L * fused_calls)
+    return expect_fn
+
+
 def phase_wm_reward(mods) -> dict:
     from vla_rft_tpu_torch.models.factory import build_wm_reward
     from vla_rft_tpu_torch.trainer.grpo_trainer import (process_stage, reward_stage,
@@ -1284,13 +1324,15 @@ def phase_fused_decode(fdl) -> dict:
 GRPO_STEPS = 2
 
 
-def _drive_grpo(mods, argv, expect_fn, n_steps: int = GRPO_STEPS, check_start=None):
+def _drive_grpo(mods, argv, expect_fn, n_steps: int = GRPO_STEPS, check_start=None,
+                tokenizer=None):
     """n_steps steps of main_vla_rft_grpo.run(argv) at the libero preset
     (`check_start(trainer)` first runs on the trainer as the entry point
     hands it over, after any checkpoint load) with every kernel count set to
     0 just before each step and read just after it; each step's launches must equal expect_fn(trainer, its
     record), its metrics be finite, every trained expert leaf must move and
-    every frozen leaf stay bit-identical.  Returns (trainer, step records,
+    every frozen leaf stay bit-identical (`tokenizer` goes to run for the
+    RLDS prompts).  Returns (trainer, step records,
     the last step's expected launches, run seconds, expert leaves, frozen
     leaves)."""
     import tempfile
@@ -1325,7 +1367,7 @@ def _drive_grpo(mods, argv, expect_fn, n_steps: int = GRPO_STEPS, check_start=No
                                   if not k.startswith("timing_s/")}})
 
     t0 = time.perf_counter()
-    tr = main_vla_rft_grpo.run(argv, on_start, on_step_start, on_step_end)
+    tr = main_vla_rft_grpo.run(argv, on_start, on_step_start, on_step_end, tokenizer=tokenizer)
     run_s = time.perf_counter() - t0
     b = tr.bundle
     for s in steps:
@@ -1373,20 +1415,8 @@ def phase_grpo(mods) -> dict:
     the int8-weight WM (fused decode layers #8 / #9)."""
     from vla_rft_tpu_torch.models.transformer import decode_step_fused
 
-    fdl = mods[3]
-
-    def expect_fn(tr, _):
-        # #1: the Qwen context forward and the WM's shared-prefix prefill; #4:
-        # the prompt tails' prefill (7 tokens, unfused) and every fused call
-        b = tr.bundle
-        L, roll = b.wm_cfg.num_layers, b.roll_cfg
-        fused_calls = roll.num_frames * (roll.interact_max_tokens + 1)
-        return _expect(flash_fwd=b.vla_cfg.llm.num_layers + L,
-                       decode_shared_hd=L * (fused_calls + 1), fused_qkv=L * fused_calls,
-                       fused_o_mlp=fdl.O_MLP_LAUNCHES * L * fused_calls)
-
     tr, steps, expect, run_s, n_expert, n_frozen = _drive_grpo(
-        mods, ["world_model_rollout.rollout.weights_int8=true"], expect_fn)
+        mods, ["world_model_rollout.rollout.weights_int8=true"], grpo_expect(mods[3]))
     b, roll = tr.bundle, tr.bundle.roll_cfg
     fused_calls = roll.num_frames * (roll.interact_max_tokens + 1)
 
@@ -1706,12 +1736,7 @@ def phase_grpo_variants(mods) -> dict:
         out[name] = rec
         return tr
 
-    def fused_expect(tr, _):
-        b = tr.bundle
-        L, roll = b.wm_cfg.num_layers, b.roll_cfg
-        calls = roll.num_frames * (roll.interact_max_tokens + 1)
-        return _expect(flash_fwd=b.vla_cfg.llm.num_layers + L, decode_shared_hd=L * (calls + 1),
-                       fused_qkv=L * calls, fused_o_mlp=fdl.O_MLP_LAUNCHES * L * calls)
+    fused_expect = grpo_expect(fdl)
 
     img_dir = tempfile.mkdtemp(prefix="val_frames_")
 
@@ -2173,13 +2198,7 @@ def phase_grpo_pretrained(mods) -> dict:
             rec["parameters_bit_equal"] = n
             return rec
 
-        def fused_expect(tr, _):
-            b = tr.bundle
-            L, roll = b.wm_cfg.num_layers, b.roll_cfg
-            calls = roll.num_frames * (roll.interact_max_tokens + 1)
-            return _expect(flash_fwd=b.vla_cfg.llm.num_layers + L,
-                           decode_shared_hd=L * (calls + 1), fused_qkv=L * calls,
-                           fused_o_mlp=fdl.O_MLP_LAUNCHES * L * calls)
+        fused_expect = grpo_expect(fdl)
 
         # one step from the full checkpoint
         rec = {}
@@ -2244,6 +2263,261 @@ def phase_grpo_pretrained(mods) -> dict:
         f"{f} {v:.2f} ({out['file_bytes'][f]} B)" for f, v in out["write_s"].items()),
           flush=True)
     emit(out)
+    return out
+
+
+# ---------------------------------------------------------------- grpo_rlds
+RLDS_FIXTURE = os.path.join("tests", "torch_fixtures", "rlds")
+RLDS_SHARDS, RLDS_EPISODES, RLDS_STEPS = 2, 3, 40
+RLDS_INSTRUCTION = ("pick up the black bowl between the plate and the ramekin and place it "
+                    "on the plate")
+RLDS_ARGV = ["data.val_fraction=0.5", f"data.train_batch_size={N_SAMPLES}"]
+RLDS_FLOAT_TOL = 1e-6
+RLDS_SAMPLES = 512  # float values kept per large field of a batch digest
+
+
+def rlds_fixture(root: str) -> tuple:
+    """The fixture's JPEG frames (bytes, in name order), the reference's
+    decoded pixels of them and the digests of its batches."""
+    d = os.path.join(root, RLDS_FIXTURE)
+    names = sorted(f for f in os.listdir(d) if f.endswith(".jpg"))
+    frames = [open(os.path.join(d, f), "rb").read() for f in names]
+    with np.load(os.path.join(d, "pixels.npz")) as z:
+        pixels = z["pixels"]
+    with open(os.path.join(d, "digests.json")) as f:
+        digests = json.load(f)
+    return frames, pixels, digests
+
+
+def write_rlds_records(data_dir: str, frames: list) -> list:
+    """RLDS_SHARDS shards of RLDS_EPISODES episodes of RLDS_STEPS steps under
+    data_dir/<dataset_name>/, written with the port's Example writer and
+    TFRecord framing: episode g shows the frames cycled from offset g, with
+    actions (7) and states (8) from numpy seeded (16, g) and one LIBERO
+    instruction.  Returns the shard paths."""
+    from vla_rft_tpu_torch.data.rlds import RLDSConfig, make_episode_example
+    from vla_rft_tpu_torch.data.tfrecord import write_records
+
+    cfg = RLDSConfig()
+    d = os.path.join(data_dir, cfg.dataset_name)
+    os.makedirs(d, exist_ok=True)
+    paths = []
+    for s in range(RLDS_SHARDS):
+        payloads = []
+        for e in range(RLDS_EPISODES):
+            g = s * RLDS_EPISODES + e
+            rng = np.random.default_rng((16, g))
+            actions = rng.uniform(-1, 1, (RLDS_STEPS, 7)).astype(np.float32)
+            states = rng.normal(size=(RLDS_STEPS, 8)).astype(np.float32)
+            imgs = [frames[(t + g) % len(frames)] for t in range(RLDS_STEPS)]
+            payloads.append(make_episode_example(imgs, actions, states, RLDS_INSTRUCTION, cfg))
+        paths.append(os.path.join(
+            d, f"{cfg.dataset_name}-train.tfrecord-{s:05d}-of-{RLDS_SHARDS:05d}"))
+        write_records(paths[-1], payloads)
+    return paths
+
+
+def batch_digest(batch: dict) -> dict:
+    """Per field: shape, dtype and SHA-256 of the bytes; float fields also
+    keep their values (RLDS_SAMPLES of them, evenly spaced, when larger)."""
+    import hashlib
+
+    out = {}
+    for k in sorted(batch):
+        v = np.ascontiguousarray(batch[k])
+        rec = {"shape": list(v.shape), "dtype": str(v.dtype),
+               "sha256": hashlib.sha256(v.tobytes()).hexdigest()}
+        if v.dtype.kind == "f":
+            flat = v.reshape(-1)
+            if flat.size > RLDS_SAMPLES:
+                flat = flat[np.linspace(0, flat.size - 1, RLDS_SAMPLES).astype(np.int64)]
+            rec["values"] = [float(x) for x in flat]
+        out[k] = rec
+    return out
+
+
+def compare_digests(got: dict, ref: dict) -> dict:
+    """Integer and uint8 fields must have the reference's SHA-256, float
+    fields its values within RLDS_FLOAT_TOL (and shapes and dtypes agree).
+    Returns per field whether the bytes are equal and the largest float
+    difference; raises on a mismatch."""
+    out, bad = {}, []
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"batch fields {sorted(got)} != reference {sorted(ref)}")
+    for k, r in ref.items():
+        g = got[k]
+        rec = {"bytes_equal": g["sha256"] == r["sha256"]}
+        if (g["shape"], g["dtype"]) != (r["shape"], r["dtype"]):
+            bad.append(f"{k}: {g['shape']} {g['dtype']} vs {r['shape']} {r['dtype']}")
+        elif "values" in r:
+            rec["max_abs_diff"] = float(np.max(np.abs(np.subtract(g["values"], r["values"]))))
+            if rec["max_abs_diff"] > RLDS_FLOAT_TOL:
+                bad.append(f"{k}: max abs diff {rec['max_abs_diff']}")
+        elif not rec["bytes_equal"]:
+            bad.append(f"{k}: SHA-256 differs")
+        out[k] = rec
+    if bad:
+        raise AssertionError(f"batch differs from the reference: {bad}")
+    return out
+
+
+def rlds_config_tree(data_dir: str, extra=()):
+    from vla_rft_tpu_torch.config import vla_rft_default_config
+
+    return vla_rft_default_config().apply_overrides(
+        [f"data.video.dataset_path={data_dir}", *RLDS_ARGV, *extra])
+
+
+def nvjpeg_decode(frames: list) -> np.ndarray:
+    """nvJPEG's decode (libnvjpeg of the CUDA toolkit, through ctypes) of
+    3-channel JPEGs to interleaved RGB on the card, copied back: a yardstick
+    for the JPEG route, on no path."""
+    import ctypes
+
+    lib = ctypes.CDLL("libnvjpeg.so")
+    vp, sz, ip = ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int)
+
+    class Image(ctypes.Structure):
+        _fields_ = [("channel", vp * 4), ("pitch", sz * 4)]
+
+    lib.nvjpegCreateSimple.argtypes = [ctypes.POINTER(vp)]
+    lib.nvjpegJpegStateCreate.argtypes = [vp, ctypes.POINTER(vp)]
+    lib.nvjpegGetImageInfo.argtypes = [vp, ctypes.c_char_p, sz, ip, ip, ip, ip]
+    lib.nvjpegDecode.argtypes = [vp, vp, ctypes.c_char_p, sz, ctypes.c_int,
+                                 ctypes.POINTER(Image), vp]
+    lib.nvjpegJpegStateDestroy.argtypes = [vp]
+    lib.nvjpegDestroy.argtypes = [vp]
+
+    def check(status, what):
+        if status != 0:
+            raise RuntimeError(f"{what}: nvjpegStatus {status}")
+
+    handle, state = vp(), vp()
+    check(lib.nvjpegCreateSimple(ctypes.byref(handle)), "nvjpegCreateSimple")
+    check(lib.nvjpegJpegStateCreate(handle, ctypes.byref(state)), "nvjpegJpegStateCreate")
+    out = []
+    try:
+        for b in frames:
+            n, sub = ctypes.c_int(), ctypes.c_int()
+            ws, hs = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
+            check(lib.nvjpegGetImageInfo(handle, b, len(b), ctypes.byref(n), ctypes.byref(sub),
+                                         ws, hs), "nvjpegGetImageInfo")
+            dst = torch.empty((hs[0], ws[0], 3), dtype=torch.uint8, device="cuda")
+            img = Image()
+            img.channel[0], img.pitch[0] = dst.data_ptr(), ws[0] * 3
+            stream = vp(torch.cuda.current_stream().cuda_stream)
+            check(lib.nvjpegDecode(handle, state, b, len(b), 5, ctypes.byref(img), stream),
+                  "nvjpegDecode")  # 5: NVJPEG_OUTPUT_RGBI
+            torch.cuda.synchronize()
+            out.append(dst.cpu().numpy())
+    finally:
+        lib.nvjpegJpegStateDestroy(state)
+        lib.nvjpegDestroy(handle)
+    return np.stack(out)
+
+
+def _levels(a: np.ndarray, b: np.ndarray) -> dict:
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return {"bit_equal": bool(d.max() == 0), "max_abs_levels": int(d.max()),
+            "mean_abs_levels": float(d.mean()), "share_differing": float((d > 0).mean())}
+
+
+def phase_grpo_rlds(mods, build: dict) -> dict:
+    """The GRPO entry point on RLDS records at the libero preset: (1) the
+    fixture's JPEG frames decoded on the card's route (Pillow's
+    libjpeg-turbo) against the reference's pixels, bit for bit, and nvJPEG's
+    decode beside it (a yardstick); (2) RLDS_SHARDS x RLDS_EPISODES x
+    RLDS_STEPS records written with the port's writers and read back through
+    the native and the plain TFRecord readers, the same bytes; (3) the first
+    two train batches (val_fraction 0.5, the crc32 stub tokenizer, image_aug
+    on) against the reference's digests in the fixture; (4) two grpo steps
+    through main_vla_rft_grpo.run on those records with weights_int8 and
+    val_before_train (one val batch, from the val shard): the grpo phase's
+    exact launches, finite metrics, the expert moved, frozen leaves
+    bit-identical; (5) the data's seconds (next_batch timed apart from the
+    step, which draws its next batch before on_step_start), the host RSS
+    and device peaks, and the build of the host libraries (phase build's
+    record, `build`)."""
+    import tempfile
+
+    from vla_rft_tpu_torch.data import image_ops, tfrecord
+    from vla_rft_tpu_torch.eval.policy import _StubTokenizer
+    from vla_rft_tpu_torch.trainer.main_vla_rft_grpo import build_rlds_datasets
+
+    rss = HostRssPeak()
+    root = os.path.dirname(os.path.abspath(__file__))
+    frames, ref_pixels, digests = rlds_fixture(root)
+    h, w = ref_pixels.shape[1:3]
+    t = time.perf_counter()
+    pixels = image_ops.decode_jpeg_batch(frames, h, w, decoder="pillow")
+    decode = {"route": "pillow", "frames": len(frames), "seconds": time.perf_counter() - t,
+              **_levels(pixels, ref_pixels)}
+    if not decode["bit_equal"]:
+        raise AssertionError(f"the card's JPEG route differs from the reference: {decode}")
+    try:
+        nvjpeg = _levels(nvjpeg_decode(frames), ref_pixels)
+    except (OSError, RuntimeError) as e:  # a yardstick: recorded, not a failure
+        nvjpeg = {"error": str(e)}
+
+    data_dir = tempfile.mkdtemp(prefix="rlds_")
+    t = time.perf_counter()
+    paths = write_rlds_records(data_dir, frames)
+    write_s = time.perf_counter() - t
+    for p in paths:
+        native = list(tfrecord.read_records(p, verify_crc=True))
+        plain = list(tfrecord.read_records(p, plain=True))  # its crc check: the CPU tests
+        if native != plain or len(native) != RLDS_EPISODES:
+            raise AssertionError(f"{p}: native and plain readers disagree")
+
+    tok = _StubTokenizer()
+    ds, val = build_rlds_datasets(rlds_config_tree(data_dir), "libero", tok, "pillow")
+    batch_s, batches = [], []
+    for ref in digests["batches"]:
+        t = time.perf_counter()
+        batches.append(compare_digests(batch_digest(ds.next_batch()), ref))
+        batch_s.append(time.perf_counter() - t)
+    del ds, val
+
+    data_s = []
+
+    def check_start(trainer):
+        inner = trainer.dataset.next_batch
+
+        def timed_next():
+            t0 = time.perf_counter()
+            out = inner()
+            data_s.append(time.perf_counter() - t0)
+            return out
+
+        trainer.dataset.next_batch = timed_next
+
+    tr, steps, expect, run_s, n_expert, n_frozen = _drive_grpo(
+        mods, [f"data.video.dataset_path={data_dir}", "data.val_fraction=0.5",
+               "world_model_rollout.rollout.weights_int8=true", "trainer.val_before_train=true",
+               "trainer.val_iters=1"],
+        grpo_expect(mods[3]), check_start=check_start, tokenizer=tok)
+    train_files = [os.path.basename(f) for f in tr.dataset.files]
+    val_files = [os.path.basename(f) for f in tr.val_dataset.files]
+    if (tr.val_dataset is tr.dataset or set(train_files) & set(val_files) or not val_files
+            or tr.val_dataset._step != 1):
+        raise AssertionError(f"validation: train {train_files}, val {val_files}, val batches "
+                             f"{tr.val_dataset._step}")
+    out = {"phase": "grpo_rlds", "preset": "libero", "samples": N_SAMPLES, "n": N_ROLLOUTS,
+           "weights_int8": True, "decode": decode, "nvjpeg_yardstick": nvjpeg,
+           "records": {"shards": RLDS_SHARDS, "episodes_per_shard": RLDS_EPISODES,
+                       "steps": RLDS_STEPS, "bytes": sum(os.path.getsize(p) for p in paths),
+                       "write_s": write_s, "native_equals_plain": True},
+           "digests": {"batches": batches, "seconds": batch_s, "float_tol": RLDS_FLOAT_TOL},
+           "train_files": train_files, "val_files": val_files, "val_batches": 1,
+           "data_s": {"first_batch": data_s[0], "steady": data_s[1:]},
+           "run_s": run_s, "steps": steps, "expected_launches_per_step": expect,
+           "expert_leaves_moved": n_expert, "frozen_leaves_bit_identical": n_frozen,
+           "host_rss_peak_gib": rss.stop(),
+           "host_libraries": {k: {f: build["libraries"][k][f] for f in ("seconds", "built")}
+                              for k in ("tfrecord_reader", "image_resize")}}
+    shutil.rmtree(data_dir, ignore_errors=True)
+    emit(out)
+    del tr
     return out
 
 
@@ -2596,7 +2870,7 @@ def main() -> int:
         return out
 
     mods = (attention, dec, heads, fdl)  # the kernels a WM call can launch
-    timed("build", phase_build)
+    build = timed("build", phase_build)
     flash = timed("flash", phase_flash, attention)
     flash_bwd = timed("flash_bwd", phase_flash_bwd, attention)
     decode = timed("decode", phase_decode, dec)
@@ -2619,6 +2893,8 @@ def main() -> int:
     variants = timed("grpo_variants", phase_grpo_variants, mods)
     torch.cuda.empty_cache()
     timed("grpo_pretrained", phase_grpo_pretrained, mods)
+    torch.cuda.empty_cache()
+    rlds = timed("grpo_rlds", phase_grpo_rlds, mods, build)
     torch.cuda.empty_cache()
     sft = timed("sft", phase_sft, attention)
     emit({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t0, 1),
@@ -2676,10 +2952,16 @@ def main() -> int:
                           ("fused_decode_attention@b128", "b128"),
                           ("fused_decode_attention@gqa14_2", "gqa14_2"))
         for t in (fused_attn["timed"][key],)]
+    rlds_n = rlds["steps"][0]["launches"]  # grpo_rlds: per step, as the grpo phase's
+    for e in fused_entries:
+        if "@" not in e["name"]:
+            e["grpo_rlds_launches_per_step"] = rlds_n[
+                "fused_qkv" if e["name"] == "fused_rmsnorm_qkv" else "fused_o_mlp"]
     emit({"kernels": [
-        entry("flash_fwd", flash_src, "vla_rft_tpu/ops/attention.py:108",
-              serving["main_path_launches"], flash["timed"]["serving"]["max_abs_err_o"],
-              flash["timed"]["serving"]),
+        {**entry("flash_fwd", flash_src, "vla_rft_tpu/ops/attention.py:108",
+                 serving["main_path_launches"], flash["timed"]["serving"]["max_abs_err_o"],
+                 flash["timed"]["serving"]),
+         "grpo_rlds_launches_per_step": rlds_n["flash_fwd"]},
         {**entry("flash_fwd@wm_prefill", flash_src, "vla_rft_tpu/ops/attention.py:108",
                  wm_launches["flash_fwd"], flash["timed"]["wm_prefill"]["max_abs_err_o"],
                  flash["timed"]["wm_prefill"]),
@@ -2691,9 +2973,10 @@ def main() -> int:
                   f"compute_log_prob's WM forward; launches: the grpo_variants wm_logprob step, "
                   f"the Qwen encode's 24 (another shape) included",
          "launches_at_this_shape": variants["wm_layers"]},
-        entry("decode_shared_hd", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:226",
-              wm_launches["decode_shared_hd"], decode["max_abs_err"]["shared"],
-              decode["timed"]["shared"]),
+        {**entry("decode_shared_hd", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:226",
+                 wm_launches["decode_shared_hd"], decode["max_abs_err"]["shared"],
+                 decode["timed"]["shared"]),
+         "grpo_rlds_launches_per_step": rlds_n["decode_shared_hd"]},
         {**entry("decode_shared_hd@b128", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:226",
                  0, decode["max_abs_err"]["shared"], decode["timed"]["shared_b128"]),
          "shape": f"B=128 Sq=1 Hq=Hkv=16 D=64 int8, 16 prefixes of {WM_PREFIX} (8 rows each) "

@@ -563,7 +563,8 @@ def test_cli_refuses_what_is_not_ported_and_runs_without_a_card_only_on_request(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main_vla_rft_grpo.run(["--preset=tiny", "trainer.total_training_steps=1"])
-    with pytest.raises(NotImplementedError, match="RLDS"):
+    # RLDS records need the prompt tokenizer (actor_rollout_ref.model.ckpt_path)
+    with pytest.raises(ValueError, match="RLDS data requires actor_rollout_ref.model.ckpt_path"):
         main_vla_rft_grpo.run(["--preset=tiny", "--device=cpu",
                                "data.video.dataset_path=/data/libero"])
 

@@ -15,8 +15,19 @@ world_model_rollout.rollout.speculative_k (0..7), and validation
 (trainer.val_before_train, trainer.val_only, trainer.test_freq,
 trainer.val_iters, trainer.img_save_dir for the frame grids).
 Data comes from `data/synthetic.py` (validation from a held-out synthetic
-stream); a non-empty data.video.dataset_path (RLDS) is not ported yet and
-raises.
+stream) unless data.video.dataset_path is set: then from the RLDS shards
+`<dataset_path>/<data.video.dataset_name>/*.tfrecord*` (`data/rlds.py`, the
+reference's dataset build): data.shuffle_buffer_size, data.image_aug (on by
+default) and, with data.val_fraction > 0, a val split held out of the same
+shards that validation draws from, normalised with the train split's
+statistics.  Windows, images and action chunks take the preset's sizes
+(`libero`: the reference's defaults, 9 frames, 8 actions, 224 / 256 px).
+The prompt's text tokenizer is `AutoTokenizer` from
+actor_rollout_ref.model.ckpt_path (as in the reference; without a path a
+ValueError, without `transformers` an ImportError), unless the caller
+passes one to `run(tokenizer=...)`.  JPEG frames decode through the port's
+libjpeg library on the CPU and through Pillow's libjpeg-turbo on the card
+(`data/image_ops.py`).
 
 Weights are seeded random (trainer.seed) unless checkpoint paths are set;
 then the trainer is built, the checkpoints are loaded into its modules in
@@ -40,6 +51,7 @@ before the load, as in the reference.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import os
 import re
@@ -47,11 +59,14 @@ import sys
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import torch
 from torch import nn
 
 from vla_rft_tpu_torch import convert_weights as cw
-from vla_rft_tpu_torch.config import Config, vla_rft_default_config
+from vla_rft_tpu_torch.config import Config, PolicyConfig, WMRewardConfig, vla_rft_default_config
 from vla_rft_tpu_torch.convert import flax_to_torch
+from vla_rft_tpu_torch.data.rlds import RLDSConfig, RLDSDataset
+from vla_rft_tpu_torch.models.factory import policy_configs, wm_reward_configs
 from vla_rft_tpu_torch.trainer.grpo_trainer import VLARFTGRPOTrainer
 from vla_rft_tpu_torch.utils import weight_files as wf
 
@@ -59,9 +74,11 @@ from vla_rft_tpu_torch.utils import weight_files as wf
 def run(argv: Optional[List[str]] = None,
         on_start: Optional[Callable[[VLARFTGRPOTrainer], None]] = None,
         on_step_start: Optional[Callable[[int], None]] = None,
-        on_step_end: Optional[Callable[[int, Dict[str, float]], None]] = None
-        ) -> VLARFTGRPOTrainer:
-    """Parse flags and overrides, build the trainer, load the configured
+        on_step_end: Optional[Callable[[int, Dict[str, float]], None]] = None,
+        tokenizer=None) -> VLARFTGRPOTrainer:
+    """Parse flags and overrides, build the RLDS datasets when
+    data.video.dataset_path is set (the prompts tokenised by `tokenizer`,
+    else by the checkpoint's), build the trainer, load the configured
     checkpoints into it, fit; returns the trainer (its `pretrained` holds
     what each load read and took).  `on_start(trainer)` runs after the load,
     before the first step, and the step hooks bracket every training_step
@@ -76,9 +93,13 @@ def run(argv: Optional[List[str]] = None,
             device = a.split("=", 1)[1]
             argv.remove(a)
     config = vla_rft_default_config().apply_overrides([a for a in argv if "=" in a])
+    dataset = val_dataset = None
     if config.data.video.dataset_path:
-        raise NotImplementedError("RLDS data (data.video.dataset_path) is not ported yet")
-    trainer = VLARFTGRPOTrainer(config, preset=preset, device=device)
+        dataset, val_dataset = build_rlds_datasets(
+            config, preset, tokenizer if tokenizer is not None else _load_tokenizer(config),
+            jpeg_decoder="libjpeg" if torch.device(device).type == "cpu" else "pillow")
+    trainer = VLARFTGRPOTrainer(config, preset=preset, device=device, dataset=dataset,
+                                val_dataset=val_dataset)
     trainer.pretrained = _maybe_load_pretrained(trainer, config)
     for family, rec in trainer.pretrained.items():
         print(f"[load] {family}: {rec['tensors']} tensors, {rec['bytes']} bytes read in "
@@ -87,6 +108,55 @@ def run(argv: Optional[List[str]] = None,
         on_start(trainer)
     trainer.fit(on_step_start=on_step_start, on_step_end=on_step_end)
     return trainer
+
+
+def rlds_config(config: Config, preset: str, **kw) -> RLDSConfig:
+    """The RLDSConfig of the reference's dataset build (data_dir,
+    dataset_name, shuffle_buffer_size, val_fraction) with the preset's
+    window, action and image sizes; `kw` sets the rest (split,
+    jpeg_decoder)."""
+    vla_cfg, expert_cfg, _, policy_image = policy_configs(preset,
+                                                          PolicyConfig.from_config(config))
+    wm_image = wm_reward_configs(preset, WMRewardConfig.from_config(config), tiny_data=False)[5]
+    return RLDSConfig(
+        data_dir=config.data.video.dataset_path, dataset_name=config.data.video.dataset_name,
+        shuffle_buffer_size=config.data.shuffle_buffer_size,
+        val_fraction=float(config.data.get("val_fraction", 0.0) or 0.0),
+        window_frames=config.data.video.segment_length,
+        action_chunk=expert_cfg.num_actions_chunk, action_dim=expert_cfg.action_dim,
+        proprio_dim=vla_cfg.proprio_dim, policy_image_size=policy_image,
+        wm_image_size=wm_image, **kw)
+
+
+def build_rlds_datasets(config: Config, preset: str, tokenizer, jpeg_decoder: str = "libjpeg"
+                        ) -> Tuple[RLDSDataset, Optional[RLDSDataset]]:
+    """The train RLDSDataset (data.image_aug) and, with data.val_fraction,
+    the val one, which shares the train split's statistics (the
+    reference's main_vla_rft_grpo.py:29-53)."""
+    train_cfg = rlds_config(config, preset, split="train", jpeg_decoder=jpeg_decoder)
+    dataset = RLDSDataset(train_cfg, tokenizer, batch_size=config.data.train_batch_size,
+                          image_aug=bool(config.data.get("image_aug", False)))
+    val_dataset = None
+    if train_cfg.val_fraction > 0:
+        val_dataset = RLDSDataset(dataclasses.replace(train_cfg, split="val"), tokenizer,
+                                  batch_size=config.data.train_batch_size,
+                                  stats=dataset.stats)  # normalisation as in training
+    return dataset, val_dataset
+
+
+def _load_tokenizer(config: Config):
+    """The prompt tokenizer: AutoTokenizer from actor_rollout_ref.model.ckpt_path."""
+    ckpt = config.actor_rollout_ref.model.ckpt_path
+    if not ckpt:
+        raise ValueError("RLDS data requires actor_rollout_ref.model.ckpt_path (tokenizer)")
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError(
+            "RLDS data reads the prompt tokenizer from actor_rollout_ref.model.ckpt_path with "
+            "transformers' AutoTokenizer, and transformers is not installed: install it, or "
+            "pass a tokenizer to run(tokenizer=...)") from e
+    return AutoTokenizer.from_pretrained(ckpt)
 
 
 def _nbytes(path: str, patterns=wf.WEIGHT_PATTERNS) -> int:
