@@ -7,9 +7,8 @@ Phases, one JSON line each:
                   checkout (vla_rft_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu,
                   decode_hd.cu, decode_heads.cu, fused_decode_layer.cu and
                   fused_decode_attention.cu), one nvcc per source, and g++ the
-                  data path's host libraries (tfrecord_reader.cc, and
-                  image_resize.cc: image_ops.cc's resize and crop), all
-                  started together;
+                  data path's host libraries (tfrecord_reader.cc and
+                  image_ops.cc, the resize and crop), all started together;
   2. flash      - the flash kernel (#1) against its plain PyTorch twin on the
                   card over masked, padded and ragged cases and the WM's
                   1088-token prefill; three calls at each timed shape give
@@ -158,20 +157,19 @@ Phases, one JSON line each:
                   4 rows of 1663 tokens (24 of each kernel per step);
      grpo_rlds  - the GRPO entry point on RLDS records (data.video.dataset_path)
                   at the libero preset: the fixture's 256 px JPEG frames
-                  (tests/torch_fixtures/rlds/) decoded on the card's route,
-                  Pillow's libjpeg-turbo, bit-equal to the reference's pixels
-                  (nvJPEG's decode beside it, a yardstick); 2 shards x 3
-                  episodes x 40 steps written with the port's Example and
-                  TFRecord writers, read back by the native and the plain
-                  reader; the first two train batches (val_fraction 0.5,
-                  image_aug, the crc32 stub tokenizer) against the
-                  reference's digests in the fixture (integer fields by
-                  SHA-256, float fields within 1e-6); 2 grpo steps through
-                  main_vla_rft_grpo.run on the records, weights_int8 and
-                  val_before_train (one val batch from the val shard): the
-                  grpo phase's exact launches, finite metrics, moved / frozen
-                  leaves; the data's seconds (first batch, steady), host RSS
-                  and device peaks, the host libraries' build;
+                  (tests/torch_fixtures/rlds/) decoded by the port (Pillow's
+                  libjpeg-turbo), bit-equal to the reference's pixels; 2
+                  shards x 3 episodes x 40 steps written with the port's
+                  Example and TFRecord writers, read back by the native and
+                  the plain reader; 2 grpo steps through main_vla_rft_grpo.run
+                  on the records, weights_int8 and val_before_train (one val
+                  batch from the val shard): the two batches the trainer
+                  draws (val_fraction 0.5, image_aug, the crc32 stub
+                  tokenizer) hold the reference's SHA-256 digests in the
+                  fixture, every field; the grpo phase's exact launches,
+                  finite metrics, moved / frozen leaves; the data's seconds
+                  (first batch, steady), host RSS and device peaks, the host
+                  libraries' build;
 then the card's name and power limit, the kernel table as one JSON line, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no `ok` line.  It needs a CUDA device and the rest of the
@@ -395,10 +393,9 @@ def phase_build() -> dict:
 
     t0 = time.perf_counter()
     # the data path's host libraries (g++; collected first, so their seconds
-    # are their own): the TFRecord scanner and the resize / crop of
-    # image_ops.cc (its JPEG decode needs libjpeg's headers, which the card's
-    # machine lacks: JPEG goes through Pillow there); then the kernels
-    infos = cuda_build.build("tfrecord_reader", "image_resize", "flash_fwd", "flash_bwd",
+    # are their own): the TFRecord scanner and the resize / crop; then the
+    # kernels
+    infos = cuda_build.build("tfrecord_reader", "image_ops", "flash_fwd", "flash_bwd",
                              "decode_hd", "decode_heads", "fused_decode_layer",
                              "fused_decode_attention")
     wall = time.perf_counter() - t0
@@ -409,7 +406,7 @@ def phase_build() -> dict:
     fused_decode_layer._load()
     fused_decode_attention._load()
     tfrecord._load()
-    image_ops._load("image_resize")
+    image_ops._load()
     libs = {}
     for name, info in infos.items():
         # ptxas's lines per kernel: its (mangled) name, then registers and spills
@@ -2272,8 +2269,6 @@ RLDS_SHARDS, RLDS_EPISODES, RLDS_STEPS = 2, 3, 40
 RLDS_INSTRUCTION = ("pick up the black bowl between the plate and the ramekin and place it "
                     "on the plate")
 RLDS_ARGV = ["data.val_fraction=0.5", f"data.train_batch_size={N_SAMPLES}"]
-RLDS_FLOAT_TOL = 1e-6
-RLDS_SAMPLES = 512  # float values kept per large field of a batch digest
 
 
 def rlds_fixture(root: str) -> tuple:
@@ -2318,47 +2313,22 @@ def write_rlds_records(data_dir: str, frames: list) -> list:
 
 
 def batch_digest(batch: dict) -> dict:
-    """Per field: shape, dtype and SHA-256 of the bytes; float fields also
-    keep their values (RLDS_SAMPLES of them, evenly spaced, when larger)."""
+    """Per field: shape, dtype and SHA-256 of the bytes."""
     import hashlib
 
-    out = {}
-    for k in sorted(batch):
-        v = np.ascontiguousarray(batch[k])
-        rec = {"shape": list(v.shape), "dtype": str(v.dtype),
-               "sha256": hashlib.sha256(v.tobytes()).hexdigest()}
-        if v.dtype.kind == "f":
-            flat = v.reshape(-1)
-            if flat.size > RLDS_SAMPLES:
-                flat = flat[np.linspace(0, flat.size - 1, RLDS_SAMPLES).astype(np.int64)]
-            rec["values"] = [float(x) for x in flat]
-        out[k] = rec
-    return out
+    return {k: {"shape": list(np.shape(v)), "dtype": str(np.asarray(v).dtype),
+                "sha256": hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()}
+            for k, v in sorted(batch.items())}
 
 
-def compare_digests(got: dict, ref: dict) -> dict:
-    """Integer and uint8 fields must have the reference's SHA-256, float
-    fields its values within RLDS_FLOAT_TOL (and shapes and dtypes agree).
-    Returns per field whether the bytes are equal and the largest float
-    difference; raises on a mismatch."""
-    out, bad = {}, []
+def compare_digests(got: dict, ref: dict) -> None:
+    """Every field of `got` has the reference's shape, dtype and bytes;
+    raises on a mismatch."""
     if sorted(got) != sorted(ref):
         raise AssertionError(f"batch fields {sorted(got)} != reference {sorted(ref)}")
-    for k, r in ref.items():
-        g = got[k]
-        rec = {"bytes_equal": g["sha256"] == r["sha256"]}
-        if (g["shape"], g["dtype"]) != (r["shape"], r["dtype"]):
-            bad.append(f"{k}: {g['shape']} {g['dtype']} vs {r['shape']} {r['dtype']}")
-        elif "values" in r:
-            rec["max_abs_diff"] = float(np.max(np.abs(np.subtract(g["values"], r["values"]))))
-            if rec["max_abs_diff"] > RLDS_FLOAT_TOL:
-                bad.append(f"{k}: max abs diff {rec['max_abs_diff']}")
-        elif not rec["bytes_equal"]:
-            bad.append(f"{k}: SHA-256 differs")
-        out[k] = rec
+    bad = [f"{k}: {got[k]} vs {r}" for k, r in ref.items() if got[k] != r]
     if bad:
         raise AssertionError(f"batch differs from the reference: {bad}")
-    return out
 
 
 def rlds_config_tree(data_dir: str, extra=()):
@@ -2366,54 +2336,6 @@ def rlds_config_tree(data_dir: str, extra=()):
 
     return vla_rft_default_config().apply_overrides(
         [f"data.video.dataset_path={data_dir}", *RLDS_ARGV, *extra])
-
-
-def nvjpeg_decode(frames: list) -> np.ndarray:
-    """nvJPEG's decode (libnvjpeg of the CUDA toolkit, through ctypes) of
-    3-channel JPEGs to interleaved RGB on the card, copied back: a yardstick
-    for the JPEG route, on no path."""
-    import ctypes
-
-    lib = ctypes.CDLL("libnvjpeg.so")
-    vp, sz, ip = ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int)
-
-    class Image(ctypes.Structure):
-        _fields_ = [("channel", vp * 4), ("pitch", sz * 4)]
-
-    lib.nvjpegCreateSimple.argtypes = [ctypes.POINTER(vp)]
-    lib.nvjpegJpegStateCreate.argtypes = [vp, ctypes.POINTER(vp)]
-    lib.nvjpegGetImageInfo.argtypes = [vp, ctypes.c_char_p, sz, ip, ip, ip, ip]
-    lib.nvjpegDecode.argtypes = [vp, vp, ctypes.c_char_p, sz, ctypes.c_int,
-                                 ctypes.POINTER(Image), vp]
-    lib.nvjpegJpegStateDestroy.argtypes = [vp]
-    lib.nvjpegDestroy.argtypes = [vp]
-
-    def check(status, what):
-        if status != 0:
-            raise RuntimeError(f"{what}: nvjpegStatus {status}")
-
-    handle, state = vp(), vp()
-    check(lib.nvjpegCreateSimple(ctypes.byref(handle)), "nvjpegCreateSimple")
-    check(lib.nvjpegJpegStateCreate(handle, ctypes.byref(state)), "nvjpegJpegStateCreate")
-    out = []
-    try:
-        for b in frames:
-            n, sub = ctypes.c_int(), ctypes.c_int()
-            ws, hs = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
-            check(lib.nvjpegGetImageInfo(handle, b, len(b), ctypes.byref(n), ctypes.byref(sub),
-                                         ws, hs), "nvjpegGetImageInfo")
-            dst = torch.empty((hs[0], ws[0], 3), dtype=torch.uint8, device="cuda")
-            img = Image()
-            img.channel[0], img.pitch[0] = dst.data_ptr(), ws[0] * 3
-            stream = vp(torch.cuda.current_stream().cuda_stream)
-            check(lib.nvjpegDecode(handle, state, b, len(b), 5, ctypes.byref(img), stream),
-                  "nvjpegDecode")  # 5: NVJPEG_OUTPUT_RGBI
-            torch.cuda.synchronize()
-            out.append(dst.cpu().numpy())
-    finally:
-        lib.nvjpegJpegStateDestroy(state)
-        lib.nvjpegDestroy(handle)
-    return np.stack(out)
 
 
 def _levels(a: np.ndarray, b: np.ndarray) -> dict:
@@ -2424,40 +2346,34 @@ def _levels(a: np.ndarray, b: np.ndarray) -> dict:
 
 def phase_grpo_rlds(mods, build: dict) -> dict:
     """The GRPO entry point on RLDS records at the libero preset: (1) the
-    fixture's JPEG frames decoded on the card's route (Pillow's
-    libjpeg-turbo) against the reference's pixels, bit for bit, and nvJPEG's
-    decode beside it (a yardstick); (2) RLDS_SHARDS x RLDS_EPISODES x
-    RLDS_STEPS records written with the port's writers and read back through
-    the native and the plain TFRecord readers, the same bytes; (3) the first
-    two train batches (val_fraction 0.5, the crc32 stub tokenizer, image_aug
-    on) against the reference's digests in the fixture; (4) two grpo steps
-    through main_vla_rft_grpo.run on those records with weights_int8 and
-    val_before_train (one val batch, from the val shard): the grpo phase's
-    exact launches, finite metrics, the expert moved, frozen leaves
-    bit-identical; (5) the data's seconds (next_batch timed apart from the
-    step, which draws its next batch before on_step_start), the host RSS
-    and device peaks, and the build of the host libraries (phase build's
-    record, `build`)."""
+    fixture's JPEG frames decoded by the port (Pillow's libjpeg-turbo)
+    against the reference's pixels, bit for bit; (2) RLDS_SHARDS x
+    RLDS_EPISODES x RLDS_STEPS records written with the port's writers and
+    read back through the native and the plain TFRecord readers, the same
+    bytes; (3) two grpo steps through main_vla_rft_grpo.run on those records
+    with weights_int8 and val_before_train (one val batch, from the val
+    shard): the two batches the trainer draws (val_fraction 0.5, the crc32
+    stub tokenizer, image_aug on) hold the reference's digests in the
+    fixture, every field's bytes; the grpo phase's exact launches, finite
+    metrics, the expert moved, frozen leaves bit-identical; (4) the data's
+    seconds (next_batch timed apart from the step, which draws its next
+    batch before on_step_start), the host RSS and device peaks, and the
+    build of the host libraries (phase build's record, `build`)."""
     import tempfile
 
     from vla_rft_tpu_torch.data import image_ops, tfrecord
     from vla_rft_tpu_torch.eval.policy import _StubTokenizer
-    from vla_rft_tpu_torch.trainer.main_vla_rft_grpo import build_rlds_datasets
 
     rss = HostRssPeak()
     root = os.path.dirname(os.path.abspath(__file__))
     frames, ref_pixels, digests = rlds_fixture(root)
     h, w = ref_pixels.shape[1:3]
     t = time.perf_counter()
-    pixels = image_ops.decode_jpeg_batch(frames, h, w, decoder="pillow")
+    pixels = image_ops.decode_jpeg_batch(frames, h, w)
     decode = {"route": "pillow", "frames": len(frames), "seconds": time.perf_counter() - t,
               **_levels(pixels, ref_pixels)}
     if not decode["bit_equal"]:
-        raise AssertionError(f"the card's JPEG route differs from the reference: {decode}")
-    try:
-        nvjpeg = _levels(nvjpeg_decode(frames), ref_pixels)
-    except (OSError, RuntimeError) as e:  # a yardstick: recorded, not a failure
-        nvjpeg = {"error": str(e)}
+        raise AssertionError(f"the port's JPEG decode differs from the reference: {decode}")
 
     data_dir = tempfile.mkdtemp(prefix="rlds_")
     t = time.perf_counter()
@@ -2469,16 +2385,7 @@ def phase_grpo_rlds(mods, build: dict) -> dict:
         if native != plain or len(native) != RLDS_EPISODES:
             raise AssertionError(f"{p}: native and plain readers disagree")
 
-    tok = _StubTokenizer()
-    ds, val = build_rlds_datasets(rlds_config_tree(data_dir), "libero", tok, "pillow")
-    batch_s, batches = [], []
-    for ref in digests["batches"]:
-        t = time.perf_counter()
-        batches.append(compare_digests(batch_digest(ds.next_batch()), ref))
-        batch_s.append(time.perf_counter() - t)
-    del ds, val
-
-    data_s = []
+    data_s, checked = [], []
 
     def check_start(trainer):
         inner = trainer.dataset.next_batch
@@ -2487,15 +2394,21 @@ def phase_grpo_rlds(mods, build: dict) -> dict:
             t0 = time.perf_counter()
             out = inner()
             data_s.append(time.perf_counter() - t0)
+            if len(checked) < len(digests["batches"]):  # the trainer's own batches
+                compare_digests(batch_digest(out), digests["batches"][len(checked)])
+                checked.append(True)
             return out
 
         trainer.dataset.next_batch = timed_next
 
     tr, steps, expect, run_s, n_expert, n_frozen = _drive_grpo(
-        mods, [f"data.video.dataset_path={data_dir}", "data.val_fraction=0.5",
+        mods, [f"data.video.dataset_path={data_dir}", *RLDS_ARGV,
                "world_model_rollout.rollout.weights_int8=true", "trainer.val_before_train=true",
                "trainer.val_iters=1"],
-        grpo_expect(mods[3]), check_start=check_start, tokenizer=tok)
+        grpo_expect(mods[3]), check_start=check_start, tokenizer=_StubTokenizer())
+    if len(checked) != len(digests["batches"]):
+        raise AssertionError(f"the trainer drew {len(checked)} batches, the fixture holds "
+                             f"{len(digests['batches'])}")
     train_files = [os.path.basename(f) for f in tr.dataset.files]
     val_files = [os.path.basename(f) for f in tr.val_dataset.files]
     if (tr.val_dataset is tr.dataset or set(train_files) & set(val_files) or not val_files
@@ -2503,18 +2416,19 @@ def phase_grpo_rlds(mods, build: dict) -> dict:
         raise AssertionError(f"validation: train {train_files}, val {val_files}, val batches "
                              f"{tr.val_dataset._step}")
     out = {"phase": "grpo_rlds", "preset": "libero", "samples": N_SAMPLES, "n": N_ROLLOUTS,
-           "weights_int8": True, "decode": decode, "nvjpeg_yardstick": nvjpeg,
+           "weights_int8": True, "decode": decode,
            "records": {"shards": RLDS_SHARDS, "episodes_per_shard": RLDS_EPISODES,
                        "steps": RLDS_STEPS, "bytes": sum(os.path.getsize(p) for p in paths),
                        "write_s": write_s, "native_equals_plain": True},
-           "digests": {"batches": batches, "seconds": batch_s, "float_tol": RLDS_FLOAT_TOL},
+           "digests": {"trainer_batches_bytes_equal": len(checked),
+                       "fields": sorted(digests["batches"][0])},
            "train_files": train_files, "val_files": val_files, "val_batches": 1,
            "data_s": {"first_batch": data_s[0], "steady": data_s[1:]},
            "run_s": run_s, "steps": steps, "expected_launches_per_step": expect,
            "expert_leaves_moved": n_expert, "frozen_leaves_bit_identical": n_frozen,
            "host_rss_peak_gib": rss.stop(),
            "host_libraries": {k: {f: build["libraries"][k][f] for f in ("seconds", "built")}
-                              for k in ("tfrecord_reader", "image_resize")}}
+                              for k in ("tfrecord_reader", "image_ops")}}
     shutil.rmtree(data_dir, ignore_errors=True)
     emit(out)
     del tr

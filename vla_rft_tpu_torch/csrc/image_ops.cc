@@ -1,9 +1,7 @@
-// Native image ops for the RLDS data path: multi-threaded JPEG decode +
-// bilinear resize + crop/flip, exposed via ctypes
-// (vla_rft_tpu_torch/data/image_ops.py).  A copy of the root
-// csrc/image_ops.cc; IMAGE_OPS_NO_JPEG (image_resize.cc) leaves out the
-// JPEG decode, so that the resize and crop build where libjpeg's headers
-// are missing.
+// Native image ops for the RLDS data path: multi-threaded bilinear resize +
+// crop/flip, exposed via ctypes (vla_rft_tpu_torch/data/image_ops.py).  The
+// resize and crop of the root csrc/image_ops.cc, copied; the JPEG decode is
+// Pillow's libjpeg-turbo (image_ops.py), so the library links no libjpeg.
 //
 // Role: the reference's data pipeline leans on TensorFlow's native image ops
 // (prismatic/vla/datasets/datasets.py:206 tf.io.decode_image + dlimp
@@ -12,69 +10,18 @@
 // flags — keeping RNG/policy in one place), C++ does the pixel work without
 // the GIL.
 //
-// Build: vla_rft_tpu_torch/ops/cuda_build.py at first use (links -ljpeg)
+// Build: vla_rft_tpu_torch/ops/cuda_build.py at first use
 
 #include <cstddef>
-#include <cstdio>
-
-#ifndef IMAGE_OPS_NO_JPEG
-#include <jpeglib.h>
-#endif
-
 #include <algorithm>
 #include <atomic>
 #include <cstdint>
 #include <cstring>
-#include <csetjmp>
 #include <functional>
 #include <thread>
 #include <vector>
 
 namespace {
-
-#ifndef IMAGE_OPS_NO_JPEG
-struct ErrMgr {
-  jpeg_error_mgr pub;
-  jmp_buf jmp;
-};
-
-void err_exit(j_common_ptr cinfo) {
-  ErrMgr* e = reinterpret_cast<ErrMgr*>(cinfo->err);
-  longjmp(e->jmp, 1);
-}
-
-// Decode one JPEG into caller-provided RGB buffer (returns h<<32|w, 0 on error).
-uint64_t decode_one(const uint8_t* buf, size_t len, uint8_t* out,
-                    int max_h, int max_w) {
-  jpeg_decompress_struct cinfo;
-  ErrMgr jerr;
-  cinfo.err = jpeg_std_error(&jerr.pub);
-  jerr.pub.error_exit = err_exit;
-  if (setjmp(jerr.jmp)) {
-    jpeg_destroy_decompress(&cinfo);
-    return 0;
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_mem_src(&cinfo, const_cast<uint8_t*>(buf), len);
-  jpeg_read_header(&cinfo, TRUE);
-  cinfo.out_color_space = JCS_RGB;
-  jpeg_start_decompress(&cinfo);
-  int h = cinfo.output_height, w = cinfo.output_width;
-  if (h > max_h || w > max_w || cinfo.output_components != 3) {
-    jpeg_destroy_decompress(&cinfo);
-    return 0;
-  }
-  std::vector<uint8_t*> rows(h);
-  for (int y = 0; y < h; ++y) rows[y] = out + static_cast<size_t>(y) * w * 3;
-  while (cinfo.output_scanline < cinfo.output_height) {
-    jpeg_read_scanlines(&cinfo, rows.data() + cinfo.output_scanline,
-                        cinfo.output_height - cinfo.output_scanline);
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  return (static_cast<uint64_t>(h) << 32) | static_cast<uint32_t>(w);
-}
-#endif  // IMAGE_OPS_NO_JPEG
 
 // Bilinear resize (RGB u8, half-pixel centers — matches PIL/TF 'bilinear').
 void resize_bilinear(const uint8_t* src, int sh, int sw, uint8_t* dst, int dh,
@@ -122,34 +69,6 @@ void parallel_for(int n, int threads, const std::function<void(int)>& fn) {
 }  // namespace
 
 extern "C" {
-
-#ifndef IMAGE_OPS_NO_JPEG
-// Decode n JPEGs and resize each to (out_h, out_w); out: (n, out_h, out_w, 3)
-// u8.  bufs/lens describe the encoded strings.  Returns number decoded OK
-// (failed slots are zero-filled).
-int decode_jpeg_resize_batch(const uint8_t** bufs, const size_t* lens, int n,
-                             uint8_t* out, int out_h, int out_w, int threads) {
-  constexpr int kMax = 2048;
-  std::atomic<int> ok{0};
-  parallel_for(n, threads, [&](int i) {
-    std::vector<uint8_t> tmp(static_cast<size_t>(kMax) * kMax * 3);
-    uint8_t* dst = out + static_cast<size_t>(i) * out_h * out_w * 3;
-    uint64_t hw = decode_one(bufs[i], lens[i], tmp.data(), kMax, kMax);
-    if (!hw) {
-      std::memset(dst, 0, static_cast<size_t>(out_h) * out_w * 3);
-      return;
-    }
-    int h = static_cast<int>(hw >> 32), w = static_cast<int>(hw & 0xffffffff);
-    if (h == out_h && w == out_w) {
-      std::memcpy(dst, tmp.data(), static_cast<size_t>(h) * w * 3);
-    } else {
-      resize_bilinear(tmp.data(), h, w, dst, out_h, out_w);
-    }
-    ok.fetch_add(1);
-  });
-  return ok.load();
-}
-#endif  // IMAGE_OPS_NO_JPEG
 
 // Random-resized-crop + optional horizontal flip, batched: for image i,
 // crop box (y0[i], x0[i], ch[i], cw[i]) from (h, w), resize to (out_h,

@@ -1,56 +1,43 @@
 """Image ops of the RLDS data path (port of vla_rft_tpu/data/image_ops.py):
 JPEG decode, bilinear resize, crop / resize / flip.
 
-The pixel work is native, as in the reference: `csrc/image_ops.cc` (a copy
-of the root csrc's, bilinear with half-pixel centres and no antialias,
-threaded) built at first use by `ops/cuda_build.py`.  Two libraries come
-from it: `image_resize` (the resize and crop alone, no libjpeg needed) does
-every resize, and `image_ops` (linked to libjpeg) decodes JPEG.  JPEG decode
-takes one of two routes, both libjpeg-turbo with its defaults (the islow
-IDCT, fancy upsampling), chosen by the caller and never by probing:
-
-* "libjpeg" (the default): `image_ops`, on a machine with libjpeg's headers;
-* "pillow": Pillow's decoder, which carries its own libjpeg-turbo; the card's
-  machine has Pillow and no libjpeg headers (PERF.md §6).
-
-Both give the reference's pixels bit for bit (tests/test_torch_rlds.py), and
-a frame that does not decode raises.  The numpy resize below is the twin of
-the library's for the tests; nothing falls back to it.
+JPEG frames decode through Pillow's bundled libjpeg-turbo with its defaults
+(the islow IDCT, fancy upsampling), which gives the reference's libjpeg
+pixels bit for bit (tests/test_torch_rlds.py; on the card's machine, which
+has Pillow and no libjpeg headers, too: PERF.md §6).  The pixel work is
+native, as in the reference: `csrc/image_ops.cc` (the root csrc's resize and
+crop, copied: bilinear with half-pixel centres and no antialias, threaded)
+built at first use by `ops/cuda_build.py` does every resize.  A frame that
+does not decode raises.  The numpy resize below is the twin of the
+library's for the tests; nothing falls back to it.
 """
 from __future__ import annotations
 
 import ctypes
 import io
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
 from vla_rft_tpu_torch.ops import cuda_build
 
-JPEG_DECODERS = ("libjpeg", "pillow")
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i32p = ctypes.POINTER(ctypes.c_int)
-_libs = {}
+_lib = None
 
 
-def _load(name: str):
-    """`image_ops` (decode, resize, crop) or `image_resize` (resize, crop)."""
-    if name not in _libs:
-        lib = cuda_build.load(name)
-        if name == "image_ops":
-            lib.decode_jpeg_resize_batch.restype = ctypes.c_int
-            lib.decode_jpeg_resize_batch.argtypes = [
-                ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t), ctypes.c_int,
-                _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ]
+def _load():
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load("image_ops")
         lib.crop_resize_flip_batch.restype = None
         lib.crop_resize_flip_batch.argtypes = [
             _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, _i32p, _i32p, _i32p, _i32p,
             _u8p, _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ]
-        _libs[name] = lib
-    return _libs[name]
+        _lib = lib
+    return _lib
 
 
 def is_jpeg(b: bytes) -> bool:
@@ -75,40 +62,16 @@ def jpeg_dims(b: bytes) -> Optional[tuple]:
     return None
 
 
-def decode_jpeg_batch(encoded: Sequence[bytes], out_h: int, out_w: int, threads: int = 8,
-                      decoder: str = "libjpeg") -> np.ndarray:
-    """JPEG bytes -> (n, out_h, out_w, 3) uint8, each frame resized
-    (bilinear) when its size differs.  Raises if a frame does not decode."""
-    n = len(encoded)
-    if decoder == "pillow":
-        return _decode_pillow(encoded, out_h, out_w, threads)
-    if decoder != "libjpeg":
-        raise ValueError(f"unknown JPEG decoder {decoder!r}; expected one of {JPEG_DECODERS}")
-    out = np.zeros((n, out_h, out_w, 3), np.uint8)
-    if n == 0:
-        return out
-    bufs = (ctypes.c_char_p * n)(*encoded)
-    lens = (ctypes.c_size_t * n)(*[len(b) for b in encoded])
-    ok = _load("image_ops").decode_jpeg_resize_batch(
-        bufs, lens, n, out.ctypes.data_as(_u8p), out_h, out_w, threads)
-    if ok != n:
-        raise ValueError(f"{n - ok} of {n} JPEG frames did not decode (corrupt, not 3 "
-                         f"channels, or over 2048 px)")
-    return out
-
-
-def _decode_pillow(encoded: Sequence[bytes], out_h: int, out_w: int,
-                   threads: int) -> np.ndarray:
-    from PIL import Image  # the card's route: Pillow's own libjpeg-turbo
+def _decode_frames(encoded: Sequence[bytes], out_h: int, out_w: int, threads: int,
+                   resize: Callable[[np.ndarray], np.ndarray]) -> np.ndarray:
+    from PIL import Image
 
     def one(b: bytes) -> np.ndarray:
         with Image.open(io.BytesIO(b)) as img:
             if img.format != "JPEG":
                 raise ValueError(f"not a JPEG frame ({img.format})")
             a = np.asarray(img.convert("RGB"), np.uint8)
-        if a.shape[:2] != (out_h, out_w):
-            a = resize_bilinear_batch(a[None], out_h, out_w)[0]
-        return a
+        return a if a.shape[:2] == (out_h, out_w) else resize(a)
 
     out = np.zeros((len(encoded), out_h, out_w, 3), np.uint8)
     if not encoded:
@@ -117,6 +80,15 @@ def _decode_pillow(encoded: Sequence[bytes], out_h: int, out_w: int,
         for i, a in enumerate(pool.map(one, encoded)):  # raises a frame's error
             out[i] = a
     return out
+
+
+def decode_jpeg_batch(encoded: Sequence[bytes], out_h: int, out_w: int,
+                      threads: int = 8) -> np.ndarray:
+    """JPEG bytes -> (n, out_h, out_w, 3) uint8, each frame resized
+    (bilinear, the library's) when its size differs.  Raises if a frame
+    does not decode."""
+    return _decode_frames(encoded, out_h, out_w, threads,
+                          lambda a: resize_bilinear_batch(a[None], out_h, out_w)[0])
 
 
 def resize_bilinear_batch(images: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
@@ -148,7 +120,7 @@ def crop_resize_flip_batch(images: np.ndarray, y0: np.ndarray, x0: np.ndarray,
     if any(a.shape != (n,) for a in ints) or np.shape(flip) != (n,):
         raise ValueError("crop_resize_flip_batch: one box and one flip flag per image")
     flipc = np.ascontiguousarray(flip, np.uint8)
-    _load("image_resize").crop_resize_flip_batch(
+    _load().crop_resize_flip_batch(
         images.ctypes.data_as(_u8p), n, h, w, *(a.ctypes.data_as(_i32p) for a in ints),
         flipc.ctypes.data_as(_u8p), out.ctypes.data_as(_u8p), out_h, out_w, threads,
     )
@@ -198,13 +170,6 @@ def crop_resize_flip_plain(images: np.ndarray, y0, x0, ch, cw, flip, out_h: int,
 
 
 def decode_jpeg_plain(encoded: Sequence[bytes], out_h: int, out_w: int) -> np.ndarray:
-    """Twin of decode_jpeg_batch: Pillow's decode, then the numpy resize."""
-    from PIL import Image
-
-    frames: List[np.ndarray] = []
-    for b in encoded:
-        with Image.open(io.BytesIO(b)) as img:
-            a = np.asarray(img.convert("RGB"), np.uint8)
-        frames.append(a if a.shape[:2] == (out_h, out_w)
-                      else resize_bilinear_plain(a, out_h, out_w))
-    return np.stack(frames) if frames else np.zeros((0, out_h, out_w, 3), np.uint8)
+    """Twin of decode_jpeg_batch: the same decode, then the numpy resize."""
+    return _decode_frames(encoded, out_h, out_w, 1,
+                          lambda a: resize_bilinear_plain(a, out_h, out_w))

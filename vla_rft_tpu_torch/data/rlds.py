@@ -4,7 +4,7 @@ Episodes are tf.train.Example records in TFRecord shards (the TFDS RLDS
 layout of modified_libero_rlds; every feature key is configurable).  Record
 framing is `data/tfrecord.py` (native scanner), the Example is parsed by
 `data/example_proto.py` (no TensorFlow, no protobuf), JPEG frames are decoded
-by `data/image_ops.py` (libjpeg-turbo, threaded) and other image formats by
+by `data/image_ops.py` (Pillow's libjpeg-turbo, threaded) and other image formats by
 Pillow; windows, shuffling and the batch transform are numpy.  For the same
 records, seed, process and step a batch equals the reference's bit for bit
 (tests/test_torch_rlds.py).
@@ -67,8 +67,6 @@ class RLDSConfig:
     val_fraction: float = 0.0
     split: str = "train"  # "train" | "val"
     seed: int = 0
-    # the JPEG route (data/image_ops.py): "libjpeg" or "pillow"
-    jpeg_decoder: str = "libjpeg"
 
 
 def _process_count_index():
@@ -89,8 +87,8 @@ def _decode_image(b: bytes) -> np.ndarray:
     except ImportError as e:
         kind = {b"\x89PNG": "PNG", b"GIF8": "GIF"}.get(b[:4], "BMP" if b[:2] == b"BM" else
                                                          f"unknown ({b[:4]!r})")
-        raise ImportError(f"decoding a {kind} frame needs Pillow, which is not installed; "
-                          f"JPEG frames need no Pillow") from e
+        raise ImportError(f"decoding a {kind} frame needs Pillow, which is not installed"
+                          ) from e
     with Image.open(io.BytesIO(b)) as img:
         if img.mode == "P":
             img = img.convert("RGBA" if "transparency" in img.info else "RGB")
@@ -112,8 +110,7 @@ def _decode_example(raw: bytes, cfg: RLDSConfig) -> Dict[str, Any]:
         if all(d is not None for d in all_dims):
             dims = (max(d[0] for d in all_dims), max(d[1] for d in all_dims))
     if dims is not None:
-        images = list(decode_jpeg_batch(img_bytes, dims[0], dims[1],
-                                        decoder=cfg.jpeg_decoder))
+        images = list(decode_jpeg_batch(img_bytes, dims[0], dims[1]))
     else:
         images = [_decode_image(b) for b in img_bytes]
     actions = ex.float_list(cfg.action_key).reshape(-1, cfg.action_dim)

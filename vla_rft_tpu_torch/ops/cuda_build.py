@@ -6,9 +6,8 @@ compiled at first use by nvcc into `_build/lib<name>_<key>.so` beside the
 package, where <key> hashes the source, the shared headers `csrc/*.cuh` and
 the flags, so an unchanged tree does not rebuild.  No PyTorch headers are involved, so a build takes seconds.
 A host source `csrc/<name>.cc` (the data pipeline's TFRecord scanner and
-JPEG / resize code) is built the same way by the host C++ compiler, linked
-against the libraries HOST_LIBS names; its key hashes the source, the files
-of `csrc/` it includes and the flags.
+image resize / crop) is built the same way by the host C++ compiler; its
+key hashes the source and the flags.
 `build` starts one compiler per missing library, all at once, and waits for
 all.  A failed build raises: nothing falls back to another route.
 """
@@ -17,7 +16,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import time
@@ -33,7 +31,7 @@ NVCC_FLAGS = (
 )
 
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
-HOST_LIBS = {"image_ops": ("-ljpeg", "-lpthread"), "image_resize": ("-lpthread",)}
+HOST_LIBS = ("-lpthread",)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -64,17 +62,14 @@ def _source(name: str) -> Path:
 def _flags(name: str) -> tuple:
     if _source(name).suffix == ".cu":
         return NVCC_FLAGS
-    return (*HOST_FLAGS, *HOST_LIBS.get(name, ()))
+    return (*HOST_FLAGS, *HOST_LIBS)
 
 
 def library_path(name: str) -> Path:
     """Where the build of csrc/<name>.cu (and the headers beside it) or of
     csrc/<name>.cc with the current flags lives."""
     src = _source(name)
-    if src.suffix == ".cu":
-        parts = [src, *sorted(CSRC.glob("*.cuh"))]
-    else:  # the source and the files of csrc/ it includes
-        parts = [src, *(CSRC / f for f in re.findall(r'#include "([^"]+)"', src.read_text()))]
+    parts = [src, *sorted(CSRC.glob("*.cuh"))] if src.suffix == ".cu" else [src]
     data = b"".join(p.read_bytes() for p in parts)
     key = hashlib.sha256(data + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
@@ -85,7 +80,7 @@ def _command(name: str, out: Path) -> list:
     if src.suffix == ".cu":
         return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
     # the link libraries follow the source, as the linker reads them in order
-    return [_cxx(), *HOST_FLAGS, "-o", str(out), str(src), *HOST_LIBS.get(name, ())]
+    return [_cxx(), *HOST_FLAGS, "-o", str(out), str(src), *HOST_LIBS]
 
 
 def build(*names: str) -> Dict[str, dict]:

@@ -25,9 +25,8 @@ statistics.  Windows, images and action chunks take the preset's sizes
 The prompt's text tokenizer is `AutoTokenizer` from
 actor_rollout_ref.model.ckpt_path (as in the reference; without a path a
 ValueError, without `transformers` an ImportError), unless the caller
-passes one to `run(tokenizer=...)`.  JPEG frames decode through the port's
-libjpeg library on the CPU and through Pillow's libjpeg-turbo on the card
-(`data/image_ops.py`).
+passes one to `run(tokenizer=...)`.  JPEG frames decode through Pillow's
+libjpeg-turbo on either device (`data/image_ops.py`).
 
 Weights are seeded random (trainer.seed) unless checkpoint paths are set;
 then the trainer is built, the checkpoints are loaded into its modules in
@@ -59,7 +58,6 @@ import sys
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-import torch
 from torch import nn
 
 from vla_rft_tpu_torch import convert_weights as cw
@@ -96,8 +94,7 @@ def run(argv: Optional[List[str]] = None,
     dataset = val_dataset = None
     if config.data.video.dataset_path:
         dataset, val_dataset = build_rlds_datasets(
-            config, preset, tokenizer if tokenizer is not None else _load_tokenizer(config),
-            jpeg_decoder="libjpeg" if torch.device(device).type == "cpu" else "pillow")
+            config, preset, tokenizer if tokenizer is not None else _load_tokenizer(config))
     trainer = VLARFTGRPOTrainer(config, preset=preset, device=device, dataset=dataset,
                                 val_dataset=val_dataset)
     trainer.pretrained = _maybe_load_pretrained(trainer, config)
@@ -113,8 +110,7 @@ def run(argv: Optional[List[str]] = None,
 def rlds_config(config: Config, preset: str, **kw) -> RLDSConfig:
     """The RLDSConfig of the reference's dataset build (data_dir,
     dataset_name, shuffle_buffer_size, val_fraction) with the preset's
-    window, action and image sizes; `kw` sets the rest (split,
-    jpeg_decoder)."""
+    window, action and image sizes; `kw` sets the rest (split)."""
     vla_cfg, expert_cfg, _, policy_image = policy_configs(preset,
                                                           PolicyConfig.from_config(config))
     wm_image = wm_reward_configs(preset, WMRewardConfig.from_config(config), tiny_data=False)[5]
@@ -128,12 +124,12 @@ def rlds_config(config: Config, preset: str, **kw) -> RLDSConfig:
         wm_image_size=wm_image, **kw)
 
 
-def build_rlds_datasets(config: Config, preset: str, tokenizer, jpeg_decoder: str = "libjpeg"
+def build_rlds_datasets(config: Config, preset: str, tokenizer
                         ) -> Tuple[RLDSDataset, Optional[RLDSDataset]]:
     """The train RLDSDataset (data.image_aug) and, with data.val_fraction,
     the val one, which shares the train split's statistics (the
     reference's main_vla_rft_grpo.py:29-53)."""
-    train_cfg = rlds_config(config, preset, split="train", jpeg_decoder=jpeg_decoder)
+    train_cfg = rlds_config(config, preset, split="train")
     dataset = RLDSDataset(train_cfg, tokenizer, batch_size=config.data.train_batch_size,
                           image_aug=bool(config.data.get("image_aug", False)))
     val_dataset = None
