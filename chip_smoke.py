@@ -13,15 +13,21 @@ Phases, one JSON line each:
                   card over masked, padded and ragged cases and the WM's
                   1088-token prefill; three calls at each timed shape give
                   the same bits; its time at the serving, the WM prefill
-                  and the wm_logprob forward (8 x 1663) shapes beside the
-                  twin's, scaled_dot_product_attention's
-                  (a yardstick only: the port never calls it) and the bound;
+                  the wm_logprob forward (8 x 1663) and the text-SFT layer
+                  (4 right-padded rows of 1663 valid 1663 / 1211 / 742 /
+                  205, 14/2 heads) shapes beside the twin's,
+                  scaled_dot_product_attention's (a yardstick only: the port
+                  never calls it; causal with enable_gqa, right-padded rows
+                  whole, since a valid query never reaches a padding key)
+                  and the bound;
   3. flash_bwd  - the flash backward kernels (#2 dQ, #3 dK/dV) against their
                   plain twin over the flash phase's masked, padded, ragged,
                   fully-masked-row and q_offset cases, D = 128 and the WM's
-                  1663-token rows, causal and not; their time at the
-                  VLA-adapter shape (B 16 x 352, 14/2 heads) and the WM-SFT
-                  shape (B 4 x 1663, 16/16 heads) beside the twin's, the
+                  1663-token rows and the text-SFT layer (4 ragged rows of
+                  1663, 14/2), causal and not; their time at the
+                  VLA-adapter shape (B 16 x 352, 14/2 heads), the WM-SFT
+                  shape (B 4 x 1663, 16/16 heads) and the text-SFT shape
+                  beside the twin's, the
                   autograd backward of scaled_dot_product_attention's (a
                   yardstick only, forward + backward replayed from a CUDA
                   graph less the forward) and the bound; #2's and #3's
@@ -155,6 +161,36 @@ Phases, one JSON line each:
                   (and non-zero); 2 vla_flow steps (24 of #1, none of #2 or
                   #3); 2 next-token SFTTrainer steps of the 24-layer WM over
                   4 rows of 1663 tokens (24 of each kernel per step);
+     sft_text   - sft.mode=text through trainer/main_sft.run at
+                  Qwen2.5-0.5B width (vocabulary 151,936): a parquet of 32
+                  prompt / response rows of 200-2100 words and a word-level
+                  HF tokenizer written by this script, 2 steps of B = 4 rows
+                  right-padded to 1663 tokens (the config's 16 would hold
+                  16.2 GB of f32 logits; lr 5e-3 so that every bf16
+                  parameter moves): exactly 24 launches of #1, #2 and #3 a
+                  step, every parameter moved, finite losses; the step's
+                  data / forward / backward / optimizer split and peak
+                  memory; the kernel route's loss and q/k/v / embedding
+                  gradients against the plain route's on step 1's weights
+                  and batch; on step 1's and on the trained weights both
+                  routes against attention computed in f64 (the kernel
+                  route within twice the plain route's distance; both
+                  routes again with delta from an f32 O, reported), #1's O
+                  and LSE on every call of a trained forward against the
+                  f64 attention, #2 / #3 against their twin on every call
+                  of a trained backward;
+     sft_align  - sft.mode=vla_align through main_sft.run at the libero
+                  preset, B = 16: 8 PNGs of 224 px and a LLaVA chat JSON
+                  written here (6 caption rows; the finetune file adds two
+                  4-turn dialogs, one without an image), the tokenizer read
+                  from actor_rollout_ref.model.path; 2 steps of the align
+                  stage, 1 of the finetune stage, 1 of synthetic captions:
+                  exactly 24 / 24 / 24 launches a step, every projector
+                  parameter moved and every other VLA parameter
+                  bit-identical, the global gradient norm each update
+                  clipped (at least one step above grad_clip 1.0); the
+                  kernel route's loss and projector gradients against the
+                  plain route's on the next align batch;
      grpo_rlds  - the GRPO entry point on RLDS records (data.video.dataset_path)
                   at the libero preset: the fixture's 256 px JPEG frames
                   (tests/torch_fixtures/rlds/) decoded by the port (Pillow's
@@ -229,6 +265,21 @@ SFT_STEPS = 3
 # is 2^-8); 5e-3 moves every trained leaf, which the phase checks
 SFT_VLM_LR, SFT_EXPERT_LR = 5e-3, 1e-4
 WM_SFT_ROWS, WM_SFT_PROMPT, WM_SFT_LEN = 4, 1095, 1663
+# sft_text: Qwen2.5-0.5B over a parquet of 32 rows whose word counts spread
+# over 200-2100 (rows past 1663 tokens are cut), B = 4 rows of 1663 (the
+# config's 16 would hold 16.2 GB of f32 logits at 151,936 words), 2 steps;
+# the flash phases time #1-#3 at its shape with these ragged valid lengths
+SFT_TEXT_ROWS, SFT_TEXT_WORDS, SFT_TEXT_BATCH, SFT_TEXT_STEPS = 32, (200, 2100), 4, 2
+SFT_TEXT_KV_LENS = [1663, 1211, 742, 205]
+# sft_text, each route against the attention computed in f64 from the same
+# bf16 q / k / v (`_attention_f64`): trained, the q / k gradients of a
+# saturated softmax are some 1e-4 of the v gradients and both bf16 routes
+# miss them by more than their size (each rounds O to bf16 before delta =
+# sum dO * O), so the kernel route's distance, per gradient and relative to
+# max|ref|, is held to F64_ROUTE_RATIO times the plain route's plus
+# SFT_GRAD_TOL; the loss to SFT_LOSS_TOL.  #1's O on every call of a
+# trained forward: within BWD_RTOL of max|O_f64| plus BWD_ATOL
+F64_ROUTE_RATIO = 2.0
 
 WM_PREFIX = 1088  # shared prompt head: 1024 ctx tokens + the 64 dyn tokens of frame 0
 # the configured WM call of 128 rows (rollout.micro_batch_size): a 64-sequence
@@ -386,6 +437,16 @@ def bwd_work(q, k, kv_lens, kv_starts, q_offset, causal):
             "dkv": (rows_in + 2 * 2 * B * Sk * Hkv * D, 8 * D * pairs * Hq)}
 
 
+def _sdpa_yardstick(qt, kt, vt):
+    """scaled_dot_product_attention over head-major (B, H, S, D) q / k / v,
+    causal, GQA through `enable_gqa`, as a closure (a yardstick only: the
+    port never calls it).  The caller cuts full rows to their valid keys;
+    right-padded rows stay whole: causal, a valid query never reaches a
+    padding key, so the valid outputs are the function's."""
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=qt.shape[1] != kt.shape[1])
+
+
 def phase_build() -> dict:
     from vla_rft_tpu_torch.data import image_ops, tfrecord
     from vla_rft_tpu_torch.ops import attention, cuda_build, decode_attention_hd
@@ -469,15 +530,20 @@ def phase_flash(attention) -> dict:
                                                ("wm_prefill", 2, WM_PREFIX, 1152, 16, 16,
                                                 WM_PREFIX),
                                                ("wm_logprob", N_SAMPLES * N_ROLLOUTS, WM_SFT_LEN,
-                                                WM_SFT_LEN, 16, 16, WM_SFT_LEN)):
+                                                WM_SFT_LEN, 16, 16, WM_SFT_LEN),
+                                               ("sft_text", SFT_TEXT_BATCH, WM_SFT_LEN,
+                                                WM_SFT_LEN, 14, 2, SFT_TEXT_KV_LENS)):
         q = torch.randn(B, Sq, Hq, D, generator=gen, device=dev).bfloat16()
         k = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
         v = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
-        rows = {"kv_lens": torch.full((B,), kv_len, dtype=torch.int32, device=dev),
+        rows = {"kv_lens": torch.tensor(kv_len, dtype=torch.int32, device=dev).expand(B)
+                .contiguous(),
                 "kv_starts": torch.zeros(B, dtype=torch.int32, device=dev),
                 "q_offset": torch.zeros(B, dtype=torch.int32, device=dev)}
-        # SDPA over the valid keys only (a yardstick: the port never calls it)
-        qt, kt, vt = (x[:, :kv_len].transpose(1, 2) for x in (q, k, v))
+        # SDPA over the valid keys only (a yardstick: the port never calls it);
+        # ragged rows keep their padding, causal over the whole row
+        n = kv_len if isinstance(kv_len, int) else Sk
+        sdpa = _sdpa_yardstick(*(x[:, :n].transpose(1, 2) for x in (q, k, v)))
         kern = lambda: attention.flash_fwd(q, k, v, causal=True, **rows)
         twin = lambda: attention.attention_plain(q, k, v, causal=True, return_lse=True, **rows)
         # held against the twin at this very shape: at 1663 the last tile is ragged
@@ -493,8 +559,7 @@ def phase_flash(attention) -> dict:
         kernel_ms = graph_ms(kern)
         eager_ms = cuda_ms(kern)
         plain_ms = graph_ms(twin, 5)
-        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                     enable_gqa=True))
+        library_ms = graph_ms(sdpa)
         nbytes, flops = flash_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"],
                                    True)
         timed[shape] = {"B": B, "Sq": Sq, "Sk": Sk, "kv_len": kv_len, "Hq": Hq, "Hkv": Hkv,
@@ -527,6 +592,9 @@ def phase_flash_bwd(attention) -> dict:
         ("ragged_300", 4, 300, 300, 14, 2, 64, {"kv_lens": [300, 299, 250, 1]}),
         ("d128_ragged", 2, 300, 300, 14, 2, 128, {"kv_lens": [300, 190], "kv_starts": [0, 7]}),
         ("wm_sft_row", 1, WM_SFT_LEN, WM_SFT_LEN, 16, 16, 64, {}),
+        # the text-SFT layer: Qwen's 14/2 heads over 4 right-padded rows of 1663
+        ("sft_text", SFT_TEXT_BATCH, WM_SFT_LEN, WM_SFT_LEN, 14, 2, 64,
+         {"kv_lens": SFT_TEXT_KV_LENS}),
     ]
     results, err = [], {"dq": 0.0, "dkv": 0.0}
     for name, B, Sq, Sk, Hq, Hkv, D, kw in cases:
@@ -556,17 +624,21 @@ def phase_flash_bwd(attention) -> dict:
                             "Hq": Hq, "Hkv": Hkv, "D": D, "max_abs_err": errs})
 
     # time at the SFT shapes: the VLA-adapter step's Qwen layer (16 rows of
-    # 96 text + 256 patch tokens, the last text token padding, 14/2 heads)
-    # and the WM-SFT step's layer (4 rows of 1663 tokens, 16/16 heads)
+    # 96 text + 256 patch tokens, the last text token padding, 14/2 heads),
+    # the WM-SFT step's layer (4 rows of 1663 tokens, 16/16 heads) and the
+    # text-SFT step's (4 ragged rows of 1663, 14/2 heads)
     timed = {}
     for shape, B, S, Hq, Hkv, kv_len in (("vla_adapter", 16, 352, 14, 2, 351),
                                          ("wm_sft", WM_SFT_ROWS, WM_SFT_LEN, 16, 16,
-                                          WM_SFT_LEN)):
+                                          WM_SFT_LEN),
+                                         ("sft_text", SFT_TEXT_BATCH, WM_SFT_LEN, 14, 2,
+                                          SFT_TEXT_KV_LENS)):
         q, do = (torch.randn(B, S, Hq, 64, generator=gen, device=dev).bfloat16()
                  for _ in range(2))
         k, v = (torch.randn(B, S, Hkv, 64, generator=gen, device=dev).bfloat16()
                 for _ in range(2))
-        rows = {"kv_lens": torch.full((B,), kv_len, dtype=torch.int32, device=dev),
+        rows = {"kv_lens": torch.tensor(kv_len, dtype=torch.int32, device=dev).expand(B)
+                .contiguous(),
                 "kv_starts": torch.zeros(B, dtype=torch.int32, device=dev),
                 "q_offset": torch.zeros(B, dtype=torch.int32, device=dev)}
         o, lse = attention.flash_fwd(q, k, v, causal=True, **rows)
@@ -576,10 +648,10 @@ def phase_flash_bwd(attention) -> dict:
         # autograd backward of SDPA over the same rows (a yardstick: the port
         # never calls it): forward + backward replayed from a CUDA graph,
         # less the forward alone
-        leaves = [x[:, :kv_len].transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
-        do_lib = do[:, :kv_len].transpose(1, 2)
-        sdpa = lambda: F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                                      enable_gqa=Hq != Hkv)
+        n = kv_len if isinstance(kv_len, int) else S
+        leaves = [x[:, :n].transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+        sdpa = _sdpa_yardstick(*leaves)
+        do_lib = do[:, :n].transpose(1, 2)
         library_ms = (graph_ms(lambda: torch.autograd.grad(sdpa(), leaves, do_lib))
                       - graph_ms(sdpa))
         work = bwd_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"], True)
@@ -2581,40 +2653,50 @@ def _counts(attention) -> dict:
             "flash_bwd_dkv": attention.bwd_dkv_launches}
 
 
-def _drive_sft(attention, argv):
+def _drive_sft(attention, argv, before_steps=None):
     """main_sft.run(argv) on the card with every kernel count set to 0 just
     before each step and read just after it.  Returns (run, per-step
     records, a clone of every parameter taken before the first step, the
     ids of the parameters whose gradient was exactly zero in every step,
-    peak memory in GiB)."""
+    peak memory in GiB over the steps).  Each step's record holds its loss,
+    ms, launches and the global gradient norm that the update clipped.
+    `before_steps(trainer)` runs after the build, before the counts and
+    the memory peak are set to 0 for the first step."""
     from vla_rft_tpu_torch.trainer import main_sft
 
-    steps, start, grads, nonzero = [], {}, [], {}
+    steps, start, grads, nonzero, norms = [], {}, [], {}, []
 
     def on_start(trainer):
+        if before_steps is not None:
+            before_steps(trainer)
         start.update({id(p): p.detach().clone() for p in trainer.params})
-        backward = trainer.backward
+        backward, update = trainer.backward, trainer.update
 
         def keep_grads(loss):  # the step's gradients, read in on_step after its time
             grads[:] = zip(trainer.params, backward(loss))
             return [g for _, g in grads]
 
-        trainer.backward = keep_grads
+        def keep_norm(g):
+            norms.append(update(g))
+            return norms[-1]
+
+        trainer.backward, trainer.update = keep_grads, keep_norm
+        torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         _zero_counts(attention)  # the main path starts here
 
     def on_step(step, loss, seconds):
         steps.append({"step": step, "loss": loss, "ms": seconds * 1e3,
                       "launches": _counts(attention)})  # read right after the step
+        steps[-1]["grad_norm"] = float(norms.pop())
         flags = torch.stack([g.ne(0).any() for _, g in grads]).tolist()
         for (p, _), f in zip(grads, flags):
             nonzero[id(p)] = nonzero.get(id(p), False) or f
         grads.clear()
         _zero_counts(attention)
 
-    torch.cuda.reset_peak_memory_stats()
     run = main_sft.run(argv, on_start=on_start, on_step=on_step)
-    del run.trainer.backward  # the class's own again
+    del run.trainer.backward, run.trainer.update  # the class's own again
     zero_grad = {i for i, f in nonzero.items() if not f}
     return run, steps, start, zero_grad, torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -2683,28 +2765,10 @@ def phase_sft(attention) -> dict:
     watch = [f"vla.language_model.layers.{i}.self_attn.{w}_proj.weight"
              for i in (0, L - 1) for w in "qkv"] + [f"vla.projector.fc{i}.weight" for i in (1, 2, 3)]
     idx = {names[id(p)]: i for i, p in enumerate(tr.params)}
-    paths = {}
-    for impl in ("auto", "plain"):
-        lm.attn_impl = impl
-        try:
-            before = _counts(attention)
-            loss = tr.compute_loss(batch, noise)
-            grads = tr.backward(loss)
-            torch.cuda.synchronize()
-            n = {k: v - before[k] for k, v in _counts(attention).items()}
-            paths[impl] = (loss.item(), {w: grads[idx[w]].float() for w in watch}, n)
-            del grads
-        finally:
-            lm.attn_impl = "auto"
-    (lk, gk, nk), (lp, gp, np_) = paths["auto"], paths["plain"]
-    if nk != {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L} or any(np_.values()):
-        raise AssertionError(f"kernel vs plain: launches {nk} / {np_}")
-    loss_err = abs(lk - lp) / abs(lp)
-    grad_err = {w: ((gk[w] - gp[w]).abs().max() / gp[w].abs().max()).item() for w in watch}
-    zero = [w for w in watch if gk[w].abs().max().item() == 0.0]
-    if zero or loss_err > SFT_LOSS_TOL or max(grad_err.values()) > SFT_GRAD_TOL:
-        raise AssertionError(f"sft kernel vs plain: loss rel err {loss_err}, grad rel err "
-                             f"{grad_err}, zero kernel-path grads {zero}")
+
+    kvp = _kernel_vs_plain(attention, lm, lambda: tr.compute_loss(batch, noise), tr.backward,
+                           {w: idx[w] for w in watch}, L)
+    _require_agreement(kvp, L, "sft vla_adapter")
     adapter = {"preset": "libero", "batch": config.data.train_batch_size,
                "seq_len": int(batch["input_ids"].shape[1]) + bundle.vla_cfg.total_patches,
                "steps": steps, "first_step_ms": steps[0]["ms"],
@@ -2715,11 +2779,8 @@ def phase_sft(attention) -> dict:
                "peak_mem_gib": peak, "trained_leaves": len(tr.params) - n_frozen,
                "zero_grad_leaves": no_grad,
                "frozen_leaves": n_frozen, "lr": {"vlm": SFT_VLM_LR, "expert": SFT_EXPERT_LR},
-               "kernel_vs_plain": {"loss": [lk, lp], "loss_rel_err": loss_err,
-                                   "grad_rel_err": grad_err,
-                                   "tolerance": {"loss_rel": SFT_LOSS_TOL,
-                                                 "grad_rel": SFT_GRAD_TOL}}}
-    del run, tr, bundle, lm, paths, gk, gp, batch, noise, loss
+               "kernel_vs_plain": kvp}
+    del run, tr, bundle, lm, batch, noise, loss
     torch.cuda.empty_cache()
 
     # (b) vla_flow: the VLM frozen, its context encoded without gradients
@@ -2758,11 +2819,434 @@ def phase_sft(attention) -> dict:
     return out
 
 
+def _moved_and_frozen(trainer, start: dict, names: dict):
+    """(trained parameters that did not move, frozen ones that did), by name."""
+    still, moved = [], []
+    labels = getattr(trainer, "labels", {})
+    for p in trainer.params:
+        label = labels.get(names[id(p)], "trained")
+        same = torch.equal(p.detach(), start[id(p)])
+        if label == "frozen" and not same:
+            moved.append(names[id(p)])
+        elif label != "frozen" and same:
+            still.append(names[id(p)])
+    return still, moved
+
+
+def _attention_f64(q, k, v, do=None, *, causal=False, kv_lens=None, q_offset=None,
+                   kv_starts=None, scale=None):
+    """Attention in f64 from the same q / k / v: an exact softmax over the
+    valid keys (a fully-masked row gives 0).  Returns O (f64) and the LSE
+    (f32, -1e30 on a fully-masked row); with dO, the gradients dq, dk, dv
+    in q / k / v's dtypes from the f64 P and O (delta = sum_D dO * O in
+    f64)."""
+    from vla_rft_tpu_torch.ops.attention import NEG_INF, _valid
+
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    qh, kd, vd = q.reshape(B, Sq, Hkv, G, D).double(), k.double(), v.double()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh, kd) * scale
+    s = s.masked_fill(~_valid(B, Sq, Sk, q.device, causal, kv_lens, q_offset, kv_starts),
+                      float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(s - m)
+    del s
+    den = e.sum(-1, keepdim=True)
+    p = e / den.clamp_min(1e-300)
+    del e
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, vd)
+    if do is None:
+        lse = torch.where(den > 0, m + torch.log(den.clamp_min(1e-300)),
+                          torch.full_like(m, NEG_INF))
+        return o.reshape(B, Sq, Hq, D), lse.reshape(B, Hq, Sq).transpose(1, 2).float()
+    dod = do.reshape(B, Sq, Hkv, G, D).double()
+    delta = (dod * o).sum(-1).permute(0, 2, 3, 1)[..., None]
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dod, vd) - delta) * scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kd).reshape(B, Sq, Hq, D)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qh)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dod)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@contextlib.contextmanager
+def _f64_route(attention):
+    """The plain route (attn_impl "plain") with `_attention_f64` for its
+    forward (O rounded to q's dtype, as every route hands it on) and its
+    backward (recomputed in f64; the stored O and LSE unused)."""
+    fwd, bwd = attention.attention_plain, attention.attention_bwd_plain
+
+    def f64_fwd(q, k, v, return_lse=False, **kw):
+        o, lse = _attention_f64(q, k, v, **kw)
+        return (o.to(q.dtype), lse) if return_lse else o.to(q.dtype)
+
+    attention.attention_plain = f64_fwd
+    attention.attention_bwd_plain = lambda q, k, v, o, lse, do, **kw: _attention_f64(
+        q, k, v, do, **kw)
+    try:
+        yield
+    finally:
+        attention.attention_plain, attention.attention_bwd_plain = fwd, bwd
+
+
+@contextlib.contextmanager
+def _f32_delta(attention):
+    """Both backward routes with delta = sum_D dO * O taken from O in f32
+    (recomputed by the plain twin from the same q / k / v) where they take
+    the stored bf16 O: what an f32 O saved by the forward would give."""
+    bwd, bwd_plain, plain = (attention.flash_bwd, attention.attention_bwd_plain,
+                             attention.attention_plain)
+    o32 = lambda q, k, v, kw: plain(q.float(), k.float(), v.float(), **kw)
+
+    def kernel_bwd(q, k, v, o, lse, do, **kw):
+        delta = (do.float() * o32(q, k, v, kw)).sum(dim=-1)
+        dk, dv = attention.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        return attention.flash_bwd_dq(q, k, v, do, lse, delta, **kw), dk, dv
+
+    attention.flash_bwd = kernel_bwd
+    attention.attention_bwd_plain = lambda q, k, v, o, lse, do, **kw: bwd_plain(
+        q, k, v, o32(q, k, v, kw), lse, do, **kw)
+    try:
+        yield
+    finally:
+        attention.flash_bwd, attention.attention_bwd_plain = bwd, bwd_plain
+
+
+def _kernel_vs_plain(attention, lm, loss_fn, backward, watch: dict, L: int,
+                     f64: bool = False) -> dict:
+    """loss_fn() and backward(loss) with `lm`'s attention on the kernels and
+    then on the plain twins (same weights, same batch): the loss's relative
+    error, the max|d| / max|g| of the gradients at the indices `watch`
+    names, each route's launches and the watched gradients that are zero on
+    the kernel route (`_require_agreement` holds them to the limits).  With
+    `f64`, a third route through `_f64_route` and each route's loss and
+    gradients against it (`_require_near_f64` holds them), and, reported
+    only, both routes again under `_f32_delta` against it."""
+    routes = {"auto": ("auto", None), "plain": ("plain", None)}
+    if f64:
+        routes.update({"f64": ("plain", _f64_route), "auto_f32_delta": ("auto", _f32_delta),
+                       "plain_f32_delta": ("plain", _f32_delta)})
+    paths = {}
+    for route, (impl, patch) in routes.items():
+        lm.attn_impl = impl
+        try:
+            with patch(attention) if patch else contextlib.nullcontext():
+                before = _counts(attention)
+                loss = loss_fn()
+                grads = backward(loss)
+                torch.cuda.synchronize()
+            n = {k: v - before[k] for k, v in _counts(attention).items()}
+            paths[route] = (loss.item(), {w: grads[i].float() for w, i in watch.items()}, n)
+            del grads, loss
+        finally:
+            lm.attn_impl = "auto"
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    (lk, gk, nk), (lp, gp, np_) = paths["auto"], paths["plain"]
+    out = {"loss": [lk, lp], "loss_rel_err": abs(lk - lp) / abs(lp),
+           "grad_rel_err": {w: rel(gk[w], gp[w]) for w in watch},
+           "zero_kernel_route_grads": [w for w in watch if gk[w].abs().max().item() == 0.0],
+           "launches": {"kernel": nk, "plain": np_},
+           "tolerance": {"loss_rel": SFT_LOSS_TOL, "grad_rel": SFT_GRAD_TOL}}
+    if f64:
+        lr, gr, _ = paths["f64"]
+        g32k, g32p = paths["auto_f32_delta"][1], paths["plain_f32_delta"][1]
+        out["f64"] = {
+            "loss": lr, "loss_rel_err": {"kernel": abs(lk - lr) / abs(lr),
+                                         "plain": abs(lp - lr) / abs(lr)},
+            "grad_max": {w: gr[w].abs().max().item() for w in watch},
+            "grad_rel_err": {w: {"kernel": rel(gk[w], gr[w]), "plain": rel(gp[w], gr[w])}
+                             for w in watch},
+            "tolerance": f"kernel <= {F64_ROUTE_RATIO} * plain + {SFT_GRAD_TOL} per gradient, "
+                         f"loss <= {SFT_LOSS_TOL}",
+            "f32_delta_grad_rel_err": {w: {"kernel": rel(g32k[w], gr[w]),
+                                           "plain": rel(g32p[w], gr[w])} for w in watch}}
+    return out
+
+
+def _require_agreement(kvp: dict, L: int, what: str) -> None:
+    """Raise past SFT_LOSS_TOL / SFT_GRAD_TOL, on a zero kernel-route
+    gradient, or on other launches than L / L / L (kernel route) and 0
+    (plain route)."""
+    n = kvp["launches"]
+    if (n["kernel"] != {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+            or any(n["plain"].values()) or kvp["zero_kernel_route_grads"]
+            or not kvp["loss_rel_err"] <= SFT_LOSS_TOL
+            or not max(kvp["grad_rel_err"].values()) <= SFT_GRAD_TOL):
+        raise AssertionError(f"{what}: kernel vs plain {kvp}")
+
+
+def _require_near_f64(kvp: dict, L: int, what: str) -> None:
+    """Raise unless the kernel route launched L / L / L and the plain route
+    nothing, the kernel route's loss is within SFT_LOSS_TOL of the f64
+    route's, and each watched gradient of the kernel route is within
+    F64_ROUTE_RATIO times the plain route's distance (plus SFT_GRAD_TOL) of
+    the f64 route's."""
+    n, ref = kvp["launches"], kvp["f64"]
+    far = {w: e for w, e in ref["grad_rel_err"].items()
+           if not e["kernel"] <= F64_ROUTE_RATIO * e["plain"] + SFT_GRAD_TOL}
+    if (n["kernel"] != {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+            or any(n["plain"].values()) or far
+            or not ref["loss_rel_err"]["kernel"] <= SFT_LOSS_TOL):
+        raise AssertionError(f"{what}: routes vs f64 attention, out of bounds {far}: {kvp}")
+
+
+def _fwd_vs_f64(attention, fn) -> dict:
+    """fn() with every #1 call's O and LSE checked against `_attention_f64`
+    on the very same q, k, v (max|dO| <= BWD_RTOL * max|O_f64| + BWD_ATOL,
+    max|dLSE| <= LSE_TOL); returns the largest max|dO| / max|O_f64| and
+    max|dLSE| over the calls; raises past a bound or when fn made no
+    call."""
+    errs = []
+    kernel = attention.flash_fwd
+
+    def checked(q, k, v, **kw):
+        o, lse = kernel(q, k, v, **kw)
+        o_ref, lse_ref = _attention_f64(q, k, v, **kw)
+        e, top = (o.double() - o_ref).abs().max().item(), o_ref.abs().max().item()
+        e_lse = (lse - lse_ref).abs().max().item()
+        if not (e <= BWD_RTOL * top + BWD_ATOL and e_lse <= LSE_TOL):
+            raise AssertionError(f"flash forward vs f64 on a step's tensors: max|dO| {e} "
+                                 f"(max|O| {top}), max|dLSE| {e_lse}")
+        errs.append((e / top, e_lse))
+        return o, lse
+
+    attention.flash_fwd = checked
+    try:
+        fn()
+    finally:
+        attention.flash_fwd = kernel
+    if not errs:
+        raise AssertionError("no flash forward call to check")
+    return {"calls": len(errs), "max_rel_err_o": max(e for e, _ in errs),
+            "max_abs_err_lse": max(e for _, e in errs),
+            "tolerance": f"max|dO| <= {BWD_RTOL} * max|O_f64| + {BWD_ATOL}, "
+                         f"max|dLSE| <= {LSE_TOL}"}
+
+
+def _bwd_vs_twin(attention, fn) -> dict:
+    """fn() with every flash backward call (#2 and #3) checked against the
+    backward twin on the very same q, k, v, O and LSE, under the flash_bwd
+    phase's bound per gradient (max|d| <= BWD_RTOL * max|ref| + BWD_ATOL).
+    A training step's dO is far below BWD_ATOL, so both run again on dO
+    scaled by the power of two that brings max|dO| into [1, 2): exact in
+    bf16, and the backward is linear in dO.  Returns the largest
+    max|d| / max|ref| of dq, dk and dv over the calls; raises past the
+    bound or when fn made no backward call."""
+    errs = []
+    kernel = attention.flash_bwd
+
+    def checked(q, k, v, o, lse, do, **kw):
+        scaled = do * 2.0 ** -torch.floor(torch.log2(do.float().abs().max())).item()
+        got = kernel(q, k, v, o, lse, scaled, **kw)
+        ref = attention.attention_bwd_plain(q, k, v, o, lse, scaled, **kw)
+        row = []
+        for g_name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            e, top = (g.float() - r.float()).abs().max().item(), r.float().abs().max().item()
+            if not e <= BWD_RTOL * top + BWD_ATOL:
+                raise AssertionError(f"flash backward vs twin on a step's tensors: max|d{g_name}| "
+                                     f"{e} > {BWD_RTOL} * {top} + {BWD_ATOL}")
+            row.append(e / top)
+        errs.append(row)
+        return kernel(q, k, v, o, lse, do, **kw)
+
+    attention.flash_bwd = checked
+    try:
+        fn()
+    finally:
+        attention.flash_bwd = kernel
+    if not errs:
+        raise AssertionError("no flash backward call to check")
+    return {"calls": len(errs),
+            "max_rel_err": dict(zip(("dq", "dk", "dv"), np.max(errs, axis=0).tolist())),
+            "tolerance": f"max|d| <= {BWD_RTOL} * max|ref| + {BWD_ATOL}, dO scaled into [1, 2)"}
+
+
+def phase_sft_text(attention) -> dict:
+    """sft.mode=text through main_sft.run at Qwen2.5-0.5B width: a parquet of
+    SFT_TEXT_ROWS rows and a word-level tokenizer written here, 2 steps of
+    B = SFT_TEXT_BATCH rows right-padded to 1663 tokens.  The kernel route
+    is held against the plain route on step 1's weights and batch.  On
+    step 1's and on the trained weights, both routes are held against a
+    third whose attention is computed in f64 (`_require_near_f64`); after
+    the steps, #1 against the f64 attention on every call of one forward
+    and #2 / #3 against their twin on every call of one backward (the same
+    tensors)."""
+    import tempfile
+
+    from sft_data import write_sft_parquet, write_word_tokenizer
+    from transformers import AutoTokenizer
+
+    from vla_rft_tpu_torch.trainer import main_sft
+    from vla_rft_tpu_torch.trainer.sft_trainer import to_device
+
+    root = tempfile.mkdtemp(prefix="sft_text_")
+    try:
+        parquet, tok_dir = os.path.join(root, "train.parquet"), os.path.join(root, "tokenizer")
+        words = write_sft_parquet(parquet, SFT_TEXT_ROWS, SFT_TEXT_WORDS, 1000, seed=0)
+        vocab = write_word_tokenizer(tok_dir, [" ".join(words)])
+        argv = ["sft.mode=text", f"data.train_files={parquet}",
+                f"actor_rollout_ref.model.ckpt_path={tok_dir}",
+                f"data.train_batch_size={SFT_TEXT_BATCH}",
+                f"trainer.total_training_steps={SFT_TEXT_STEPS}",
+                f"actor_rollout_ref.actor.optim.lr={SFT_VLM_LR}"]
+        # the run's batches, drawn again (the dataset's seed is fixed)
+        data = main_sft.SFTParquetDataset(parquet, AutoTokenizer.from_pretrained(tok_dir),
+                                          max_length=WM_SFT_LEN, batch_size=SFT_TEXT_BATCH)
+        batches = [to_device(data.next_batch(), "cuda") for _ in range(SFT_TEXT_STEPS + 2)]
+        routes = {}
+
+        def watched(tr):
+            L = tr.llm.cfg.num_layers
+            idx = {n: i for i, (n, _) in enumerate(tr.llm.named_parameters())}
+            return {w: idx[w] for w in [f"layers.{i}.self_attn.{x}_proj.weight"
+                                        for i in [*range(0, L - 1, 6), L - 1] for x in "qkv"]
+                    + ["embed_tokens.weight"]}
+
+        def step1_routes(tr):  # step 1's weights and batch, before the main path
+            routes["step1"] = _kernel_vs_plain(attention, tr.llm,
+                                               lambda: tr.compute_loss(batches[0]),
+                                               tr.backward, watched(tr), tr.llm.cfg.num_layers,
+                                               f64=True)
+
+        run, steps, start, _, peak = _drive_sft(attention, argv, before_steps=step1_routes)
+        tr = run.trainer
+        L = tr.llm.cfg.num_layers
+        _require_agreement(routes["step1"], L, "sft_text step 1")
+        _require_near_f64(routes["step1"], L, "sft_text step 1")
+        _expect_launches("sft_text", steps, {"flash_fwd": L, "flash_bwd_dq": L,
+                                             "flash_bwd_dkv": L})
+        names = {id(p): n for n, p in tr.llm.named_parameters()}
+        still, _ = _moved_and_frozen(tr, start, names)
+        if still:
+            raise AssertionError(f"sft_text: parameters that did not move {still[:5]} "
+                                 f"({len(still)})")
+        del start
+
+        # the step's parts on the next batch (outside the main path)
+        batch, data_ms = host_ms(lambda: to_device(data.next_batch(), "cuda"))
+        loss, fwd_ms = host_ms(lambda: tr.compute_loss(batch))
+        grads, bwd_ms = host_ms(lambda: tr.backward(loss))
+        _, opt_ms = host_ms(lambda: tr.update(grads))
+        del grads, loss, batch
+        with torch.no_grad():
+            fwd_f64 = _fwd_vs_f64(attention, lambda: tr.compute_loss(batches[-1]))
+        same_tensors = _bwd_vs_twin(attention, lambda: tr.backward(tr.compute_loss(batches[-1])))
+        routes["trained"] = _kernel_vs_plain(attention, tr.llm,
+                                             lambda: tr.compute_loss(batches[-1]), tr.backward,
+                                             watched(tr), L, f64=True)
+        _require_near_f64(routes["trained"], L, "sft_text after the steps")
+        out = {"phase": "sft_text", "model": "qwen25_0_5b", "vocab": tr.llm.cfg.vocab_size,
+               "tokenizer_vocab": vocab, "rows_in_parquet": SFT_TEXT_ROWS,
+               "batch": SFT_TEXT_BATCH, "seq_len": WM_SFT_LEN,
+               "kv_lens_per_step": [b["attention_mask"].sum(-1).tolist()
+                                    for b in batches[:SFT_TEXT_STEPS]],
+               "steps": steps, "steady_step_ms": steps[-1]["ms"],
+               "launches_total": {k: sum(s["launches"][k] for s in steps)
+                                  for k in steps[0]["launches"]},
+               "split_ms": {"data": data_ms, "forward": fwd_ms, "backward": bwd_ms,
+                            "optimizer": opt_ms},
+               "peak_mem_gib": peak, "parameters_moved": len(tr.params), "lr": SFT_VLM_LR,
+               "kernel_vs_plain": routes["step1"], "fwd_vs_f64_after_steps": fwd_f64,
+               "bwd_vs_twin_after_steps": same_tensors,
+               "kernel_vs_plain_after_steps": routes["trained"],
+               "cut": f"data.train_batch_size={SFT_TEXT_BATCH} (config 16): B x 1663 x "
+                      f"151,936 f32 logits"}
+        del run, tr, batches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_sft_align(attention) -> dict:
+    """sft.mode=vla_align through main_sft.run at the libero preset (B 16):
+    2 steps of the chat JSON's align stage, 1 of its finetune stage, 1 of
+    synthetic captions; only projector parameters move."""
+    import tempfile
+
+    from sft_data import write_chat_data, write_word_tokenizer
+
+    from vla_rft_tpu_torch.data.caption import get_caption_dataset
+    from vla_rft_tpu_torch.trainer.sft_trainer import to_device
+
+    root = tempfile.mkdtemp(prefix="sft_align_")
+    try:
+        paths = write_chat_data(root, size=224)
+        tok_dir = os.path.join(root, "tokenizer")
+        vocab = write_word_tokenizer(tok_dir, paths["texts"])
+        common = ["sft.mode=vla_align", f"actor_rollout_ref.model.path={tok_dir}",
+                  f"sft.image_dir={paths['image_dir']}"]
+        runs, kvp = {}, None
+        for name, extra, n in (("align", [f"sft.chat_json={paths['align']}", "sft.stage=align"],
+                                2),
+                               ("finetune", [f"sft.chat_json={paths['finetune']}",
+                                             "sft.stage=finetune"], 1),
+                               ("synthetic", [], 1)):
+            run, steps, start, _, peak = _drive_sft(
+                attention, common + extra + [f"trainer.total_training_steps={n}"])
+            tr, vla = run.trainer, run.bundle.vla
+            L = vla.cfg.llm.num_layers
+            _expect_launches(f"sft_align {name}", steps, {"flash_fwd": L, "flash_bwd_dq": L,
+                                                          "flash_bwd_dkv": L})
+            names = {id(p): n_ for n_, p in vla.named_parameters()}
+            still, moved = _moved_and_frozen(tr, start, names)
+            if still or moved:
+                raise AssertionError(f"sft_align {name}: projector parameters that did not "
+                                     f"move {still}; frozen ones that moved {moved[:5]}")
+            del start
+            runs[name] = {"steps": steps, "peak_mem_gib": peak,
+                          "steady_step_ms": steps[-1]["ms"],
+                          "trained": sorted(k for k, v in tr.labels.items() if v != "frozen"),
+                          "frozen_parameters": sum(v == "frozen" for v in tr.labels.values())}
+            if name == "align":  # kernel route vs plain route on the next align batch
+                from transformers import AutoTokenizer
+
+                tok = AutoTokenizer.from_pretrained(tok_dir)
+                data = get_caption_dataset(
+                    "align", json_path=paths["align"], image_dir=paths["image_dir"],
+                    tokenizer=tok, image_size=run.bundle.policy_image_size, batch_size=16,
+                    seq_len=run.bundle.policy_seq_len, pad_token_id=tok.pad_token_id or 0)
+                for _ in range(n):
+                    data.next_batch()
+                b = data.next_batch()
+                batch = to_device({k: b[k] for k in ("input_ids", "pixel_values",
+                                                     "attention_mask", "labels")}, "cuda")
+                runs[name]["kv_lens_next_batch"] = b["attention_mask"].sum(-1).tolist()
+                idx = {names[id(p)]: i for i, p in enumerate(tr.params)}
+                watch = {w: idx[w] for w in (f"projector.fc{i}.{x}" for i in (1, 2, 3)
+                                             for x in ("weight", "bias"))}
+                kvp = _kernel_vs_plain(attention, vla.language_model,
+                                       lambda: tr.compute_loss(batch), tr.backward, watch, L)
+                _require_agreement(kvp, L, "sft_align")
+                del batch
+            del run, tr, vla
+            gc.collect()
+            torch.cuda.empty_cache()
+        norms = [s["grad_norm"] for r in runs.values() for s in r["steps"]]
+        if not any(n_ >= 1.0 for n_ in norms) or not np.isfinite(norms).all():
+            raise AssertionError(f"sft_align: no step clipped (grad_clip 1.0): norms {norms}")
+        out = {"phase": "sft_align", "preset": "libero", "batch": 16, "tokenizer_vocab": vocab,
+               "runs": runs, "grad_norms": norms, "grad_clip": 1.0,
+               "steps_clipped": sum(n_ >= 1.0 for n_ in norms), "kernel_vs_plain": kvp,
+               "launches_total": {k: sum(s["launches"][k] for r in runs.values()
+                                         for s in r["steps"]) for k in _counts(attention)}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    sys.path.append(os.path.join(root, "tests"))  # sft_data.py: the SFT phases' files
     from vla_rft_tpu_torch.ops import attention
     from vla_rft_tpu_torch.ops import decode_attention as heads
     from vla_rft_tpu_torch.ops import decode_attention_hd as dec
@@ -2811,6 +3295,8 @@ def main() -> int:
     rlds = timed("grpo_rlds", phase_grpo_rlds, mods, build)
     torch.cuda.empty_cache()
     sft = timed("sft", phase_sft, attention)
+    sft_text = timed("sft_text", phase_sft_text, attention)
+    sft_align = timed("sft_align", phase_sft_align, attention)
     emit({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t0, 1),
           "allocated_gib_after_phase": held})
     smi = subprocess.run(
@@ -2825,12 +3311,20 @@ def main() -> int:
     flash_src = "vla_rft_tpu_torch/csrc/flash_fwd.cu"
     bwd_src = "vla_rft_tpu_torch/csrc/flash_bwd.cu"
     adapter_n, wm_n = sft["vla_adapter"]["launches_total"], sft["wm_sft"]["steps"][0]["launches"]
+    text_n, align_n = sft_text["launches_total"], sft_align["launches_total"]
+    n_align = sum(len(r["steps"]) for r in sft_align["runs"].values())
+    vla_n = {k: adapter_n[k] + align_n[k] for k in adapter_n}
     bwd_entries = []
     for kernel, line, key in (("flash_bwd_dq", 175, "dq"), ("flash_bwd_dkv", 239, "dkv")):
-        for shape, n, desc in (("vla_adapter", adapter_n,
-                                f"B=16 S=352 (351 valid) Hq/Hkv=14/2 D=64 causal; "
-                                f"{SFT_STEPS} steps"),
-                               ("wm_sft", wm_n, "B=4 S=1663 Hq=Hkv=16 D=64 causal; 1 step")):
+        for shape, n, desc in (("vla_adapter", vla_n,
+                                f"B=16 S=352 (351 valid) Hq/Hkv=14/2 D=64 causal; launches: "
+                                f"{SFT_STEPS} vla_adapter steps and {n_align} sft_align steps "
+                                f"(B=16 S=352, caption rows of other lengths)"),
+                               ("wm_sft", wm_n, "B=4 S=1663 Hq=Hkv=16 D=64 causal; 1 step"),
+                               ("sft_text", text_n,
+                                f"B={SFT_TEXT_BATCH} S=1663 kv_lens={SFT_TEXT_KV_LENS} "
+                                f"Hq/Hkv=14/2 D=64 causal; launches: {SFT_TEXT_STEPS} sft_text "
+                                f"steps (their own ragged rows)")):
             bwd_entries.append({**entry(f"{kernel}@{shape}", bwd_src,
                                         f"vla_rft_tpu/ops/attention.py:{line}", n[kernel],
                                         flash_bwd["max_abs_err"][key],
@@ -2875,7 +3369,14 @@ def main() -> int:
         {**entry("flash_fwd", flash_src, "vla_rft_tpu/ops/attention.py:108",
                  serving["main_path_launches"], flash["timed"]["serving"]["max_abs_err_o"],
                  flash["timed"]["serving"]),
-         "grpo_rlds_launches_per_step": rlds_n["flash_fwd"]},
+         "grpo_rlds_launches_per_step": rlds_n["flash_fwd"],
+         "sft_align_launches": align_n["flash_fwd"],
+         "sft_align_shape": f"B=16 S=352 Hq/Hkv=14/2 D=64 causal, {n_align} steps"},
+        {**entry("flash_fwd@sft_text", flash_src, "vla_rft_tpu/ops/attention.py:108",
+                 text_n["flash_fwd"], flash["timed"]["sft_text"]["max_abs_err_o"],
+                 flash["timed"]["sft_text"]),
+         "shape": f"B={SFT_TEXT_BATCH} Sq=Sk=1663 kv_lens={SFT_TEXT_KV_LENS} Hq/Hkv=14/2 D=64 "
+                  f"causal; launches: {SFT_TEXT_STEPS} sft_text steps (their own ragged rows)"},
         {**entry("flash_fwd@wm_prefill", flash_src, "vla_rft_tpu/ops/attention.py:108",
                  wm_launches["flash_fwd"], flash["timed"]["wm_prefill"]["max_abs_err_o"],
                  flash["timed"]["wm_prefill"]),

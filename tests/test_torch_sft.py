@@ -16,7 +16,9 @@ side runs the reference trainer's own `_loss`, `jax.value_and_grad` and
 * frozen parameters bit-identical to their start, on both sides.
 Also: `noisy_actions` equals the reference's flow-matching dict bit for bit,
 `SyntheticVLADataset` batches equal the reference's bit for bit, and
-`main_sft.run` trains both VLA modes in process.
+`main_sft.run` trains every mode in process (text from a parquet and an HF
+tokenizer directory; vla_align on synthetic captions and on a chat JSON)
+and refuses a missing tokenizer path and unknown modes.
 """
 import numpy as np
 import optax
@@ -25,6 +27,8 @@ import torch
 
 import jax
 import jax.numpy as jnp
+
+import sft_data
 
 from vla_rft_tpu.config import vla_rft_default_config
 from vla_rft_tpu.data import synthetic as j_synth
@@ -252,7 +256,77 @@ def test_main_sft_runs_in_process_on_cpu(mode, tag, capsys):
     assert len(res.losses) == 2 and np.isfinite(res.losses).all()
 
 
-def test_main_sft_refuses_modes_not_ported():
-    for mode in ("text", "vla_align"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            main_sft.run(["--device=cpu", f"sft.mode={mode}"])
+@pytest.fixture
+def auto_tokenizer(monkeypatch):
+    """transformers.AutoTokenizer as the PreTrainedTokenizerFast it gives for
+    a directory that sft_data.write_word_tokenizer wrote, keeping the paths
+    it is asked for (transformers' auto classes take some 9 s to import on
+    the CPU; the card's sft_text and sft_align phases load through the real
+    one)."""
+    import transformers
+    from transformers import PreTrainedTokenizerFast
+
+    paths = []
+
+    class AutoTokenizer:
+        @staticmethod
+        def from_pretrained(path, *args, **kwargs):
+            paths.append(str(path))
+            return PreTrainedTokenizerFast.from_pretrained(path, *args, **kwargs)
+
+    monkeypatch.setitem(transformers.__dict__, "AutoTokenizer", AutoTokenizer)
+    return paths
+
+
+def test_main_sft_text_runs_in_process_on_cpu(tmp_path, monkeypatch, capsys, auto_tokenizer):
+    """sft.mode=text from a parquet and an HF tokenizer directory (read
+    from actor_rollout_ref.model.ckpt_path), with the Qwen2.5-0.5B config
+    cut to a tiny one."""
+    words = sft_data.write_sft_parquet(str(tmp_path / "train.parquet"), 6, (4, 40), 30, seed=0)
+    sft_data.write_word_tokenizer(str(tmp_path / "tok"), [" ".join(words)])
+    tiny = TransformerConfig(dtype=torch.float32, param_dtype=torch.float32, qkv_bias=True,
+                             tie_word_embeddings=True, **dict(CFG, num_kv_heads=2))
+    monkeypatch.setattr(main_sft.TransformerConfig, "qwen25_0_5b", staticmethod(lambda: tiny))
+    res = main_sft.run(["--device=cpu", "sft.mode=text", "trainer.total_training_steps=2",
+                        f"data.train_files={tmp_path / 'train.parquet'}",
+                        f"actor_rollout_ref.model.ckpt_path={tmp_path / 'tok'}",
+                        "data.train_batch_size=2", "data.max_prompt_length=16",
+                        "data.max_response_length=8", "actor_rollout_ref.actor.optim.lr=1e-3"])
+    out = capsys.readouterr().out
+    assert "[sft step 1] loss " in out and "[sft step 2] loss " in out
+    assert res.bundle is None and res.trainer.llm.cfg is tiny
+    assert auto_tokenizer == [str(tmp_path / "tok")]
+    assert len(res.losses) == 2 and np.isfinite(res.losses).all()
+    assert res.trainer.groups[0].count == 2
+
+
+@pytest.mark.parametrize("route", ["synthetic", "align", "finetune"])
+def test_main_sft_vla_align_runs_in_process_on_cpu(route, tmp_path, capsys, request):
+    """sft.mode=vla_align at the tiny preset: synthetic captions, or a chat
+    JSON (tokenizer from actor_rollout_ref.model.path, not ckpt_path); only
+    the projector moves."""
+    argv = ["--preset=tiny", "--device=cpu", "sft.mode=vla_align",
+            "trainer.total_training_steps=2", "data.train_batch_size=2"]
+    loaded = []
+    if route != "synthetic":
+        loaded = request.getfixturevalue("auto_tokenizer")
+        paths = sft_data.write_chat_data(str(tmp_path), size=32, n_images=4, n_align=3)
+        sft_data.write_word_tokenizer(str(tmp_path / "tok"), paths["texts"])
+        argv += [f"sft.chat_json={paths[route]}", f"sft.stage={route}",
+                 f"sft.image_dir={tmp_path}", f"actor_rollout_ref.model.path={tmp_path / 'tok'}",
+                 f"actor_rollout_ref.model.ckpt_path={tmp_path / 'not_read'}"]
+    start = build_policy("tiny", device="cpu", trainable=True).vla.state_dict()
+    res = main_sft.run(argv)
+    out = capsys.readouterr().out
+    assert "[align 1] loss " in out and "[align 2] loss " in out
+    assert len(res.losses) == 2 and np.isfinite(res.losses).all()
+    assert loaded == ([] if route == "synthetic" else [str(tmp_path / "tok")])
+    for k, v in res.bundle.vla.state_dict().items():
+        assert torch.equal(v, start[k]) != k.startswith("projector."), k
+
+
+def test_main_sft_refuses_a_missing_tokenizer_path_and_unknown_modes():
+    with pytest.raises(SystemExit, match="ckpt_path is required for text SFT"):
+        main_sft.run(["--device=cpu", "sft.mode=text"])
+    with pytest.raises(SystemExit, match="unknown sft.mode 'vla_pretrain'"):
+        main_sft.run(["--device=cpu", "sft.mode=vla_pretrain"])

@@ -5,7 +5,8 @@ over a channel-stacked 6-channel image, the 3-layer GELU projector, and
 `OpenVLA.encode_context`: action-token embeddings replaced by learned
 action queries, vision patches spliced in after BOS, one causal forward of
 the Qwen backbone, and the context [BOS + patches (the last patch dropped,
-as the reference does) | action-token hidden states].
+as the reference does) | action-token hidden states]; and
+`OpenVLA.lm_forward`, the pretraining stages' caption logits.
 """
 from __future__ import annotations
 
@@ -153,3 +154,27 @@ class OpenVLA(nn.Module):
         act_hidden, _ = gather_masked(text_hidden, act_mask, cfg.num_tokens)
         task_latent = hidden[:, :P]  # BOS + patches, the last patch dropped
         return torch.cat([task_latent, act_hidden], dim=1)
+
+    def lm_forward(
+        self,
+        input_ids: torch.Tensor,  # (B, S) right-padded caption tokens
+        pixel_values: torch.Tensor,  # (B, H, W, 6*num_images) in [0,1]
+        attention_mask: torch.Tensor,  # (B, S)
+    ) -> torch.Tensor:
+        """The pretraining stages' language-model forward (caption
+        next-token loss with the vision patches after BOS; no action-query
+        substitution) -> f32 logits over the text positions, (B, S, V):
+        logits[:, i] predicts input_ids[:, i+1].  The head runs on the S
+        text positions only, which gives the reference's values without its
+        (B, P, V) slab over the patches."""
+        P = self.cfg.total_patches
+        lm = self.language_model
+        tok_emb = lm(input_ids, embed_only=True)
+        patches = self.projector(self.vision_backbone(pixel_values))
+        mm_emb = torch.cat(
+            [tok_emb[:, :1], patches.to(tok_emb.dtype), tok_emb[:, 1:]], dim=1
+        )
+        kv_lens = attention_mask.sum(dim=-1).to(torch.int32) + P
+        _, hidden = lm(inputs_embeds=mm_emb, kv_lens=kv_lens, compute_logits=False)
+        # text positions: BOS at 0, then the patches, then input_ids[1:]
+        return lm.logits(torch.cat([hidden[:, :1], hidden[:, P + 1:]], dim=1))

@@ -480,13 +480,15 @@ class Decoder(nn.Module):
         x = self.norm(x)
         logits = None
         if compute_logits:
-            xl = x[:, -1:] if logits_last_only else x
-            if cfg.tie_word_embeddings:
-                logits = self.embed_tokens.attend(xl.to(cfg.dtype))
-            else:
-                logits = self.lm_head(xl)
-            logits = logits.float()
+            logits = self.logits(x[:, -1:] if logits_last_only else x)
         return logits, x
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits of final-norm hidden states (the tied embedding's
+        `attend`, or `lm_head`)."""
+        if self.cfg.tie_word_embeddings:
+            return self.embed_tokens.attend(x.to(self.cfg.dtype)).float()
+        return self.lm_head(x).float()
 
     def init_cache(self, batch_size: int, max_len: int) -> Tuple[torch.Tensor, ...]:
         """A zeroed cache on the model's device: K and V in the layout,

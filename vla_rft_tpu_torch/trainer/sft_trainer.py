@@ -9,6 +9,9 @@
   `encode_context` into the VLM (VLA-Adapter's finetune stage); the
   reference's `multi_transform` labels freeze the vision towers
   ("featurizer" in a name) and/or the LLM ("language_model").
+* `PrismaticAlignTrainer`: the prismatic pretraining stages' caption
+  next-token loss through `OpenVLA.lm_forward`; only the projector trains
+  ("projector" in a name), the towers and the LLM are frozen.
 
 Each step is `compute_loss` -> `backward` (gradients of every parameter,
 frozen ones included, as `jax.value_and_grad` gives them) -> `update`
@@ -16,8 +19,7 @@ frozen ones included, as `jax.value_and_grad` gives them) -> `update`
 frozen group is left out).  On the card every attention layer of the
 decoder runs the flash forward (#1) and, in `backward`, the flash backward
 (#2, #3).  Random draws come from a `torch.Generator`; a caller that must
-match another run passes the noise dict itself.  `PrismaticAlignTrainer`
-is not ported yet.
+match another run passes the noise dict itself.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 from torch import nn
 
 from vla_rft_tpu_torch.models.action_head import ActionExpert, sample_noisy_actions
+from vla_rft_tpu_torch.models.action_masks import IGNORE_INDEX
 from vla_rft_tpu_torch.models.factory import build_decoder
 from vla_rft_tpu_torch.models.transformer import Decoder, TransformerConfig
 from vla_rft_tpu_torch.ops.masked import logprobs_from_logits
@@ -157,5 +160,39 @@ class VLAAdapterSFTTrainer(_Trainer):
         if noise_dict is None:
             noise_dict = sample_noisy_actions(gen, batch["actions"], self.expert.cfg)
         loss = self.compute_loss(batch, noise_dict)
+        self.update(self.backward(loss))
+        return float(loss.detach())
+
+
+class PrismaticAlignTrainer(_Trainer):
+    """The prismatic pretraining 'align' stage: caption next-token loss
+    through `OpenVLA.lm_forward`, only the projector trained (AdamW at
+    optax's defaults), every other VLA parameter frozen.  The frozen
+    parameters still get gradients: the reference clips by the global norm
+    of all of them before its `multi_transform`."""
+
+    def __init__(self, vla: nn.Module, lr: float = 1e-3, grad_clip: float = 1.0):
+        self.vla = vla
+        self.labels = {name: "projector" if "projector" in name else "frozen"
+                       for name, _ in vla.named_parameters()}
+        named = list(vla.named_parameters())
+        trained = [p for n, p in named if self.labels[n] == "projector"]
+        self.params = trained + [p for n, p in named if self.labels[n] == "frozen"]
+        self.groups = [AdamW(trained, lr)]
+        self.grad_clip = grad_clip
+        self.device = next(vla.parameters()).device
+
+    def compute_loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """-mean log p(label) over the labels that are not IGNORE_INDEX, in
+        f32; position i predicts token i+1."""
+        logits = self.vla.lm_forward(batch["input_ids"], batch["pixel_values"],
+                                     batch["attention_mask"])
+        labels = batch["labels"][:, 1:]
+        lp = logprobs_from_logits(logits[:, :-1].float(), labels.clamp_min(0))
+        mask = (labels != IGNORE_INDEX).float()
+        return -(lp * mask).sum() / mask.sum().clamp_min(1.0)
+
+    def training_step(self, batch: Dict[str, Any]) -> float:
+        loss = self.compute_loss(to_device(batch, self.device))
         self.update(self.backward(loss))
         return float(loss.detach())
