@@ -206,6 +206,35 @@ Phases, one JSON line each:
                   finite metrics, moved / frozen leaves; the data's seconds
                   (first batch, steady), host RSS and device peaks, the host
                   libraries' build;
+ 12. text_gen   - text generation at Qwen2.5-0.5B width (vocabulary 151,936)
+                  through trainer/main_generation.run at the config's sizes:
+                  a seeded random checkpoint under HF names, a word-level
+                  chat tokenizer of 151,936 ids and a parquet of 17
+                  gsm8k-style chat prompts (16 of 150-1095 tokens, one
+                  overlong and filtered) written here; RLHFDataset's chat
+                  ids equal to the rendered template's on the card's
+                  transformers; one batch of 16 prompts x n = 16 = 256 rows
+                  x 568 tokens: the loaded weights bit-equal to the written
+                  ones, exactly 24 of #1, 24 x 568 of #5 and no other
+                  kernel, each of the 256 parquet rows equal to its
+                  generated ids decoded again; prefill ms,
+                  decode ms per step, tokens/s, peak memory and a
+                  profiler window of 16 decode calls (wall vs device-busy);
+                  greedy kernel vs plain route on the 16 prompts (prefill
+                  logits <= 5e-2 of max|logit|, the first differing token
+                  over 64 steps); compute_log_probs of the main path's
+                  sequences (one row per prompt, 16 x 1663) on both routes
+                  (24 of #1; log-probs and entropy within 2 x 5e-2 x
+                  max|logit|, which the log-probs with kv_starts dropped
+                  must exceed); generate_sequences(prefix_share_n=16) at 256
+                  rows (24 of #1, 24 x 568 of #4; its step-0 logits against
+                  one cache a row <= 5e-2); main_eval.evaluate_parquet on
+                  the generations, n per prompt, and crafted rows that
+                  must score as on the CPU (gsm8k, sympy's prime_math, a
+                  passing and a failing prime_code program); #1 at the
+                  text prefill and the log-prob shape, #5 and #4 at 256
+                  rows, timed beside their twins, a masked
+                  scaled_dot_product_attention and the bound;
 then the card's name and power limit, the kernel table as one JSON line, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no `ok` line.  It needs a CUDA device and the rest of the
@@ -3240,6 +3269,574 @@ def phase_sft_align(attention) -> dict:
     return out
 
 
+# text_gen: trainer/main_generation.run at the config's own sizes: 16 prompts
+# (data.train_batch_size) of up to data.max_prompt_length = 1095 tokens, n =
+# 16 rollouts each (256 rows), rollout.response_length = 568, on a seeded
+# random Qwen2.5-0.5B checkpoint and a word-level tokenizer of its 151,936
+# ids, both written here.  Prompt word counts spread over 146..1091 (the
+# chat template adds 4 tokens: 150..1095 tokens, so kv_starts reach 945 of
+# 1095), plus one row of 1400 words that RLHFDataset filters out.
+TEXT_PROMPT, TEXT_R, TEXT_N, TEXT_PROMPTS, TEXT_VOCAB = 1095, 568, 16, 16, 151936
+TEXT_WORDS = [int(x) for x in np.linspace(146, 1091, TEXT_PROMPTS)] + [1400]
+# kernel vs plain route (and shared vs unshared cache): max|d logits| /
+# max|logits| of one call after 24 bf16 layers, as every phase; a log-prob
+# or an entropy moves at most twice the largest change of its logits, so
+# theirs are held to 2 * TEXT_LOGIT_TOL * max|logits| over the response, and
+# the same log-probs with kv_starts dropped must fall outside that bound
+TEXT_LOGIT_TOL = 5e-2
+TEXT_PROFILE_FROM, TEXT_PROFILE_CALLS = 100, 16  # the profiled window of decode calls
+# the greedy comparisons (kernel vs plain route at 16 rows, the unshared
+# reference of the shared route at 256 rows) stop after this many steps:
+# each eager decode call takes some 40 ms of host time, and the first
+# differing token falls inside it (PERF.md section 6, text generation)
+TEXT_R_CMP = 64
+TEXT_MID = 284  # the decode step the kernels are timed at (half of R)
+
+
+def _all_counts(mods, fda) -> dict:
+    """Every kernel's launch count: a WM call's (`_decode_counts`), the flash
+    backward's and #10's."""
+    attention = mods[0]
+    return {**_decode_counts(mods), "flash_bwd_dq": attention.bwd_dq_launches,
+            "flash_bwd_dkv": attention.bwd_dkv_launches, "fused_decode_attention": fda.launches}
+
+
+def _zero_all_counts(mods, fda) -> None:
+    _zero_decode_counts(mods)
+    mods[0].bwd_dq_launches = mods[0].bwd_dkv_launches = fda.launches = 0
+
+
+def _text_expect(**nonzero) -> dict:
+    return {**_expect(), "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "fused_decode_attention": 0,
+            **nonzero}
+
+
+def _first_diff(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Where two (rows, R) token tensors first differ: the earliest differing
+    step over the rows (R where none), and the rows equal throughout."""
+    R = a.shape[1]
+    ne = (a != b).int()
+    first = torch.where(ne.any(dim=1), ne.argmax(dim=1), torch.full_like(ne[:, 0], R))
+    return {"first_differing_step": int(first.min()), "rows_equal": int((first == R).sum()),
+            "rows": int(a.shape[0])}
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a - b| / max|b|."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def decode_work(q, row_keys: int, read_keys: int, Hkv: int, elem: int = 2):
+    """(bytes, flops) of a decode call on these inputs: q read and O written
+    once, each distinct valid cache position read once (K and V, `elem`
+    bytes each); 4*D flops per query position, head and valid key
+    (`row_keys`: valid keys summed over the rows)."""
+    B, Sq, Hq, D = q.shape
+    return 2 * 2 * B * Sq * Hq * D + 2 * read_keys * Hkv * D * elem, 4 * D * Hq * Sq * row_keys
+
+
+def _library_ms(fn) -> dict:
+    """{"library_ms": graph-replayed ms of fn}."""
+    return {"library_ms": graph_ms(fn, 3, 2)}
+
+
+def _masked_sdpa(q, k, v, valid):
+    """scaled_dot_product_attention of (B, Sq, Hq, D) q over (B, Sk, Hkv, D)
+    K/V as they lie (head-major views, no copy) with a boolean (B, 1, Sq,
+    Sk) mask and enable_gqa, as a closure: a yardstick only, the port never
+    calls it."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid, enable_gqa=True)
+
+
+def _time_text_kernels(attention, dec, starts16: torch.Tensor) -> dict:
+    """#1 at the text prefill (256 rows of 1095 queries into a 1664-key
+    cache, causal, kv_starts the batch's pad counts) and at compute_log_probs
+    (16 rows of 1663, causal, kv_starts and the valid lengths of a greedy
+    batch), #5 at 256 rows and #4 at 256 rows over 16 prefixes, both at
+    decode step TEXT_MID (kv_lens 1095 + 285), bf16 'hd' caches, 14/2 heads
+    of 64.  Each is held against its twin (#1 at the prefill on 16-row
+    slices, whose twin would not fit in one call), called three times for
+    the same bits, timed from a CUDA-graph replay beside its twin and a
+    masked scaled_dot_product_attention, with its bound."""
+    from vla_rft_tpu_torch.ops.attention import _valid
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    P, R, D, Hq, Hkv = TEXT_PROMPT, TEXT_R, 64, 14, 2
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
+    i32 = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)
+    out = {}
+
+    def flash_case(key, B, Sq, Sk, kv_lens, kv_starts, slice_rows):
+        q, k, v = rnd(B, Sq, Hq, D), rnd(B, Sk, Hkv, D), rnd(B, Sk, Hkv, D)
+        rows = {"kv_lens": kv_lens, "kv_starts": kv_starts, "q_offset": i32([0] * B)}
+        kern = lambda: attention.flash_fwd(q, k, v, causal=True, **rows)
+        cut = lambda i: {a: x[i:i + slice_rows] for a, x in rows.items()}
+        twin_part = lambda i: attention.attention_plain(q[i:i + slice_rows], k[i:i + slice_rows],
+                                                        v[i:i + slice_rows], causal=True,
+                                                        return_lse=True, **cut(i))
+        o, lse = kern()
+        e_o = e_l = 0.0
+        for i in range(0, B, slice_rows):
+            o_ref, lse_ref = twin_part(i)
+            e_o = max(e_o, (o[i:i + slice_rows].float() - o_ref.float()).abs().max().item())
+            valid = lse_ref > attention.NEG_INF  # rows with a valid key (not left pads)
+            e_l = max(e_l, (lse[i:i + slice_rows] - lse_ref)[valid].abs().max().item())
+            dead = o[i:i + slice_rows][~valid].float().abs().max().item() if (~valid).any() else 0
+            if dead != 0.0 or not bool((lse[i:i + slice_rows][~valid] == attention.NEG_INF).all()):
+                raise AssertionError(f"{key}: left-pad queries not 0 / -1e30 ({dead})")
+            del o_ref, lse_ref
+        if not (e_o <= O_TOL and e_l <= LSE_TOL and torch.isfinite(o.float()).all()):
+            raise AssertionError(f"flash at {key}: max|dO|={e_o} max|dLSE|={e_l}")
+        del o, lse
+        if not repeats_bit_for_bit(kern):
+            raise AssertionError(f"flash at {key}: three calls gave different bits")
+        mask = _valid(B, Sq, Sk, dev, True, kv_lens, None, kv_starts)[:, 0]  # (B, 1, Sq, Sk)
+        twin_all = lambda: [twin_part(i) for i in range(0, B, slice_rows)]
+        t = {"B": B, "Sq": Sq, "Sk": Sk, "Hq": Hq, "Hkv": Hkv, "D": D, "causal": True,
+             "kv_starts": kv_starts.tolist()[:: max(1, B // 16)], "max_abs_err_o": e_o,
+             "max_abs_err_lse": e_l, "repeats_bit_for_bit": True,
+             "kernel_ms": graph_ms(kern), "eager_ms": cuda_ms(kern, 10),
+             "plain_ms": graph_ms(twin_all, 2, 2),
+             "plain_rows_per_call": slice_rows, **_library_ms(_masked_sdpa(q, k, v, mask)),
+             **bound(*flash_work(q, k, kv_lens, kv_starts, rows["q_offset"], True))}
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+        return t
+
+    starts256 = starts16.repeat_interleave(TEXT_N)
+    out["text_prefill"] = flash_case("text_prefill", 256, P, 1664, i32([P] * 256), starts256, 16)
+    lens16 = (P + torch.linspace(R // 4, R, 16, device=dev)).to(torch.int32)  # ragged EOS
+    out["text_logprob"] = flash_case("text_logprob", 16, P + R, P + R, lens16, starts16, 16)
+
+    # the decode kernels at step TEXT_MID: keys [kv_starts, P + TEXT_MID]
+    L = P + TEXT_MID + 1
+    B = 256
+    q = rnd(B, 1, Hq, D)
+    kv_lens, q_off = i32([L] * B), i32([L - 1] * B)
+    ck, cv = rnd(B, 1664, Hkv * D), rnd(B, 1664, Hkv * D)
+    kw = dict(kv_lens=kv_lens, q_offset=q_off, kv_starts=starts256)
+    cases = {"text_b256": (lambda: dec.decode_kernel(q, ck, cv, **kw),
+                           lambda: dec.decode_plain(q, ck, cv, **kw),
+                           dec.dequantize(ck, None, D, torch.bfloat16),
+                           dec.dequantize(cv, None, D, torch.bfloat16), starts256,
+                           int((L - starts256).sum()), int((L - starts256).sum()))}
+    sck, scv = rnd(16, 1096, Hkv * D), rnd(16, 1096, Hkv * D)
+    own_k, own_v = rnd(B, R, Hkv * D), rnd(B, R, Hkv * D)
+    pm = torch.arange(16, dtype=torch.int32, device=dev).repeat_interleave(TEXT_N)
+    skw = dict(shared_len=P, kv_lens=kv_lens, q_offset=q_off, shared_starts=starts256)
+    k_all, v_all = dec.shared_kv(own_k, own_v, sck, scv, pm, P, D, torch.bfloat16)
+    cases["text_shared_b256"] = (
+        lambda: dec.decode_shared_kernel(q, own_k, own_v, sck, scv, pm, **skw),
+        lambda: dec.decode_shared_plain(q, own_k, own_v, sck, scv, pm, **skw),
+        k_all, v_all, starts256, int((L - starts256).sum()),
+        int((P - starts16).sum()) + B * (TEXT_MID + 1))
+    for key, (kern, twin, k_all, v_all, starts, row_keys, read_keys) in cases.items():
+        o, ref = kern(), twin().float()
+        if not bool(((o.float() - ref).abs() <= DEC_RTOL * ref.abs() + DEC_ATOL).all()):
+            raise AssertionError(f"decode at {key}: max|dO| {(o.float() - ref).abs().max()}")
+        if not repeats_bit_for_bit(kern):
+            raise AssertionError(f"decode at {key}: three calls gave different bits")
+        mask = _valid(B, 1, k_all.shape[1], dev, True, kv_lens, q_off, starts)[:, 0]
+        out[key] = {"B": B, "Sq": 1, "Hq": Hq, "Hkv": Hkv, "D": D, "cache": "bf16 hd",
+                    "kv_len": L, "step": TEXT_MID, "max_abs_err": (o.float() - ref).abs().max()
+                    .item(), "repeats_bit_for_bit": True, "kernel_ms": graph_ms(kern),
+                    "eager_ms": cuda_ms(kern, 100), "plain_ms": graph_ms(twin, 10),
+                    **_library_ms(_masked_sdpa(q, k_all, v_all, mask)),
+                    **bound(*decode_work(q, row_keys, read_keys, Hkv))}
+        if key == "text_shared_b256":
+            out[key]["prefixes"] = 16
+        del o, ref, mask
+    del q, ck, cv, sck, scv, own_k, own_v, k_all, v_all, cases
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_text_gen(mods, fda) -> dict:
+    """Text generation at Qwen2.5-0.5B width through main_generation.run,
+    the kernel route against the plain route, prefix sharing, the log-probs
+    and main_eval's scorers (module docstring, phase text_gen)."""
+    import tempfile
+
+    import pandas as pd
+    from sft_data import write_chat_tokenizer, write_rlhf_parquet
+    from transformers import AutoTokenizer
+
+    from vla_rft_tpu_torch.data.rlhf_dataset import RLHFDataset
+    from vla_rft_tpu_torch.models.factory import build_decoder
+    from vla_rft_tpu_torch.models.transformer import TransformerConfig
+    from vla_rft_tpu_torch.serving.profile_request import _busy_us
+    from vla_rft_tpu_torch.trainer import main_eval, main_generation
+    from vla_rft_tpu_torch.workers.llm_rollout import (LLMRolloutConfig, compute_log_probs,
+                                                       generate_sequences)
+
+    attention, dec = mods[0], mods[1]
+    L_layers = 24
+    root = tempfile.mkdtemp(prefix="text_gen_")
+    try:
+        # ---------------------------------------------------------- inputs
+        t0 = time.perf_counter()
+        ckpt = os.path.join(root, "qwen")
+        os.makedirs(ckpt)
+        vocab = write_chat_tokenizer(ckpt, TEXT_VOCAB)
+        prompts = os.path.join(root, "prompts.parquet")
+        write_rlhf_parquet(prompts, TEXT_WORDS, TEXT_VOCAB - 8, seed=0)
+        model = build_decoder(TransformerConfig.qwen25_0_5b(), device="cuda", seed=18)
+        written = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        del model
+        ckpt_bytes = write_safetensors(os.path.join(ckpt, "model.safetensors"),
+                                       hf_decoder_names(written))
+        inputs_s = time.perf_counter() - t0
+
+        # the tokenizer through the card's transformers: chat ids are ids
+        tok = AutoTokenizer.from_pretrained(ckpt)
+        pad = tok.pad_token_id or 0
+        ds = RLHFDataset(prompts, tok, max_prompt_length=TEXT_PROMPT, pad_token_id=pad)
+        raw = tok.apply_chat_template(list(ds._rows[0][1]["prompt"]), add_generation_prompt=True)
+        for ids, row in ds._rows:
+            text = tok.apply_chat_template(list(row["prompt"]), tokenize=False,
+                                           add_generation_prompt=True)
+            if ids != tok.encode(text, add_special_tokens=False):
+                raise AssertionError("text_gen: RLHFDataset's chat ids are not the template's")
+        lens = sorted(len(ids) for ids, _ in ds._rows)
+        if len(ds) != TEXT_PROMPTS or lens[-1] != TEXT_PROMPT or len(ds.df) != TEXT_PROMPTS + 1:
+            raise AssertionError(f"text_gen: {len(ds)} prompts of {lens[0]}..{lens[-1]} tokens")
+        batch = ds.sample_batch(TEXT_PROMPTS)  # main_generation's draw (same seed)
+        ids16 = torch.as_tensor(batch["input_ids"], device="cuda")
+        starts16 = (ids16 == pad).sum(dim=1).to(torch.int32)
+
+        # ------------------------------------------------------- main path
+        out_parquet = os.path.join(root, "generations.parquet")
+        argv = [f"actor_rollout_ref.model.ckpt_path={ckpt}", f"data.train_files={prompts}",
+                f"data.output_path={out_parquet}"]
+        calls, state, batches, profs = [], {}, [], []
+
+        def pre(_mod, args, _kw):
+            S = args[0].shape[1]
+            n_dec = sum(1 for c in calls if c[0] == 1)
+            if S == 1 and n_dec in (TEXT_PROFILE_FROM, TEXT_PROFILE_FROM + TEXT_PROFILE_CALLS):
+                torch.cuda.synchronize()
+                if n_dec == TEXT_PROFILE_FROM:
+                    profs.append(torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]))
+                    profs[0].start()
+                    state["prof_t0"] = time.perf_counter()
+                else:
+                    state["prof_wall_us"] = (time.perf_counter() - state["prof_t0"]) * 1e6
+                    profs[0].stop()
+            if not calls:
+                state["gen_t0"] = time.perf_counter()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            calls.append([S, ev, None])
+
+        def post(_mod, _args, _kw, _out):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            calls[-1][2] = ev
+
+        # main_generation's own calls, wrapped: the loaded model and each
+        # batch's generate_sequences output
+        load, generate = main_generation.load_decoder, main_generation.generate_sequences
+
+        def load_decoder(*a):
+            llm = state["llm"] = load(*a)
+            state["loaded_bit_equal"] = all(torch.equal(v.cpu(), written[k])
+                                            for k, v in llm.state_dict().items())
+            state["hooks"] = [llm.register_forward_pre_hook(pre, with_kwargs=True),
+                              llm.register_forward_hook(post, with_kwargs=True)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_all_counts(mods, fda)  # the main path starts here
+            return llm
+
+        def generate_sequences_(*a, **kw):
+            out = generate(*a, **kw)
+            torch.cuda.synchronize()
+            batches.append({"launches": _all_counts(mods, fda),
+                            "generate_s": time.perf_counter() - state["gen_t0"],
+                            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                            "responses": out["responses"].cpu(),
+                            "response_mask": out["response_mask"].cpu(),
+                            # one row per prompt, for compute_log_probs
+                            "seqs": {k: out[k][::TEXT_N].clone() for k in
+                                     ("input_ids", "attention_mask", "position_ids",
+                                      "response_mask")}})
+            _zero_all_counts(mods, fda)
+            return out
+
+        main_generation.load_decoder = load_decoder
+        main_generation.generate_sequences = generate_sequences_
+        try:
+            t0 = time.perf_counter()
+            main_generation.run(argv)
+            run_s = time.perf_counter() - t0
+        finally:
+            main_generation.load_decoder, main_generation.generate_sequences = load, generate
+        for h in state.pop("hooks"):
+            h.remove()
+        llm = state.pop("llm")
+        if not state["loaded_bit_equal"]:
+            raise AssertionError("text_gen: the loaded weights are not the written ones")
+        rows = TEXT_PROMPTS * TEXT_N
+        expect = _text_expect(flash_fwd=L_layers, decode_hd=L_layers * TEXT_R)
+        if len(batches) != 1 or batches[0]["launches"] != expect:
+            raise AssertionError(f"text_gen: launches {[b['launches'] for b in batches]}, "
+                                 f"expected one batch of {expect}")
+        b0 = batches[0]
+        resp = b0["responses"]
+        if resp.shape != (rows, TEXT_R) or int(resp.min()) < 0 or int(resp.max()) >= vocab:
+            raise AssertionError(f"text_gen: responses {tuple(resp.shape)} "
+                                 f"ids {int(resp.min())}..{int(resp.max())}")
+        if None in tok.convert_ids_to_tokens(resp.flatten().tolist()):
+            raise AssertionError("text_gen: a generated id has no word")
+        written_df = pd.read_parquet(out_parquet)
+        responses = list(written_df["response"])
+        if list(written_df.columns) != ["response"] or len(responses) != rows:
+            raise AssertionError(f"text_gen: the parquet is {written_df.shape}, "
+                                 f"columns {list(written_df.columns)}")
+        for i, k in enumerate(b0["response_mask"].sum(dim=1).tolist()):  # every row, decoded
+            want = tok.decode(resp[i, :k].tolist())
+            if responses[i] != want:
+                raise AssertionError(f"text_gen: parquet row {i} is {responses[i][:200]!r}, "
+                                     f"its {k} generated ids decode to {want[:200]!r}")
+        torch.cuda.synchronize()
+        ms = [calls[i][1].elapsed_time(calls[i][2]) for i in range(len(calls))]
+        cadence = [calls[i][1].elapsed_time(calls[i + 1][1]) for i in range(1, len(calls) - 1)]
+        kernels = [e for e in profs[0].events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+        dec_us = sum(e.time_range.end - e.time_range.start for e in kernels
+                     if "decode_attend_kernel" in e.name)
+        valid_tokens = int(b0["response_mask"].sum())
+        main_path = {
+            "rows": rows, "prompts": TEXT_PROMPTS, "n": TEXT_N, "response_length": TEXT_R,
+            "prompt_tokens": {"min": lens[0], "max": lens[-1]},
+            "kv_starts": starts16.tolist(), "launches": b0["launches"],
+            "prefill_ms": ms[0], "decode_call_ms_median": float(np.median(ms[1:])),
+            "decode_ms_per_step_median": float(np.median(cadence)),
+            "generate_s": b0["generate_s"],
+            "generated_tokens_per_s": rows * TEXT_R / b0["generate_s"],
+            "valid_tokens": valid_tokens, "peak_mem_gib": b0["peak_mem_gib"],
+            "run_s": run_s, "inputs_s": inputs_s, "checkpoint_bytes": ckpt_bytes,
+            "decode_step_trace": {
+                "calls": TEXT_PROFILE_CALLS, "from_call": TEXT_PROFILE_FROM,
+                "wall_ms_per_call": state["prof_wall_us"] / 1e3 / TEXT_PROFILE_CALLS,
+                "device_busy_ms_per_call": busy / 1e3 / TEXT_PROFILE_CALLS,
+                "device_idle_share": 1.0 - busy / state["prof_wall_us"],
+                "kernels_per_call": len(kernels) / TEXT_PROFILE_CALLS,
+                "decode_kernel_ms_per_launch": dec_us / 1e3 / max(1, sum(
+                    1 for e in kernels if "decode_attend_kernel" in e.name))}}
+        del calls, profs
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------- kernel vs plain route
+        greedy = lambda R: LLMRolloutConfig(response_length=R, do_sample=False, pad_token_id=pad,
+                                            eos_token_id=tok.eos_token_id)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        routes = {}
+        for impl in ("auto", "plain"):
+            llm.attn_impl = impl
+            grab = {}
+
+            def prefill(_mod, args, _kw, out, grab=grab):  # the first call: the prefill
+                if "logits" not in grab:
+                    grab["logits"] = out[0][:, -1].float().clone()
+
+            h = llm.register_forward_hook(prefill, with_kwargs=True)
+            t = time.perf_counter()
+            seqs = generate_sequences(llm, gen, ids16, greedy(TEXT_R_CMP))
+            torch.cuda.synchronize()
+            routes[impl] = {"logits": grab["logits"], "seqs": seqs, "s": time.perf_counter() - t}
+            h.remove()
+        # the log-probs of the main path's sequences (one row per prompt,
+        # 1095 + 568 tokens) on both routes
+        k_seq = b0.pop("seqs")
+        args = (k_seq["input_ids"], k_seq["attention_mask"], k_seq["position_ids"], TEXT_R)
+        logp = {}
+        for impl in ("auto", "plain"):
+            llm.attn_impl = impl
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_all_counts(mods, fda)
+            (lp, ent), lp_ms = host_ms(lambda: compute_log_probs(llm, *args))
+            logp[impl] = {"lp": lp, "ent": ent, "ms": lp_ms, "launches": _all_counts(mods, fda),
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        llm.attn_impl = "auto"
+        if logp["auto"]["launches"] != _text_expect(flash_fwd=L_layers):
+            raise AssertionError(f"text_gen: compute_log_probs launched {logp['auto']['launches']}")
+        with torch.no_grad():  # max|logit| over the response positions (one row at a time)
+            starts = (1 - k_seq["attention_mask"][:, :TEXT_PROMPT]).sum(dim=1).to(torch.int32)
+            _, hidden = llm(k_seq["input_ids"], positions=k_seq["position_ids"],
+                            kv_starts=starts, kv_lens=k_seq["attention_mask"].sum(dim=1).int()
+                            + starts, compute_logits=False)
+            max_logit = max(llm.logits(hidden[i:i + 1, -TEXT_R - 1:-1]).abs().max().item()
+                            for i in range(hidden.shape[0]))
+            del hidden
+        mask = k_seq["response_mask"].bool()
+        d_lp = (logp["auto"]["lp"] - logp["plain"]["lp"]).abs()[mask]
+        d_ent = (logp["auto"]["ent"] - logp["plain"]["ent"]).abs()[mask]
+        lp_bound = 2 * TEXT_LOGIT_TOL * max_logit
+        # a faulted reading the bound must catch: the kernel route with
+        # kv_starts dropped (the prompts' pad keys unmasked, kv_lens as before)
+        no_starts = k_seq["attention_mask"].clone()
+        no_starts[:, :TEXT_PROMPT] = 1
+        lp_fault, _ = compute_log_probs(llm, k_seq["input_ids"], no_starts,
+                                        k_seq["position_ids"], TEXT_R)
+        d_fault = (lp_fault - logp["auto"]["lp"]).abs()[mask].max().item()
+        del lp_fault, no_starts
+        prefill_rel = _rel(routes["auto"]["logits"], routes["plain"]["logits"])
+        if not d_fault > lp_bound:
+            raise AssertionError(f"text_gen: log-probs with kv_starts dropped move {d_fault}, "
+                                 f"inside the bound {lp_bound}")
+        if not (prefill_rel <= TEXT_LOGIT_TOL and d_lp.max().item() <= lp_bound
+                and d_ent.max().item() <= lp_bound
+                and torch.isfinite(logp["auto"]["lp"]).all()):
+            raise AssertionError(f"text_gen kernel vs plain: prefill {prefill_rel}, logp "
+                                 f"{d_lp.max().item()}, entropy {d_ent.max().item()} "
+                                 f"(bound {lp_bound})")
+        kernel_vs_plain = {
+            "rows": TEXT_PROMPTS, "greedy": True, "prefill_rel_logit_err": prefill_rel,
+            "prefill_argmax_agreement": (routes["auto"]["logits"].argmax(-1)
+                                         == routes["plain"]["logits"].argmax(-1))
+            .float().mean().item(),
+            "steps": TEXT_R_CMP,
+            "tokens": _first_diff(routes["auto"]["seqs"]["responses"],
+                                  routes["plain"]["seqs"]["responses"]),
+            "generate_s": {k: v["s"] for k, v in routes.items()},
+            "log_probs": {"max_abs_err": d_lp.max().item(), "mean_abs_err": d_lp.mean().item(),
+                          "entropy_max_abs_err": d_ent.max().item(), "bound": lp_bound,
+                          "kv_starts_dropped_max_abs_err": d_fault,
+                          "max_abs_logit": max_logit, "valid_tokens": int(mask.sum())}}
+        log_probs = {"B": TEXT_PROMPTS, "S": TEXT_PROMPT + TEXT_R,
+                     "launches": logp["auto"]["launches"], "ms": logp["auto"]["ms"],
+                     "plain_route_ms": logp["plain"]["ms"],
+                     "peak_mem_gib": logp["auto"]["peak_mem_gib"],
+                     "plain_route_peak_mem_gib": logp["plain"]["peak_mem_gib"]}
+        cmp_tokens = routes["auto"]["seqs"]["responses"]
+        del routes, logp, args
+        torch.cuda.empty_cache()
+
+        # ------------------------------------ shared prefix vs one cache a row
+        ids256 = ids16.repeat_interleave(TEXT_N, dim=0)
+        shared_runs = {}
+        for name, n, R in (("unshared", 1, TEXT_R_CMP), ("shared", TEXT_N, TEXT_R)):
+            grab = {}
+
+            def first_decode(_mod, args, _kw, out, grab=grab):
+                if args[0].shape[1] == 1 and "logits" not in grab:
+                    grab["logits"] = out[0][:, 0].float().clone()
+
+            h = llm.register_forward_hook(first_decode, with_kwargs=True)
+            torch.cuda.synchronize()
+            _zero_all_counts(mods, fda)
+            t = time.perf_counter()
+            seqs = generate_sequences(llm, gen, ids256, greedy(R), prefix_share_n=n)
+            torch.cuda.synchronize()
+            shared_runs[name] = {"s": time.perf_counter() - t, "launches": _all_counts(mods, fda),
+                                 "responses": seqs["responses"], "logits": grab["logits"]}
+            h.remove()
+            del seqs
+        sh, un = shared_runs["shared"], shared_runs["unshared"]
+        if sh["launches"] != _text_expect(flash_fwd=L_layers,
+                                          decode_shared_hd=L_layers * TEXT_R) \
+                or un["launches"] != _text_expect(flash_fwd=L_layers,
+                                                  decode_hd=L_layers * TEXT_R_CMP):
+            raise AssertionError(f"text_gen shared: launches {sh['launches']} / {un['launches']}")
+        same0 = sh["responses"][:, 0] == un["responses"][:, 0]  # step 0's logits see this token
+        step0_rel = _rel(sh["logits"][same0], un["logits"][same0])
+        if step0_rel > TEXT_LOGIT_TOL or int(same0.sum()) == 0:
+            raise AssertionError(f"text_gen shared: step-0 logits {step0_rel}")
+        shared = {"rows": rows, "prefixes": TEXT_PROMPTS, "launches": sh["launches"],
+                  "generate_s": sh["s"], "unshared_generate_s": un["s"],
+                  "step0_rel_logit_err": step0_rel, "step0_rows_compared": int(same0.sum()),
+                  "unshared_steps": TEXT_R_CMP,
+                  "tokens_vs_unshared": _first_diff(sh["responses"][:, :TEXT_R_CMP],
+                                                    un["responses"]),
+                  "tokens_vs_16_row_kernel_route": _first_diff(
+                      sh["responses"][::TEXT_N, :TEXT_R_CMP],
+                      cmp_tokens)}
+        del shared_runs, sh, un, k_seq
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------- main_eval's scorers
+        code = "```python\na, b = map(int, input().split())\nprint(a + b)\n```"
+        cases = json.dumps({"inputs": ["1 2\n", "5 7\n"], "outputs": ["3\n", "12\n"]})
+        eval_rows = {"prompt": [], "data_source": [], "reward_model": [], "responses": []}
+        for i in range(TEXT_PROMPTS):  # the generations, n per prompt
+            eval_rows["prompt"].append(f"prompt {i}")
+            eval_rows["data_source"].append(batch["data_sources"][i])
+            eval_rows["reward_model"].append({"ground_truth": batch["ground_truths"][i]})
+            eval_rows["responses"].append(responses[i * TEXT_N:(i + 1) * TEXT_N])
+        crafted = [("gsm8k", "17", ["w5 w9 #### 17", "#### 18"]),
+                   ("numina_cn_k12", "(x+1)^2", ["so \\boxed{x^2+2x+1}"]),
+                   ("apps", cases, [code]),
+                   ("codeforces", cases, [code.replace("a + b", "a * b")])]
+        for src, gt, responses in crafted:
+            eval_rows["prompt"].append(src)
+            eval_rows["data_source"].append(src)
+            eval_rows["reward_model"].append({"ground_truth": gt})
+            eval_rows["responses"].append(responses)
+        eval_path = os.path.join(root, "eval.parquet")
+        pd.DataFrame(eval_rows).to_parquet(eval_path)
+        scores, eval_ms = host_ms(lambda: main_eval.evaluate_parquet(eval_path))
+        want = {"test_score/gsm8k/pass@1": 0.5, "test_score/gsm8k/best@n": 1.0,
+                "test_score/numina_cn_k12/pass@1": 1.0, "test_score/apps/pass@1": 1.0,
+                "test_score/codeforces/pass@1": 0.0,
+                f"test_score/{batch['data_sources'][0]}/count": TEXT_PROMPTS}
+        if any(scores.get(k) != v for k, v in want.items()):
+            raise AssertionError(f"text_gen main_eval: {scores}, expected {want}")
+
+        timed = _time_text_kernels(attention, dec, starts16)
+        out = {"phase": "text_gen", "model": "qwen25_0_5b", "vocab": vocab,
+               "chat_template_returns": type(raw).__name__, "main_generation": main_path,
+               "kernel_vs_plain": kernel_vs_plain, "compute_log_probs": log_probs,
+               "prefix_shared": shared, "main_eval": {"scores": scores, "ms": eval_ms},
+               "timed": timed, "tolerance": {"logits": TEXT_LOGIT_TOL,
+                                             "log_probs": "2 * logits tol * max|logit|"}}
+        del llm
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def text_entries(text: dict, entry, flash_src: str, dec_src: str) -> list:
+    """The kernel line's rows of the text_gen phase's shapes."""
+    t, gen = text["timed"], text["main_generation"]
+    P, S = TEXT_PROMPT, TEXT_PROMPT + TEXT_R
+    shape = lambda key, desc: {"shape": desc, "kv_starts": t[key].get("kv_starts")}
+    return [
+        {**entry("flash_fwd@text_prefill", flash_src, "vla_rft_tpu/ops/attention.py:108",
+                 gen["launches"]["flash_fwd"], t["text_prefill"]["max_abs_err_o"],
+                 t["text_prefill"]),
+         **shape("text_prefill", f"B=256 Sq={P} Sk=1664 kv_lens={P} Hq/Hkv=14/2 D=64 causal, "
+                                 f"left-padded (kv_starts per prompt, x16 rows); launches: "
+                                 f"one main_generation batch (16 prompts x n=16)")},
+        {**entry("flash_fwd@text_logprob", flash_src, "vla_rft_tpu/ops/attention.py:108",
+                 text["compute_log_probs"]["launches"]["flash_fwd"],
+                 t["text_logprob"]["max_abs_err_o"], t["text_logprob"]),
+         **shape("text_logprob", f"B=16 Sq=Sk={S} Hq/Hkv=14/2 D=64 causal, left-padded, "
+                                 f"ragged valid ends; launches: one compute_log_probs call "
+                                 f"(log_prob_micro_batch_size_per_gpu=16)")},
+        {**entry("decode_hd@text_b256", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:272",
+                 gen["launches"]["decode_hd"], t["text_b256"]["max_abs_err"], t["text_b256"]),
+         "shape": f"B=256 Sq=1 Hq/Hkv=14/2 D=64 bf16 hd cache (256, 1664, 128), step "
+                  f"{TEXT_MID} (kv_len {P + TEXT_MID + 1}), per-row kv_starts; launches: one "
+                  f"main_generation batch ({TEXT_R} decode calls x 24 layers)"},
+        {**entry("decode_shared_hd@text_b256", dec_src,
+                 "vla_rft_tpu/ops/decode_attention_hd.py:226",
+                 text["prefix_shared"]["launches"]["decode_shared_hd"],
+                 t["text_shared_b256"]["max_abs_err"], t["text_shared_b256"]),
+         "shape": f"B=256 Sq=1 Hq/Hkv=14/2 D=64 bf16, 16 prefixes of {P} (16 rows each, "
+                  f"shared_starts = kv_starts) + own (256, {TEXT_R}, 128), step {TEXT_MID}; "
+                  f"launches: generate_sequences(prefix_share_n=16) at 256 rows"},
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3297,6 +3894,8 @@ def main() -> int:
     sft = timed("sft", phase_sft, attention)
     sft_text = timed("sft_text", phase_sft_text, attention)
     sft_align = timed("sft_align", phase_sft_align, attention)
+    torch.cuda.empty_cache()
+    text = timed("text_gen", phase_text_gen, mods, fda)
     emit({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t0, 1),
           "allocated_gib_after_phase": held})
     smi = subprocess.run(
@@ -3420,6 +4019,7 @@ def main() -> int:
          "shape": "B=10 Sq=1 Hq=Hkv=16 D=64 int8, 1379 keys; launches: wm_plain_heads "
                   "(2 rows, 2 frames)"},
         *fda_entries,
+        *text_entries(text, entry, flash_src, dec_src),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -96,3 +96,52 @@ def write_chat_data(root: str, size: int, n_images: int = 8, n_align: int = 6,
     paths["texts"] = [pb.get_prompt()] + [t["value"] for row in finetune
                                           for t in row["conversations"]]
     return paths
+
+
+CHAT_WORDS = ("system", "user", "assistant", ":")  # ids 4..7 of write_chat_tokenizer
+CHAT_TEMPLATE = ("{% for m in messages %}{{ m['role'] }} : {{ m['content'] }} {% endfor %}"
+                 "{% if add_generation_prompt %}assistant :{% endif %}")
+
+
+def write_chat_tokenizer(path: str, vocab_size: int) -> int:
+    """A word-level HF tokenizer of exactly `vocab_size` ids with a minimal
+    chat template, written into `path` (AutoTokenizer reads it offline):
+    [PAD] 0, [UNK] 1, [BOS] 2, [EOS] 3, the chat words (role names and ":")
+    4..7, then w0, w1, ... up to the last id, so that every id a model of
+    that vocabulary emits decodes to a word.  No BOS is added.  Returns the
+    vocabulary size."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {t: i for i, t in enumerate(WORD_SPECIALS + CHAT_WORDS)}
+    for i in range(vocab_size - len(vocab)):
+        vocab[f"w{i}"] = len(vocab)
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="[UNK]"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    fast = PreTrainedTokenizerFast(tokenizer_object=tok, pad_token="[PAD]", unk_token="[UNK]",
+                                   bos_token="[BOS]", eos_token="[EOS]")
+    fast.chat_template = CHAT_TEMPLATE
+    fast.save_pretrained(path)
+    return len(vocab)
+
+
+def write_rlhf_parquet(path: str, lengths, n_words: int, seed: int, chat: bool = True,
+                       data_source: str = "openai/gsm8k") -> list:
+    """A gsm8k-style prompt parquet: one row per entry of `lengths`, a user
+    message (or a plain string with `chat=False`) of that many words drawn
+    from w0..w{n_words-1}, `data_source`, `reward_model.ground_truth` (a
+    number) and `extra_info.index`.  Returns the ground truths."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    rows = {"data_source": [], "prompt": [], "reward_model": [], "extra_info": []}
+    gts = []
+    for i, n in enumerate(lengths):
+        text = " ".join(f"w{j}" for j in rng.integers(0, n_words, int(n)))
+        gts.append(str(int(rng.integers(0, 1000))))
+        rows["data_source"].append(data_source)
+        rows["prompt"].append([{"role": "user", "content": text}] if chat else text)
+        rows["reward_model"].append({"style": "rule", "ground_truth": gts[-1]})
+        rows["extra_info"].append({"index": i})
+    pd.DataFrame(rows).to_parquet(path)
+    return gts

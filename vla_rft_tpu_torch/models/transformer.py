@@ -268,7 +268,7 @@ class Attention(nn.Module):
         self.o_proj = make_dense(cfg, nh * hd, H, False)
 
     def forward(self, x, positions, kv_lens, causal: bool, attn_impl: str, li: int = 0,
-                c: Optional[CacheArgs] = None):
+                c: Optional[CacheArgs] = None, kv_starts=None):
         cfg = self.cfg
         B, S, _ = x.shape
         q = self.q_proj(x).view(B, S, cfg.num_heads, cfg.hd)
@@ -277,7 +277,8 @@ class Attention(nn.Module):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         if c is None:
-            out = attention(q, k, v, causal=causal, kv_lens=kv_lens, impl=attn_impl)
+            out = attention(q, k, v, causal=causal, kv_lens=kv_lens, kv_starts=kv_starts,
+                            impl=attn_impl)
         else:
             out = self._cached(q, k, v, li, c, attn_impl)
         return self.o_proj(out.reshape(B, S, cfg.num_heads * cfg.hd))
@@ -390,9 +391,9 @@ class DecoderLayer(nn.Module):
         )
         self.mlp = MLP(cfg)
 
-    def forward(self, x, positions, kv_lens, causal, attn_impl, li=0, c=None):
+    def forward(self, x, positions, kv_lens, causal, attn_impl, li=0, c=None, kv_starts=None):
         x = x + self.self_attn(self.input_layernorm(x), positions, kv_lens, causal, attn_impl,
-                               li, c)
+                               li, c, kv_starts)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -438,6 +439,7 @@ class Decoder(nn.Module):
         shared_len: int = 0,
         prefix_map=None,
         shared_starts=None,
+        positions=None,
     ):
         """embed_only -> token embeddings (B, S, H); otherwise
         (logits (B, S or 1, V) f32 or None, hidden (B, S, H) after the final
@@ -445,7 +447,12 @@ class Decoder(nn.Module):
         defaults to cache_index + S.  `cache_index` is an int, or a (B,)
         tensor of per-row offsets (the speculative rollout's verify calls,
         where rows advance at different rates): row b's positions, cache
-        writes and causal mask then start at cache_index[b]."""
+        writes and causal mask then start at cache_index[b].  `positions`
+        (B, S), when given, are the rope positions instead (left-padded text
+        rows count from their first real token, not from the cache offset);
+        the causal mask and cache writes still follow `cache_index`.
+        `kv_starts` (B,) masks each row's keys before it, with or without a
+        cache; a query with no valid key (a left-pad position) gives 0."""
         cfg = self.cfg
         if embed_only:
             return self.embed_tokens(input_ids)
@@ -457,6 +464,9 @@ class Decoder(nn.Module):
         off = cache_index if cache is not None else 0
         if isinstance(off, torch.Tensor):  # per-row offsets (speculative verify calls)
             off = rows(off)
+        if positions is not None:
+            positions = torch.as_tensor(positions, device=dev).to(torch.int32).expand(B, S)
+        elif isinstance(off, torch.Tensor):
             positions = torch.arange(S, dtype=torch.int32, device=dev)[None] + off[:, None]
         else:
             positions = (torch.arange(S, dtype=torch.int32, device=dev) + off)[None].expand(B, S)
@@ -474,9 +484,10 @@ class Decoder(nn.Module):
                 prefix_map=None if prefix_map is None else rows(prefix_map),
                 shared_starts=rows(0 if shared_starts is None else shared_starts),
             )
+        starts = None if c is not None or kv_starts is None else rows(kv_starts)
         x = inputs_embeds
         for li, layer in enumerate(self.layers):
-            x = layer(x, positions, kv_lens, causal, self.attn_impl, li, c)
+            x = layer(x, positions, kv_lens, causal, self.attn_impl, li, c, starts)
         x = self.norm(x)
         logits = None
         if compute_logits:
