@@ -235,6 +235,30 @@ Phases, one JSON line each:
                   text prefill and the log-prob shape, #5 and #4 at 256
                   rows, timed beside their twins, a masked
                   scaled_dot_product_attention and the bound;
+ 13. ppo        - text RL through trainer/main_ppo.run on text_gen's
+                  checkpoint, tokenizer and prompts, with
+                  enable_gradient_checkpointing (the decoder's remat): one
+                  grpo step at the config's sizes (16 prompts x n = 16 =
+                  256 rows x 568, 16 actor updates of 16 rows of 1663,
+                  lr 1e-6), then validate(): exact launches of #1 / #5 /
+                  #2 / #3 derived from the rows, log-prob chunks and
+                  mini-batches (#4 0), timing_s per stage and peak memory
+                  (< 80 GiB), finite metrics; the loaded policy and
+                  reference policy bit-equal to the file; on-policy
+                  identity (first mini-batch ppo_kl <= 1e-6 and clip
+                  fraction 0, the reference policy's log-probs within 1e-6
+                  of the policy's, its weights bit-identical after the
+                  step); the parameters that moved at lr 1e-6; on the
+                  first mini-batch the kernel route against the plain
+                  route and an f64-attention route (sft_text's bounds);
+                  #2 / #3 at the update's shape (the step's rows, one per
+                  prompt: kv_starts up to 945) against their twin with the
+                  gradients of pad positions exactly 0, finite, three calls
+                  the same bits, timed beside the twin and the masked
+                  enable_gqa SDPA backward; then one gae step of 2 prompts
+                  x 16 at lr 5e-3 (its critic's values and updates: the
+                  exact launches; every policy and critic parameter moved,
+                  the reference policy bit-identical);
 then the card's name and power limit, the kernel table as one JSON line, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no `ok` line.  It needs a CUDA device and the rest of the
@@ -2994,28 +3018,29 @@ def _kernel_vs_plain(attention, lm, loss_fn, backward, watch: dict, L: int,
     return out
 
 
-def _require_agreement(kvp: dict, L: int, what: str) -> None:
+def _require_agreement(kvp: dict, L: int, what: str, fwd: int = 1) -> None:
     """Raise past SFT_LOSS_TOL / SFT_GRAD_TOL, on a zero kernel-route
-    gradient, or on other launches than L / L / L (kernel route) and 0
-    (plain route)."""
+    gradient, or on other launches than fwd x L / L / L (kernel route; fwd
+    is 2 when the layers are recomputed in the backward) and 0 (plain
+    route)."""
     n = kvp["launches"]
-    if (n["kernel"] != {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    if (n["kernel"] != {"flash_fwd": fwd * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
             or any(n["plain"].values()) or kvp["zero_kernel_route_grads"]
             or not kvp["loss_rel_err"] <= SFT_LOSS_TOL
             or not max(kvp["grad_rel_err"].values()) <= SFT_GRAD_TOL):
         raise AssertionError(f"{what}: kernel vs plain {kvp}")
 
 
-def _require_near_f64(kvp: dict, L: int, what: str) -> None:
-    """Raise unless the kernel route launched L / L / L and the plain route
-    nothing, the kernel route's loss is within SFT_LOSS_TOL of the f64
-    route's, and each watched gradient of the kernel route is within
+def _require_near_f64(kvp: dict, L: int, what: str, fwd: int = 1) -> None:
+    """Raise unless the kernel route launched fwd x L / L / L and the plain
+    route nothing, the kernel route's loss is within SFT_LOSS_TOL of the
+    f64 route's, and each watched gradient of the kernel route is within
     F64_ROUTE_RATIO times the plain route's distance (plus SFT_GRAD_TOL) of
     the f64 route's."""
     n, ref = kvp["launches"], kvp["f64"]
     far = {w: e for w, e in ref["grad_rel_err"].items()
            if not e["kernel"] <= F64_ROUTE_RATIO * e["plain"] + SFT_GRAD_TOL}
-    if (n["kernel"] != {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    if (n["kernel"] != {"flash_fwd": fwd * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
             or any(n["plain"].values()) or far
             or not ref["loss_rel_err"]["kernel"] <= SFT_LOSS_TOL):
         raise AssertionError(f"{what}: routes vs f64 attention, out of bounds {far}: {kvp}")
@@ -3453,6 +3478,31 @@ def _time_text_kernels(attention, dec, starts16: torch.Tensor) -> dict:
     return out
 
 
+def write_text_inputs(root: str) -> tuple:
+    """The text phases' inputs under `root`: a seeded random Qwen2.5-0.5B
+    checkpoint under HF names and a word-level chat tokenizer of its 151,936
+    ids in `root`/qwen, and the gsm8k-style prompt parquet of TEXT_WORDS.
+    Returns (checkpoint dir, parquet, the written state dict on the host,
+    the tokenizer's vocabulary, checkpoint bytes, seconds)."""
+    from sft_data import write_chat_tokenizer, write_rlhf_parquet
+
+    from vla_rft_tpu_torch.models.factory import build_decoder
+    from vla_rft_tpu_torch.models.transformer import TransformerConfig
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(root, "qwen")
+    os.makedirs(ckpt)
+    vocab = write_chat_tokenizer(ckpt, TEXT_VOCAB)
+    prompts = os.path.join(root, "prompts.parquet")
+    write_rlhf_parquet(prompts, TEXT_WORDS, TEXT_VOCAB - 8, seed=0)
+    model = build_decoder(TransformerConfig.qwen25_0_5b(), device="cuda", seed=18)
+    written = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    ckpt_bytes = write_safetensors(os.path.join(ckpt, "model.safetensors"),
+                                   hf_decoder_names(written))
+    return ckpt, prompts, written, vocab, ckpt_bytes, time.perf_counter() - t0
+
+
 def phase_text_gen(mods, fda) -> dict:
     """Text generation at Qwen2.5-0.5B width through main_generation.run,
     the kernel route against the plain route, prefix sharing, the log-probs
@@ -3460,12 +3510,9 @@ def phase_text_gen(mods, fda) -> dict:
     import tempfile
 
     import pandas as pd
-    from sft_data import write_chat_tokenizer, write_rlhf_parquet
     from transformers import AutoTokenizer
 
     from vla_rft_tpu_torch.data.rlhf_dataset import RLHFDataset
-    from vla_rft_tpu_torch.models.factory import build_decoder
-    from vla_rft_tpu_torch.models.transformer import TransformerConfig
     from vla_rft_tpu_torch.serving.profile_request import _busy_us
     from vla_rft_tpu_torch.trainer import main_eval, main_generation
     from vla_rft_tpu_torch.workers.llm_rollout import (LLMRolloutConfig, compute_log_probs,
@@ -3476,18 +3523,7 @@ def phase_text_gen(mods, fda) -> dict:
     root = tempfile.mkdtemp(prefix="text_gen_")
     try:
         # ---------------------------------------------------------- inputs
-        t0 = time.perf_counter()
-        ckpt = os.path.join(root, "qwen")
-        os.makedirs(ckpt)
-        vocab = write_chat_tokenizer(ckpt, TEXT_VOCAB)
-        prompts = os.path.join(root, "prompts.parquet")
-        write_rlhf_parquet(prompts, TEXT_WORDS, TEXT_VOCAB - 8, seed=0)
-        model = build_decoder(TransformerConfig.qwen25_0_5b(), device="cuda", seed=18)
-        written = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-        del model
-        ckpt_bytes = write_safetensors(os.path.join(ckpt, "model.safetensors"),
-                                       hf_decoder_names(written))
-        inputs_s = time.perf_counter() - t0
+        ckpt, prompts, written, vocab, ckpt_bytes, inputs_s = write_text_inputs(root)
 
         # the tokenizer through the card's transformers: chat ids are ids
         tok = AutoTokenizer.from_pretrained(ckpt)
@@ -3804,9 +3840,342 @@ def phase_text_gen(mods, fda) -> dict:
     return out
 
 
-def text_entries(text: dict, entry, flash_src: str, dec_src: str) -> list:
-    """The kernel line's rows of the text_gen phase's shapes."""
+# ppo: trainer/main_ppo.run at the config's sizes on text_gen's inputs: one
+# grpo step of 16 prompts x n = 16 = 256 rows, responses of 568, 16 actor
+# updates of 16 rows, old log-probs in chunks of 16 rows and the reference
+# policy's in chunks of 8 (rollout. / ref.log_prob_micro_batch_size_per_gpu),
+# then validate() (data.val_batch_size 4 x val_kwargs.n 1); and one gae step
+# of PPO_GAE_PROMPTS prompts x 16 (the cut: 16 would double the phase's
+# time) at PPO_RAISED_LR for the actor and the critic, so that every bf16
+# parameter moves (the config's 1e-6 is below half a bf16 ulp of most
+# weights; the main step reports how many moved at 1e-6).  Both run with
+# actor_rollout_ref.model.enable_gradient_checkpointing (the decoder's
+# remat): without it the 16-row update needs more than the card's 80 GB
+# (PERF.md section 6, text RL)
+PPO_GAE_PROMPTS, PPO_RAISED_LR = 2, 5e-3
+PPO_KL_TOL = 1e-6  # on-policy identity: first mini-batch ppo_kl, ref vs old log-probs
+
+
+def _ppo_expect(prompts: int, config, critic: bool, validate: bool) -> dict:
+    """Launches of one PPO step (or validate()) derived from its rows,
+    chunks and mini-batches: the rollout's prefill (#1) and R decode calls
+    (#5) per layer; per layer one #1 for each chunk of old and reference
+    log-probs; with a critic one #1 for its values; per mini-batch and
+    layer one #1, #2 and #3 for the actor update (and for the critic's),
+    and one more #1 when the layers are recomputed in the backward
+    (enable_gradient_checkpointing)."""
+    L, R = 24, TEXT_R
+    roll, n = config.actor_rollout_ref.rollout, config.actor_rollout_ref.rollout.n
+    if validate:
+        return _text_expect(flash_fwd=L, decode_hd=L * R)
+    rows = prompts * n
+    chunks = lambda c: -(-rows // c)
+    updates = chunks(config.actor_rollout_ref.actor.ppo_mini_batch_size) * (2 if critic else 1)
+    fwd = (L + L * chunks(roll.log_prob_micro_batch_size_per_gpu)
+           + L * chunks(config.actor_rollout_ref.ref.log_prob_micro_batch_size_per_gpu)
+           + (L if critic else 0) + L * updates * (1 + _remat(config)))
+    return _text_expect(flash_fwd=fwd, decode_hd=L * R, flash_bwd_dq=L * updates,
+                        flash_bwd_dkv=L * updates)
+
+
+def _remat(config) -> int:
+    return int(bool(config.actor_rollout_ref.model.enable_gradient_checkpointing))
+
+
+def _drive_ppo(mods, fda, argv, written: dict) -> dict:
+    """main_ppo.run(argv) on the card with a recording trainer: every count
+    set to 0 just before each training_step and validate() and read just
+    after; per step its metrics, seconds, peak memory and launches, each
+    actor mini-batch's metrics, the first mini-batch itself and every
+    chunk's log-probs; whether the loaded policy and reference policy are
+    bit-equal to `written`; the attention mask of each mini-batch's first
+    row.  Returns the record (the trainer under "trainer")."""
+    from vla_rft_tpu_torch.trainer import main_ppo, ppo_trainer
+
+    rec = {"steps": [], "minibatches": [], "logp": {"policy": [], "ref": []}}
+
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_all_counts(mods, fda)  # the main path starts here
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {"s": time.perf_counter() - t, "launches": _all_counts(mods, fda),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        _zero_all_counts(mods, fda)
+        return out, got
+
+    class Recording(ppo_trainer.PPOTrainer):
+        def load_actor(self, state_dict):
+            super().load_actor(state_dict)
+            rec["trainer"] = self
+            rec["loaded_bit_equal"] = all(
+                torch.equal(v.cpu(), written[k]) for m in (self.llm, self.ref)
+                for k, v in m.state_dict().items())
+            if self.critic is not None:  # its seeded initialisation
+                rec["critic_start"] = {k: v.clone() for k, v in self.critic.state_dict().items()}
+
+        def training_step(self, batch, gen):
+            m, got = timed_call(lambda: super(Recording, self).training_step(batch, gen))
+            rec["steps"].append({"metrics": m, **got,
+                                 "kv_starts": (np.asarray(batch["input_ids"]) == self.roll_cfg
+                                               .pad_token_id).sum(1).tolist()})
+            return m
+
+        def validate(self, gen=None):
+            m, got = timed_call(lambda: super(Recording, self).validate(gen))
+            rec["validate"] = {"metrics": m, **got}
+            return m
+
+        def _logp(self, model, g, chunk):
+            lp = super()._logp(model, g, chunk)
+            rec["logp"]["ref" if model is self.ref else "policy"].append(lp.clone())
+            return lp
+
+        def _actor_update(self, mb):
+            if not rec["minibatches"]:
+                rec["first_mb"] = {k: v.clone() for k, v in mb.items()}
+            rec.setdefault("first_rows", []).append(mb["attention_mask"][:1].clone())
+            m = super()._actor_update(mb)
+            rec["minibatches"].append(m)
+            return m
+
+    main_ppo.PPOTrainer = Recording
+    try:
+        main_ppo.run(argv)
+    finally:
+        main_ppo.PPOTrainer = ppo_trainer.PPOTrainer
+    return rec
+
+
+def _moved(module, start: dict) -> list:
+    """Names of the parameters of `module` that differ from `start` (host)."""
+    return [k for k, v in module.state_dict().items() if not torch.equal(v.cpu(), start[k])]
+
+
+def _bwd_at_update_shape(attention, mask: torch.Tensor) -> dict:
+    """#2 and #3 at the update's shape: 16 rows of 1663 whose kv_starts and
+    kv_lens are the pad counts and valid ends of `mask` (the step's rows,
+    one per prompt: kv_starts up to 945), 14/2 heads of 64, causal, seeded
+    bf16 q / k / v / dO: against the backward twin under
+    the flash_bwd bound, dq of every query before kv_starts and dk / dv of
+    every key outside [kv_starts, kv_lens) exactly 0, every gradient
+    finite, three calls of each the same bits; timed from a CUDA-graph
+    replay beside the twin and the masked enable_gqa SDPA backward."""
+    from vla_rft_tpu_torch.ops.attention import _valid
+
+    dev = mask.device
+    gen = torch.Generator(device=dev).manual_seed(19)
+    B, S = mask.shape
+    P = S - TEXT_R
+    starts = (1 - mask[:, :P]).sum(1).to(torch.int32)
+    rows = {"kv_starts": starts, "kv_lens": mask.sum(1).to(torch.int32) + starts,
+            "q_offset": torch.zeros(B, dtype=torch.int32, device=dev)}
+    q, do = (torch.randn(B, S, 14, 64, generator=gen, device=dev).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, 2, 64, generator=gen, device=dev).bfloat16() for _ in range(2))
+    kw = dict(causal=True, **rows)
+    o, lse = attention.flash_fwd(q, k, v, **kw)
+    got = attention.flash_bwd(q, k, v, o, lse, do, **kw)
+    ref = attention.attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    pos = torch.arange(S, device=dev)[None]
+    dead_q = pos < starts[:, None]  # (B, S): queries with no valid key
+    dead_k = dead_q | (pos >= rows["kv_lens"][:, None])
+    errs = {}
+    for name, g, r, dead in zip(("dq", "dk", "dv"), got, ref, (dead_q, dead_k, dead_k)):
+        e, top = (g.float() - r.float()).abs().max().item(), r.float().abs().max().item()
+        if not (e <= BWD_RTOL * top + BWD_ATOL and bool(torch.isfinite(g.float()).all())):
+            raise AssertionError(f"ppo update shape: max|d{name}| {e} > {BWD_RTOL} * {top} + "
+                                 f"{BWD_ATOL}, or not finite")
+        if bool(g[dead].ne(0).any()):
+            raise AssertionError(f"ppo update shape: {name} of pad positions not 0")
+        errs[name] = e
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = lambda: attention.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dkv = lambda: attention.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    for name, fn in (("flash_bwd_dq", dq), ("flash_bwd_dkv", dkv)):
+        if not repeats_bit_for_bit(fn):
+            raise AssertionError(f"{name} at the ppo update shape: three calls gave different bits")
+    plain_ms = graph_ms(lambda: attention.attention_bwd_plain(q, k, v, o, lse, do, **kw), 2, 2)
+    valid = _valid(B, S, S, dev, True, rows["kv_lens"], None, starts)[:, 0]
+    leaves = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+    sdpa = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=valid, enable_gqa=True)
+    do_lib = do.transpose(1, 2)
+    library_ms = (graph_ms(lambda: torch.autograd.grad(sdpa(), leaves, do_lib), 3, 2)
+                  - graph_ms(sdpa, 3, 2))
+    work = bwd_work(q, k, rows["kv_lens"], starts, rows["q_offset"], True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    common = {"B": B, "S": S, "Hq": 14, "Hkv": 2, "D": 64, "causal": True,
+              "kv_starts": starts.tolist(), "kv_lens": rows["kv_lens"].tolist(),
+              "repeats_bit_for_bit": True, "pad_gradients_zero": True, "plain_ms": plain_ms,
+              "library_ms": library_ms}
+    out = {"max_abs_err": errs,
+           "dq": {**common, "kernel_ms": graph_ms(dq), "eager_ms": cuda_ms(dq, 10),
+                  "plan": attention.dq_plan(B, S, 14, True), **bound(*work["dq"])},
+           "dkv": {**common, "kernel_ms": graph_ms(dkv), "eager_ms": cuda_ms(dkv, 10),
+                   "plan": attention.dkv_plan(B, S, 14, 2, sms), **bound(*work["dkv"])}}
+    del q, k, v, o, lse, do, got, ref, leaves, valid
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ppo(mods, fda) -> dict:
+    """Text RL through main_ppo.run at Qwen2.5-0.5B width (module docstring,
+    phase ppo)."""
+    import tempfile
+
+    from vla_rft_tpu_torch.config import vla_rft_default_config
+
+    attention = mods[0]
+    L = 24
+    root = tempfile.mkdtemp(prefix="ppo_")
+    try:
+        ckpt, prompts, written, _, _, inputs_s = write_text_inputs(root)
+        common = [f"actor_rollout_ref.model.ckpt_path={ckpt}", f"data.train_files={prompts}",
+                  "trainer.total_training_steps=1",
+                  "actor_rollout_ref.model.enable_gradient_checkpointing=true"]
+
+        # ------------------------------------------- main path: grpo + validate
+        argv = common + ["trainer.test_freq=1"]
+        config = vla_rft_default_config().apply_overrides(argv)
+        rec = _drive_ppo(mods, fda, argv, written)
+        tr = rec.pop("trainer")
+        (step,) = rec["steps"]
+        m = step["metrics"]
+        prompts_n = config.data.train_batch_size
+        expect = _ppo_expect(prompts_n, config, critic=False, validate=False)
+        if step["launches"] != expect or rec["validate"]["launches"] != _ppo_expect(
+                0, config, False, True):
+            raise AssertionError(f"ppo: launches {step['launches']} / validate "
+                                 f"{rec['validate']['launches']}, expected {expect}")
+        if not rec["loaded_bit_equal"]:
+            raise AssertionError("ppo: the loaded policy or reference policy is not the file's")
+        if not (np.isfinite(list(m.values())).all()
+                and np.isfinite(list(rec["validate"]["metrics"].values())).all()):
+            raise AssertionError(f"ppo: metrics not finite {m} {rec['validate']['metrics']}")
+        if max(step["peak_mem_gib"], rec["validate"]["peak_mem_gib"]) >= 80:
+            raise AssertionError(f"ppo: peak memory {step['peak_mem_gib']} GiB")
+        # (c) on-policy identity
+        first = rec["minibatches"][0]
+        old, ref_lp = torch.cat(rec["logp"]["policy"]), torch.cat(rec["logp"]["ref"])
+        d_ref = (old - ref_lp).abs().max().item()
+        ref_moved = _moved(tr.ref, written)
+        if not (abs(first["actor/ppo_kl"]) <= PPO_KL_TOL and first["actor/pg_clipfrac"] == 0.0
+                and d_ref <= PPO_KL_TOL and not ref_moved):
+            raise AssertionError(f"ppo on-policy identity: first mini-batch {first}, ref vs old "
+                                 f"log-probs {d_ref}, reference parameters moved {ref_moved[:5]}")
+        moved_1e6 = _moved(tr.llm, written)
+        # (d) kernel route vs plain route vs f64 attention on the first mini-batch
+        mb = rec.pop("first_mb")
+        idx = {n: i for i, (n, _) in enumerate(tr.llm.named_parameters())}
+        watch = {w: idx[w] for w in [f"layers.{i}.self_attn.{x}_proj.weight"
+                                     for i in (0, 6, 12, 18, 23) for x in "qkv"]
+                 + ["embed_tokens.weight"]}
+        kvp = _kernel_vs_plain(attention, tr.llm, lambda: tr.actor_loss(mb)[0],
+                               lambda loss: torch.autograd.grad(loss, tr.actor_params),
+                               watch, L, f64=True)
+        _require_agreement(kvp, L, "ppo actor update", fwd=1 + _remat(config))
+        _require_near_f64(kvp, L, "ppo actor update", fwd=1 + _remat(config))
+        # (e) #2 / #3 at the update's shape against the twin, on the step's
+        # rows: the first of each mini-batch (n = 16 rows of one prompt each)
+        update_shape = _bwd_at_update_shape(attention, torch.cat(rec.pop("first_rows")))
+        main = {"prompts": prompts_n, "rows": prompts_n * config.actor_rollout_ref.rollout.n,
+                "response_length": TEXT_R, "mini_batch": config.actor_rollout_ref.actor
+                .ppo_mini_batch_size, "adv_estimator": "grpo",
+                "kv_starts": step["kv_starts"], "launches": step["launches"],
+                "expected_launches": expect, "step_s": step["s"],
+                "timing_s": {k[9:]: v for k, v in m.items() if k.startswith("timing_s/")},
+                "peak_mem_gib": step["peak_mem_gib"],
+                "metrics": {k: v for k, v in m.items() if not k.startswith("timing_s/")},
+                "first_minibatch": first, "minibatch_ppo_kl": [x["actor/ppo_kl"]
+                                                               for x in rec["minibatches"]],
+                "ref_vs_old_logp_max_abs": d_ref, "reference_policy_bit_identical": True,
+                "advantages_all_zero": bool(mb["advantages"].eq(0).all()),
+                "parameters_moved_at_lr_1e-6": {"moved": len(moved_1e6),
+                                                "of": len(written), "names": moved_1e6[:8]},
+                "validate": {"s": rec["validate"]["s"], "launches": rec["validate"]["launches"],
+                             "peak_mem_gib": rec["validate"]["peak_mem_gib"],
+                             "metrics": rec["validate"]["metrics"]},
+                "input_s": inputs_s}
+        print(f"[ppo] grpo step {step['s']:.1f} s, stages {main['timing_s']}, peak "
+              f"{step['peak_mem_gib']:.2f} GiB, launches {step['launches']}", flush=True)
+        del tr, rec, mb, old, ref_lp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------- gae: critic, raised lr, cut rows
+        argv = common + [f"data.train_batch_size={PPO_GAE_PROMPTS}", "algorithm.adv_estimator=gae",
+                         f"actor_rollout_ref.actor.optim.lr={PPO_RAISED_LR}",
+                         f"critic.optim.lr={PPO_RAISED_LR}"]
+        config = vla_rft_default_config().apply_overrides(argv)
+        rec = _drive_ppo(mods, fda, argv, written)
+        tr = rec.pop("trainer")
+        (gstep,) = rec["steps"]
+        gm = gstep["metrics"]
+        gexpect = _ppo_expect(PPO_GAE_PROMPTS, config, critic=True, validate=False)
+        if gstep["launches"] != gexpect or "critic/vf_loss" not in gm:
+            raise AssertionError(f"ppo gae: launches {gstep['launches']}, expected {gexpect}; "
+                                 f"metrics {sorted(gm)}")
+        if not np.isfinite(list(gm.values())).all() or gstep["peak_mem_gib"] >= 80:
+            raise AssertionError(f"ppo gae: metrics {gm}, peak {gstep['peak_mem_gib']} GiB")
+        still = sorted(set(written) - set(_moved(tr.llm, written)))
+        ref_moved = _moved(tr.ref, written)
+        critic_still = [k for k, v in tr.critic.state_dict().items()
+                        if torch.equal(v, rec["critic_start"][k])]
+        if still or ref_moved or critic_still:
+            raise AssertionError(f"ppo gae at lr {PPO_RAISED_LR}: policy parameters that did not "
+                                 f"move {still[:5]} ({len(still)}); critic parameters that did "
+                                 f"not move {critic_still[:5]} ({len(critic_still)}); reference "
+                                 f"parameters that moved {ref_moved[:5]}")
+        gae = {"prompts": PPO_GAE_PROMPTS, "rows": PPO_GAE_PROMPTS * config.actor_rollout_ref
+               .rollout.n, "lr": PPO_RAISED_LR, "launches": gstep["launches"],
+               "expected_launches": gexpect, "step_s": gstep["s"],
+               "timing_s": {k[9:]: v for k, v in gm.items() if k.startswith("timing_s/")},
+               "peak_mem_gib": gstep["peak_mem_gib"],
+               "metrics": {k: v for k, v in gm.items() if not k.startswith("timing_s/")},
+               "policy_parameters_moved": len(written),
+               "critic_parameters_moved": len(rec["critic_start"]),
+               "reference_policy_bit_identical": True,
+               "cut": f"data.train_batch_size={PPO_GAE_PROMPTS} (config 16); lr {PPO_RAISED_LR}"}
+        print(f"[ppo] gae step {gstep['s']:.1f} s, peak {gstep['peak_mem_gib']:.2f} GiB, "
+              f"launches {gstep['launches']}", flush=True)
+        del tr, rec
+        out = {"phase": "ppo", "model": "qwen25_0_5b", "grpo": main, "gae": gae,
+               "kernel_vs_plain": kvp, "update_shape_bwd": update_shape,
+               "tolerance": {"on_policy": PPO_KL_TOL, "loss_rel": SFT_LOSS_TOL,
+                             "grad_rel": SFT_GRAD_TOL,
+                             "vs_f64": f"<= {F64_ROUTE_RATIO} x plain + {SFT_GRAD_TOL}"}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def ppo_entries(ppo: dict, entry, bwd_src: str) -> list:
+    """The kernel line's rows of #2 and #3 at the PPO update's shape."""
+    t, n = ppo["update_shape_bwd"], ppo["grpo"]["launches"]
+    S, kv = TEXT_PROMPT + TEXT_R, t["dq"]["kv_starts"]
+    return [{**entry(f"{kernel}@ppo", bwd_src, f"vla_rft_tpu/ops/attention.py:{line}",
+                     n[kernel], t["max_abs_err"][key] if key == "dq" else
+                     max(t["max_abs_err"]["dk"], t["max_abs_err"]["dv"]), t[key]),
+             "shape": f"B={t[key]['B']} S={S} Hq/Hkv=14/2 D=64 causal, left-padded (kv_starts "
+                      f"{min(kv)}-{max(kv)}), ragged ends: the PPO update's shape, the step's "
+                      f"rows one per prompt; launches: one main_ppo grpo step (16 updates x "
+                      f"24 layers)",
+             "gae_step_launches": ppo["gae"]["launches"][kernel]}
+            for kernel, line, key in (("flash_bwd_dq", 175, "dq"), ("flash_bwd_dkv", 239, "dkv"))]
+
+
+def text_entries(text: dict, entry, flash_src: str, dec_src: str, ppo: dict) -> list:
+    """The kernel line's rows of the text_gen phase's shapes, with the ppo
+    phase's launches of #1 and #5 (its update forward has the log-prob
+    row's shape)."""
     t, gen = text["timed"], text["main_generation"]
+    ppo_n = {"ppo_grpo_step_launches": ppo["grpo"]["launches"]["flash_fwd"],
+             "ppo_validate_launches": ppo["grpo"]["validate"]["launches"]["flash_fwd"]}
     P, S = TEXT_PROMPT, TEXT_PROMPT + TEXT_R
     shape = lambda key, desc: {"shape": desc, "kv_starts": t[key].get("kv_starts")}
     return [
@@ -3821,12 +4190,17 @@ def text_entries(text: dict, entry, flash_src: str, dec_src: str) -> list:
                  t["text_logprob"]["max_abs_err_o"], t["text_logprob"]),
          **shape("text_logprob", f"B=16 Sq=Sk={S} Hq/Hkv=14/2 D=64 causal, left-padded, "
                                  f"ragged valid ends; launches: one compute_log_probs call "
-                                 f"(log_prob_micro_batch_size_per_gpu=16)")},
+                                 f"(log_prob_micro_batch_size_per_gpu=16); ppo_*: #1's "
+                                 f"launches in a main_ppo grpo step (prefill, 16 + 32 "
+                                 f"log-prob chunks of 16 / 8 rows, 16 update forwards) "
+                                 f"and in validate()"), **ppo_n},
         {**entry("decode_hd@text_b256", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:272",
                  gen["launches"]["decode_hd"], t["text_b256"]["max_abs_err"], t["text_b256"]),
          "shape": f"B=256 Sq=1 Hq/Hkv=14/2 D=64 bf16 hd cache (256, 1664, 128), step "
                   f"{TEXT_MID} (kv_len {P + TEXT_MID + 1}), per-row kv_starts; launches: one "
-                  f"main_generation batch ({TEXT_R} decode calls x 24 layers)"},
+                  f"main_generation batch ({TEXT_R} decode calls x 24 layers); "
+                  f"ppo_grpo_step_launches: the main_ppo grpo step's rollout (the same)",
+         "ppo_grpo_step_launches": ppo["grpo"]["launches"]["decode_hd"]},
         {**entry("decode_shared_hd@text_b256", dec_src,
                  "vla_rft_tpu/ops/decode_attention_hd.py:226",
                  text["prefix_shared"]["launches"]["decode_shared_hd"],
@@ -3896,6 +4270,7 @@ def main() -> int:
     sft_align = timed("sft_align", phase_sft_align, attention)
     torch.cuda.empty_cache()
     text = timed("text_gen", phase_text_gen, mods, fda)
+    ppo = timed("ppo", phase_ppo, mods, fda)
     emit({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t0, 1),
           "allocated_gib_after_phase": held})
     smi = subprocess.run(
@@ -4019,7 +4394,8 @@ def main() -> int:
          "shape": "B=10 Sq=1 Hq=Hkv=16 D=64 int8, 1379 keys; launches: wm_plain_heads "
                   "(2 rows, 2 frames)"},
         *fda_entries,
-        *text_entries(text, entry, flash_src, dec_src),
+        *text_entries(text, entry, flash_src, dec_src, ppo),
+        *ppo_entries(ppo, entry, bwd_src),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -46,7 +46,9 @@ layout, in the own cache of a split cache) are scattered to its own
 positions, a start that would not fit clamped as the reference's
 dynamic_update_slice clamps it; the decode kernels take the per-row
 q_offset and kv_lens as they are.  `decode_step_fused` takes an int offset.
-Not ported: Ulysses.
+With `remat` (the reference's per-layer nn.remat) a training forward
+recomputes each layer in the backward: on the card #1 then runs twice per
+layer and step.  Not ported: Ulysses.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vla_rft_tpu_torch.models.layers import Dense, Embed
 from vla_rft_tpu_torch.ops import decode_attention as dec_heads
@@ -88,6 +91,10 @@ class TransformerConfig:
     # state dict comes from quantize_decoder_params.  For a frozen rollout
     # model (the WM): training paths keep bf16.
     weights_int8: bool = False
+    # the reference's nn.remat: each layer of an uncached forward under
+    # autograd keeps only its input and recomputes the rest in the backward
+    # (torch.utils.checkpoint), so the layer's forward runs twice a step
+    remat: bool = False
 
     def __post_init__(self):
         if self.kv_layout not in ("hd", "heads"):
@@ -485,9 +492,11 @@ class Decoder(nn.Module):
                 shared_starts=rows(0 if shared_starts is None else shared_starts),
             )
         starts = None if c is not None or kv_starts is None else rows(kv_starts)
+        remat = cfg.remat and c is None and torch.is_grad_enabled()
         x = inputs_embeds
         for li, layer in enumerate(self.layers):
-            x = layer(x, positions, kv_lens, causal, self.attn_impl, li, c, starts)
+            args = (x, positions, kv_lens, causal, self.attn_impl, li, c, starts)
+            x = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
         x = self.norm(x)
         logits = None
         if compute_logits:

@@ -1,19 +1,37 @@
-"""Predicted-vs-real frame grids.
+"""Validation samples and predicted-vs-real frame grids (port of
+vla_rft_tpu/utils/generations_logger.py).
 
-Port of the part of vla_rft_tpu/utils/generations_logger.py that
-`validate()` calls: `save_frame_grid` writes one PNG of rows [real |
-predicted | abs diff], frames tiled left to right, with the reward in the
-file name.  The reference writes the PNG with PIL (or tensorflow); here `write_png` encodes it with the standard library (zlib
-and struct): one IHDR, one IDAT of filter-0 rows and one IEND chunk.
+`ValidationGenerationsLogger` writes one JSON line per (prompt, response,
+score) sample to `{log_dir}/step_{step}.jsonl`, the reference's file.
+`save_frame_grid` writes one PNG of rows [real | predicted | abs diff],
+frames tiled left to right, with the reward in the file name.  The
+reference writes the PNG with PIL (or tensorflow); here `write_png`
+encodes it with the standard library (zlib and struct): one IHDR, one IDAT
+of filter-0 rows and one IEND chunk.
 """
 from __future__ import annotations
 
+import json
 import os
 import struct
 import zlib
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
+
+
+class ValidationGenerationsLogger:
+    def __init__(self, log_dir: str = "logs/val_generations"):
+        self.log_dir = log_dir
+        os.makedirs(log_dir, exist_ok=True)
+
+    def log(self, samples: List[Sequence], step: int) -> None:
+        """samples: (prompt, response, score) tuples."""
+        path = os.path.join(self.log_dir, f"step_{step}.jsonl")
+        with open(path, "w") as f:
+            for s in samples:
+                rec = {"prompt": str(s[0]), "response": str(s[1]), "score": float(s[2])}
+                f.write(json.dumps(rec) + "\n")
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:

@@ -196,3 +196,9 @@ def reduce_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
             except (TypeError, ValueError):
                 pass
     return out
+
+
+def append_to_dict(d: Dict[str, list], new: Dict[str, Any]) -> None:
+    """Append each value of `new` to the list under its key in `d`."""
+    for k, v in new.items():
+        d.setdefault(k, []).append(v)

@@ -15,7 +15,9 @@ becomes a Python loop of one-token decode calls.  On the card:
   a shared cache (#1), and each decode call attends [shared prefix | own
   response cache] through kernel #4 with shared_starts = kv_starts;
 * `compute_log_probs` is one uncached forward with the sequences' positions
-  and kv_starts (#1 per layer), the LM head on the response slice only.
+  and kv_starts (#1 per layer), the LM head on the response slice only;
+  with `grad=True` it runs under autograd (the PPO actor update), and its
+  backward runs #2 and #3 per layer.
 
 Sampling draws from the caller's `torch.Generator` (ops/sampling.py), one
 draw per step; temperature 0 or do_sample=False is greedy.  The reference's
@@ -138,7 +140,6 @@ def generate_sequences(
     }
 
 
-@torch.no_grad()
 def compute_log_probs(
     llm: Decoder,
     input_ids: torch.Tensor,  # (B, P + R) as returned by generate_sequences
@@ -146,18 +147,22 @@ def compute_log_probs(
     position_ids: torch.Tensor,
     response_length: int,
     temperature: float = 1.0,
+    grad: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced token log-probs and entropy over the response region,
     f32 (B, R).  One forward of the whole sequences (pad keys masked by
     kv_starts, keys past the response mask by kv_lens); the LM head runs on
-    the R positions that predict the response only."""
+    the R positions that predict the response only.  Without gradients
+    unless `grad` (the PPO actor update differentiates it: on the card the
+    backward runs kernels #2 and #3 per layer)."""
     B, S = input_ids.shape
     R = response_length
     P = S - R
-    pad_counts = (1 - attention_mask[:, :P]).sum(dim=1).to(torch.int32)
-    _, hidden = llm(input_ids, positions=position_ids, kv_starts=pad_counts,
-                    kv_lens=attention_mask.sum(dim=1).to(torch.int32) + pad_counts,
-                    compute_logits=False)
-    pred_logits = llm.logits(hidden[:, -R - 1:-1]) / temperature
-    resp = input_ids[:, -R:]
-    return logprobs_from_logits(pred_logits, resp), entropy_from_logits(pred_logits)
+    with torch.set_grad_enabled(grad):
+        pad_counts = (1 - attention_mask[:, :P]).sum(dim=1).to(torch.int32)
+        _, hidden = llm(input_ids, positions=position_ids, kv_starts=pad_counts,
+                        kv_lens=attention_mask.sum(dim=1).to(torch.int32) + pad_counts,
+                        compute_logits=False)
+        pred_logits = llm.logits(hidden[:, -R - 1:-1]) / temperature
+        resp = input_ids[:, -R:]
+        return logprobs_from_logits(pred_logits, resp), entropy_from_logits(pred_logits)
