@@ -84,8 +84,8 @@ Phases, one JSON line each:
                   (process_stage -> wm_rows / wm_rollout_stage: one
                   shared-prefix rollout of 8 frames over 10 rows, each
                   sample's 4 rollouts then its gt-action row ->
-                  reward_stage); run twice, each run launching #1 exactly
-                  24 times and #4 exactly 24 x 521 times;
+                  reward_stage), launching #1 exactly 24 times and #4
+                  exactly 24 x 521 times;
   8. wm_plain   - generate_sequences without a shared prefix on 2 rows for 2
                   frames (not 8, to keep the script short): #1 exactly 24
                   times and #5 exactly 24 x 2 x 65 times;
@@ -107,7 +107,8 @@ Phases, one JSON line each:
                   window of 16 fused decode calls; the fused route against
                   the unfused int8 route on frame 0's calls;
      grpo_heads - the same with world_model_rollout.rollout.kv_layout=heads
-                  instead (a bf16 WM): #1 24 + 24 and #6 24 x 521 per step,
+                  instead (a bf16 WM), one step without lr warm-up: #1
+                  24 + 24 and #6 24 x 521,
                   every other kernel 0; a profiler window of 16 decode
                   calls; the 'heads' route against the 'hd' route on the
                   same weights and frame 0's calls;
@@ -227,8 +228,9 @@ Phases, one JSON line each:
                   (24 of #1; log-probs and entropy within 2 x 5e-2 x
                   max|logit|, which the log-probs with kv_starts dropped
                   must exceed); generate_sequences(prefix_share_n=16) at 256
-                  rows (24 of #1, 24 x 568 of #4; its step-0 logits against
-                  one cache a row <= 5e-2); main_eval.evaluate_parquet on
+                  rows for 64 steps (24 of #1, 24 x 64 of #4; its step-0
+                  logits against one cache a row <= 5e-2);
+                  main_eval.evaluate_parquet on
                   the generations, n per prompt, and crafted rows that
                   must score as on the CPU (gsm8k, sympy's prime_math, a
                   passing and a failing prime_code program); #1 at the
@@ -259,6 +261,39 @@ Phases, one JSON line each:
                   x 16 at lr 5e-3 (its critic's values and updates: the
                   exact launches; every policy and critic parameter moved,
                   the reference policy bit-identical);
+     reward_models - main_ppo.run with text RL's reward models on text_gen's
+                  inputs, bf16, enable_gradient_checkpointing: one PRIME step
+                  at the config's sizes with recipe/prime.sh's overrides
+                  (256 rows x 568; ce, token, update after, lr 1e-6; the
+                  RM's log-probs in chunks of 16, its reference's those of
+                  the reference policy, which it is, in chunks of 8, the
+                  RM's update in micro-batches of 16 rows): exact launches
+                  of #1 / #5 / #2 / #3 (#4 0), #1's at 8 rows counted apart,
+                  timing_s per stage (the RM's score and update among them)
+                  and peak memory (< 80 GiB); the loaded policy, reference,
+                  PRIME RM and its
+                  reference bit-equal to the file; step 1's process scores
+                  exactly 0 (the RM is its reference); PRIME's reference
+                  bit-identical after the step; the RM's parameters that
+                  moved at lr 1e-6; prime/rm_loss and prime/dpo_acc finite;
+                  on PRIME's first update micro-batch, at the RM's start
+                  weights and with its reference's log-probs on each
+                  route's own attention, the kernel route against the
+                  plain route and an f64-attention route (sft_text's
+                  bounds).  Then one grpo step with the value-head RM cut
+                  to 2 prompts x 16 (a gsm8k prompt and one of a data
+                  source with no rule scorer): the rule rows carry the
+                  reward manager's scores, the others the RM's at their
+                  last valid token, within 2 x 5e-2 x max|score| of the
+                  plain route's; and two PRIME steps of PRIME's other
+                  branch (dpo, bon_rm, whole, update before) cut the same
+                  way at RM lr 5e-3, outcomes from a stand-in verifier
+                  (the parity of the response's length): step 1's
+                  prime/rm_loss the tie value n x rows x ln 2 (the RM is
+                  its reference), step 2's not, with a group of both
+                  outcomes;
+                  every RM parameter moved, its reference bit-identical, at
+                  most one process score a row; exact launches in each;
 then the card's name and power limit, the kernel table as one JSON line, and
 last `{"ok": true, "device": {...}}`.  Any failure raises: the script exits
 non-zero and prints no `ok` line.  It needs a CUDA device and the rest of the
@@ -1045,6 +1080,7 @@ def _decode_counts(mods) -> dict:
 def _zero_decode_counts(mods) -> None:
     attention, dec, heads, fdl = mods
     attention.launches = dec.shared_launches = dec.plain_launches = 0
+    attention.launches_by_rows.clear()
     heads.shared_heads_launches = heads.heads_launches = 0
     fdl.qkv_launches = fdl.o_mlp_launches = 0
 
@@ -1083,40 +1119,38 @@ def phase_wm_reward(mods) -> dict:
     total = N_SAMPLES * n
     V, A, Fn = roll.interact_max_tokens, roll.action_dim, roll.num_frames
     calls = 1 + Fn * (V + 1)  # tail prefill, then per frame V tokens and one action chunk
-    runs = []
-    for run in (1, 2):
-        gen = torch.Generator(device="cuda").manual_seed(run)
-        torch.cuda.reset_peak_memory_stats()
-        ms = {}
-        with torch.no_grad():
-            _zero_decode_counts(mods)  # main path
-            out, ms["process"] = host_ms(lambda: process_stage(b, ranges, raw, pred, gt, n, True))
-            rows = wm_rows(b, out, n, True, True)
-            (responses, gt_responses), ms["wm_rollout"] = host_ms(lambda: wm_rollout_stage(
-                b, b.wm, rows, 128, lambda ci: gen))
-            (reward, metrics), ms["reward"] = host_ms(lambda: reward_stage(
-                b, out, responses, gt_responses, n, True, True, 8))
-            counts = _decode_counts(mods)  # read right after the main path
-        expect = _expect(flash_fwd=b.wm_cfg.num_layers,
-                         decode_shared_hd=b.wm_cfg.num_layers * calls)
-        if counts != expect:
-            raise AssertionError(f"wm_reward run {run}: launches {counts}, expected {expect}")
-        if responses.shape != (total, roll.response_length) or gt_responses.shape != (
-                N_SAMPLES, roll.response_length):
-            raise AssertionError(f"response shapes {tuple(responses.shape)}, "
-                                 f"{tuple(gt_responses.shape)}")
-        both = torch.cat([responses, gt_responses])
-        frames = both.reshape(-1, Fn, V + A)
-        act_in = torch.cat([out["action_ids"], out["gt_action_ids"][::n]])[:, 1:].cuda()
-        if not (bool(((both >= 0) & (both < b.wm_cfg.vocab_size)).all())
-                and torch.equal(frames[:, :, V:], act_in[:, :Fn])):
-            raise AssertionError("response tokens out of range or actions not teacher-forced")
-        if not (bool(torch.isfinite(reward).all()) and bool((reward[:, :-1] == 0).all())
-                and bool((reward[:, -1] != 0).all())):
-            raise AssertionError(f"bad rewards: {reward[:, -1].tolist()}")
-        runs.append({"run": run, "stage_ms": ms, "total_ms": sum(ms.values()),
-                     "launches": counts, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-                     "reward_last": reward[:, -1].tolist(), "metrics": metrics})
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    ms = {}
+    with torch.no_grad():
+        _zero_decode_counts(mods)  # main path
+        out, ms["process"] = host_ms(lambda: process_stage(b, ranges, raw, pred, gt, n, True))
+        rows = wm_rows(b, out, n, True, True)
+        (responses, gt_responses), ms["wm_rollout"] = host_ms(lambda: wm_rollout_stage(
+            b, b.wm, rows, 128, lambda ci: gen))
+        (reward, metrics), ms["reward"] = host_ms(lambda: reward_stage(
+            b, out, responses, gt_responses, n, True, True, 8))
+        counts = _decode_counts(mods)  # read right after the main path
+    expect = _expect(flash_fwd=b.wm_cfg.num_layers,
+                     decode_shared_hd=b.wm_cfg.num_layers * calls)
+    if counts != expect:
+        raise AssertionError(f"wm_reward: launches {counts}, expected {expect}")
+    if responses.shape != (total, roll.response_length) or gt_responses.shape != (
+            N_SAMPLES, roll.response_length):
+        raise AssertionError(f"response shapes {tuple(responses.shape)}, "
+                             f"{tuple(gt_responses.shape)}")
+    both = torch.cat([responses, gt_responses])
+    frames = both.reshape(-1, Fn, V + A)
+    act_in = torch.cat([out["action_ids"], out["gt_action_ids"][::n]])[:, 1:].cuda()
+    if not (bool(((both >= 0) & (both < b.wm_cfg.vocab_size)).all())
+            and torch.equal(frames[:, :, V:], act_in[:, :Fn])):
+        raise AssertionError("response tokens out of range or actions not teacher-forced")
+    if not (bool(torch.isfinite(reward).all()) and bool((reward[:, :-1] == 0).all())
+            and bool((reward[:, -1] != 0).all())):
+        raise AssertionError(f"bad rewards: {reward[:, -1].tolist()}")
+    run = {"stage_ms": ms, "total_ms": sum(ms.values()), "launches": counts,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "reward_last": reward[:, -1].tolist(), "metrics": metrics}
 
     # the rollout's and the reward's parts, timed alone on the same inputs
     # (outside the main path)
@@ -1136,12 +1170,12 @@ def phase_wm_reward(mods) -> dict:
         _, detok_ms = host_ms(lambda: detokenize_response_frames(
             b.tokenizer, pc, Fn, responses, feats, cmap))
     trace = profile_decode_steps(b.wm, roll, rows)
-    steady = runs[1]["stage_ms"]["wm_rollout"]
+    rollout_ms = run["stage_ms"]["wm_rollout"]
     out_json = {"phase": "wm_reward", "preset": "libero", "samples": N_SAMPLES, "n": n,
-                "wm_rows": total + N_SAMPLES, "build_ms": build_ms, "runs": runs,
+                "wm_rows": total + N_SAMPLES, "build_ms": build_ms, "run": run,
                 "decode_calls_per_rollout": calls,
                 "parts_ms": {"prefix_prefill": prefill_ms,
-                             "decode_per_frame": (steady - prefill_ms) / Fn,
+                             "decode_per_frame": (rollout_ms - prefill_ms) / Fn,
                              "context_features": ctx_ms, "detokenize_gt": gt_ms,
                              "detokenize_policy_rows": detok_ms,
                              "lpips_64_frame_pairs": lpips_ms},
@@ -1574,7 +1608,7 @@ def phase_grpo(mods) -> dict:
 
 
 def phase_grpo_heads(mods) -> dict:
-    """Two GRPO steps at the libero preset with the WM's KV cache in the
+    """One GRPO step at the libero preset with the WM's KV cache in the
     'heads' layout (every other setting the default: a bf16 WM, int8 KV
     cache), so every WM decode call runs kernel #6; then a profiler window
     of 16 decode calls and the 'heads' route against the 'hd' route on the
@@ -1589,8 +1623,10 @@ def phase_grpo_heads(mods) -> dict:
         calls = 1 + roll.num_frames * (roll.interact_max_tokens + 1)
         return _expect(flash_fwd=b.vla_cfg.llm.num_layers + L, decode_shared_heads=L * calls)
 
+    # one step, so no learning-rate warm-up (its first update's lr is 0)
     tr, steps, expect, run_s, n_expert, n_frozen = _drive_grpo(
-        mods, ["world_model_rollout.rollout.kv_layout=heads"], expect_fn)
+        mods, ["world_model_rollout.rollout.kv_layout=heads",
+               "actor_rollout_ref.actor.optim.lr_warmup_steps=0"], expect_fn, n_steps=1)
     b, roll = tr.bundle, tr.bundle.roll_cfg
     if b.wm.cfg.kv_layout != "heads" or tr._wm_gen_model() is not b.wm:
         raise AssertionError(f"the step's WM runs {b.wm.cfg.kv_layout!r}")
@@ -2699,6 +2735,7 @@ def phase_fused_decode_attention(fda, heads) -> dict:
 
 def _zero_counts(attention) -> None:
     attention.launches = attention.bwd_dq_launches = attention.bwd_dkv_launches = 0
+    attention.launches_by_rows.clear()
 
 
 def _counts(attention) -> dict:
@@ -3434,6 +3471,9 @@ def _time_text_kernels(attention, dec, starts16: torch.Tensor) -> dict:
     out["text_prefill"] = flash_case("text_prefill", 256, P, 1664, i32([P] * 256), starts256, 16)
     lens16 = (P + torch.linspace(R // 4, R, 16, device=dev)).to(torch.int32)  # ragged EOS
     out["text_logprob"] = flash_case("text_logprob", 16, P + R, P + R, lens16, starts16, 16)
+    # the reference policies' log-prob chunks (ref.log_prob_micro_batch_size_per_gpu)
+    out["text_logprob_b8"] = flash_case("text_logprob_b8", 8, P + R, P + R,
+                                        lens16[::2].contiguous(), starts16[::2].contiguous(), 8)
 
     # the decode kernels at step TEXT_MID: keys [kv_starts, P + TEXT_MID]
     L = P + TEXT_MID + 1
@@ -3757,7 +3797,8 @@ def phase_text_gen(mods, fda) -> dict:
         # ------------------------------------ shared prefix vs one cache a row
         ids256 = ids16.repeat_interleave(TEXT_N, dim=0)
         shared_runs = {}
-        for name, n, R in (("unshared", 1, TEXT_R_CMP), ("shared", TEXT_N, TEXT_R)):
+        # both for TEXT_R_CMP steps, as far as the comparisons read
+        for name, n in (("unshared", 1), ("shared", TEXT_N)):
             grab = {}
 
             def first_decode(_mod, args, _kw, out, grab=grab):
@@ -3768,7 +3809,7 @@ def phase_text_gen(mods, fda) -> dict:
             torch.cuda.synchronize()
             _zero_all_counts(mods, fda)
             t = time.perf_counter()
-            seqs = generate_sequences(llm, gen, ids256, greedy(R), prefix_share_n=n)
+            seqs = generate_sequences(llm, gen, ids256, greedy(TEXT_R_CMP), prefix_share_n=n)
             torch.cuda.synchronize()
             shared_runs[name] = {"s": time.perf_counter() - t, "launches": _all_counts(mods, fda),
                                  "responses": seqs["responses"], "logits": grab["logits"]}
@@ -3776,7 +3817,7 @@ def phase_text_gen(mods, fda) -> dict:
             del seqs
         sh, un = shared_runs["shared"], shared_runs["unshared"]
         if sh["launches"] != _text_expect(flash_fwd=L_layers,
-                                          decode_shared_hd=L_layers * TEXT_R) \
+                                          decode_shared_hd=L_layers * TEXT_R_CMP) \
                 or un["launches"] != _text_expect(flash_fwd=L_layers,
                                                   decode_hd=L_layers * TEXT_R_CMP):
             raise AssertionError(f"text_gen shared: launches {sh['launches']} / {un['launches']}")
@@ -3882,14 +3923,16 @@ def _remat(config) -> int:
     return int(bool(config.actor_rollout_ref.model.enable_gradient_checkpointing))
 
 
-def _drive_ppo(mods, fda, argv, written: dict) -> dict:
+def _drive_ppo(mods, fda, argv, written: dict, on_load=None) -> dict:
     """main_ppo.run(argv) on the card with a recording trainer: every count
     set to 0 just before each training_step and validate() and read just
-    after; per step its metrics, seconds, peak memory and launches, each
+    after; per step its metrics, seconds, peak memory and launches (#1's
+    also by the rows of each launch), each
     actor mini-batch's metrics, the first mini-batch itself and every
     chunk's log-probs; whether the loaded policy and reference policy are
     bit-equal to `written`; the attention mask of each mini-batch's first
-    row.  Returns the record (the trainer under "trainer")."""
+    row; then on_load(trainer, record), when given, just after the load.
+    Returns the record (the trainer under "trainer")."""
     from vla_rft_tpu_torch.trainer import main_ppo, ppo_trainer
 
     rec = {"steps": [], "minibatches": [], "logp": {"policy": [], "ref": []}}
@@ -3902,6 +3945,7 @@ def _drive_ppo(mods, fda, argv, written: dict) -> dict:
         out = fn()
         torch.cuda.synchronize()
         got = {"s": time.perf_counter() - t, "launches": _all_counts(mods, fda),
+               "flash_fwd_by_rows": dict(mods[0].launches_by_rows),
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
         _zero_all_counts(mods, fda)
         return out, got
@@ -3915,6 +3959,8 @@ def _drive_ppo(mods, fda, argv, written: dict) -> dict:
                 for k, v in m.state_dict().items())
             if self.critic is not None:  # its seeded initialisation
                 rec["critic_start"] = {k: v.clone() for k, v in self.critic.state_dict().items()}
+            if on_load is not None:
+                on_load(self, rec)
 
         def training_step(self, batch, gen):
             m, got = timed_call(lambda: super(Recording, self).training_step(batch, gen))
@@ -4154,8 +4200,364 @@ def phase_ppo(mods, fda) -> dict:
     return out
 
 
-def ppo_entries(ppo: dict, entry, bwd_src: str) -> list:
-    """The kernel line's rows of #2 and #3 at the PPO update's shape."""
+# reward_models: main_ppo.run with the reward models on text_gen's inputs, bf16,
+# enable_gradient_checkpointing (the decoder's remat, for PRIME's RM as for
+# the policy).  (a) PRIME at the config's sizes with recipe/prime.sh's
+# overrides (ce, token, update after, lr 1e-6): 16 prompts x n = 16 = 256
+# rows x 568, the RM's log-probs in chunks of 16 rows, the reference's those
+# of the reference policy (chunks of 8, temperature 1), the RM's update
+# in micro-batches of 16 rows (actor.ppo_mini_batch_size, whole groups of
+# n), then 16 actor updates.  (b) the value-head RM, grpo, cut to
+# RM_CUT_PROMPTS prompts x 16: one of a gsm8k prompt, one of a data source
+# with no rule scorer.  (c) PRIME's other branch (dpo, bon_rm, whole,
+# update before), cut the same way, two steps, at RM_RAISED_LR for the RM so
+# that every bf16 RM parameter moves (the config's 1e-6 is below half an ulp
+# of most).
+PRIME_RECIPE = ["algorithm.adv_estimator=prime", "algorithm.reward_gt_coef=5.0",
+                "algorithm.reward_dpo_coef=5.0", "reward_model.enable=True",
+                "reward_model.rm_type=prime", "reward_model.prime_granularity=token",
+                "reward_model.loss_type=ce", "reward_model.beta_train=0.05",
+                "reward_model.lr=1e-6", "actor_rollout_ref.actor.use_kl_loss=False"]
+RM_CUT_PROMPTS, RM_RAISED_LR = 2, 5e-3
+RM_UNSCORED = "custom/no_rule_scorer"
+PRIME_DPO_BRANCH = ["reward_model.loss_type=dpo", "reward_model.bon_mode=bon_rm",
+                    "reward_model.prime_granularity=whole", "reward_model.update=before",
+                    f"reward_model.lr={RM_RAISED_LR}"]
+
+
+def _rm_expect(prompts: int, config, rm: str) -> dict:
+    """Launches of one reward-model step, derived as `_ppo_expect` derives a
+    grpo step's, plus the RM's: with the value-head RM ("value_head") one
+    #1 per layer and log-prob chunk of its scores; with PRIME ("prime") one
+    #1 per layer and chunk of the RM's log-probs (rollout's chunks), of its
+    reference's only at a rollout temperature other than 1 (at 1 they are
+    the reference policy's, ref's chunks, already counted), and per update
+    micro-batch (ppo_mini_batch_size rounded down to whole groups of n) and
+    layer one #1, one more with remat, one #2 and one #3."""
+    L, n = 24, config.actor_rollout_ref.rollout.n
+    rows = prompts * n
+    chunks = lambda c: -(-rows // c)
+    base = _ppo_expect(prompts, config, critic=False, validate=False)
+    aref = config.actor_rollout_ref
+    rm_chunks = chunks(aref.rollout.log_prob_micro_batch_size_per_gpu)
+    if rm == "value_head":
+        return {**base, "flash_fwd": base["flash_fwd"] + L * rm_chunks}
+    mini = aref.actor.ppo_mini_batch_size
+    updates = chunks(max(n, mini - mini % n))
+    own_ref = 0 if aref.rollout.temperature == 1.0 else chunks(
+        aref.ref.log_prob_micro_batch_size_per_gpu)
+    return {**base, "flash_fwd": base["flash_fwd"] + L * (rm_chunks + own_ref)
+            + L * updates * (1 + _remat(config)),
+            "flash_bwd_dq": base["flash_bwd_dq"] + L * updates,
+            "flash_bwd_dkv": base["flash_bwd_dkv"] + L * updates}
+
+
+def _record_rm(written: dict):
+    """An on_load for `_drive_ppo`: whether PRIME's RM and its reference
+    were loaded bit-equal to `written`; every call of PRIME's score (its
+    output), PRIME's first update micro-batch, and the value-head step's
+    scores with the rows, data sources and ground truths they came from."""
+
+    def on_load(tr, rec):
+        scores = tr._scores
+
+        def scored(g, sources, gts, timing):
+            out = scores(g, sources, gts, timing)
+            rec["scores"] = (g, sources, gts, out.clone())
+            return out
+
+        tr._scores = scored
+        pr = tr.prime_rm
+        if pr is None:
+            return
+        rec["prime_loaded_bit_equal"] = all(
+            torch.equal(v.cpu(), written[k]) for m in (pr.model, pr.ref)
+            for k, v in m.state_dict().items())
+        score, loss = pr.compute_rm_score, pr._loss
+        rec["prime_scores"] = []
+
+        def prime_scored(*args, **kw):
+            out = score(*args, **kw)
+            rec["prime_scores"].append(out.clone())
+            return out
+
+        def first_loss(mb, B):
+            rec.setdefault("prime_first_mb", ({k: v.clone() for k, v in mb.items()}, B))
+            return loss(mb, B)
+
+        pr.compute_rm_score, pr._loss = prime_scored, first_loss
+
+    return on_load
+
+
+def _rm_step(rec: dict, expect: dict, what: str, steps: int = 1) -> dict:
+    """The `steps` steps of `rec`, each with launches as `expect`, finite
+    metrics and peak memory under 80 GiB, or raise; the first one's
+    summary, with the later ones' under "later_steps" when there are any."""
+    if len(rec["steps"]) != steps:
+        raise AssertionError(f"{what}: {len(rec['steps'])} steps, expected {steps}")
+    out = []
+    for step in rec["steps"]:
+        m = step["metrics"]
+        if step["launches"] != expect:
+            raise AssertionError(f"{what}: launches {step['launches']}, expected {expect}")
+        if not np.isfinite(list(m.values())).all() or step["peak_mem_gib"] >= 80:
+            raise AssertionError(f"{what}: metrics {m}, peak {step['peak_mem_gib']} GiB")
+        out.append({"kv_starts": step["kv_starts"], "launches": step["launches"],
+                    "flash_fwd_by_rows": step["flash_fwd_by_rows"],
+                    "expected_launches": expect, "step_s": step["s"],
+                    "timing_s": {k[9:]: v for k, v in m.items() if k.startswith("timing_s/")},
+                    "peak_mem_gib": step["peak_mem_gib"],
+                    "metrics": {k: v for k, v in m.items() if not k.startswith("timing_s/")}})
+    return {**out[0], "later_steps": out[1:]} if steps > 1 else out[0]
+
+
+def _write_mixed_prompts(path: str) -> list:
+    """RM_CUT_PROMPTS-prompt draws for the value-head step: a parquet of 4
+    rows alternating gsm8k and RM_UNSCORED (146 and 1091 words), of which
+    RLHFDataset's first draw (seed 0) takes rows 3 and 2, one of each.
+    Returns the data sources of the rows."""
+    import pandas as pd
+    from sft_data import write_rlhf_parquet
+
+    frames = []
+    for i, (source, words) in enumerate([("openai/gsm8k", TEXT_WORDS[0]),
+                                         (RM_UNSCORED, TEXT_WORDS[-2])] * 2):
+        part = f"{path}.{i}"
+        write_rlhf_parquet(part, [words], TEXT_VOCAB - 8, seed=i, data_source=source)
+        frames.append(pd.read_parquet(part))
+        os.remove(part)
+    df = pd.concat(frames, ignore_index=True)
+    df.to_parquet(path)
+    return df["data_source"].tolist()
+
+
+def phase_reward_models(mods, fda) -> dict:
+    """Text RL's reward models through main_ppo.run at Qwen2.5-0.5B width
+    (module docstring, phase reward_models)."""
+    import tempfile
+
+    from vla_rft_tpu_torch.config import vla_rft_default_config
+    from vla_rft_tpu_torch.models.critic import token_outputs
+    from vla_rft_tpu_torch.models.reward_model import compute_rm_score
+    from vla_rft_tpu_torch.utils.reward_score import has_scorer
+
+    attention = mods[0]
+    L = 24
+    root = tempfile.mkdtemp(prefix="rm_")
+    try:
+        ckpt, prompts, written, _, _, inputs_s = write_text_inputs(root)
+        mixed = os.path.join(root, "mixed.parquet")
+        _write_mixed_prompts(mixed)
+        common = [f"actor_rollout_ref.model.ckpt_path={ckpt}", "trainer.total_training_steps=1",
+                  "actor_rollout_ref.model.enable_gradient_checkpointing=true"]
+
+        # --------------------------- (a) PRIME at the config's sizes (main path)
+        argv = common + [f"data.train_files={prompts}"] + PRIME_RECIPE
+        config = vla_rft_default_config().apply_overrides(argv)
+        rec = _drive_ppo(mods, fda, argv, written, on_load=_record_rm(written))
+        tr = rec.pop("trainer")
+        prompts_n = config.data.train_batch_size
+        main = _rm_step(rec, _rm_expect(prompts_n, config, "prime"), "reward_models prime")
+        m = main["metrics"]
+        if not (rec["loaded_bit_equal"] and rec["prime_loaded_bit_equal"]):
+            raise AssertionError("reward_models prime: a loaded model is not the file's")
+        (scores,) = rec["prime_scores"]
+        ref_moved = _moved(tr.prime_rm.ref, written)
+        rm_moved = _moved(tr.prime_rm.model, written)
+        if not (torch.equal(scores, torch.zeros_like(scores)) and not ref_moved and rm_moved
+                and all(k in m for k in ("prime/rm_loss", "prime/dpo_acc"))):
+            raise AssertionError(
+                f"reward_models prime: step 1's process scores max|s| "
+                f"{scores.abs().max().item()} (expected exactly 0), PRIME reference "
+                f"parameters that moved {ref_moved[:5]}, RM parameters moved {len(rm_moved)}, "
+                f"metrics {sorted(m)}")
+        # kernel route vs plain route vs f64 attention on PRIME's first update
+        # micro-batch at the weights it saw (the RM's start, its reference's),
+        # each route taking the reference's log-probs on its own attention:
+        # a process score is a sum over 568 tokens of two log-probs' difference,
+        # so one route's reference against another's RM, or an RM a step off
+        # its reference, leaves the bf16 round-off of every token in the sum
+        # (PERF.md section 6: 0.1-0.2 nats a row, 2e-3-1e-2 of the loss)
+        mb, B = rec.pop("prime_first_mb")
+        pr = tr.prime_rm
+        model = pr.model
+        model.load_state_dict(written)
+        idx = {n: i for i, (n, _) in enumerate(model.named_parameters())}
+        watch = {w: idx[w] for w in [f"layers.{i}.self_attn.{x}_proj.weight"
+                                     for i in (0, 6, 12, 18, 23) for x in "qkv"]
+                 + ["embed_tokens.weight"]}
+
+        def route_loss():
+            pr.ref.attn_impl = model.attn_impl
+            try:
+                ref_lp = pr.ref_log_probs(mb["input_ids"], mb["attention_mask"],
+                                          mb["position_ids"])
+            finally:
+                pr.ref.attn_impl = "auto"
+            return pr._loss({**mb, "ref_log_probs": ref_lp}, B)[0]
+
+        kvp = _kernel_vs_plain(attention, model, route_loss,
+                               lambda loss: torch.autograd.grad(loss, pr.params), watch, L,
+                               f64=True)
+        # per layer: the reference's forward per chunk, the RM's and its recompute
+        fwd = -(-mb["input_ids"].shape[0] // pr.cfg.ref_micro_batch) + 1 + _remat(config)
+        _require_agreement(kvp, L, "PRIME RM update", fwd=fwd)
+        _require_near_f64(kvp, L, "PRIME RM update", fwd=fwd)
+        # #1 at 8 rows, counted in the step: the reference policy's log-prob
+        # chunks, which are PRIME's reference's at temperature 1
+        by_rows = main["flash_fwd_by_rows"]
+        at_8 = L * -(-prompts_n * config.actor_rollout_ref.rollout.n
+                     // config.actor_rollout_ref.ref.log_prob_micro_batch_size_per_gpu)
+        if by_rows.get(8) != at_8 or sum(by_rows.values()) != main["launches"]["flash_fwd"]:
+            raise AssertionError(f"reward_models prime: #1 launches by rows {by_rows}, "
+                                 f"expected {at_8} of 8 rows")
+        main.update({
+            "prompts": prompts_n, "rows": prompts_n * config.actor_rollout_ref.rollout.n,
+            "response_length": TEXT_R, "update_micro_batch": mb["input_ids"].shape[0],
+            "settings": PRIME_RECIPE, "process_scores_exactly_0": True,
+            "flash_fwd_launches_at_8_rows_expected": at_8,
+            "prime_reference_bit_identical": True,
+            "prime_rm_parameters_moved_at_lr_1e-6": {"moved": len(rm_moved), "of": len(written),
+                                                     "names": rm_moved[:8]},
+            "input_s": inputs_s})
+        print(f"[reward_models] prime step {main['step_s']:.1f} s, stages {main['timing_s']}, "
+              f"peak {main['peak_mem_gib']:.2f} GiB, launches {main['launches']}", flush=True)
+        del tr, rec, mb, scores, model, pr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------ (b) the value-head RM, grpo, a prompt of each kind
+        argv = common + [f"data.train_files={mixed}", f"data.train_batch_size={RM_CUT_PROMPTS}",
+                         "reward_model.enable=True"]
+        config = vla_rft_default_config().apply_overrides(argv)
+        rec = _drive_ppo(mods, fda, argv, written, on_load=_record_rm(written))
+        tr = rec.pop("trainer")
+        value = _rm_step(rec, _rm_expect(RM_CUT_PROMPTS, config, "value_head"),
+                         "reward_models value_head")
+        g, sources, gts, got = rec.pop("scores")
+        rule = np.asarray([has_scorer(s) for s in sources])
+        if not (rule.any() and (~rule).any()):
+            raise AssertionError(f"reward_models value_head: the step drew {sources}")
+        resp, resp_mask = g["responses"].cpu().numpy(), g["response_mask"].cpu().numpy()
+        want_rule = tr.reward_manager(resp[rule], resp_mask[rule],
+                                      [s for s, r in zip(sources, rule) if r],
+                                      [t for t, r in zip(gts, rule) if r])
+        other = torch.as_tensor(~rule, device=got.device)
+        with torch.no_grad():  # the plain route on the same rows, and max|score|
+            tr.rm.backbone.attn_impl = "plain"
+            try:
+                plain = compute_rm_score(tr.rm, g["input_ids"][other], g["attention_mask"][other],
+                                         g["position_ids"][other], TEXT_R)
+            finally:
+                tr.rm.backbone.attn_impl = "auto"
+            every = token_outputs(tr.rm, g["input_ids"][other], g["attention_mask"][other],
+                                  g["position_ids"][other], TEXT_R)
+            max_score = every[:, -TEXT_R:].abs().max().item()
+        model_rows = got[other]
+        last = torch.as_tensor(resp_mask[~rule].sum(1) - 1, device=got.device).clamp_min(0)
+        at_last = model_rows.gather(1, last.long()[:, None])[:, 0]
+        d_score = (model_rows - plain).abs().max().item()
+        score_bound = 2 * TEXT_LOGIT_TOL * max_score
+        if not (np.array_equal(got.cpu().numpy()[rule], want_rule)
+                and int(model_rows.ne(0).sum(1).max()) <= 1 and bool(at_last.ne(0).all())
+                and d_score <= score_bound):
+            raise AssertionError(f"reward_models value_head: rule rows equal "
+                                 f"{np.array_equal(got.cpu().numpy()[rule], want_rule)}, model "
+                                 f"rows' scores at their last token {at_last.tolist()[:4]}, "
+                                 f"kernel vs plain {d_score} (bound {score_bound})")
+        value.update({"prompts": RM_CUT_PROMPTS, "rows": len(sources),
+                      "data_sources": sorted(set(sources)), "rule_rows": int(rule.sum()),
+                      "rule_rows_carry_rule_scores": True,
+                      "model_rows_scored_at_last_token": True,
+                      "model_scores": at_last.tolist()[:4],
+                      "kernel_vs_plain_max_abs": d_score, "max_abs_score": max_score,
+                      "bound": score_bound,
+                      "cut": f"data.train_batch_size={RM_CUT_PROMPTS} (config 16)"})
+        print(f"[reward_models] value-head step {value['step_s']:.1f} s, kernel vs plain "
+              f"{d_score:.3g} (bound {score_bound:.3g}), launches {value['launches']}",
+              flush=True)
+        del tr, rec, g, got, plain, every
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---------------------- (c) PRIME's other branch: dpo, bon_rm, whole, before
+        # two steps: step 1 updates the RM while it is its reference (every
+        # process score 0, every group's Q values tied: each row's DPO loss is
+        # ln 2 and its bon_rm weight n), step 2 a moved RM whose Q values differ.
+        # The verifier is a stand-in, the parity of the response text's length:
+        # random weights answer no gsm8k prompt, and the DPO loss holds a row's
+        # Q against those of its group's members of the other outcome
+        argv = common + [f"data.train_files={prompts}", f"data.train_batch_size={RM_CUT_PROMPTS}",
+                         *PRIME_RECIPE, *PRIME_DPO_BRANCH, "trainer.total_training_steps=2"]
+        config = vla_rft_default_config().apply_overrides(argv)
+        record = _record_rm(written)
+
+        def parity_verifier(tr, rec):
+            tr.reward_manager.compute_score = lambda source, text, gt, extra=None: float(
+                len(text) % 2)
+            record(tr, rec)
+
+        rec = _drive_ppo(mods, fda, argv, written, on_load=parity_verifier)
+        tr = rec.pop("trainer")
+        dpo = _rm_step(rec, _rm_expect(RM_CUT_PROMPTS, config, "prime"), "reward_models dpo",
+                       steps=2)
+        scores = rec["prime_scores"]
+        n = config.actor_rollout_ref.rollout.n
+        rows = scores[0].shape[0]
+        tie = rows * n * float(np.log(2.0))
+        rm_loss = [dpo["metrics"]["prime/rm_loss"],
+                   dpo["later_steps"][0]["metrics"]["prime/rm_loss"]]
+        acc = rec["scores"][3].sum(-1).reshape(-1, n)  # step 2's outcomes by group
+        mixed = int(((acc > 0).any(1) & (acc == 0).any(1)).sum())
+        still = sorted(set(written) - set(_moved(tr.prime_rm.model, written)))
+        ref_moved = _moved(tr.prime_rm.ref, written)
+        per_row = [int(s.ne(0).sum(1).max()) for s in scores]
+        if not (rec["prime_loaded_bit_equal"] and not still and not ref_moved
+                and all(s.abs().max().item() > 0 for s in scores) and max(per_row) <= 1
+                and abs(rm_loss[0] - tie) <= 1e-5 * tie and abs(rm_loss[1] - tie) > 1e-5 * tie
+                and mixed > 0):
+            raise AssertionError(f"reward_models dpo at lr {RM_RAISED_LR}: RM parameters that "
+                                 f"did not move {still[:5]} ({len(still)}), reference "
+                                 f"parameters that moved {ref_moved[:5]}, most nonzero scores "
+                                 f"a row {per_row}, prime/rm_loss {rm_loss} (step 1 must be "
+                                 f"the tie value {tie}, step 2 not), step 2's groups with "
+                                 f"both outcomes {mixed}")
+        dpo.update({"prompts": RM_CUT_PROMPTS, "rows": rows, "rm_lr": RM_RAISED_LR,
+                    "settings": PRIME_DPO_BRANCH + ["trainer.total_training_steps=2"],
+                    "prime_rm_parameters_moved": len(written),
+                    "prime_reference_bit_identical": True,
+                    "rm_loss_per_step": rm_loss, "rm_loss_tie_value": tie,
+                    "verifier": "parity of the response text's length",
+                    "step_2_groups_with_both_outcomes": mixed,
+                    "dpo_acc_per_step": [dpo["metrics"]["prime/dpo_acc"],
+                                         dpo["later_steps"][0]["metrics"]["prime/dpo_acc"]],
+                    "process_scores": [{"max_abs": s.abs().max().item(),
+                                        "nonzero_per_row_max": k}
+                                       for s, k in zip(scores, per_row)],
+                    "cut": f"data.train_batch_size={RM_CUT_PROMPTS} (config 16); RM lr "
+                           f"{RM_RAISED_LR}"})
+        print(f"[reward_models] dpo steps {dpo['step_s']:.1f} / "
+              f"{dpo['later_steps'][0]['step_s']:.1f} s, rm_loss {rm_loss} (tie {tie:.6g}), "
+              f"peak {dpo['peak_mem_gib']:.2f} GiB, launches {dpo['launches']}", flush=True)
+        del tr, rec, scores
+        out = {"phase": "reward_models", "model": "qwen25_0_5b", "prime": main,
+               "value_head": value, "dpo": dpo, "kernel_vs_plain": kvp,
+               "tolerance": {"process_scores_step_1": "exactly 0", "loss_rel": SFT_LOSS_TOL,
+                             "grad_rel": SFT_GRAD_TOL,
+                             "vs_f64": f"<= {F64_ROUTE_RATIO} x plain + {SFT_GRAD_TOL}",
+                             "value_head_scores": "2 * logits tol * max|score|"}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def ppo_entries(ppo: dict, entry, bwd_src: str, rm: dict) -> list:
+    """The kernel line's rows of #2 and #3 at the PPO update's shape (PRIME's
+    RM update's micro-batches have it too)."""
     t, n = ppo["update_shape_bwd"], ppo["grpo"]["launches"]
     S, kv = TEXT_PROMPT + TEXT_R, t["dq"]["kv_starts"]
     return [{**entry(f"{kernel}@ppo", bwd_src, f"vla_rft_tpu/ops/attention.py:{line}",
@@ -4164,15 +4566,23 @@ def ppo_entries(ppo: dict, entry, bwd_src: str) -> list:
              "shape": f"B={t[key]['B']} S={S} Hq/Hkv=14/2 D=64 causal, left-padded (kv_starts "
                       f"{min(kv)}-{max(kv)}), ragged ends: the PPO update's shape, the step's "
                       f"rows one per prompt; launches: one main_ppo grpo step (16 updates x "
-                      f"24 layers)",
-             "gae_step_launches": ppo["gae"]["launches"][kernel]}
+                      f"24 layers); reward_models_prime_step_launches: one PRIME step (16 RM "
+                      f"and 16 actor updates of 16 rows x 24 layers)",
+             "gae_step_launches": ppo["gae"]["launches"][kernel],
+             **_rm_launches(rm, kernel)}
             for kernel, line, key in (("flash_bwd_dq", 175, "dq"), ("flash_bwd_dkv", 239, "dkv"))]
 
 
-def text_entries(text: dict, entry, flash_src: str, dec_src: str, ppo: dict) -> list:
+def _rm_launches(rm: dict, kernel: str) -> dict:
+    """The reward_models phase's launches of `kernel`, per step."""
+    return {f"reward_models_{k}_step_launches": rm[k]["launches"][kernel]
+            for k in ("prime", "value_head", "dpo")}
+
+
+def text_entries(text: dict, entry, flash_src: str, dec_src: str, ppo: dict, rm: dict) -> list:
     """The kernel line's rows of the text_gen phase's shapes, with the ppo
-    phase's launches of #1 and #5 (its update forward has the log-prob
-    row's shape)."""
+    and reward_models phases' launches of #1 and #5 (their update forwards
+    have the log-prob row's shape)."""
     t, gen = text["timed"], text["main_generation"]
     ppo_n = {"ppo_grpo_step_launches": ppo["grpo"]["launches"]["flash_fwd"],
              "ppo_validate_launches": ppo["grpo"]["validate"]["launches"]["flash_fwd"]}
@@ -4193,21 +4603,37 @@ def text_entries(text: dict, entry, flash_src: str, dec_src: str, ppo: dict) -> 
                                  f"(log_prob_micro_batch_size_per_gpu=16); ppo_*: #1's "
                                  f"launches in a main_ppo grpo step (prefill, 16 + 32 "
                                  f"log-prob chunks of 16 / 8 rows, 16 update forwards) "
-                                 f"and in validate()"), **ppo_n},
+                                 f"and in validate(); reward_models_*: #1's launches in "
+                                 f"its steps (every shape)"), **ppo_n,
+         **_rm_launches(rm, "flash_fwd")},
+        {**entry("flash_fwd@text_logprob_b8", flash_src, "vla_rft_tpu/ops/attention.py:108",
+                 rm["prime"]["launches"]["flash_fwd"], t["text_logprob_b8"]["max_abs_err_o"],
+                 t["text_logprob_b8"]),
+         **shape("text_logprob_b8", f"B=8 Sq=Sk={S} Hq/Hkv=14/2 D=64 causal, left-padded, "
+                                    f"ragged valid ends: the reference policy's log-prob "
+                                    f"chunks (ref.log_prob_micro_batch_size_per_gpu=8), "
+                                    f"PRIME's reference's at temperature 1; launches: one "
+                                    f"reward_models PRIME step (every shape); "
+                                    f"launches_at_this_shape: that step's launches of 8 "
+                                    f"rows"),
+         "launches_at_this_shape": rm["prime"]["flash_fwd_by_rows"][8]},
         {**entry("decode_hd@text_b256", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:272",
                  gen["launches"]["decode_hd"], t["text_b256"]["max_abs_err"], t["text_b256"]),
          "shape": f"B=256 Sq=1 Hq/Hkv=14/2 D=64 bf16 hd cache (256, 1664, 128), step "
                   f"{TEXT_MID} (kv_len {P + TEXT_MID + 1}), per-row kv_starts; launches: one "
                   f"main_generation batch ({TEXT_R} decode calls x 24 layers); "
-                  f"ppo_grpo_step_launches: the main_ppo grpo step's rollout (the same)",
-         "ppo_grpo_step_launches": ppo["grpo"]["launches"]["decode_hd"]},
+                  f"ppo_grpo_step_launches: the main_ppo grpo step's rollout (the same), "
+                  f"reward_models_*: its steps' rollouts",
+         "ppo_grpo_step_launches": ppo["grpo"]["launches"]["decode_hd"],
+         **_rm_launches(rm, "decode_hd")},
         {**entry("decode_shared_hd@text_b256", dec_src,
                  "vla_rft_tpu/ops/decode_attention_hd.py:226",
                  text["prefix_shared"]["launches"]["decode_shared_hd"],
                  t["text_shared_b256"]["max_abs_err"], t["text_shared_b256"]),
          "shape": f"B=256 Sq=1 Hq/Hkv=14/2 D=64 bf16, 16 prefixes of {P} (16 rows each, "
                   f"shared_starts = kv_starts) + own (256, {TEXT_R}, 128), step {TEXT_MID}; "
-                  f"launches: generate_sequences(prefix_share_n=16) at 256 rows"},
+                  f"launches: generate_sequences(prefix_share_n=16) at 256 rows, "
+                  f"{TEXT_R_CMP} decode steps"},
     ]
 
 
@@ -4252,7 +4678,7 @@ def main() -> int:
     wm["plain_tokens"] = plain["tokens"]
     plain_heads = timed("wm_plain_heads", phase_wm_plain, mods, wm, True)
     timed("wm_kernel_vs_plain", phase_wm_kernel_vs_plain, wm)
-    wm_launches = wm["json"]["runs"][0]["launches"]
+    wm_launches = wm["json"]["run"]["launches"]
     del wm  # frees the WM reward models before the training phases
     torch.cuda.empty_cache()
     grpo = timed("grpo", phase_grpo, mods)
@@ -4271,6 +4697,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     text = timed("text_gen", phase_text_gen, mods, fda)
     ppo = timed("ppo", phase_ppo, mods, fda)
+    rm = timed("reward_models", phase_reward_models, mods, fda)
     emit({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t0, 1),
           "allocated_gib_after_phase": held})
     smi = subprocess.run(
@@ -4387,15 +4814,15 @@ def main() -> int:
                  heads_n["decode_shared_heads"], decode_heads["max_abs_err"]["shared"],
                  decode_heads["timed"]["shared"]),
          "shape": f"B=10 Sq=1 Hq=Hkv=16 D=64 int8, 2 prefixes of {WM_PREFIX} + 291 own; "
-                  f"launches: {GRPO_STEPS} grpo_heads steps"},
+                  f"launches: 1 grpo_heads step"},
         {**entry("decode_heads", heads_src, "vla_rft_tpu/ops/decode_attention.py:36",
                  plain_heads["launches"]["decode_heads"], decode_heads["max_abs_err"]["plain"],
                  decode_heads["timed"]["plain"]),
          "shape": "B=10 Sq=1 Hq=Hkv=16 D=64 int8, 1379 keys; launches: wm_plain_heads "
                   "(2 rows, 2 frames)"},
         *fda_entries,
-        *text_entries(text, entry, flash_src, dec_src, ppo),
-        *ppo_entries(ppo, entry, bwd_src),
+        *text_entries(text, entry, flash_src, dec_src, ppo, rm),
+        *ppo_entries(ppo, entry, bwd_src, rm),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

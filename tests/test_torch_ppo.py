@@ -21,11 +21,14 @@ Nothing in the JAX package changes.  One JAX trainer per estimator family
 * `validate()` on the same rollouts: the same metrics, bit for bit;
 * the reference policy is its own frozen copy: its log-probs equal the
   policy's at step 1 and differ at step 2, its parameters bit-identical;
-* the refusals of the unported reward-model and PRIME settings;
 * `main_ppo.run` in process with the Qwen config patched tiny: a chat
   tokenizer, a gsm8k-style parquet and a checkpoint written here, 2 steps
-  with enable_gradient_checkpointing (the decoder's remat); and its refusal
-  without CUDA.
+  with enable_gradient_checkpointing (the decoder's remat), with grpo and
+  with recipe/prime.sh's PRIME settings (whose RM and its reference load
+  the checkpoint too); and its refusal without CUDA.
+
+The reward models' steps are `test_torch_reward_model.py`'s and
+`test_torch_prime.py`'s, which share this file's helpers.
 """
 import numpy as np
 import pytest
@@ -263,18 +266,6 @@ def test_reference_policy_is_a_frozen_copy(ref_trainers):
     assert not any(p.requires_grad for p in port.ref.parameters())
 
 
-@pytest.mark.parametrize("settings,match", [
-    ({"reward_model.enable": True}, "models/reward_model.py"),
-    ({"reward_model.enable": True, "reward_model.rm_type": "prime"}, "prime_core.py"),
-    ({"algorithm.adv_estimator": "prime"}, "workers/prime_rm.py"),
-], ids=["reward_model", "prime_rm", "prime_estimator"])
-def test_unported_settings_are_refused(settings, match):
-    c = t_config().apply_overrides([f"{k}={v}" for k, v in settings.items()])
-    with pytest.raises(NotImplementedError, match=match):
-        PPOTrainer(c, t_tf.TransformerConfig(dtype=torch.float32, param_dtype=torch.float32,
-                                             **CFG), DigitTokenizer(), PromptSet(), device="cpu")
-
-
 # ------------------------------------------------------------------ main_ppo
 @pytest.fixture
 def auto_tokenizer(monkeypatch):
@@ -292,7 +283,16 @@ def auto_tokenizer(monkeypatch):
     monkeypatch.setitem(transformers.__dict__, "AutoTokenizer", AutoTokenizer)
 
 
-def test_main_ppo_trains_the_loaded_weights(tmp_path, monkeypatch, auto_tokenizer):
+# recipe/prime.sh's overrides (lr raised so that the RM moves in 2 steps)
+PRIME_RECIPE = ["algorithm.adv_estimator=prime", "algorithm.reward_gt_coef=5.0",
+                "algorithm.reward_dpo_coef=5.0", "reward_model.enable=True",
+                "reward_model.rm_type=prime", "reward_model.prime_granularity=token",
+                "reward_model.loss_type=ce", "reward_model.beta_train=0.05",
+                "reward_model.lr=1e-3", "actor_rollout_ref.actor.use_kl_loss=False"]
+
+
+@pytest.mark.parametrize("recipe", ["grpo", "prime"])
+def test_main_ppo_trains_the_loaded_weights(tmp_path, monkeypatch, auto_tokenizer, recipe):
     cfg = t_tf.TransformerConfig(dtype=torch.float32, param_dtype=torch.float32, **CFG)
     written = build_decoder(cfg, device="cpu", seed=2)
     with torch.no_grad():
@@ -309,10 +309,12 @@ def test_main_ppo_trains_the_loaded_weights(tmp_path, monkeypatch, auto_tokenize
     class Recording(PPOTrainer):
         def load_actor(self, state_dict):
             super().load_actor(state_dict)
-            runs.append({"trainer": self, "steps": [],
-                         "loaded": all(torch.equal(v, written[k]) for k, v in
-                                       [*self.llm.state_dict().items(),
-                                        *self.ref.state_dict().items()])})
+            models = [self.llm, self.ref]
+            if self.prime_rm is not None:  # PRIME's RM and its reference
+                models += [self.prime_rm.model, self.prime_rm.ref]
+            runs.append({"trainer": self, "steps": [], "models": len(models),
+                         "loaded": all(torch.equal(v, written[k]) for m in models
+                                       for k, v in m.state_dict().items())})
 
         def training_step(self, batch, gen):
             m = super().training_step(batch, gen)
@@ -326,16 +328,25 @@ def test_main_ppo_trains_the_loaded_weights(tmp_path, monkeypatch, auto_tokenize
                   "actor_rollout_ref.rollout.response_length=6",
                   "actor_rollout_ref.actor.ppo_mini_batch_size=2",
                   "actor_rollout_ref.actor.optim.lr=1e-3", "trainer.total_training_steps=2",
-                  "actor_rollout_ref.model.enable_gradient_checkpointing=true"])
+                  "actor_rollout_ref.model.enable_gradient_checkpointing=true"]
+                 + (PRIME_RECIPE if recipe == "prime" else []))
     (run,) = runs
     tr = run["trainer"]
     assert run["loaded"] and len(run["steps"]) == 2 and tr.global_steps == 3
+    assert run["models"] == (4 if recipe == "prime" else 2)
     assert tr.llm.cfg.remat and not cfg.remat
     for m in run["steps"]:
         assert np.isfinite(list(m.values())).all() and "actor/pg_loss" in m
+        assert ("prime/rm_loss" in m) == (recipe == "prime")
     assert tr.roll_cfg.pad_token_id == 0 and tr.roll_cfg.eos_token_id == 3  # the tokenizer's
-    assert all(torch.equal(v, written[k]) for k, v in tr.ref.state_dict().items())
-    assert any(not torch.equal(v, written[k]) for k, v in tr.llm.state_dict().items())
+    frozen, trained = [tr.ref], [tr.llm]
+    if recipe == "prime":
+        assert tr.prime_rm.model.cfg.remat
+        frozen, trained = frozen + [tr.prime_rm.ref], trained + [tr.prime_rm.model]
+    for m in frozen:
+        assert all(torch.equal(v, written[k]) for k, v in m.state_dict().items())
+    for m in trained:
+        assert any(not torch.equal(v, written[k]) for k, v in m.state_dict().items())
 
 
 def test_main_ppo_refuses_to_run_without_cuda(monkeypatch):

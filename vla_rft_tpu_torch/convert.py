@@ -8,8 +8,10 @@ port's module: "vla" (`models.prismatic.OpenVLA`), "expert"
 `models.transformer.Decoder`, untied lm_head), "tokenizer"
 (`models.tokenizers.CompressiveVQModelFSQ`) and "lpips"
 (`models.lpips.LPIPS`); "decoder" and "vit" convert a lone `Decoder` or
-`ViT` tree the same way, and "critic" a `models.critic.CriticModel` tree
-(its `backbone` decoder and `value_head`):
+`ViT` tree the same way, "critic" a `models.critic.CriticModel` tree (its
+`backbone` decoder and `value_head`) and "reward_model" a
+`models.reward_model.SequenceRewardModel` tree (its `backbone` and
+`score_head`):
 
 * the `nn.scan`-stacked ViT blocks and decoder layers are unstacked into
   `blocks.{i}` / `layers.{i}`; the DiT's `blocks_{i}` become `blocks.{i}`;
@@ -32,7 +34,8 @@ import torch
 _MULTI_IN = {"o_proj", "proj", "out_v_proj", "out_proj"}
 # modules whose Flax params are stacked on a leading layer axis (nn.scan)
 _STACKED = {"blocks", "layers"}
-WHICH = ("vla", "expert", "decoder", "vit", "wm", "tokenizer", "lpips", "critic")
+WHICH = ("vla", "expert", "decoder", "vit", "wm", "tokenizer", "lpips", "critic",
+         "reward_model")
 
 
 def _flatten(tree, prefix=()):

@@ -11,7 +11,7 @@ q[:, 0], for chunked prefill); optional causal masking.
 * `flash_fwd` wraps the CUDA kernel in `csrc/flash_fwd.cu` (the port of the
   Pallas `_fwd_kernel`): bf16 q/k/v -> bf16 O and f32 LSE, launched on the
   current stream without synchronising.  It counts its launches in the
-  module-level `launches`.
+  module-level `launches`, and by the batch's rows in `launches_by_rows`.
 * `attention_bwd_plain` is the backward's twin: the explicit formula of the
   Pallas `_dq_kernel` / `_dkv_kernel` (p recomputed from the LSE with the
   bounded exp, dS = p (dP - delta) scale), in f32.
@@ -51,8 +51,9 @@ H100_SMS = 132  # #3's plan is made for the device's SM count; this when none is
 DKV_MAX_SPLITS = 4  # blocks per key tile of #3: one cluster
 
 # kernel launches since the count was last set to 0 (read by chip_smoke.py):
-# the forward (#1), the backward's dQ (#2) and dK/dV (#3)
+# the forward (#1), the backward's dQ (#2) and dK/dV (#3); #1's also by rows
 launches = 0
+launches_by_rows = {}  # B -> #1 launches with q of B rows
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
 
@@ -350,6 +351,7 @@ def flash_fwd(
     if rc != 0:
         raise RuntimeError(f"flash_fwd: kernel launch failed with CUDA error {rc}")
     launches += 1
+    launches_by_rows[B] = launches_by_rows.get(B, 0) + 1
     return o, lse
 
 

@@ -4,22 +4,33 @@ main_ppo).
 Reads the prompts of data.train_files through `RLHFDataset`, scores with
 `NaiveRewardManager` over the tokenizer of actor_rollout_ref.model.ckpt_path,
 loads the policy (Qwen2.5-0.5B) from that directory's `*.safetensors` (the
-reference policy becomes a frozen copy of the loaded weights; the critic,
-with adv_estimator=gae, keeps its seeded initialisation) and runs
-`PPOTrainer.fit`.
+reference policy becomes a frozen copy of the loaded weights, and so do
+PRIME's RM and its reference; the critic, with adv_estimator=gae, and the
+value-head RM keep their seeded initialisations, as the reference's do) and
+runs `PPOTrainer.fit`.
 
 Usage:
   python -m vla_rft_tpu_torch.trainer.main_ppo \
       actor_rollout_ref.model.ckpt_path=<HF model dir> data.train_files=<parquet> \
-      [algorithm.adv_estimator=grpo|gae|rloo|reinforce_plus_plus|remax] \
+      [algorithm.adv_estimator=grpo|gae|rloo|reinforce_plus_plus|remax|prime] \
+      [reward_model.enable=True [reward_model.rm_type=value_head|prime]] \
       [trainer.total_training_steps=N] [trainer.test_freq=N] \
       [actor_rollout_ref.model.enable_gradient_checkpointing=true] [--device=cpu]
 
+The reward models: `reward_model.enable=True` scores with a value-head RM
+(models/reward_model.py) every row whose data source has no rule scorer;
+with `reward_model.rm_type=prime` and `algorithm.adv_estimator=prime`
+(recipe/prime.sh's overrides) PRIME's implicit process RM
+(workers/prime_rm.py) scores every response token and trains online, with
+reward_model.prime_granularity=token|whole, prime_norm, loss_type=ce|dpo,
+bon_mode=none|bon_rm|bon_acc, beta_train, lr, update=after|before and
+algorithm.reward_dpo_coef / reward_gt_coef (5.0).
+
 The device defaults to the card; `--device=cpu` runs the plain PyTorch
 path.  actor_rollout_ref.model.enable_gradient_checkpointing turns on the
-decoder's `remat` (policy and critic): at the config's sizes (mini-batches
-of 16 rows of 1095 + 568 tokens) the update does not fit an 80 GB card
-without it.  The rollout pads and stops with the tokenizer's pad and EOS ids
+decoder's `remat` (policy, critic and PRIME's RM): at the config's sizes
+(mini-batches of 16 rows of 1095 + 568 tokens) the update does not fit an
+80 GB card without it.  The rollout pads and stops with the tokenizer's pad and EOS ids
 unless processor.pad_token_id / processor.eos_token_id are given: the
 reference reads them from `processor.*` alone, whose defaults (9007) are
 the world model's, not the tokenizer's, so its prompts' pad keys would not

@@ -42,6 +42,14 @@ import torch
 Schedule = Union[float, Callable[[int], float]]
 
 
+def grads_or_zeros(loss: torch.Tensor, params: Sequence[torch.nn.Parameter]) -> List[torch.Tensor]:
+    """d loss / d params; zeros for a parameter the loss does not reach (as
+    `jax.value_and_grad` gives them)."""
+    params = list(params)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, an f32 scalar."""
     total = sum((g.float() * g.float()).sum() for g in grads)

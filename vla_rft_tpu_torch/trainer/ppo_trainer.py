@@ -14,23 +14,45 @@ weights as the reference policy.  One `training_step`:
                 independent, so the chunks change no number; #1 per layer)
   values        with adv_estimator gae: the critic's values (#1 per layer)
   reward        the reward manager's token-level scores of the decoded
-                responses (host), minus kl_coef x KL(old || ref) with
-                algorithm.use_kl_in_reward
+                responses (host); with reward_model.enable and the value-head
+                RM (models/reward_model.py) the RM scores every row (#1 per
+                layer and log-prob chunk) and the rule scorers override the
+                rows whose data source has one; with reward_model.rm_type=
+                prime, PRIME's implicit process scores and its RM's online
+                update (workers/prime_rm.py: the RM's log-probs in chunks,
+                the update's micro-batches of whole groups, in the order
+                reward_model.update gives); minus
+                kl_coef x KL(old || ref) with algorithm.use_kl_in_reward
   adv           gae / grpo / rloo / reinforce_plus_plus / remax (the greedy
-                rollout of the unique prompts as the baseline)
+                rollout of the unique prompts as the baseline) / prime (RLOO
+                of the process scores and the outcome, trainer/prime_core.py)
   update        ppo_epochs x mini-batches of ppo_mini_batch_size rows: the
                 critic's update (gae), then the actor's once critic_warmup
                 steps have passed; each a forward and a backward through
                 left-padded rows (#1, then #2 and #3 per layer)
 
 Each stage ends in a device synchronize, so `timing_s/*` is what the stage
-took.  Sampling draws from the caller's `torch.Generator`.  The reference's
-mesh is not ported: `trainer.balance_batch` reorders rows over
-`torch.distributed`'s world size (1 when it is not initialised, where the
-reorder is a no-op, as the reference's is at dp x fsdp = 1).  Not ported
-yet, refused by name: the reward models (`reward_model.enable`,
-models/reward_model.py) and PRIME (`adv_estimator=prime` or
-`reward_model.rm_type=prime`: trainer/prime_core.py, workers/prime_rm.py).
+took; the RM's stages are also timed on their own (`timing_s/rm_score`,
+and with PRIME `timing_s/rm_update`, and `timing_s/rm_ref_log_prob` when it
+runs, inside `timing_s/reward`).  Sampling draws from the caller's `torch.Generator`.
+The reference's mesh is not ported: `trainer.balance_batch` reorders rows
+over `torch.distributed`'s world size (1 when it is not initialised, where
+the reorder is a no-op, as the reference's is at dp x fsdp = 1).
+
+The value-head RM keeps its seeded initialisation (seed + 2), as the
+reference's: no entry point loads RM weights.  PRIME's RM starts as a copy
+of the starting policy and its reference is the frozen reference policy
+itself (neither ever trains), and `load_actor` loads them too (the
+reference's main_ppo loads the policy only, so its PRIME RM stays at the
+random initialisation).  PRIME's reference log-probs are those of the
+reference policy when the rollout's temperature is 1 (the same module,
+chunks and temperature give the same numbers); at another temperature
+PRIME computes its own at temperature 1.  PRIME's update differentiates
+micro-batches of actor.ppo_mini_batch_size rows rounded down to whole
+groups of rollout.n; the decoder's `remat` (enable_gradient_checkpointing)
+holds for the RM as for the policy, since both take the policy's config.
+The port also reads reward_model.bon_mode (default none), which the
+reference's trainer never hands to its worker.
 """
 from __future__ import annotations
 
@@ -45,29 +67,17 @@ from vla_rft_tpu_torch import resolve_device
 from vla_rft_tpu_torch.config import Config
 from vla_rft_tpu_torch.models.critic import CriticModel, compute_values
 from vla_rft_tpu_torch.models.factory import build_decoder, init_random_
+from vla_rft_tpu_torch.models.reward_model import SequenceRewardModel, compute_rm_score
 from vla_rft_tpu_torch.models.transformer import TransformerConfig
-from vla_rft_tpu_torch.trainer import core_algos
-from vla_rft_tpu_torch.trainer.optim import AdamW, clip_by_global_norm
+from vla_rft_tpu_torch.trainer import core_algos, prime_core
+from vla_rft_tpu_torch.trainer.optim import AdamW, clip_by_global_norm, grads_or_zeros
+from vla_rft_tpu_torch.utils.reward_score import has_scorer
 from vla_rft_tpu_torch.utils.timers import timer, timing_metrics
 from vla_rft_tpu_torch.utils.tracking import Tracking, append_to_dict, reduce_metrics
 from vla_rft_tpu_torch.workers.llm_rollout import (LLMRolloutConfig, compute_log_probs,
                                                    generate_sequences)
+from vla_rft_tpu_torch.workers.prime_rm import PRIMERewardWorker, PRIMERMConfig
 from vla_rft_tpu_torch.workers.reward_manager import NaiveRewardManager
-
-
-def refuse_unported(config: Config) -> None:
-    """NotImplementedError for the settings whose modules are not ported."""
-    prime = (config.algorithm.adv_estimator == "prime"
-             or (config.get_path("reward_model.enable", False)
-                 and config.get_path("reward_model.rm_type", "value_head") == "prime"))
-    if prime:
-        raise NotImplementedError(
-            "PRIME (adv_estimator=prime / reward_model.rm_type=prime) needs "
-            "trainer/prime_core.py and workers/prime_rm.py, not ported yet")
-    if config.get_path("reward_model.enable", False):
-        raise NotImplementedError(
-            "reward_model.enable needs models/reward_model.py (the model-based reward), "
-            "not ported yet")
 
 
 def _sync(device: torch.device) -> None:
@@ -82,13 +92,6 @@ def _world_size() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
-def _grads(loss: torch.Tensor, params: List[torch.nn.Parameter]) -> List[torch.Tensor]:
-    """d loss / d params; zeros for a parameter the loss does not reach (as
-    `jax.value_and_grad` gives them)."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-
-
 class PPOTrainer:
     def __init__(
         self,
@@ -98,11 +101,11 @@ class PPOTrainer:
         dataset,
         critic_cfg: Optional[TransformerConfig] = None,
         reward_manager: Optional[NaiveRewardManager] = None,
+        rm_cfg: Optional[TransformerConfig] = None,
         seed: int = 0,
         *,
         device="cuda",
     ):
-        refuse_unported(config)
         self.config = config
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
@@ -137,6 +140,32 @@ class PPOTrainer:
             init_random_(self.critic, seed + 1).train()
             self.critic_params = list(self.critic.parameters())
             self.critic_opt = AdamW(self.critic_params, config.critic.optim.get("lr", 1e-5))
+        # the reward models: the value-head RM scores every row, rule scorers
+        # keep precedence (verl's RewardModelWorker, naive manager); PRIME's RM
+        # starts from the starting policy, its reference is the frozen
+        # reference policy
+        self.rm = self.prime_rm = None
+        if config.get_path("reward_model.enable", False):
+            rmc = config.reward_model
+            if rmc.get("rm_type", "value_head") == "prime":
+                self.prime_rm = PRIMERewardWorker(
+                    copy.deepcopy(self.llm), self.ref, PRIMERMConfig(
+                        response_length=self.roll_cfg.response_length,
+                        beta=rmc.get("beta_train", 0.05),
+                        granularity=rmc.get("prime_granularity", "token"),
+                        norm_mode=rmc.get("prime_norm", "batch_norm"),
+                        loss_type=rmc.get("loss_type", "ce"),
+                        bon_mode=rmc.get("bon_mode", "none"),
+                        lr=rmc.get("lr", 1e-6),
+                        n_samples=roll.n,
+                        score_micro_batch=roll.get("log_prob_micro_batch_size_per_gpu"),
+                        ref_micro_batch=config.actor_rollout_ref.ref.get(
+                            "log_prob_micro_batch_size_per_gpu"),
+                        update_micro_batch=config.actor_rollout_ref.actor.ppo_mini_batch_size))
+            else:
+                with torch.device(self.device):
+                    self.rm = SequenceRewardModel(rm_cfg or llm_cfg)
+                init_random_(self.rm, seed + 2).requires_grad_(False).eval()
 
     def _init_actor_optimizer(self) -> None:
         optim = self.config.actor_rollout_ref.actor.optim
@@ -147,10 +176,13 @@ class PPOTrainer:
     def load_actor(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """The policy's weights from a `Decoder` state dict.  The reference
         policy gets its own copy of the same weights (never an alias of the
-        parameters the optimizer updates), and the optimizer starts afresh."""
+        parameters the optimizer updates), and the optimizer starts afresh;
+        so does PRIME's RM, which starts from the policy."""
         self.llm.load_state_dict(state_dict)
         self.ref.load_state_dict(state_dict)
         self._init_actor_optimizer()
+        if self.prime_rm is not None:
+            self.prime_rm.load(state_dict)
 
     # ------------------------------------------------------------- stages
     def _gen(self, prompts: torch.Tensor, gen: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -170,6 +202,19 @@ class PPOTrainer:
             compute_log_probs(model, g["input_ids"][i:i + chunk], g["attention_mask"][i:i + chunk],
                               g["position_ids"][i:i + chunk], self.roll_cfg.response_length,
                               self.roll_cfg.temperature)[0]
+            for i in range(0, B, chunk)])
+
+    @torch.no_grad()
+    def _rm_score(self, g: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The value-head RM's (B, R) scores (each row's at its last valid
+        token), in row chunks of rollout.log_prob_micro_batch_size_per_gpu
+        (rows are independent: the reference's one call gives the same)."""
+        B = g["input_ids"].shape[0]
+        chunk = self.config.actor_rollout_ref.rollout.get("log_prob_micro_batch_size_per_gpu") or B
+        return torch.cat([
+            compute_rm_score(self.rm, g["input_ids"][i:i + chunk],
+                             g["attention_mask"][i:i + chunk], g["position_ids"][i:i + chunk],
+                             self.roll_cfg.response_length)
             for i in range(0, B, chunk)])
 
     @torch.no_grad()
@@ -201,7 +246,7 @@ class PPOTrainer:
 
     def _actor_update(self, mb: Dict[str, torch.Tensor]) -> Dict[str, float]:
         loss, metrics = self.actor_loss(mb)
-        grads, norm = clip_by_global_norm(_grads(loss, self.actor_params),
+        grads, norm = clip_by_global_norm(grads_or_zeros(loss, self.actor_params),
                                           self.config.actor_rollout_ref.actor.grad_clip)
         self.actor_opt.step(grads)
         metrics["actor/grad_norm"] = norm  # before clipping
@@ -217,15 +262,23 @@ class PPOTrainer:
 
     def _critic_update(self, mb: Dict[str, torch.Tensor]) -> Dict[str, float]:
         loss, metrics = self.critic_loss(mb)
-        grads, _ = clip_by_global_norm(_grads(loss, self.critic_params),
+        grads, _ = clip_by_global_norm(grads_or_zeros(loss, self.critic_params),
                                        self.config.critic.get("grad_clip", 1.0))
         self.critic_opt.step(grads)
         return {k: float(v) for k, v in metrics.items()}
 
     # ---------------------------------------------------------------- step
-    def _advantages(self, batch, gen, token_level_rewards, values, mask, B: int, n: int):
+    def _advantages(self, batch, gen, token_level_rewards, values, mask, B: int, n: int,
+                    token_level_scores=None, prime_scores=None):
         algo = self.config.algorithm
         est = algo.adv_estimator
+        if est == "prime":
+            # RLOO of the process scores and of the outcome (the summed
+            # verifier score), reward_dpo_coef / reward_gt_coef
+            return prime_core.compute_prime_advantage(
+                mask, n, rm_scores=prime_scores, acc=token_level_scores.sum(-1),
+                reward_dpo_coef=algo.get("reward_dpo_coef", 5.0),
+                reward_gt_coef=algo.get("reward_gt_coef", 5.0))
         if est == "gae":
             return core_algos.compute_gae_advantage_return(
                 token_level_rewards, values, mask, algo.gamma, algo.lam)
@@ -249,6 +302,61 @@ class PPOTrainer:
             return core_algos.compute_remax_outcome_advantage(token_level_rewards, baselines,
                                                               mask)
         raise NotImplementedError(est)
+
+    def _scores(self, g: Dict[str, torch.Tensor], sources: List[str], gts: List[str],
+                timing: Dict[str, float]) -> torch.Tensor:
+        """(B, R) token-level scores: the reward manager's; with the value-head
+        RM, the RM's for every row and the reward manager's for the rows
+        whose data source has a rule scorer."""
+        resp, resp_mask = g["responses"].cpu().numpy(), g["response_mask"].cpu().numpy()
+        if self.rm is None:
+            return torch.as_tensor(self.reward_manager(resp, resp_mask, sources, gts),
+                                   device=self.device)
+        with timer("rm_score", timing):
+            scores = self._rm_score(g).cpu().numpy()
+        rule_rows = [i for i, s in enumerate(sources) if has_scorer(s)]
+        if rule_rows:
+            idx = np.asarray(rule_rows)
+            scores[idx] = self.reward_manager(resp[idx], resp_mask[idx],
+                                              [sources[i] for i in rule_rows],
+                                              [gts[i] for i in rule_rows])
+        return torch.as_tensor(scores, device=self.device)
+
+    def _prime(self, g: Dict[str, torch.Tensor], acc: torch.Tensor, ref_logp: torch.Tensor,
+               timing: Dict[str, float]) -> Tuple[torch.Tensor, Dict[str, float]]:
+        """PRIME's process scores and its RM's update metrics, scoring and
+        updating in the order reward_model.update gives (`after`: the scores
+        of the weights before the update).  Both take one set of reference
+        log-probs (the RM's weights do not change them): the reference
+        policy's `ref_logp` at rollout temperature 1, else PRIME's own
+        forward of the same module at temperature 1."""
+        pr, dev = self.prime_rm, self.device
+        seqs = (g["input_ids"], g["attention_mask"], g["position_ids"])
+        ref_lp = ref_logp
+        if self.roll_cfg.temperature != 1.0:
+            with timer("rm_ref_log_prob", timing):
+                ref_lp = pr.ref_log_probs(*seqs)
+                _sync(dev)
+
+        def score():
+            with timer("rm_score", timing):
+                out = pr.compute_rm_score(*seqs, ref_log_probs=ref_lp)
+                _sync(dev)
+            return out
+
+        def update():
+            with timer("rm_update", timing):
+                out = pr.update_rm({"input_ids": seqs[0], "attention_mask": seqs[1],
+                                    "position_ids": seqs[2], "acc": acc,
+                                    "ref_log_probs": ref_lp})
+                _sync(dev)
+            return out
+
+        if self.config.reward_model.get("update", "after") == "before":
+            metrics = update()
+            return score(), metrics
+        scores = score()
+        return scores, update()
 
     def training_step(self, batch: Dict[str, Any], gen: torch.Generator) -> Dict[str, float]:
         cfg = self.config
@@ -282,9 +390,13 @@ class PPOTrainer:
             with timer("reward", timing):
                 sources = [s for s in batch["data_sources"] for _ in range(n)]
                 gts = [t for t in batch["ground_truths"] for _ in range(n)]
-                scores = self.reward_manager(g["responses"].cpu().numpy(),
-                                             g["response_mask"].cpu().numpy(), sources, gts)
-                token_level_scores = torch.as_tensor(scores, device=dev)
+                token_level_scores = self._scores(g, sources, gts, timing)
+                prime_scores = None
+                if self.prime_rm is not None:
+                    # the outcome is the verifier's summed score
+                    prime_scores, prime_metrics = self._prime(g, token_level_scores.sum(-1),
+                                                              ref_logp, timing)
+                    metrics.update(prime_metrics)
                 if algo.use_kl_in_reward:
                     kld = core_algos.kl_penalty(old_logp, ref_logp, algo.kl_penalty)
                     token_level_rewards = token_level_scores - algo.kl_ctrl.kl_coef * kld
@@ -294,7 +406,8 @@ class PPOTrainer:
             with timer("adv", timing):
                 mask = g["response_mask"].float()
                 advantages, returns = self._advantages(batch, gen, token_level_rewards, values,
-                                                       mask, B, n)
+                                                       mask, B, n, token_level_scores,
+                                                       prime_scores)
                 _sync(dev)
 
             data = {"input_ids": g["input_ids"], "attention_mask": g["attention_mask"],
