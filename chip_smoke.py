@@ -77,6 +77,22 @@ Phases, one JSON line each:
                   requests; every request must launch the flash kernel once
                   per Qwen layer (24), and the kernel path must agree with
                   the plain path on one request;
+     eval       - the eval harnesses on libero-width policies (seeded random
+                  weights): eval/main_eval.py's LIBERO CLI at its defaults
+                  (2 views, center crop) on ScriptedEnv must report
+                  success_rate 1.0 from the derived 2 queries; the ALOHA
+                  harness (2 rollouts x 40 steps, a stand-in rig of 480 x
+                  640 cameras and 14 dof) queries a 3-view policy behind
+                  ActionServer, one query per 8 steps, every command
+                  received; the Bridge harness over WidowXGym and a
+                  stand-in client queries a 1-view policy in process once a
+                  step for 5 steps, row 0 of each chunk executed; every
+                  query launches #1 once per Qwen layer (24), every chunk
+                  (8, 7) and finite; the kernel path agrees with the plain
+                  path at 2 and 3 views; #1 timed at the 2- and 3-view
+                  request shapes (1 x 608, 1 x 864); query ms and one
+                  profiled predict_action (wall, device-busy, idle share)
+                  at 1 / 2 / 3 views; the peak memory;
   7. wm_reward  - the world-model reward path at libero width (24-layer bf16
                   WM with an int8 KV cache, the 256 px tokenizer, VGG16
                   LPIPS; seeded random weights) on 2 samples with n = 4
@@ -304,6 +320,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -312,6 +329,7 @@ import struct
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -569,6 +587,48 @@ def phase_build() -> dict:
     return out
 
 
+def time_flash(attention, gen, shape, B, Sq, Sk, Hq, Hkv, kv_len, D: int = 64) -> dict:
+    """#1 at one shape (causal; `kv_len` one valid length or one per row):
+    held against the twin at this very shape, three calls the same bits,
+    then its time replayed from a CUDA graph beside the twin's, SDPA's and
+    the bound."""
+    dev = torch.device("cuda")
+    q = torch.randn(B, Sq, Hq, D, generator=gen, device=dev).bfloat16()
+    k = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
+    rows = {"kv_lens": torch.tensor(kv_len, dtype=torch.int32, device=dev).expand(B)
+            .contiguous(),
+            "kv_starts": torch.zeros(B, dtype=torch.int32, device=dev),
+            "q_offset": torch.zeros(B, dtype=torch.int32, device=dev)}
+    # SDPA over the valid keys only (a yardstick: the port never calls it);
+    # ragged rows keep their padding, causal over the whole row
+    n = kv_len if isinstance(kv_len, int) else Sk
+    sdpa = _sdpa_yardstick(*(x[:, :n].transpose(1, 2) for x in (q, k, v)))
+    kern = lambda: attention.flash_fwd(q, k, v, causal=True, **rows)
+    twin = lambda: attention.attention_plain(q, k, v, causal=True, return_lse=True, **rows)
+    # held against the twin at this very shape: at 1663 the last tile is ragged
+    o, lse = kern()
+    o_ref, lse_ref = twin()
+    e_o = (o.float() - o_ref.float()).abs().max().item()
+    e_l = (lse - lse_ref).abs().max().item()
+    if not (e_o <= O_TOL and e_l <= LSE_TOL and torch.isfinite(o.float()).all()):
+        raise AssertionError(f"flash at {shape}: max|dO|={e_o} max|dLSE|={e_l}")
+    del o, lse, o_ref, lse_ref
+    if not repeats_bit_for_bit(kern):
+        raise AssertionError(f"flash at {shape}: three calls gave different bits")
+    kernel_ms = graph_ms(kern)
+    eager_ms = cuda_ms(kern)
+    plain_ms = graph_ms(twin, 5)
+    library_ms = graph_ms(sdpa)
+    nbytes, flops = flash_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"], True)
+    return {"B": B, "Sq": Sq, "Sk": Sk, "kv_len": kv_len, "Hq": Hq, "Hkv": Hkv,
+            "D": D, "causal": True, "max_abs_err_o": e_o, "max_abs_err_lse": e_l,
+            "repeats_bit_for_bit": True,
+            "kernel_ms": kernel_ms, "eager_ms": eager_ms,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, **bound(nbytes, flops)}
+
+
 def phase_flash(attention) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -613,49 +673,13 @@ def phase_flash(attention) -> dict:
     # 14/2 heads), at the WM prefill shape (2 x 1088 queries, 16/16 heads)
     # and at the wm_logprob reward's full WM forward (compute_log_prob: 8
     # rows of the whole 1663-token sequence)
-    timed = {}
-    for shape, B, Sq, Sk, Hq, Hkv, kv_len in (("serving", 1, 352, 352, 14, 2, 352),
-                                               ("wm_prefill", 2, WM_PREFIX, 1152, 16, 16,
-                                                WM_PREFIX),
-                                               ("wm_logprob", N_SAMPLES * N_ROLLOUTS, WM_SFT_LEN,
-                                                WM_SFT_LEN, 16, 16, WM_SFT_LEN),
-                                               ("sft_text", SFT_TEXT_BATCH, WM_SFT_LEN,
-                                                WM_SFT_LEN, 14, 2, SFT_TEXT_KV_LENS)):
-        q = torch.randn(B, Sq, Hq, D, generator=gen, device=dev).bfloat16()
-        k = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
-        v = torch.randn(B, Sk, Hkv, D, generator=gen, device=dev).bfloat16()
-        rows = {"kv_lens": torch.tensor(kv_len, dtype=torch.int32, device=dev).expand(B)
-                .contiguous(),
-                "kv_starts": torch.zeros(B, dtype=torch.int32, device=dev),
-                "q_offset": torch.zeros(B, dtype=torch.int32, device=dev)}
-        # SDPA over the valid keys only (a yardstick: the port never calls it);
-        # ragged rows keep their padding, causal over the whole row
-        n = kv_len if isinstance(kv_len, int) else Sk
-        sdpa = _sdpa_yardstick(*(x[:, :n].transpose(1, 2) for x in (q, k, v)))
-        kern = lambda: attention.flash_fwd(q, k, v, causal=True, **rows)
-        twin = lambda: attention.attention_plain(q, k, v, causal=True, return_lse=True, **rows)
-        # held against the twin at this very shape: at 1663 the last tile is ragged
-        o, lse = kern()
-        o_ref, lse_ref = twin()
-        e_o = (o.float() - o_ref.float()).abs().max().item()
-        e_l = (lse - lse_ref).abs().max().item()
-        if not (e_o <= O_TOL and e_l <= LSE_TOL and torch.isfinite(o.float()).all()):
-            raise AssertionError(f"flash at {shape}: max|dO|={e_o} max|dLSE|={e_l}")
-        del o, lse, o_ref, lse_ref
-        if not repeats_bit_for_bit(kern):
-            raise AssertionError(f"flash at {shape}: three calls gave different bits")
-        kernel_ms = graph_ms(kern)
-        eager_ms = cuda_ms(kern)
-        plain_ms = graph_ms(twin, 5)
-        library_ms = graph_ms(sdpa)
-        nbytes, flops = flash_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"],
-                                   True)
-        timed[shape] = {"B": B, "Sq": Sq, "Sk": Sk, "kv_len": kv_len, "Hq": Hq, "Hkv": Hkv,
-                        "D": D, "causal": True, "max_abs_err_o": e_o, "max_abs_err_lse": e_l,
-                        "repeats_bit_for_bit": True,
-                        "kernel_ms": kernel_ms, "eager_ms": eager_ms,
-                        "plain_ms": plain_ms,
-                        "library_ms": library_ms, **bound(nbytes, flops)}
+    timed = {shape: time_flash(attention, gen, shape, *dims)
+             for shape, *dims in (("serving", 1, 352, 352, 14, 2, 352),
+                                  ("wm_prefill", 2, WM_PREFIX, 1152, 16, 16, WM_PREFIX),
+                                  ("wm_logprob", N_SAMPLES * N_ROLLOUTS, WM_SFT_LEN, WM_SFT_LEN,
+                                   16, 16, WM_SFT_LEN),
+                                  ("sft_text", SFT_TEXT_BATCH, WM_SFT_LEN, WM_SFT_LEN, 14, 2,
+                                   SFT_TEXT_KV_LENS))}
     out = {"phase": "flash", "cases": results, "max_abs_err_o": err_o,
            "max_abs_err_lse": err_lse, "tolerance": {"o": O_TOL, "lse": LSE_TOL},
            "timed": timed}
@@ -769,6 +793,31 @@ def phase_flash_bwd(attention) -> dict:
     return out
 
 
+def policy_kernel_vs_plain(bundle, batch, noise) -> dict:
+    """The policy's kernel path against its plain path on one request (same
+    weights, batch and flow noise): encode_context's hidden states relative
+    to max|hidden| and the normalized actions, within HIDDEN_TOL /
+    ACTION_TOL."""
+    from vla_rft_tpu_torch.workers.predict import encode_context, predict_action
+
+    lm = bundle.vla.language_model
+    with torch.no_grad():
+        h_kernel = encode_context(bundle.vla, batch).float()
+        a_kernel = predict_action(bundle.vla, bundle.expert, batch, noise=noise).float()
+        lm.attn_impl = "plain"
+        try:
+            h_plain = encode_context(bundle.vla, batch).float()
+            a_plain = predict_action(bundle.vla, bundle.expert, batch, noise=noise).float()
+        finally:
+            lm.attn_impl = "auto"
+    h_err = ((h_kernel - h_plain).abs().max() / h_plain.abs().max()).item()
+    a_err = (a_kernel - a_plain).abs().max().item()
+    if not (h_err <= HIDDEN_TOL and a_err <= ACTION_TOL):
+        raise AssertionError(f"kernel vs plain path: hidden rel err {h_err}, action err {a_err}")
+    return {"hidden_rel_err": h_err, "action_max_abs_err": a_err,
+            "tolerance": {"hidden_rel": HIDDEN_TOL, "action": ACTION_TOL}}
+
+
 def phase_serving(attention) -> dict:
     from vla_rft_tpu_torch.eval.policy import build_policy_fn
     from vla_rft_tpu_torch.serving.action_server import ActionServer, get_action_from_server
@@ -808,23 +857,10 @@ def phase_serving(attention) -> dict:
         raise AssertionError(f"kernel launches per request {per_request}, expected {n_layers}")
 
     # kernel path vs plain path on one request, same weights and noise
-    lm = bundle.vla.language_model
     batch = policy_fn.make_batch(requests[0], requests[0]["instruction"])
     noise = torch.randn(1, 8, 7, generator=torch.Generator(device="cuda").manual_seed(1),
                         device="cuda")
-    with torch.no_grad():
-        h_kernel = encode_context(bundle.vla, batch).float()
-        a_kernel = predict_action(bundle.vla, bundle.expert, batch, noise=noise).float()
-        lm.attn_impl = "plain"
-        try:
-            h_plain = encode_context(bundle.vla, batch).float()
-            a_plain = predict_action(bundle.vla, bundle.expert, batch, noise=noise).float()
-        finally:
-            lm.attn_impl = "auto"
-    h_err = ((h_kernel - h_plain).abs().max() / h_plain.abs().max()).item()
-    a_err = (a_kernel - a_plain).abs().max().item()
-    if not (h_err <= HIDDEN_TOL and a_err <= ACTION_TOL):
-        raise AssertionError(f"kernel vs plain path: hidden rel err {h_err}, action err {a_err}")
+    kvp = policy_kernel_vs_plain(bundle, batch, noise)
 
     # where a request's device time goes (kernel path, CUDA events)
     vla = bundle.vla
@@ -837,11 +873,266 @@ def phase_serving(attention) -> dict:
            "build_policy_s": build_s, "first_request_ms": latencies[0],
            "steady_request_ms": float(np.median(latencies[1:])), "request_ms": latencies,
            "launches_per_request": per_request, "main_path_launches": main_path_launches,
-           "kernel_vs_plain": {"hidden_rel_err": h_err, "action_max_abs_err": a_err,
-                               "tolerance": {"hidden_rel": HIDDEN_TOL, "action": ACTION_TOL}},
+           "kernel_vs_plain": kvp,
            "device_ms": {"vision_and_projector": vision_ms, "encode_context": encode_ms,
                          "predict_action": predict_ms,
                          "flow_steps": predict_ms - encode_ms}}
+    emit(out)
+    return out
+
+
+# the eval phase: main_eval's --scripted_env episode (ScriptedEnv succeeds at
+# its step 12, after 2 settling steps), the ALOHA run through the action
+# server and the in-process Bridge run
+SCRIPTED_SUCCEED_AT, SCRIPTED_WAIT = 12, 2
+ALOHA_ROLLOUTS, ALOHA_STEPS, BRIDGE_STEPS = 2, 40, 5
+EVAL_TASK = "put the black bowl on the plate"
+
+
+class _AlohaRig:
+    """A stand-in ALOHA rig in dm_env's TimeStep shape: 480 x 640 frames from
+    cam_high / cam_left_wrist / cam_right_wrist, new each step, and a 14-dof
+    qpos that takes each command; it counts the commands it receives."""
+
+    def __init__(self, seed: int = 0):
+        self.rng = np.random.default_rng(seed)
+        self.commands = 0
+        self.qpos = np.zeros(14)
+
+    def reset(self):
+        self.qpos = np.zeros(14)
+        return self.get_observation()
+
+    def get_qpos(self):
+        return self.qpos.copy()
+
+    def get_observation(self, t: int = 0):
+        images = {c: self.rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+                  for c in ("cam_high", "cam_left_wrist", "cam_right_wrist")}
+        return types.SimpleNamespace(observation={"images": images, "qpos": self.qpos.copy()})
+
+    def step(self, action):
+        self.commands += 1
+        self.qpos[: len(action)] = action
+        return self.get_observation()
+
+
+class _WidowXClient:
+    """A stand-in WidowX service client: a flat CHW float image of 256 px, a
+    7-dim state and a 480 x 640 full image, new after each action."""
+
+    def __init__(self, seed: int = 0):
+        self.rng = np.random.default_rng(seed)
+        self.actions = []
+
+    def reset(self):
+        pass
+
+    def move(self, transform, duration=0.8, blocking=True):
+        pass
+
+    def step_action(self, action, blocking=False):
+        self.actions.append(np.asarray(action))
+
+    def get_observation(self):
+        return {"image": self.rng.uniform(size=3 * 256 * 256), "state": self.rng.normal(size=7),
+                "full_image": self.rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)}
+
+
+def _query_log(attention, fn):
+    """fn(obs, task) wrapped: each call's #1 launches, host ms and chunk."""
+    log = []
+
+    def query(obs, task):
+        before = attention.launches
+        t = time.perf_counter()
+        chunk = np.asarray(fn(obs, task))
+        log.append({"ms": (time.perf_counter() - t) * 1e3, "chunk": chunk,
+                    "launches": attention.launches - before})
+        return chunk
+
+    return query, log
+
+
+def _check_queries(log, n_layers: int, expect: int, what: str) -> dict:
+    per_query = [q["launches"] for q in log]
+    if len(log) != expect or per_query != [n_layers] * expect:
+        raise AssertionError(f"{what}: {len(log)} queries (expected {expect}), #1 launches "
+                             f"per query {per_query} (expected {n_layers})")
+    for q in log:
+        if q["chunk"].shape != (8, 7) or not np.isfinite(q["chunk"]).all():
+            raise AssertionError(f"{what}: bad action chunk {q['chunk'].shape}")
+    ms = [q["ms"] for q in log]
+    return {"queries": len(log), "launches_per_query": n_layers, "first_query_ms": ms[0],
+            "steady_query_ms": float(np.median(ms[1:])), "query_ms": ms}
+
+
+def _views_check(policy_fn, obs, views: int, seed: int) -> dict:
+    """At `views` cameras: the request's sequence length, the kernel path
+    against the plain path, and one predict_action traced by torch.profiler
+    (after a warm-up call): wall and device-busy ms, the idle share, the
+    kernels launched and #1's device ms."""
+    from vla_rft_tpu_torch.serving.profile_request import _busy_us
+    from vla_rft_tpu_torch.workers.predict import predict_action
+
+    bundle = policy_fn.bundle
+    if bundle.vla_cfg.num_images != views:
+        raise AssertionError(f"policy built with {bundle.vla_cfg.num_images} views, not {views}")
+    batch = policy_fn.make_batch(obs, EVAL_TASK)
+    dev = batch["pixels"].device
+    noise = torch.randn(1, 8, 7, generator=torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    out = {"views": views,
+           "seq_len": int(batch["input_ids"].shape[1]) + bundle.vla_cfg.total_patches}
+    if views > 1:
+        out["kernel_vs_plain"] = policy_kernel_vs_plain(bundle, batch, noise)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        predict_action(bundle.vla, bundle.expert, batch, noise=noise)
+        with torch.profiler.profile(activities=acts) as prof:
+            _, wall_ms = host_ms(lambda: predict_action(bundle.vla, bundle.expert, batch,
+                                                        noise=noise))
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+    flash = [e.time_range.end - e.time_range.start for e in kernels
+             if "flash_fwd_kernel" in e.name]
+    if len(flash) != bundle.vla_cfg.llm.num_layers:
+        raise AssertionError(f"{views} views: the trace shows {len(flash)} #1 launches")
+    out["traced_predict_action"] = {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms, "kernels": len(kernels),
+        "flash_fwd": {"launches": len(flash), "device_ms": sum(flash) / 1e3}}
+    return out
+
+
+def phase_eval(attention) -> dict:
+    """The eval surface at libero width: main_eval's LIBERO CLI at its
+    defaults (2 views, center crop) on ScriptedEnv, the ALOHA harness at 3
+    views through the action server, the Bridge harness at 1 view in
+    process; each run's #1 launches per query, the kernel path against the
+    plain path at 2 and 3 views, and #1 timed at the 2- and 3-view request
+    shapes."""
+    from vla_rft_tpu_torch.eval import aloha_eval, bridge_eval, main_eval, widowx_gym
+    from vla_rft_tpu_torch.eval import policy as policy_mod
+    from vla_rft_tpu_torch.serving.action_server import ActionServer, get_action_from_server
+
+    torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "eval"}
+
+    # (a) the LIBERO CLI at its defaults; build_policy_fn is wrapped to keep the
+    # policy it builds and to log each query
+    real_build, built = policy_mod.build_policy_fn, {}
+
+    def build(**kwargs):
+        built["policy"] = real_build(**kwargs)
+        built["kwargs"] = kwargs
+        query, built["log"] = _query_log(attention, built["policy"])
+        return query
+
+    policy_mod.build_policy_fn = build
+    stdout = io.StringIO()
+    try:
+        _zero_counts(attention)  # the main path starts here
+        with contextlib.redirect_stdout(stdout):
+            main_eval.main(["--scripted_env"])
+        launches = _counts(attention)  # read right after the main path
+    finally:
+        policy_mod.build_policy_fn = real_build
+    by_rows = dict(attention.launches_by_rows)
+    metrics = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    if metrics.get("success_rate") != 1.0:
+        raise AssertionError(f"main_eval --scripted_env: {metrics}")
+    policy2 = built["policy"]
+    n_layers = policy2.bundle.vla_cfg.llm.num_layers
+    kw = built["kwargs"]
+    if (kw["num_images"], kw["center_crop"], kw["preset"]) != (2, True, "libero"):
+        raise AssertionError(f"main_eval's defaults built {kw}")
+    # policy steps until ScriptedEnv's success, taken from queues of 8
+    expect = -(-(SCRIPTED_SUCCEED_AT - SCRIPTED_WAIT) // 8)
+    libero = {"metrics": metrics, "build_kwargs": kw, "launches": launches,
+              "launches_by_rows": by_rows,
+              **_check_queries(built["log"], n_layers, expect, "main_eval")}
+    if launches != {"flash_fwd": expect * n_layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0} \
+            or by_rows != {1: expect * n_layers}:
+        raise AssertionError(f"main_eval launches {launches}, by rows {by_rows}")
+    rng = np.random.default_rng(21)
+    obs2 = {"full_image": rng.integers(0, 256, (224, 224, 3), dtype=np.uint8),
+            "wrist_image": rng.integers(0, 256, (224, 224, 3), dtype=np.uint8),
+            "proprio": rng.normal(size=8).astype(np.float32)}
+    libero["views"] = _views_check(policy2, obs2, 2, seed=2)
+    out["libero_main_eval"] = libero
+    del built, policy2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) ALOHA at 3 views through the action server (center crop off, the
+    # server's default)
+    policy3 = policy_mod.build_policy_fn(preset="libero", num_images=3, device="cuda", seed=7)
+    server = ActionServer(policy3, host="127.0.0.1", port=0)
+    server.start_background()
+    rig = _AlohaRig(seed=3)
+    try:
+        url = f"http://127.0.0.1:{server.port}/act"
+        query, log = _query_log(attention, lambda obs, task: get_action_from_server(
+            {**obs, "instruction": task}, url, timeout=600))
+        cfg = aloha_eval.AlohaGenerateConfig(num_rollouts_planned=ALOHA_ROLLOUTS,
+                                             max_steps=ALOHA_STEPS, pace_control=False)
+        _zero_counts(attention)
+        res = aloha_eval.run_eval(cfg, query, rig, [EVAL_TASK] * ALOHA_ROLLOUTS)
+        launches = _counts(attention)
+    finally:
+        server.shutdown()
+    steps = [e["total_steps"] for e in res["episodes"]]
+    # each episode requeries when its queue (8 of each chunk) drains
+    expect = ALOHA_ROLLOUTS * -(-ALOHA_STEPS // 8)
+    aloha = {"episodes": len(steps), "steps": steps, "commands": rig.commands,
+             "launches": launches, **_check_queries(log, n_layers, expect, "aloha")}
+    if steps != [ALOHA_STEPS] * ALOHA_ROLLOUTS or rig.commands != sum(steps) \
+            or launches["flash_fwd"] != expect * n_layers:
+        raise AssertionError(f"aloha: steps {steps}, commands {rig.commands}, {launches}")
+    obs3, _ = aloha_eval.prepare_observation(rig.get_observation(), cfg.resize_size)
+    aloha["views"] = _views_check(policy3, obs3, 3, seed=3)
+    out["aloha"] = aloha
+    del policy3, server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) Bridge at 1 view in process (center crop off, as Bridge requires):
+    # one query a step, row 0 of each chunk executed
+    policy1 = policy_mod.build_policy_fn(preset="libero", num_images=1, device="cuda", seed=7)
+    client = _WidowXClient(seed=4)
+    cfg = bridge_eval.BridgeGenerateConfig(max_steps=BRIDGE_STEPS, max_episodes=1,
+                                           pace_control=False)
+    env = widowx_gym.WidowXGym(client, cfg, blocking=False)
+    query, log = _query_log(attention, policy1)
+    _zero_counts(attention)
+    res = bridge_eval.run_eval(cfg, env, query, [EVAL_TASK])
+    launches = _counts(attention)
+    bridge = {"steps": res["episodes"][0]["total_steps"], "launches": launches,
+              **_check_queries(log, n_layers, BRIDGE_STEPS, "bridge")}
+    executed = [np.array_equal(a, q["chunk"][0].astype(np.float32)) for a, q in
+                zip(client.actions, log, strict=True)]
+    if bridge["steps"] != BRIDGE_STEPS or not all(executed):
+        raise AssertionError(f"bridge: {bridge['steps']} steps, row 0 executed {executed}")
+    obs1 = {"full_image": rng.integers(0, 256, (224, 224, 3), dtype=np.uint8),
+            "proprio": rng.normal(size=8).astype(np.float32)}
+    bridge["views"] = _views_check(policy1, obs1, 1, seed=1)
+    out["bridge"] = bridge
+    del policy1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) #1 at the 2- and 3-view request shapes (1 x 608, 1 x 864, 14/2)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out["timed"] = {}
+    for shape, part in (("libero_eval_2view", libero), ("aloha_3view", aloha)):
+        S = part["views"]["seq_len"]
+        out["timed"][shape] = time_flash(attention, gen, shape, 1, S, S, 14, 2, S)
+    out["query_ms_by_views"] = {
+        str(p["views"]["views"]): {"steady_query_ms": p["steady_query_ms"],
+                                   **p["views"]["traced_predict_action"]}
+        for p in (bridge, libero, aloha)}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     emit(out)
     return out
 
@@ -4637,6 +4928,26 @@ def text_entries(text: dict, entry, flash_src: str, dec_src: str, ppo: dict, rm:
     ]
 
 
+def eval_entries(ev: dict, entry, flash_src: str) -> list:
+    """The kernel line's rows of #1 at the eval phase's 2- and 3-view request
+    shapes, with that phase's launches."""
+    rows = []
+    for name, part, desc in (
+            ("libero_eval_2view", ev["libero_main_eval"],
+             "main_eval --scripted_env at its defaults (2 views, center crop)"),
+            ("aloha_3view", ev["aloha"],
+             f"the ALOHA harness through the action server ({ALOHA_ROLLOUTS} rollouts x "
+             f"{ALOHA_STEPS} steps)")):
+        t = ev["timed"][name]
+        rows.append({**entry(f"flash_fwd@{name}", flash_src, "vla_rft_tpu/ops/attention.py:108",
+                             part["launches"]["flash_fwd"], t["max_abs_err_o"], t),
+                     "shape": f"B=1 Sq=Sk={t['Sq']} Hq/Hkv=14/2 D=64 causal: a "
+                              f"{part['views']['views']}-view request (text + "
+                              f"{part['views']['views']} x 256 patches); launches: {desc}, "
+                              f"{part['queries']} queries x {part['launches_per_query']}"})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4673,6 +4984,7 @@ def main() -> int:
     fused_attn = timed("fused_decode_attention", phase_fused_decode_attention, fda, heads)
     fused = timed("fused_decode", phase_fused_decode, fdl)
     serving = timed("serving", phase_serving, attention)
+    ev = timed("eval", phase_eval, attention)
     wm = timed("wm_reward", phase_wm_reward, mods)
     plain = timed("wm_plain", phase_wm_plain, mods, wm)
     wm["plain_tokens"] = plain["tokens"]
@@ -4772,7 +5084,9 @@ def main() -> int:
                  flash["timed"]["serving"]),
          "grpo_rlds_launches_per_step": rlds_n["flash_fwd"],
          "sft_align_launches": align_n["flash_fwd"],
-         "sft_align_shape": f"B=16 S=352 Hq/Hkv=14/2 D=64 causal, {n_align} steps"},
+         "sft_align_shape": f"B=16 S=352 Hq/Hkv=14/2 D=64 causal, {n_align} steps",
+         "eval_bridge_launches": ev["bridge"]["launches"]["flash_fwd"]},
+        *eval_entries(ev, entry, flash_src),
         {**entry("flash_fwd@sft_text", flash_src, "vla_rft_tpu/ops/attention.py:108",
                  text_n["flash_fwd"], flash["timed"]["sft_text"]["max_abs_err_o"],
                  flash["timed"]["sft_text"]),

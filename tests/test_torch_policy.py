@@ -63,7 +63,7 @@ def policies():
                 port=port)
 
 
-def _batch(seed, vcfg, B=2, S=32):
+def _batch(seed, vcfg, B=2, S=32, views=1):
     rng = np.random.default_rng(seed)
     n = vcfg.num_tokens
     labels = np.full((B, S), -100, np.int64)
@@ -73,7 +73,7 @@ def _batch(seed, vcfg, B=2, S=32):
     ids[:, 10: 10 + n] = aids
     mask = np.ones((B, S), np.int64)
     mask[1, 24:] = 0  # right padding on row 1
-    pixels = rng.uniform(size=(B, 28, 28, 6)).astype(np.float32)
+    pixels = rng.uniform(size=(B, 28, 28, 6 * views)).astype(np.float32)
     proprio = rng.normal(size=(B, 8)).astype(np.float32)
     jb = {
         "input_ids": jnp.asarray(ids, jnp.int32), "labels": jnp.asarray(labels, jnp.int32),

@@ -12,9 +12,8 @@ get_vla_action (openvla_utils.py:746-840).
 MuJoCo/LIBERO stays host-side CPU exactly as in the reference (SURVEY §2.8);
 the policy is served from a resident predict_action.  The env is
 pluggable: `run_suite_eval` takes a factory of (env, language, init
-states), such as eval/mujoco_push_env.py's `make_push_env`.  LIBERO's own
-env factory, the scripted stand-in env and the letterbox resize are ported
-with the LIBERO harness.
+states): `make_libero_env` imports LIBERO lazily, eval/mujoco_push_env.py's
+`make_push_env` builds the push env, and tests use `ScriptedEnv`.
 """
 from __future__ import annotations
 
@@ -135,6 +134,57 @@ def quat2axisangle(quat: np.ndarray) -> np.ndarray:
     if den < 1e-8:
         return np.zeros(3)
     return (q[:3] * 2.0 * np.arccos(w)) / den
+
+
+class ScriptedEnv:
+    """Deterministic fake env for harness tests (the reference's analog is
+    the digit-completion env, tests/e2e/envs/digit_completion)."""
+
+    def __init__(self, horizon: int = 32, succeed_at: Optional[int] = 20, image_size: int = 64):
+        self.horizon = horizon
+        self.succeed_at = succeed_at
+        self.image_size = image_size
+        self.t = 0
+
+    def reset(self):
+        self.t = 0
+        return self._obs()
+
+    def set_init_state(self, state):
+        return self._obs()
+
+    def _obs(self):
+        img = np.full((self.image_size, self.image_size, 3), self.t % 255, np.uint8)
+        return {
+            "agentview_image": img,
+            "robot0_eye_in_hand_image": img // 2,
+            "robot0_eef_pos": np.zeros(3),
+            "robot0_eef_quat": np.array([0, 0, 0, 1.0]),
+            "robot0_gripper_qpos": np.zeros(2),
+        }
+
+    def step(self, action):
+        self.t += 1
+        done = self.succeed_at is not None and self.t >= self.succeed_at
+        return self._obs(), float(done), done, {}
+
+
+def make_libero_env(task_suite_name: str, task_id: int, resolution: int = 256):
+    """libero_utils.get_libero_env: imports LIBERO lazily (CPU MuJoCo); its
+    ImportError propagates when LIBERO is absent."""
+    from libero.libero import benchmark
+
+    suite = benchmark.get_benchmark_dict()[task_suite_name]()
+    task = suite.get_task(task_id)
+    from libero.libero.envs import OffScreenRenderEnv
+
+    env = OffScreenRenderEnv(
+        bddl_file_name=suite.get_task_bddl_file_path(task_id),
+        camera_heights=resolution,
+        camera_widths=resolution,
+    )
+    init_states = suite.get_task_init_states(task_id)
+    return env, task.language, init_states
 
 
 def prepare_observation(
@@ -275,3 +325,19 @@ def run_suite_eval(
         "success_rate": success / max(total, 1),
         **{f"task_{k}/success": v for k, v in per_task.items()},
     }
+
+
+def letterbox_image(img: np.ndarray, size: int, fill: int = 127) -> np.ndarray:
+    """PrismaticImageProcessor 'letterbox' resize strategy
+    (processing_prismatic.py:38-90): pad to square with mid-gray, then resize.
+    LIBERO renders square images so this is a no-op there; kept for parity
+    with non-square cameras."""
+    h, w = img.shape[:2]
+    if h != w:
+        side = max(h, w)
+        canvas = np.full((side, side, img.shape[2]), fill, img.dtype)
+        y0 = (side - h) // 2
+        x0 = (side - w) // 2
+        canvas[y0 : y0 + h, x0 : x0 + w] = img
+        img = canvas
+    return resize_image_for_policy(img, size)
