@@ -81,7 +81,7 @@ Phases, one JSON line each:
                   weights): eval/main_eval.py's LIBERO CLI at its defaults
                   (2 views, center crop) on ScriptedEnv must report
                   success_rate 1.0 from the derived 2 queries; the ALOHA
-                  harness (2 rollouts x 40 steps, a stand-in rig of 480 x
+                  harness (2 rollouts x 8 steps, a stand-in rig of 480 x
                   640 cameras and 14 dof) queries a 3-view policy behind
                   ActionServer, one query per 8 steps, every command
                   received; the Bridge harness over WidowXGym and a
@@ -113,9 +113,9 @@ Phases, one JSON line each:
                   on the logits of every call;
  10. grpo       - the GRPO training step through
                   trainer/main_vla_rft_grpo.run at the libero preset with
-                  world_model_rollout.rollout.weights_int8=true, 2 steps of
-                  2 samples x n = 4 (one WM call of 10 rows), every other
-                  setting the config default: per step the stage times, the
+                  world_model_rollout.rollout.weights_int8=true, one step
+                  (no lr warm-up) of 2 samples x n = 4 (one WM call of 10
+                  rows), every other setting the config default: the stage times, the
                   peak memory and exact launches (#1 24 + 24, #4 24 x 521,
                   #8 24 x 520, #9 3 x 24 x 520, every other kernel 0); every
                   trained expert leaf moved, every VLM / WM / tokenizer /
@@ -214,15 +214,42 @@ Phases, one JSON line each:
                   libjpeg-turbo), bit-equal to the reference's pixels; 2
                   shards x 3 episodes x 40 steps written with the port's
                   Example and TFRecord writers, read back by the native and
-                  the plain reader; 2 grpo steps through main_vla_rft_grpo.run
-                  on the records, weights_int8 and val_before_train (one val
-                  batch from the val shard): the two batches the trainer
-                  draws (val_fraction 0.5, image_aug, the crc32 stub
+                  the plain reader; one grpo step (no lr warm-up) through
+                  main_vla_rft_grpo.run on the records, weights_int8 and
+                  val_before_train (one val batch from the val shard): the
+                  trainer's batch and the next one its dataset draws
+                  (val_fraction 0.5, image_aug, the crc32 stub
                   tokenizer) hold the reference's SHA-256 digests in the
                   fixture, every field; the grpo phase's exact launches,
                   finite metrics, moved / frozen leaves; the data's seconds
                   (first batch, steady), host RSS and device peaks, the host
                   libraries' build;
+     parallel   - parallel/ over two ranks sharing the card (cuda:0 for
+                  LOCAL_RANK % 1, gloo: NCCL refuses two ranks on one
+                  device), each a process of this script: a probe of which
+                  collectives gloo carries on CUDA tensors (one process
+                  pair, a new one after a collective that aborts it; the
+                  port stages the rest through host memory, chosen by the
+                  backend), printed with which axes ran at 2 ranks and
+                  why; main_vla_rft_grpo.run at the grpo phase's settings
+                  (int8 WM, greedy, no lr warm-up, one step) over dp = 2
+                  and over fsdp = 2 and, with the teacher-forced WM reward
+                  (trainer.reward_fn=wm_logprob), at 1 rank here and over
+                  fsdp = 2 (dp = 2 where gloo lacks FSDP2's collectives)
+                  on the same global batch and draws: exact launches of
+                  #1 / #4 / #8 / #9 (#1 alone with that reward) per rank, the
+                  experts bit-identical across ranks, every expert leaf
+                  moved and every frozen one bit-identical, rank 0 alone
+                  checkpointing, each rank's peak memory (the pair under
+                  80 GiB), the 2-rank teacher-forced step within bounds of
+                  the 1-rank one; Qwen2.5-0.5B at full width on 2 x 1663 tokens over
+                  sp = 2 (Ulysses, the sequence padded to 1664), tp = 2
+                  and pp = 2 (12 layers a stage, 2 micro-batches): logits,
+                  loss and (sp, pp) the gradient of the embedding output
+                  against the unsharded route within sft_text's bounds,
+                  #1 (and #2 / #3) launches per rank; #1 at 2 x 1663 with
+                  7/1 heads (a rank's under sp or tp) and the WM prefill
+                  at 8/8, #2 / #3 at 7/1, held against the twins and timed;
  12. text_gen   - text generation at Qwen2.5-0.5B width (vocabulary 151,936)
                   through trainer/main_generation.run at the config's sizes:
                   a seeded random checkpoint under HF names, a word-level
@@ -274,13 +301,15 @@ Phases, one JSON line each:
                   gradients of pad positions exactly 0, finite, three calls
                   the same bits, timed beside the twin and the masked
                   enable_gqa SDPA backward; then one gae step of 2 prompts
-                  x 16 at lr 5e-3 (its critic's values and updates: the
+                  x 16 of 142 tokens (a quarter of 568) at lr 5e-3 (its
+                  critic's values and updates: the
                   exact launches; every policy and critic parameter moved,
                   the reference policy bit-identical);
      reward_models - main_ppo.run with text RL's reward models on text_gen's
                   inputs, bf16, enable_gradient_checkpointing: one PRIME step
-                  at the config's sizes with recipe/prime.sh's overrides
-                  (256 rows x 568; ce, token, update after, lr 1e-6; the
+                  at the config's shapes with recipe/prime.sh's overrides
+                  (8 of its 16 prompts: 128 rows x 568 tokens; ce, token,
+                  update after, lr 1e-6; the
                   RM's log-probs in chunks of 16, its reference's those of
                   the reference policy, which it is, in chunks of 8, the
                   RM's update in micro-batches of 16 rows): exact launches
@@ -297,13 +326,13 @@ Phases, one JSON line each:
                   route's own attention, the kernel route against the
                   plain route and an f64-attention route (sft_text's
                   bounds).  Then one grpo step with the value-head RM cut
-                  to 2 prompts x 16 (a gsm8k prompt and one of a data
+                  to 2 prompts x 16 of 142 tokens (a gsm8k prompt and one of a data
                   source with no rule scorer): the rule rows carry the
                   reward manager's scores, the others the RM's at their
                   last valid token, within 2 x 5e-2 x max|score| of the
                   plain route's; and two PRIME steps of PRIME's other
                   branch (dpo, bon_rm, whole, update before) cut the same
-                  way at RM lr 5e-3, outcomes from a stand-in verifier
+                  ways at RM lr 5e-3, outcomes from a stand-in verifier
                   (the parity of the response's length): step 1's
                   prime/rm_loss the tie value n x rows x ln 2 (the RM is
                   its reference), step 2's not, with a group of both
@@ -328,6 +357,7 @@ import shutil
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -687,6 +717,69 @@ def phase_flash(attention) -> dict:
     return out
 
 
+def time_flash_bwd(attention, gen, shape, B, S, Hq, Hkv, kv_len, check: bool = False) -> dict:
+    """#2 and #3 at one causal shape: three calls the same bits, their time
+    replayed from a CUDA graph beside the twin's, SDPA's autograd backward
+    (a yardstick) and the bound; with `check` also held against the twin
+    at this shape (max_abs_err per kernel)."""
+    dev = torch.device("cuda")
+    q, do = (torch.randn(B, S, Hq, 64, generator=gen, device=dev).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, 64, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    rows = {"kv_lens": torch.tensor(kv_len, dtype=torch.int32, device=dev).expand(B)
+            .contiguous(),
+            "kv_starts": torch.zeros(B, dtype=torch.int32, device=dev),
+            "q_offset": torch.zeros(B, dtype=torch.int32, device=dev)}
+    o, lse = attention.flash_fwd(q, k, v, causal=True, **rows)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    kw = dict(causal=True, **rows)
+    errs = {}
+    if check:
+        got = attention.flash_bwd(q, k, v, o, lse, do, **kw)
+        ref = attention.attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        for g_name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            e = (g.float() - r.float()).abs().max().item()
+            lim = BWD_RTOL * r.float().abs().max().item() + BWD_ATOL
+            if not (e <= lim and bool(torch.isfinite(g.float()).all())):
+                raise AssertionError(f"flash_bwd at {shape}: max|d{g_name}| {e} > {lim}")
+            errs[g_name] = e
+        del got, ref
+    plain_ms = graph_ms(lambda: attention.attention_bwd_plain(q, k, v, o, lse, do, **kw), 3)
+    # autograd backward of SDPA over the same rows (a yardstick: the port
+    # never calls it): forward + backward replayed from a CUDA graph,
+    # less the forward alone
+    n = kv_len if isinstance(kv_len, int) else S
+    leaves = [x[:, :n].transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+    sdpa = _sdpa_yardstick(*leaves)
+    do_lib = do[:, :n].transpose(1, 2)
+    library_ms = (graph_ms(lambda: torch.autograd.grad(sdpa(), leaves, do_lib))
+                  - graph_ms(sdpa))
+    work = bwd_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"], True)
+    entry = {"B": B, "S": S, "kv_len": kv_len, "Hq": Hq, "Hkv": Hkv, "D": 64, "causal": True,
+             "plain_ms": plain_ms, "library_ms": library_ms}
+    dkv = lambda: attention.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq = lambda: attention.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    for name, fn in (("flash_bwd_dkv", dkv), ("flash_bwd_dq", dq)):
+        if not repeats_bit_for_bit(fn):
+            raise AssertionError(f"{name} at {shape}: three calls gave different bits")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {
+        "dq": {**entry, "kernel_ms": graph_ms(dq), "eager_ms": cuda_ms(dq),
+               "repeats_bit_for_bit": True,
+               "plan": attention.dq_plan(B, S, Hq, True),
+               **bound(*work["dq"])},
+        "dkv": {**entry, "kernel_ms": graph_ms(dkv), "eager_ms": cuda_ms(dkv),
+                "repeats_bit_for_bit": True, "plan": attention.dkv_plan(B, S, Hq, Hkv, sms),
+                **bound(*work["dkv"])},
+    }
+    if check:
+        out["dq"]["max_abs_err"] = errs["dq"]
+        out["dkv"]["max_abs_err"] = max(errs["dk"], errs["dv"])
+    del leaves
+    return out
+
+
 def phase_flash_bwd(attention) -> dict:
     """Kernels #2 and #3 against the backward twin, then timed at the two
     SFT shapes."""
@@ -739,52 +832,11 @@ def phase_flash_bwd(attention) -> dict:
     # 96 text + 256 patch tokens, the last text token padding, 14/2 heads),
     # the WM-SFT step's layer (4 rows of 1663 tokens, 16/16 heads) and the
     # text-SFT step's (4 ragged rows of 1663, 14/2 heads)
-    timed = {}
-    for shape, B, S, Hq, Hkv, kv_len in (("vla_adapter", 16, 352, 14, 2, 351),
-                                         ("wm_sft", WM_SFT_ROWS, WM_SFT_LEN, 16, 16,
-                                          WM_SFT_LEN),
-                                         ("sft_text", SFT_TEXT_BATCH, WM_SFT_LEN, 14, 2,
-                                          SFT_TEXT_KV_LENS)):
-        q, do = (torch.randn(B, S, Hq, 64, generator=gen, device=dev).bfloat16()
-                 for _ in range(2))
-        k, v = (torch.randn(B, S, Hkv, 64, generator=gen, device=dev).bfloat16()
-                for _ in range(2))
-        rows = {"kv_lens": torch.tensor(kv_len, dtype=torch.int32, device=dev).expand(B)
-                .contiguous(),
-                "kv_starts": torch.zeros(B, dtype=torch.int32, device=dev),
-                "q_offset": torch.zeros(B, dtype=torch.int32, device=dev)}
-        o, lse = attention.flash_fwd(q, k, v, causal=True, **rows)
-        delta = (do.float() * o.float()).sum(dim=-1)
-        kw = dict(causal=True, **rows)
-        plain_ms = graph_ms(lambda: attention.attention_bwd_plain(q, k, v, o, lse, do, **kw), 3)
-        # autograd backward of SDPA over the same rows (a yardstick: the port
-        # never calls it): forward + backward replayed from a CUDA graph,
-        # less the forward alone
-        n = kv_len if isinstance(kv_len, int) else S
-        leaves = [x[:, :n].transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
-        sdpa = _sdpa_yardstick(*leaves)
-        do_lib = do[:, :n].transpose(1, 2)
-        library_ms = (graph_ms(lambda: torch.autograd.grad(sdpa(), leaves, do_lib))
-                      - graph_ms(sdpa))
-        work = bwd_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"], True)
-        entry = {"B": B, "S": S, "kv_len": kv_len, "Hq": Hq, "Hkv": Hkv, "D": 64, "causal": True,
-                 "plain_ms": plain_ms, "library_ms": library_ms}
-        dkv = lambda: attention.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        dq = lambda: attention.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-        for name, fn in (("flash_bwd_dkv", dkv), ("flash_bwd_dq", dq)):
-            if not repeats_bit_for_bit(fn):
-                raise AssertionError(f"{name} at {shape}: three calls gave different bits")
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        timed[shape] = {
-            "dq": {**entry, "kernel_ms": graph_ms(dq), "eager_ms": cuda_ms(dq),
-                   "repeats_bit_for_bit": True,
-                   "plan": attention.dq_plan(B, S, Hq, True),
-                   **bound(*work["dq"])},
-            "dkv": {**entry, "kernel_ms": graph_ms(dkv), "eager_ms": cuda_ms(dkv),
-                    "repeats_bit_for_bit": True, "plan": attention.dkv_plan(B, S, Hq, Hkv, sms),
-                    **bound(*work["dkv"])},
-        }
-        del leaves
+    timed = {shape: time_flash_bwd(attention, gen, shape, B, S, Hq, Hkv, kv_len)
+             for shape, B, S, Hq, Hkv, kv_len in (
+                 ("vla_adapter", 16, 352, 14, 2, 351),
+                 ("wm_sft", WM_SFT_ROWS, WM_SFT_LEN, 16, 16, WM_SFT_LEN),
+                 ("sft_text", SFT_TEXT_BATCH, WM_SFT_LEN, 14, 2, SFT_TEXT_KV_LENS))}
     out = {"phase": "flash_bwd", "cases": results, "max_abs_err": err,
            "tolerance": f"max|d| <= {BWD_RTOL} * max|ref| + {BWD_ATOL} per gradient",
            "timed": timed}
@@ -885,7 +937,7 @@ def phase_serving(attention) -> dict:
 # its step 12, after 2 settling steps), the ALOHA run through the action
 # server and the in-process Bridge run
 SCRIPTED_SUCCEED_AT, SCRIPTED_WAIT = 12, 2
-ALOHA_ROLLOUTS, ALOHA_STEPS, BRIDGE_STEPS = 2, 40, 5
+ALOHA_ROLLOUTS, ALOHA_STEPS, BRIDGE_STEPS = 2, 8, 5
 EVAL_TASK = "put the black bowl on the plate"
 
 
@@ -1768,7 +1820,11 @@ def phase_fused_decode(fdl) -> dict:
     return out
 
 
-GRPO_STEPS = 2
+# one step each in the grpo and grpo_rlds phases (two before the parallel
+# phase came), without the lr warm-up, whose first step is 0 for the flow
+# head, so that every expert leaf moves
+GRPO_STEPS = 1
+NO_WARMUP = "actor_rollout_ref.actor.optim.lr_warmup_steps=0"
 
 
 def _drive_grpo(mods, argv, expect_fn, n_steps: int = GRPO_STEPS, check_start=None,
@@ -1863,7 +1919,8 @@ def phase_grpo(mods) -> dict:
     from vla_rft_tpu_torch.models.transformer import decode_step_fused
 
     tr, steps, expect, run_s, n_expert, n_frozen = _drive_grpo(
-        mods, ["world_model_rollout.rollout.weights_int8=true"], grpo_expect(mods[3]))
+        mods, ["world_model_rollout.rollout.weights_int8=true", NO_WARMUP],
+        grpo_expect(mods[3]))
     b, roll = tr.bundle, tr.bundle.roll_cfg
     fused_calls = roll.num_frames * (roll.interact_max_tokens + 1)
 
@@ -2802,9 +2859,9 @@ def phase_grpo_rlds(mods, build: dict) -> dict:
     against the reference's pixels, bit for bit; (2) RLDS_SHARDS x
     RLDS_EPISODES x RLDS_STEPS records written with the port's writers and
     read back through the native and the plain TFRecord readers, the same
-    bytes; (3) two grpo steps through main_vla_rft_grpo.run on those records
+    bytes; (3) one grpo step through main_vla_rft_grpo.run on those records
     with weights_int8 and val_before_train (one val batch, from the val
-    shard): the two batches the trainer draws (val_fraction 0.5, the crc32
+    shard): the trainer's batch and the next its dataset draws (val_fraction 0.5, the crc32
     stub tokenizer, image_aug on) hold the reference's digests in the
     fixture, every field's bytes; the grpo phase's exact launches, finite
     metrics, the expert moved, frozen leaves bit-identical; (4) the data's
@@ -2856,8 +2913,10 @@ def phase_grpo_rlds(mods, build: dict) -> dict:
     tr, steps, expect, run_s, n_expert, n_frozen = _drive_grpo(
         mods, [f"data.video.dataset_path={data_dir}", *RLDS_ARGV,
                "world_model_rollout.rollout.weights_int8=true", "trainer.val_before_train=true",
-               "trainer.val_iters=1"],
+               "trainer.val_iters=1", NO_WARMUP],
         grpo_expect(mods[3]), check_start=check_start, tokenizer=_StubTokenizer())
+    while len(checked) < len(digests["batches"]):  # the batches a longer run would draw
+        tr.dataset.next_batch()
     if len(checked) != len(digests["batches"]):
         raise AssertionError(f"the trainer drew {len(checked)} batches, the fixture holds "
                              f"{len(digests['batches'])}")
@@ -4185,6 +4244,10 @@ def phase_text_gen(mods, fda) -> dict:
 # remat): without it the 16-row update needs more than the card's 80 GB
 # (PERF.md section 6, text RL)
 PPO_GAE_PROMPTS, PPO_RAISED_LR = 2, 5e-3
+# the cut steps (gae, the value-head RM, PRIME's dpo branch) generate a
+# quarter of the config's 568 tokens: their decode loop is host-paced, so
+# its time follows the response length, not the rows
+TEXT_R_CUT = 142
 PPO_KL_TOL = 1e-6  # on-policy identity: first mini-batch ppo_kl, ref vs old log-probs
 
 
@@ -4196,7 +4259,7 @@ def _ppo_expect(prompts: int, config, critic: bool, validate: bool) -> dict:
     layer one #1, #2 and #3 for the actor update (and for the critic's),
     and one more #1 when the layers are recomputed in the backward
     (enable_gradient_checkpointing)."""
-    L, R = 24, TEXT_R
+    L, R = 24, config.actor_rollout_ref.rollout.response_length
     roll, n = config.actor_rollout_ref.rollout, config.actor_rollout_ref.rollout.n
     if validate:
         return _text_expect(flash_fwd=L, decode_hd=L * R)
@@ -4444,7 +4507,8 @@ def phase_ppo(mods, fda) -> dict:
         # ------------------------------- gae: critic, raised lr, cut rows
         argv = common + [f"data.train_batch_size={PPO_GAE_PROMPTS}", "algorithm.adv_estimator=gae",
                          f"actor_rollout_ref.actor.optim.lr={PPO_RAISED_LR}",
-                         f"critic.optim.lr={PPO_RAISED_LR}"]
+                         f"critic.optim.lr={PPO_RAISED_LR}",
+                         f"actor_rollout_ref.rollout.response_length={TEXT_R_CUT}"]
         config = vla_rft_default_config().apply_overrides(argv)
         rec = _drive_ppo(mods, fda, argv, written)
         tr = rec.pop("trainer")
@@ -4474,7 +4538,9 @@ def phase_ppo(mods, fda) -> dict:
                "policy_parameters_moved": len(written),
                "critic_parameters_moved": len(rec["critic_start"]),
                "reference_policy_bit_identical": True,
-               "cut": f"data.train_batch_size={PPO_GAE_PROMPTS} (config 16); lr {PPO_RAISED_LR}"}
+               "cut": f"data.train_batch_size={PPO_GAE_PROMPTS} (config 16); "
+                      f"actor_rollout_ref.rollout.response_length={TEXT_R_CUT} "
+                      f"(config {TEXT_R}); lr {PPO_RAISED_LR}"}
         print(f"[ppo] gae step {gstep['s']:.1f} s, peak {gstep['peak_mem_gib']:.2f} GiB, "
               f"launches {gstep['launches']}", flush=True)
         del tr, rec
@@ -4493,12 +4559,12 @@ def phase_ppo(mods, fda) -> dict:
 
 # reward_models: main_ppo.run with the reward models on text_gen's inputs, bf16,
 # enable_gradient_checkpointing (the decoder's remat, for PRIME's RM as for
-# the policy).  (a) PRIME at the config's sizes with recipe/prime.sh's
-# overrides (ce, token, update after, lr 1e-6): 16 prompts x n = 16 = 256
-# rows x 568, the RM's log-probs in chunks of 16 rows, the reference's those
-# of the reference policy (chunks of 8, temperature 1), the RM's update
-# in micro-batches of 16 rows (actor.ppo_mini_batch_size, whole groups of
-# n), then 16 actor updates.  (b) the value-head RM, grpo, cut to
+# the policy).  (a) PRIME at the config's shapes with recipe/prime.sh's
+# overrides (ce, token, update after, lr 1e-6), cut to PRIME_PROMPTS of its
+# 16 prompts: 8 prompts x n = 16 = 128 rows x 568, the RM's log-probs in
+# chunks of 16 rows, the reference's those of the reference policy (chunks
+# of 8, temperature 1), the RM's update in micro-batches of 16 rows
+# (actor.ppo_mini_batch_size, whole groups of n), then 8 actor updates.  (b) the value-head RM, grpo, cut to
 # RM_CUT_PROMPTS prompts x 16: one of a gsm8k prompt, one of a data source
 # with no rule scorer.  (c) PRIME's other branch (dpo, bon_rm, whole,
 # update before), cut the same way, two steps, at RM_RAISED_LR for the RM so
@@ -4510,6 +4576,9 @@ PRIME_RECIPE = ["algorithm.adv_estimator=prime", "algorithm.reward_gt_coef=5.0",
                 "reward_model.loss_type=ce", "reward_model.beta_train=0.05",
                 "reward_model.lr=1e-6", "actor_rollout_ref.actor.use_kl_loss=False"]
 RM_CUT_PROMPTS, RM_RAISED_LR = 2, 5e-3
+# the PRIME step's prompts: rows, not the 568-token response, are cut (the
+# decode loop is host-paced, so the rows cost the update's time alone)
+PRIME_PROMPTS = 8
 RM_UNSCORED = "custom/no_rule_scorer"
 PRIME_DPO_BRANCH = ["reward_model.loss_type=dpo", "reward_model.bon_mode=bon_rm",
                     "reward_model.prime_granularity=whole", "reward_model.update=before",
@@ -4643,8 +4712,9 @@ def phase_reward_models(mods, fda) -> dict:
         common = [f"actor_rollout_ref.model.ckpt_path={ckpt}", "trainer.total_training_steps=1",
                   "actor_rollout_ref.model.enable_gradient_checkpointing=true"]
 
-        # --------------------------- (a) PRIME at the config's sizes (main path)
-        argv = common + [f"data.train_files={prompts}"] + PRIME_RECIPE
+        # ---------- (a) PRIME at the config's shapes, PRIME_PROMPTS prompts (main path)
+        argv = common + [f"data.train_files={prompts}",
+                         f"data.train_batch_size={PRIME_PROMPTS}"] + PRIME_RECIPE
         config = vla_rft_default_config().apply_overrides(argv)
         rec = _drive_ppo(mods, fda, argv, written, on_load=_record_rm(written))
         tr = rec.pop("trainer")
@@ -4705,7 +4775,9 @@ def phase_reward_models(mods, fda) -> dict:
                                  f"expected {at_8} of 8 rows")
         main.update({
             "prompts": prompts_n, "rows": prompts_n * config.actor_rollout_ref.rollout.n,
-            "response_length": TEXT_R, "update_micro_batch": mb["input_ids"].shape[0],
+            "response_length": config.actor_rollout_ref.rollout.response_length,
+            "cut": f"data.train_batch_size={PRIME_PROMPTS} (config 16)",
+            "update_micro_batch": mb["input_ids"].shape[0],
             "settings": PRIME_RECIPE, "process_scores_exactly_0": True,
             "flash_fwd_launches_at_8_rows_expected": at_8,
             "prime_reference_bit_identical": True,
@@ -4720,7 +4792,8 @@ def phase_reward_models(mods, fda) -> dict:
 
         # ------------------ (b) the value-head RM, grpo, a prompt of each kind
         argv = common + [f"data.train_files={mixed}", f"data.train_batch_size={RM_CUT_PROMPTS}",
-                         "reward_model.enable=True"]
+                         "reward_model.enable=True",
+                         f"actor_rollout_ref.rollout.response_length={TEXT_R_CUT}"]
         config = vla_rft_default_config().apply_overrides(argv)
         rec = _drive_ppo(mods, fda, argv, written, on_load=_record_rm(written))
         tr = rec.pop("trainer")
@@ -4739,12 +4812,12 @@ def phase_reward_models(mods, fda) -> dict:
             tr.rm.backbone.attn_impl = "plain"
             try:
                 plain = compute_rm_score(tr.rm, g["input_ids"][other], g["attention_mask"][other],
-                                         g["position_ids"][other], TEXT_R)
+                                         g["position_ids"][other], TEXT_R_CUT)
             finally:
                 tr.rm.backbone.attn_impl = "auto"
             every = token_outputs(tr.rm, g["input_ids"][other], g["attention_mask"][other],
-                                  g["position_ids"][other], TEXT_R)
-            max_score = every[:, -TEXT_R:].abs().max().item()
+                                  g["position_ids"][other], TEXT_R_CUT)
+            max_score = every[:, -TEXT_R_CUT:].abs().max().item()
         model_rows = got[other]
         last = torch.as_tensor(resp_mask[~rule].sum(1) - 1, device=got.device).clamp_min(0)
         at_last = model_rows.gather(1, last.long()[:, None])[:, 0]
@@ -4764,7 +4837,9 @@ def phase_reward_models(mods, fda) -> dict:
                       "model_scores": at_last.tolist()[:4],
                       "kernel_vs_plain_max_abs": d_score, "max_abs_score": max_score,
                       "bound": score_bound,
-                      "cut": f"data.train_batch_size={RM_CUT_PROMPTS} (config 16)"})
+                      "cut": f"data.train_batch_size={RM_CUT_PROMPTS} (config 16); "
+                             f"actor_rollout_ref.rollout.response_length={TEXT_R_CUT} "
+                             f"(config {TEXT_R})"})
         print(f"[reward_models] value-head step {value['step_s']:.1f} s, kernel vs plain "
               f"{d_score:.3g} (bound {score_bound:.3g}), launches {value['launches']}",
               flush=True)
@@ -4780,7 +4855,8 @@ def phase_reward_models(mods, fda) -> dict:
         # random weights answer no gsm8k prompt, and the DPO loss holds a row's
         # Q against those of its group's members of the other outcome
         argv = common + [f"data.train_files={prompts}", f"data.train_batch_size={RM_CUT_PROMPTS}",
-                         *PRIME_RECIPE, *PRIME_DPO_BRANCH, "trainer.total_training_steps=2"]
+                         *PRIME_RECIPE, *PRIME_DPO_BRANCH, "trainer.total_training_steps=2",
+                         f"actor_rollout_ref.rollout.response_length={TEXT_R_CUT}"]
         config = vla_rft_default_config().apply_overrides(argv)
         record = _record_rm(written)
 
@@ -4826,8 +4902,9 @@ def phase_reward_models(mods, fda) -> dict:
                     "process_scores": [{"max_abs": s.abs().max().item(),
                                         "nonzero_per_row_max": k}
                                        for s, k in zip(scores, per_row)],
-                    "cut": f"data.train_batch_size={RM_CUT_PROMPTS} (config 16); RM lr "
-                           f"{RM_RAISED_LR}"})
+                    "cut": f"data.train_batch_size={RM_CUT_PROMPTS} (config 16); "
+                           f"actor_rollout_ref.rollout.response_length={TEXT_R_CUT} "
+                           f"(config {TEXT_R}); RM lr {RM_RAISED_LR}"})
         print(f"[reward_models] dpo steps {dpo['step_s']:.1f} / "
               f"{dpo['later_steps'][0]['step_s']:.1f} s, rm_loss {rm_loss} (tie {tie:.6g}), "
               f"peak {dpo['peak_mem_gib']:.2f} GiB, launches {dpo['launches']}", flush=True)
@@ -4846,6 +4923,666 @@ def phase_reward_models(mods, fda) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ parallel
+# two ranks share the one card (cuda:{LOCAL_RANK % 1}) over gloo: NCCL
+# refuses two ranks on one device
+PAR_WORLD = 2
+GLOO_PROBES = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "all_to_all_single", "send_recv")
+# what torch's own collectives need: FSDP2 all-gathers its shards and
+# reduce-scatters their gradients (a dp x fsdp mesh adds an all-reduce)
+FSDP_NEEDS = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce")
+PAR_QWEN_BATCH, PAR_QWEN_SEED = 2, 22
+# the 2-rank GRPO step (teacher-forced WM reward) against the 1-rank step
+# on the same global batch and draws: PAR_COMPARED within WM_LOGIT_TOL
+# relative (each rank encodes, rolls out and scores 1 sample where one
+# rank does 2: bf16 GEMMs of another shape) plus PAR_ATOL, actor/grad_norm among them (a gradient
+# not summed over the ranks is off by 2x); and the expert's update, each
+# leaf's max difference within 2 x its 1-rank max step.  Adam's first step
+# is +-lr a parameter whatever |g| (|g| >> eps), so every gradient element
+# whose sign the bf16 noise of the other shapes decides steps 2 lr apart:
+# the share of elements more than 1e-3 x the step apart is a measure of
+# that noise (about 0.1 on an H100), gated at PAR_STEP_SHARE, half of what
+# an update uncorrelated with the 1-rank one would give
+PAR_STEP_SHARE = 0.25
+# absolute floors for the near-zero metrics: the on-policy ppo_kl and
+# pg_loss are means of bf16 log-prob differences (|log p| ~ 6, a bf16 ulp
+# 2^-8 of that), 0 wherever both runs replay with the same shapes
+PAR_ATOL = {"actor/ppo_kl": 1e-3, "actor/pg_loss": 1e-3, "actor/pg_clipfrac": 1e-3,
+            "critic/advantages/max": 1e-4, "critic/advantages/min": 1e-4}
+PAR_COMPARED = ("critic/rewards/mean", "critic/rewards/max", "critic/rewards/min",
+                "critic/advantages/max", "critic/advantages/min", "critic/recon_loss/mean",
+                "critic/perceptual_loss/mean", "actor/pg_loss", "actor/grad_norm",
+                "actor/entropy", "actor/ppo_kl", "actor/pg_clipfrac",
+                "actor/old_log_prob_mean", "actor/predicted_action_abs_mean")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+_RANK_PROCS = []  # every rank process started, stopped when the phase ends
+
+
+def _stop_ranks() -> None:
+    for p in _RANK_PROCS:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    _RANK_PROCS.clear()
+
+
+def _start_ranks(task: str, world: int, payload: dict, root: str):
+    """Start `world` processes of this script on `task` (torchrun's
+    variables, one card: LOCAL_RANK % 1 = 0); returns (procs, their dir)."""
+    d = tempfile.mkdtemp(prefix=f"rank_{task.replace(':', '_')}_", dir=root)
+    torch.save(payload, os.path.join(d, "in.pt"))
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(world), OMP_NUM_THREADS="4", PYTHONUNBUFFERED="1")
+    procs = []
+    for r in range(world):
+        log = open(os.path.join(d, f"log{r}.txt"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-X", "faulthandler", os.path.abspath(__file__), "--rank-task",
+             task, d],
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=log,
+            stderr=subprocess.STDOUT), log))
+        _RANK_PROCS.append(procs[-1][0])
+    return procs, d
+
+
+def _wait_ranks(procs, d: str, timeout: float, raise_on_fail: bool = True):
+    """Wait for every rank (each is killed at the deadline); returns the
+    per-rank results, or None for a rank that failed when not raising."""
+    deadline = time.perf_counter() + timeout
+    for p, log in procs:
+        try:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+        except subprocess.TimeoutExpired:
+            pass
+    for p, log in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+    outs = []
+    for r, (p, _) in enumerate(procs):
+        path = os.path.join(d, f"out{r}.pt")
+        if p.returncode == 0 and os.path.exists(path):
+            outs.append(torch.load(path, weights_only=False))
+            continue
+        with open(os.path.join(d, f"log{r}.txt")) as f:
+            tail = f.read()[-4000:]
+        if raise_on_fail:
+            raise AssertionError(f"rank {r} of {d}: exit {p.returncode}\n{tail}")
+        outs.append({"failed": f"exit {p.returncode}: "
+                               f"{(tail.strip().splitlines() or [''])[-1][:200]}"})
+    return outs
+
+
+def _rank_probe(op: str) -> dict:
+    """One gloo collective on cuda:0 tensors, its result checked."""
+    import torch.distributed as dist
+
+    r, dev = dist.get_rank(), torch.device("cuda:0")
+    x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * r
+    if op == "all_reduce":
+        dist.all_reduce(x)
+        ok = torch.equal(x.cpu(), torch.arange(4.0) * 2 + 10)
+    elif op == "broadcast":
+        dist.broadcast(x, 0)
+        ok = torch.equal(x.cpu(), torch.arange(4.0))
+    elif op == "all_gather":
+        parts = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(parts, x)
+        ok = torch.equal(parts[1].cpu(), torch.arange(4.0) + 10)
+    elif op == "all_gather_into_tensor":
+        out = torch.empty(8, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        ok = torch.equal(out.cpu()[4:], torch.arange(4.0) + 10)
+    elif op == "reduce_scatter_tensor":
+        out = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(out, x)
+        ok = torch.equal(out.cpu(), (torch.arange(4.0) * 2 + 10)[2 * r:2 * r + 2])
+    elif op == "all_to_all_single":
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        ok = torch.equal(out.cpu()[2:], (torch.arange(4.0) + 10)[2 * r:2 * r + 2])
+    else:  # send_recv
+        if r == 0:
+            dist.send(x, 1)
+            ok = True
+        else:
+            dist.recv(x, 0)
+            ok = torch.equal(x.cpu(), torch.arange(4.0))
+    torch.cuda.synchronize()
+    return {"ok": bool(ok)}
+
+
+def probe_gloo(root: str) -> dict:
+    """Which collectives a two-rank gloo group carries on cuda:0 tensors.
+    One pair of processes runs them in GLOO_PROBES' order, each rank noting
+    each result in a file as it goes; a collective that aborts its process
+    is refused, and a new pair takes the rest."""
+    out, remaining = {}, list(GLOO_PROBES)
+    while remaining:
+        procs, d = _start_ranks("probe:" + ",".join(remaining), PAR_WORLD, {}, root)
+        res = _wait_ranks(procs, d, 120.0, raise_on_fail=False)
+        done = []
+        for r in range(PAR_WORLD):
+            path = os.path.join(d, f"progress{r}.txt")
+            lines = open(path).read().split() if os.path.exists(path) else []
+            done.append(dict(x.split("=") for x in lines))
+        left = []
+        for i, op in enumerate(remaining):
+            if all(op in x for x in done):
+                out[op] = "carried" if all(x[op] == "1" for x in done) else "wrong result"
+                continue
+            fails = [x["failed"] for x in res if "failed" in x] or ["no result"]
+            out[op] = f"refused ({fails[0]})"
+            left = remaining[i + 1:]
+            break
+        remaining = left
+    return out
+
+
+def _digest(sd: dict) -> dict:
+    """A fingerprint of each tensor's bits, computed on its device: the sum
+    of its elements' bit patterns and their sum weighted by position (mod
+    65521), as int64; any changed bit changes it but by coincidence."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for k, v in sd.items():
+        bits = v.detach().contiguous().view(ints[v.element_size()]).flatten()
+        s, w = 0, 0
+        for i in range(0, bits.numel(), 1 << 24):
+            b = bits[i:i + (1 << 24)].to(torch.int64)
+            s += int(b.sum())
+            pos = torch.arange(i, i + b.numel(), device=b.device) % 65521 + 1
+            w += int((b * pos).sum())
+        out[k] = (s, w)
+    return out
+
+
+def _par_grpo_argv(ckpt_dir: str) -> list:
+    # one step without the lr warm-up (whose first step is 0 for the flow
+    # head), so that every expert leaf moves
+    return ["world_model_rollout.rollout.weights_int8=true",
+            "world_model_rollout.rollout.do_sample=false",
+            "actor_rollout_ref.actor.optim.lr_warmup_steps=0",
+            f"data.train_batch_size={N_SAMPLES}", f"actor_rollout_ref.rollout.n={N_ROLLOUTS}",
+            "trainer.total_training_steps=1", f"trainer.default_local_dir={ckpt_dir}"]
+
+
+def _grpo_run(mods, argv, reward: str, save_expert=None, keep_start: bool = False,
+              rank_chunks: int = 1) -> dict:
+    """One step of main_vla_rft_grpo.run(argv) on this process's rank(s):
+    launches counted from 0 around the step, the frozen trees' digests
+    before and after, the expert's before and after (its whole state after
+    the step to the file `save_expert`; with `keep_start` its state before
+    it too), peak memory, metrics.  Whole trees are gathered from their
+    FSDP shards while the process group is up.  `rank_chunks` > 1 runs
+    the tokenizer and the teacher-forced WM reward's forward on that many
+    equal chunks of the samples and rows (the chunks a 2-rank step's
+    ranks hold), so that the 1-rank step's convolutions and GEMMs have the
+    2-rank step's shapes."""
+    from vla_rft_tpu_torch.parallel import mesh as pm
+    from vla_rft_tpu_torch.trainer import grpo_trainer, main_vla_rft_grpo
+
+    real_reward = grpo_trainer.wm_logprob_reward
+
+    def chunked_reward(wm, pc, rc, input_ids, prompt_length, *args):
+        parts = [real_reward(wm, pc, rc, x, prompt_length, *args)
+                 for x in input_ids.chunk(rank_chunks)]
+        return (torch.cat([r for r, _ in parts]),
+                {k: torch.stack([m[k] for _, m in parts]).mean() for k in parts[0][1]})
+
+    rec, held, frozen = {}, {}, ("vla", "wm", "tokenizer", "lpips")
+    whole = lambda m: pm.full_state_dict(getattr(held["tr"].bundle, m))
+
+    def on_start(tr):
+        held["tr"] = tr
+        if rank_chunks > 1:
+            tokenize = tr.bundle.tokenizer.tokenize
+            tr.bundle.tokenizer.tokenize = lambda px: tuple(
+                torch.cat(p) for p in zip(*(tokenize(x) for x in px.chunk(rank_chunks))))
+        rec["frozen_before"] = {m: _digest(whole(m)) for m in frozen}
+        expert = whole("expert")
+        rec["expert_before"] = _digest(expert)
+        if keep_start:
+            rec["expert_start"] = {k: v.detach().float().cpu().clone() for k, v in expert.items()}
+
+    def on_step_start(step):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_decode_counts(mods)
+
+    def on_step_end(step, metrics):
+        rec["launches"] = _decode_counts(mods)  # read right after the step
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["metrics"] = {k: v for k, v in metrics.items() if not k.startswith("timing_s/")}
+        rec["timing_s"] = {k[len("timing_s/"):]: v for k, v in metrics.items()
+                           if k.startswith("timing_s/")}
+        rec["frozen_after"] = {m: _digest(whole(m)) for m in frozen}
+        expert = whole("expert")
+        rec["expert_after"] = _digest(expert)
+        if save_expert:
+            torch.save({k: v.detach().float().cpu() for k, v in expert.items()}, save_expert)
+
+    t0 = time.perf_counter()
+    if rank_chunks > 1:
+        grpo_trainer.wm_logprob_reward = chunked_reward
+    try:
+        tr = main_vla_rft_grpo.run(argv, on_start, on_step_start, on_step_end)
+    finally:
+        grpo_trainer.wm_logprob_reward = real_reward
+    rec["run_s"] = time.perf_counter() - t0
+    rec["expect"] = _par_expect(tr, reward, rank_chunks)
+    per = tr.dataset.cfg.batch_size // tr.data_count
+    rec["rows"] = {"samples": per, "rollout_rows": per * N_ROLLOUTS,
+                   "wm_rows": per * (N_ROLLOUTS + 1)}
+    rec["mesh"] = {"world": tr.world, "data_index": tr.data_index, "data_count": tr.data_count,
+                   "sharded_expert_leaves": len(getattr(tr, "_sharded", ())),
+                   "fsdp_trees": [m for m in ("vla", "expert", "wm", "tokenizer", "lpips")
+                                  if pm.is_sharded(getattr(tr.bundle, m))]}
+    rec["ckpt_dirs"] = sorted(x for x in os.listdir(tr.config.trainer.default_local_dir)
+                              if x.startswith("global_step_"))
+    held.clear()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _rank_grpo(payload: dict) -> dict:
+    mods = _kernel_mods()
+    rank = int(os.environ["RANK"])
+    return _grpo_run(mods, payload["argv"], payload["reward"],
+                     save_expert=payload["expert_file"] if rank == 0 else None)
+
+
+def _qwen_loss(logits: torch.Tensor, valid: int, total: int) -> torch.Tensor:
+    """sum over this rank's valid positions of logsumexp over the vocabulary,
+    / (B x the whole sequence)."""
+    return logits[:, :valid].float().logsumexp(-1).sum() / total
+
+
+def _rank_qwen(payload: dict) -> dict:
+    """Qwen2.5-0.5B at full width on two ranks: the unsharded route, then
+    Ulysses (sp 2, the sequence padded to a multiple of 2), TP (tp 2,
+    forward) and the GPipe pipeline (pp 2, 12 layers a stage, 2
+    micro-batches); each route's logits, loss and (sp, pp) the gradient of
+    the embedding output, with #1 / #2 / #3 launches counted per route."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from vla_rft_tpu_torch.parallel import distributed as pd
+    from vla_rft_tpu_torch.models.factory import build_decoder
+    from vla_rft_tpu_torch.models.transformer import TransformerConfig
+    from vla_rft_tpu_torch.ops import attention
+    from vla_rft_tpu_torch.parallel import mesh as pm
+    from vla_rft_tpu_torch.parallel.pp import decoder_pp_forward
+    from vla_rft_tpu_torch.parallel.tp import shard_decoder_params_tp
+    from vla_rft_tpu_torch.parallel.ulysses import ulysses_pad_and_slice
+
+    r, W = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda:0")
+    cfg = TransformerConfig.qwen25_0_5b()
+    B, S = PAR_QWEN_BATCH, WM_SFT_LEN
+    gen = torch.Generator(device=dev).manual_seed(PAR_QWEN_SEED)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    total = B * S
+    out, held = {"rank": r}, {}
+
+    def emb_grad(dec):
+        """Keep the gradient of the embedding's output (the model's input)."""
+        box = {}
+
+        def hook(_m, _i, o):
+            o.retain_grad()
+            box["emb"] = o
+        return box, dec.embed_tokens.register_forward_hook(hook)
+
+    def route(name, fn):
+        _zero_counts(attention)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = {"launches": _counts(attention), "s": time.perf_counter() - t}
+        held[name] = res
+
+    dec = build_decoder(cfg, device=dev, seed=PAR_QWEN_SEED)
+
+    def plain():
+        box, h = emb_grad(dec)
+        logits, _ = dec(ids)
+        loss = _qwen_loss(logits, S, total)
+        loss.backward()
+        h.remove()
+        return logits.detach(), loss.detach(), box["emb"].grad.detach()
+
+    route("unsharded", plain)
+    dec.zero_grad(set_to_none=True)
+
+    # Ulysses: this rank's half of the padded sequence, global positions
+    mesh_sp = pm.make_mesh(pm.MeshConfig(dp=1, sp=W), "cuda")
+    sp_dec = build_decoder(dc.replace(cfg, ulysses_axis=mesh_sp["sp"].get_group()), device=dev,
+                           seed=PAR_QWEN_SEED)
+    ids_p, pad = ulysses_pad_and_slice(ids, W)
+    s = ids_p.shape[1] // W
+    sl = slice(r * s, (r + 1) * s)
+    valid = min(s, S - r * s)
+
+    def sp():
+        box, h = emb_grad(sp_dec)
+        pos = torch.arange(ids_p.shape[1], dtype=torch.int32, device=dev)[None].expand(B, -1)
+        logits, _ = sp_dec(ids_p[:, sl], positions=pos[:, sl],
+                           kv_lens=torch.full((B,), S, dtype=torch.int32, device=dev))
+        loss = _qwen_loss(logits, valid, total)
+        loss.backward()
+        h.remove()
+        whole = pd.all_reduce(loss.detach().clone())
+        return logits.detach()[:, :valid], whole, box["emb"].grad.detach()[:, :valid]
+
+    route("sp", sp)
+    del sp_dec
+
+    # TP: the split products on this rank's heads / columns / vocabulary
+    mesh_tp = pm.make_mesh(pm.MeshConfig(dp=1, tp=W), "cuda")
+    tp_dec = shard_decoder_params_tp(mesh_tp, build_decoder(cfg, device=dev,
+                                                            seed=PAR_QWEN_SEED))
+
+    def tp():
+        with torch.no_grad():
+            logits, _ = tp_dec(ids)
+        return logits, _qwen_loss(logits, S, total)
+
+    route("tp", tp)
+    out["tp_local_heads"] = tp_dec.layers[0].self_attn.q_proj.weight.to_local().shape[0] // cfg.hd
+    del tp_dec
+
+    # the pipeline: the world is one pp group
+    def pp():
+        box, h = emb_grad(dec)
+        logits, _ = decoder_pp_forward(dec, ids, dist.group.WORLD, n_microbatches=2)
+        loss = _qwen_loss(logits, S, total)
+        loss.backward()
+        h.remove()
+        return logits.detach(), loss.detach(), box["emb"].grad.detach()
+
+    route("pp", pp)
+    rel = lambda a, b: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+    ref_logits, ref_loss, ref_grad = held["unsharded"]
+    cmp = {}
+    for name in ("sp", "tp", "pp"):
+        got = held[name]
+        want = ref_logits[:, sl][:, :valid] if name == "sp" else ref_logits
+        cmp[name] = {"logits_rel_err": rel(got[0], want),
+                     "loss_rel_err": abs(float(got[1]) - float(ref_loss)) / abs(float(ref_loss)),
+                     "finite": bool(torch.isfinite(got[0]).all())}
+        if name != "tp":
+            gw = ref_grad[:, sl][:, :valid] if name == "sp" else ref_grad
+            cmp[name]["input_grad_rel_err"] = rel(got[2], gw)
+    out["compare"] = cmp
+    out["sp_pad"], out["sp_rows_here"] = pad, valid
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _kernel_mods():
+    from vla_rft_tpu_torch.ops import attention
+    from vla_rft_tpu_torch.ops import decode_attention as heads
+    from vla_rft_tpu_torch.ops import decode_attention_hd as dec
+    from vla_rft_tpu_torch.ops import fused_decode_layer as fdl
+
+    return attention, dec, heads, fdl
+
+
+def rank_main(task: str, d: str) -> int:
+    """One rank of the parallel phase (started by _start_ranks)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from vla_rft_tpu_torch.parallel import distributed as pd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    payload = torch.load(os.path.join(d, "in.pt"), weights_only=False)
+    if task.startswith("probe:"):
+        pd.initialize_distributed("gloo", "cuda")
+        out = {}
+        for op in task.split(":", 1)[1].split(","):
+            out[op] = _rank_probe(op)["ok"]
+            with open(os.path.join(d, f"progress{os.environ['RANK']}.txt"), "a") as f:
+                f.write(f"{op}={int(out[op])}\n")
+    elif task == "grpo":  # main_vla_rft_grpo.run starts and ends its own group
+        out = _rank_grpo(payload)
+    else:
+        pd.initialize_distributed("gloo", "cuda")
+        out = _rank_qwen(payload)
+    torch.save(out, os.path.join(d, f"out{os.environ['RANK']}.pt"))
+    pd.shutdown()
+    return 0
+
+
+def _step_agreement(got: dict, ref: dict, before: dict) -> dict:
+    """The 2-rank expert update against the 1-rank one, leaf by leaf."""
+    worst, far, total = 0.0, 0, 0
+    for k, v in ref.items():
+        step_r, step_g = v - before[k], got[k] - before[k]
+        m = step_r.abs().max().item()
+        d = (step_g - step_r).abs()
+        if not d.max().item() <= 2 * m + 1e-12:
+            raise AssertionError(f"parallel grpo: {k} steps {d.max().item()} apart, 1-rank "
+                                 f"step {m}")
+        worst = max(worst, d.max().item() / max(m, 1e-30))
+        far += int((d > 1e-3 * m).sum())
+        total += d.numel()
+    if far / total > PAR_STEP_SHARE:
+        raise AssertionError(f"parallel grpo: {far / total} of the expert's elements step "
+                             f"apart from the 1-rank step")
+    return {"max_rel_to_step": worst, "share_apart": far / total, "elements": total}
+
+
+def _par_expect(tr, reward: str, rank_chunks: int = 1) -> dict:
+    """A rank's launches in one step: with the int8 WM rollout ("wm")
+    grpo_expect's (its rows make one WM call); with the teacher-forced WM
+    reward ("wm_logprob") #1 for the Qwen encode and each chunk's WM
+    forward."""
+    if reward == "wm_logprob":
+        b = tr.bundle
+        return _expect(flash_fwd=b.vla_cfg.llm.num_layers
+                       + rank_chunks * b.wm_cfg.num_layers)
+    return grpo_expect(_kernel_mods()[3])(tr, None)
+
+
+def _check_pair(name: str, ranks: list, start_digest: dict) -> dict:
+    """What a 2-rank step must show on each rank: its exact launches, the
+    experts bit-identical across ranks and every leaf moved from the common
+    start, the frozen trees bit-identical, rank 0 alone checkpointing, and
+    the two peaks under the card's 80 GiB."""
+    if ranks[0]["expert_after"] != ranks[1]["expert_after"]:
+        raise AssertionError(f"parallel grpo {name}: the ranks' experts differ")
+    for r, rec in enumerate(ranks):
+        if rec["launches"] != rec["expect"]:
+            raise AssertionError(f"parallel grpo {name} rank {r}: launches {rec['launches']}, "
+                                 f"expected {rec['expect']}")
+        if rec["frozen_after"] != rec["frozen_before"] or rec["expert_before"] != start_digest:
+            raise AssertionError(f"parallel grpo {name} rank {r}: a frozen leaf moved, or the "
+                                 f"rank started from other weights")
+        still = [k for k in rec["expert_after"] if rec["expert_after"][k] == start_digest[k]]
+        if still:
+            raise AssertionError(f"parallel grpo {name} rank {r}: expert leaves that did not "
+                                 f"move {still[:5]}")
+    if ranks[0]["ckpt_dirs"] != ["global_step_1"]:
+        raise AssertionError(f"parallel grpo {name}: checkpoints {ranks[0]['ckpt_dirs']}")
+    peaks = [rec["peak_mem_gib"] for rec in ranks]
+    if not sum(peaks) < 80:
+        raise AssertionError(f"parallel grpo {name}: peaks {peaks} GiB")
+    return {"ranks": [{k: rec[k] for k in ("launches", "expect", "peak_mem_gib", "timing_s",
+                                           "run_s", "rows", "mesh")} for rec in ranks],
+            "experts_bit_identical_across_ranks": True, "frozen_bit_identical": True,
+            "expert_leaves_moved": len(start_digest),
+            "checkpoints_written": ranks[0]["ckpt_dirs"], "peak_mem_sum_gib": sum(peaks),
+            "metrics": ranks[0]["metrics"]}
+
+
+def _metrics_agree(name: str, got: dict, ref: dict, rtol: float, atol: dict) -> dict:
+    """PAR_COMPARED (those both runs have) within rtol x |ref| + the metric's
+    absolute floor; returns {metric: (got, ref)}."""
+    pairs = {k: (got[k], ref[k]) for k in PAR_COMPARED if k in got and k in ref}
+    far = {k: v for k, v in pairs.items()
+           if not (np.isfinite(v[0]) and abs(v[0] - v[1]) <= rtol * abs(v[1]) + atol.get(k, 0.0))}
+    if far:
+        raise AssertionError(f"parallel grpo {name}: metrics (got, ref) apart {far}; all {pairs}")
+    return pairs
+
+
+def _parallel_grpo(mods, root: str, fsdp_ranks: int) -> dict:
+    """The GRPO step at libero width over two ranks sharing the card.
+    (a) The grpo phase's step (int8 WM: #1 / #4 / #8 / #9) over dp = 2 and
+    over fsdp = 2: _check_pair.  (b) The step with the teacher-forced WM
+    reward (trainer.reward_fn=wm_logprob: #1 alone) at 1 rank and over
+    fsdp = 2 on the same global batch and draws: _check_pair, PAR_COMPARED
+    within its bounds and _step_agreement.  Where gloo does not carry
+    FSDP2's collectives, dp = 2 takes fsdp = 2's place in (b) and (a) runs
+    at dp = 2 alone.  (a) is held to the 1-rank step through (b), which
+    shares its sharded trees, reward gather, advantage and update: greedy
+    decoding over random weights turns the bf16 differences of another
+    batch shape (5 WM rows a call on a rank, 10 on one rank) into other
+    tokens, and so other rewards, where (b)'s log-probs of the recorded
+    future move by round-off only.  Even that round-off is of the order
+    of a group's spread of rewards over random weights, and the advantages
+    divide by that spread; and the tokenizer's convolutions on 2 samples
+    and on 1 pick other tokens at some positions.  So the 1-rank step
+    tokenizes and scores the ranks' chunks (`rank_chunks`), with the
+    shapes each rank has."""
+    lp = ["trainer.reward_fn=wm_logprob"]
+    argv = lambda tag: _par_grpo_argv(tempfile.mkdtemp(prefix=f"{tag}_", dir=root))
+    pair = lambda tag, extra, reward: _start_ranks("grpo", PAR_WORLD, {
+        "argv": argv(tag) + extra + ["--backend=gloo"], "reward": reward,
+        "expert_file": os.path.join(root, f"expert_{tag}.pt")}, root)
+    load = lambda tag: torch.load(os.path.join(root, f"expert_{tag}.pt"), weights_only=True)
+    fsdp = ["mesh.dp=1", "mesh.fsdp=2"]
+    t0 = time.perf_counter()
+    # at most four processes on the card at once (five LIBERO-width
+    # processes exhaust its 80 GB): the dp = 2 WM step beside the 1-rank
+    # teacher-forced step, then the fsdp = 2 WM and teacher-forced steps
+    started = pair("dp2", ["mesh.dp=2"], "wm")
+    one = _grpo_run(mods, argv("one_lp") + lp, "wm_logprob", keep_start=True,
+                    save_expert=os.path.join(root, "expert_one_lp.pt"), rank_chunks=PAR_WORLD)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if one["launches"] != one["expect"]:
+        raise AssertionError(f"parallel grpo one_lp: launches {one['launches']}, expected "
+                             f"{one['expect']}")
+    start = one["expert_before"]
+    out = {"one_rank_wm_logprob": {k: one[k] for k in ("launches", "peak_mem_gib", "metrics",
+                                                       "timing_s", "run_s", "rows")}}
+    out["dp2"] = _check_pair("dp2", _wait_ranks(*started, 600.0), start)
+    out["block_1_s"] = time.perf_counter() - t0
+    lp_tag = "fsdp2_lp" if fsdp_ranks == 2 else "dp2_lp"
+    started = [pair(lp_tag, (fsdp if fsdp_ranks == 2 else ["mesh.dp=2"]) + lp, "wm_logprob")]
+    if fsdp_ranks == 2:
+        started.append(pair("fsdp2", fsdp, "wm"))
+    done = [_wait_ranks(*s, 600.0) for s in started]
+    out["lp_pair"] = lp_tag
+    out[lp_tag] = _check_pair(lp_tag, done[0], start)
+    if fsdp_ranks == 2:
+        out["fsdp2"] = _check_pair("fsdp2", done[1], start)
+        for tag in ("fsdp2", lp_tag):
+            m = out[tag]["ranks"][0]["mesh"]
+            if not (m["sharded_expert_leaves"] and "wm" in m["fsdp_trees"]):
+                raise AssertionError(f"parallel grpo {tag}: nothing sharded {m}")
+    out["lp_pair_vs_one_rank"] = {
+        "metrics": _metrics_agree(f"{lp_tag} vs 1 rank", out[lp_tag]["metrics"],
+                                  one["metrics"], WM_LOGIT_TOL, PAR_ATOL),
+        "expert": _step_agreement(load(lp_tag), load("one_lp"), one["expert_start"])}
+    out["tolerance"] = {
+        "lp_pair_vs_one_rank": f"|d| <= {WM_LOGIT_TOL} |1-rank| + {PAR_ATOL} (absolute floors)",
+        "expert_step": f"max|d| <= 2 max|step| per leaf, share of elements > 1e-3 max|step| "
+                       f"apart <= {PAR_STEP_SHARE}"}
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_parallel(mods) -> dict:
+    """parallel/ on the card: the gloo probe, the GRPO step at libero width
+    over dp = 2 and fsdp = 2 ranks sharing the card (_parallel_grpo), and
+    Qwen2.5-0.5B's Ulysses / TP / pipeline routes against its unsharded
+    route."""
+    from vla_rft_tpu_torch.parallel import distributed as pd
+
+    attention = mods[0]
+    root = tempfile.mkdtemp(prefix="parallel_")
+    try:
+        probe = probe_gloo(root)
+        fsdp_ranks = 2 if all(probe[op] == "carried" for op in FSDP_NEEDS) else 1
+        axes = {
+            "dp": {"ranks": 2, "why": "the trainer's all-reduces and all-gathers: gloo on "
+                                      "CUDA"},
+            "fsdp": {"ranks": fsdp_ranks,
+                     "why": ("FSDP2 runs on gloo's CUDA collectives" if fsdp_ranks == 2 else
+                             "FSDP2's all_gather_into_tensor / reduce_scatter_tensor: gloo "
+                             f"{probe['all_gather_into_tensor']} / "
+                             f"{probe['reduce_scatter_tensor']} on CUDA, and NCCL refuses two "
+                             "ranks on one card; the GRPO steps run at dp = 2 alone")},
+            "sp": {"ranks": 2, "why": "the port's all-to-alls: gloo on CUDA"},
+            "tp": {"ranks": 2, "why": "the port's all-reduces and its logits all-gather: gloo "
+                                      "on CUDA"},
+            "pp": {"ranks": 2, "why": "the port's sends / receives (staged) and broadcasts "
+                                      "(gloo on CUDA)"}}
+        emit({"parallel_backends": probe, "axes": axes,
+              "staged_by_the_port": [op for op in ("all_reduce", "broadcast", "all_gather",
+                                                   "all_to_all", "send", "recv")
+                                     if op not in pd.GLOO_CUDA]})
+
+        grpo = _parallel_grpo(mods, root, fsdp_ranks)
+
+        # Qwen2.5-0.5B: sp / tp / pp against the unsharded route
+        qwen = _wait_ranks(*_start_ranks("qwen", PAR_WORLD, {}, root), 300.0)
+        L = 24
+        want = {"unsharded": (L, L, L), "sp": (L, L, L), "tp": (L, 0, 0), "pp": (L, L, L)}
+        for r, q in enumerate(qwen):
+            for name, (f, dq_, dkv) in want.items():
+                n = q[name]["launches"]
+                if n != {"flash_fwd": f, "flash_bwd_dq": dq_, "flash_bwd_dkv": dkv}:
+                    raise AssertionError(f"qwen {name} rank {r}: launches {n}")
+            for name, c in q["compare"].items():
+                bad = (not c["finite"] or c["logits_rel_err"] > SFT_GRAD_TOL
+                       or c["loss_rel_err"] > SFT_LOSS_TOL
+                       or c.get("input_grad_rel_err", 0.0) > SFT_GRAD_TOL)
+                if bad:
+                    raise AssertionError(f"qwen {name} rank {r}: {c}")
+            if q["tp_local_heads"] != 7:
+                raise AssertionError(f"qwen tp: {q['tp_local_heads']} local heads")
+        # #1 / #2 / #3 at the shapes sp and tp give them: Qwen 14/2 -> 7/1 a
+        # rank (2 x 1663), the WM's prefill 16/16 -> 8/8 (no path splits the WM)
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        timed = {"qwen_7_1": time_flash(attention, gen, "qwen_7_1", PAR_QWEN_BATCH, WM_SFT_LEN,
+                                        WM_SFT_LEN, 7, 1, WM_SFT_LEN),
+                 "wm_prefill_8_8": time_flash(attention, gen, "wm_prefill_8_8", 2, WM_PREFIX,
+                                              1152, 8, 8, WM_PREFIX),
+                 "qwen_7_1_bwd": time_flash_bwd(attention, gen, "qwen_7_1", PAR_QWEN_BATCH,
+                                                WM_SFT_LEN, 7, 1, WM_SFT_LEN, check=True)}
+    finally:
+        _stop_ranks()
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"phase": "parallel", "world": PAR_WORLD, "device_per_rank": "cuda:0 (LOCAL_RANK % 1)",
+           "backends": probe, "axes": axes, "grpo": grpo,
+           "qwen": {"batch": PAR_QWEN_BATCH, "seq": WM_SFT_LEN,
+                    "ranks": [{k: v for k, v in q.items()} for q in qwen],
+                    "tolerance": {"logits_and_input_grad_rel": SFT_GRAD_TOL,
+                                  "loss_rel": SFT_LOSS_TOL}},
+           "timed": timed}
+    emit(out)
+    return out
+
+
 def ppo_entries(ppo: dict, entry, bwd_src: str, rm: dict) -> list:
     """The kernel line's rows of #2 and #3 at the PPO update's shape (PRIME's
     RM update's micro-batches have it too)."""
@@ -4857,8 +5594,9 @@ def ppo_entries(ppo: dict, entry, bwd_src: str, rm: dict) -> list:
              "shape": f"B={t[key]['B']} S={S} Hq/Hkv=14/2 D=64 causal, left-padded (kv_starts "
                       f"{min(kv)}-{max(kv)}), ragged ends: the PPO update's shape, the step's "
                       f"rows one per prompt; launches: one main_ppo grpo step (16 updates x "
-                      f"24 layers); reward_models_prime_step_launches: one PRIME step (16 RM "
-                      f"and 16 actor updates of 16 rows x 24 layers)",
+                      f"24 layers); reward_models_prime_step_launches: one PRIME step "
+                      f"({PRIME_PROMPTS} RM and {PRIME_PROMPTS} actor updates of 16 rows x 24 "
+                      f"layers)",
              "gae_step_launches": ppo["gae"]["launches"][kernel],
              **_rm_launches(rm, kernel)}
             for kernel, line, key in (("flash_bwd_dq", 175, "dq"), ("flash_bwd_dkv", 239, "dkv"))]
@@ -5003,6 +5741,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rlds = timed("grpo_rlds", phase_grpo_rlds, mods, build)
     torch.cuda.empty_cache()
+    par = timed("parallel", phase_parallel, mods)
+    torch.cuda.empty_cache()
     sft = timed("sft", phase_sft, attention)
     sft_text = timed("sft_text", phase_sft_text, attention)
     sft_align = timed("sft_align", phase_sft_align, attention)
@@ -5073,16 +5813,45 @@ def main() -> int:
                           ("fused_decode_attention@b128", "b128"),
                           ("fused_decode_attention@gqa14_2", "gqa14_2"))
         for t in (fused_attn["timed"][key],)]
+    # the parallel phase: a rank's launches in the 2-rank WM steps, and in
+    # the Qwen routes (sp / tp / pp forward, sp / pp backward) on rank 0
+    par_n = par["grpo"]["dp2"]["ranks"][0]["launches"]
+    par_fsdp_n = (par["grpo"]["fsdp2"]["ranks"][0]["launches"] if "fsdp2" in par["grpo"]
+                  else None)
+    q0 = par["qwen"]["ranks"][0]
+    qwen_fwd = sum(q0[r]["launches"]["flash_fwd"] for r in ("sp", "tp", "pp"))
+    qwen_bwd = {k: sum(q0[r]["launches"][k] for r in ("sp", "pp"))
+                for k in ("flash_bwd_dq", "flash_bwd_dkv")}
+    par_shape = (f"B=2 S=1663 Hq/Hkv=7/1 D=64 causal: a rank's heads of Qwen2.5-0.5B under "
+                 f"sp = 2 (the sequence padded to 1664) or tp = 2; launches: rank 0 of the "
+                 f"parallel phase's sp, tp and pp routes")
+    par_entries = [
+        {**entry("flash_fwd@qwen_7_1", flash_src, "vla_rft_tpu/ops/attention.py:108", qwen_fwd,
+                 par["timed"]["qwen_7_1"]["max_abs_err_o"], par["timed"]["qwen_7_1"]),
+         "shape": par_shape},
+        {**entry("flash_fwd@wm_prefill_8_8", flash_src, "vla_rft_tpu/ops/attention.py:108", 0,
+                 par["timed"]["wm_prefill_8_8"]["max_abs_err_o"],
+                 par["timed"]["wm_prefill_8_8"]),
+         "shape": "B=2 Sq=1088 Sk=1152 Hq=Hkv=8 D=64 causal: the WM prefill's heads a rank "
+                  "under sp or tp = 2; no path splits the WM"},
+        *({**entry(f"{kernel}@qwen_7_1", bwd_src, f"vla_rft_tpu/ops/attention.py:{line}",
+                   qwen_bwd[kernel], par["timed"]["qwen_7_1_bwd"][key]["max_abs_err"],
+                   par["timed"]["qwen_7_1_bwd"][key]), "shape": par_shape}
+          for kernel, line, key in (("flash_bwd_dq", 175, "dq"), ("flash_bwd_dkv", 239, "dkv")))]
     rlds_n = rlds["steps"][0]["launches"]  # grpo_rlds: per step, as the grpo phase's
     for e in fused_entries:
         if "@" not in e["name"]:
-            e["grpo_rlds_launches_per_step"] = rlds_n[
-                "fused_qkv" if e["name"] == "fused_rmsnorm_qkv" else "fused_o_mlp"]
+            key = "fused_qkv" if e["name"] == "fused_rmsnorm_qkv" else "fused_o_mlp"
+            e["grpo_rlds_launches_per_step"] = rlds_n[key]
+            e["parallel_launches_per_rank"] = par_n[key]
+            e["parallel_fsdp2_launches_per_rank"] = par_fsdp_n and par_fsdp_n[key]
     emit({"kernels": [
         {**entry("flash_fwd", flash_src, "vla_rft_tpu/ops/attention.py:108",
                  serving["main_path_launches"], flash["timed"]["serving"]["max_abs_err_o"],
                  flash["timed"]["serving"]),
          "grpo_rlds_launches_per_step": rlds_n["flash_fwd"],
+         "parallel_launches_per_rank": par_n["flash_fwd"],
+         "parallel_fsdp2_launches_per_rank": par_fsdp_n and par_fsdp_n["flash_fwd"],
          "sft_align_launches": align_n["flash_fwd"],
          "sft_align_shape": f"B=16 S=352 Hq/Hkv=14/2 D=64 causal, {n_align} steps",
          "eval_bridge_launches": ev["bridge"]["launches"]["flash_fwd"]},
@@ -5106,7 +5875,9 @@ def main() -> int:
         {**entry("decode_shared_hd", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:226",
                  wm_launches["decode_shared_hd"], decode["max_abs_err"]["shared"],
                  decode["timed"]["shared"]),
-         "grpo_rlds_launches_per_step": rlds_n["decode_shared_hd"]},
+         "grpo_rlds_launches_per_step": rlds_n["decode_shared_hd"],
+         "parallel_launches_per_rank": par_n["decode_shared_hd"],
+         "parallel_fsdp2_launches_per_rank": par_fsdp_n and par_fsdp_n["decode_shared_hd"]},
         {**entry("decode_shared_hd@b128", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:226",
                  0, decode["max_abs_err"]["shared"], decode["timed"]["shared_b128"]),
          "shape": f"B=128 Sq=1 Hq=Hkv=16 D=64 int8, 16 prefixes of {WM_PREFIX} (8 rows each) "
@@ -5137,6 +5908,7 @@ def main() -> int:
         *fda_entries,
         *text_entries(text, entry, flash_src, dec_src, ppo, rm),
         *ppo_entries(ppo, entry, bwd_src, rm),
+        *par_entries,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -5144,4 +5916,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-task"]:  # a rank of the parallel phase
+        sys.exit(rank_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -48,13 +48,22 @@ dynamic_update_slice clamps it; the decode kernels take the per-row
 q_offset and kv_lens as they are.  `decode_step_fused` takes an int offset.
 With `remat` (the reference's per-layer nn.remat) a training forward
 recomputes each layer in the backward: on the card #1 then runs twice per
-layer and step.  Not ported: Ulysses.
+layer and step.
+Sequence parallelism (`ulysses_axis`, a process group, as the reference's
+mesh axis name): each rank passes its slice of the sequence with the
+global `positions` and `kv_lens`; rope is applied at the global positions,
+then `parallel/ulysses.py`'s all-to-all gives each rank the whole sequence
+for H/sp heads, the attention runs there (kernel #1 forward, #2 / #3
+backward on the card), and the inverse all-to-all returns the slice.
+q / k / v take their head counts from the projections, so a decoder whose
+products `parallel/tp.py` split runs its local heads; a cached forward
+takes only whole heads and raises on such a decoder.
 """
 from __future__ import annotations
 
 import dataclasses
 import numbers
-from typing import Optional, Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -95,6 +104,9 @@ class TransformerConfig:
     # autograd keeps only its input and recomputes the rest in the backward
     # (torch.utils.checkpoint), so the layer's forward runs twice a step
     remat: bool = False
+    # sequence parallelism: the process group the sequence is split over
+    # (the reference's mesh axis); None runs the whole sequence here
+    ulysses_axis: Optional[Any] = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.kv_layout not in ("hd", "heads"):
@@ -278,17 +290,27 @@ class Attention(nn.Module):
                 c: Optional[CacheArgs] = None, kv_starts=None):
         cfg = self.cfg
         B, S, _ = x.shape
-        q = self.q_proj(x).view(B, S, cfg.num_heads, cfg.hd)
-        k = self.k_proj(x).view(B, S, cfg.num_kv_heads, cfg.hd)
-        v = self.v_proj(x).view(B, S, cfg.num_kv_heads, cfg.hd)
+        # the local head counts: all of them, or this rank's under TP
+        q = self.q_proj(x).view(B, S, -1, cfg.hd)
+        k = self.k_proj(x).view(B, S, -1, cfg.hd)
+        v = self.v_proj(x).view(B, S, -1, cfg.hd)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        if c is None:
+        if c is not None:
+            if q.shape[2] != cfg.num_heads or k.shape[2] != cfg.num_kv_heads:
+                raise ValueError(
+                    f"a cached forward takes all {cfg.num_heads}/{cfg.num_kv_heads} heads; this "
+                    f"decoder is tensor-parallel ({q.shape[2]}/{k.shape[2]} local heads)")
+            out = self._cached(q, k, v, li, c, attn_impl)
+        elif cfg.ulysses_axis is not None:
+            from vla_rft_tpu_torch.parallel.ulysses import ulysses_attention
+
+            out = ulysses_attention(q, k, v, cfg.ulysses_axis, causal=causal, kv_lens=kv_lens,
+                                    kv_starts=kv_starts, impl=attn_impl)
+        else:
             out = attention(q, k, v, causal=causal, kv_lens=kv_lens, kv_starts=kv_starts,
                             impl=attn_impl)
-        else:
-            out = self._cached(q, k, v, li, c, attn_impl)
-        return self.o_proj(out.reshape(B, S, cfg.num_heads * cfg.hd))
+        return self.o_proj(out.reshape(B, S, -1))
 
     def _cached(self, q, k, v, li: int, c: CacheArgs, attn_impl: str):
         cfg = self.cfg

@@ -24,6 +24,15 @@ def speculative_k_problem(config) -> Optional[str]:
             f"(ops/decode_attention_hd.py MAX_SQ)")
 
 
+def resolve_mesh(config, world_size: int):
+    """config.mesh resolved against the world's ranks: the reference's
+    MeshConfig.resolve, with its ValueError for a mesh the world cannot
+    hold."""
+    from vla_rft_tpu_torch.parallel.mesh import MeshConfig
+
+    return MeshConfig(**config.mesh.to_dict()).resolve(world_size)
+
+
 def validate_config(config, n_devices: int = 1) -> List[str]:
     """Returns a list of problems (empty = valid). Raises on fatal ones."""
     problems: List[str] = []

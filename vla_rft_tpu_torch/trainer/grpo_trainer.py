@@ -1,9 +1,36 @@
-"""VLA-RFT GRPO trainer on one device (port of vla_rft_tpu/trainer/grpo_trainer.py).
+"""VLA-RFT GRPO trainer over config.mesh's ranks (port of
+vla_rft_tpu/trainer/grpo_trainer.py).
 
-The reference runs every stage as a jitted SPMD program over a mesh; here
-each stage is eager PyTorch on one device (no mesh, no sharding), and the
-reference's `_sync` at a stage boundary is a device synchronize, so the
-`timing` dict means what it means there.  One `training_step`:
+The reference runs every stage as a jitted SPMD program over a (dp, fsdp,
+tp, sp) mesh; here each rank runs the stages eagerly, and the reference's
+`_sync` at a stage boundary is a device synchronize, so the `timing` dict
+means what it means there.  config.mesh is resolved against the world
+(`parallel/mesh.py`, the reference's errors for a mesh that does not fit);
+at world size 1 the trainer runs on one device as before.  Over ranks:
+
+  rows      each rank takes its (dp, fsdp) share of the global batch's
+            unique samples and repeats each n times, so a GRPO group stays
+            on one rank; tp and sp ranks replicate (as in the reference's
+            trainer, where shard_params_fsdp ignores them)
+  params    the frozen towers, the WM and the trained expert are placed by
+            `shard_params_fsdp` (FSDP2 at fsdp > 1, replicated at 1); a
+            frozen tower is held whole for the stage that uses it
+  draws     the flow noise, its eps, the ReMax baseline's noise and the PPO
+            order are drawn for the global rows and sliced; each rank's WM
+            and validation streams are its own
+  reduced   rewards (and the ReMax baselines) are gathered, so advantages
+            and the critic/* metrics are the global batch's; the update
+            gathers the actor batch and walks the global mini-batches: each
+            is one optimizer step on every rank, a rank taking its slice
+            of each global micro-batch of ppo_micro_batch_size_per_gpu x
+            (dp x fsdp) rows; its loss is weighted by its share of the
+            micro-batch's valid rows (the token-mean denominator), the
+            gradients summed over the ranks (FSDP2's reduce-scatter over
+            fsdp, an all-reduce over dp and for replicated leaves), the
+            clipping norm taken over the whole gradient, the actor/*
+            metrics the micro-batch's
+Only rank 0 logs, saves validation frames and writes checkpoints (the full
+state, gathered from FSDP2); every rank loads one.  One `training_step`:
 
   encode_context  one frozen-VLM context forward per unique sample
   ac_rollout      sample_noisy_actions (after repeating each sample n times),
@@ -57,6 +84,7 @@ speculative_k above 7 (config_check).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence
@@ -71,8 +99,11 @@ from vla_rft_tpu_torch.data.synthetic import (SyntheticVLAConfig, SyntheticVLADa
 from vla_rft_tpu_torch.models.action_head import sample_noisy_actions
 from vla_rft_tpu_torch.models.factory import ModelBundle, build_models
 from vla_rft_tpu_torch.models.transformer import Decoder, quantize_decoder_params
+from vla_rft_tpu_torch.parallel import distributed as pd
+from vla_rft_tpu_torch.parallel import mesh as pm
 from vla_rft_tpu_torch.trainer import core_algos
-from vla_rft_tpu_torch.trainer.config_check import speculative_k_problem, validate_config
+from vla_rft_tpu_torch.trainer.config_check import (resolve_mesh, speculative_k_problem,
+                                                    validate_config)
 from vla_rft_tpu_torch.trainer.metric_utils import compute_throughput_metrics
 from vla_rft_tpu_torch.trainer.optim import apply_updates_with_skip, make_optimizer
 from vla_rft_tpu_torch.utils.checkpoint import CheckpointManager, should_save
@@ -153,7 +184,7 @@ def wm_rows(b, wm_inputs: Dict[str, torch.Tensor], n_wm: int, use_gt_ac: bool,
     total = prompt.shape[0]
     dev = prompt.device
     p0 = rc.prompt_length - b.proc_cfg.action_dim
-    pm = np.arange(total // n_wm).repeat(n_wm)
+    prefix_map = np.arange(total // n_wm).repeat(n_wm)
     tails, actions = prompt[:, p0:], wm_inputs["action_ids"]
     if gt_per_sample:
         B_u = total // n_wm
@@ -164,14 +195,17 @@ def wm_rows(b, wm_inputs: Dict[str, torch.Tensor], n_wm: int, use_gt_ac: bool,
         else:
             order = np.arange(total + B_u)
         o = torch.as_tensor(order, device=dev)
-        return WMRows(prompt[::n_wm, :p0], np.concatenate([pm, np.arange(B_u)])[order],
+        return WMRows(prompt[::n_wm, :p0],
+                      np.concatenate([prefix_map, np.arange(B_u)])[order],
                       torch.cat([tails, gt_u[:, 0]])[o], torch.cat([actions, gt_u])[o],
                       n_wm + 1 if interleave_gt else n_wm, order, total)
     if use_gt_ac:
-        return WMRows(prompt[::n_wm, :p0], np.concatenate([pm, pm]), torch.cat([tails, tails]),
+        return WMRows(prompt[::n_wm, :p0], np.concatenate([prefix_map, prefix_map]),
+                      torch.cat([tails, tails]),
                       torch.cat([actions, wm_inputs["gt_action_ids"]]), n_wm,
                       np.arange(2 * total), total)
-    return WMRows(prompt[::n_wm, :p0], pm, tails, actions, n_wm, np.arange(total), total)
+    return WMRows(prompt[::n_wm, :p0], prefix_map, tails, actions, n_wm, np.arange(total),
+                  total)
 
 
 def wm_rollout_stage(b, wm: Decoder, rows: WMRows, rows_per_call: int,
@@ -245,9 +279,18 @@ class VLARFTGRPOTrainer:
         checkpoint, or a test's).  `validate()` draws from `val_dataset`;
         with neither dataset given it is a second synthetic stream on seed
         trainer.seed + 99991 (held out: never trained on), and with only a
-        training dataset it is that one (val/on_train_stream = 1)."""
+        training dataset it is that one (val/on_train_stream = 1).  Over
+        ranks (a process group is up) config.mesh places the models."""
         self.config = config
+        self.world = pd.world_size()
+        mesh_cfg = resolve_mesh(config, self.world)
         self.device = resolve_device(device)
+        if self.world > 1 and self.device.type == "cuda" and self.device.index is None:
+            self.device = pd.rank_device("cuda")
+        self.mesh = pm.make_mesh(mesh_cfg, self.device.type) if self.world > 1 else None
+        self.data_index, self.data_count = pm.data_rank(self.mesh)
+        self.is_rank0 = pd.rank() == 0
+        self._sharded = set()  # the expert's FSDP-sharded parameter names
         self._seed = seed if seed is not None else config.trainer.get("seed", 0)
         _refuse(config)
         self.bundle: ModelBundle = build_models(config, preset, device=self.device,
@@ -274,7 +317,7 @@ class VLARFTGRPOTrainer:
         self.global_steps = 0
         self._prefetched_batch = None
         self.total_training_steps = config.trainer.total_training_steps
-        for problem in validate_config(config, 1):
+        for problem in validate_config(config, self.data_count):
             print(f"[config] WARNING: {problem}")
         self._use_wm_int8 = bool(config.world_model_rollout.rollout.get("weights_int8", False))
         self._wm_q, self._wm_q_src = None, None
@@ -288,11 +331,47 @@ class VLARFTGRPOTrainer:
             getattr(b, name).load_state_dict({k: v.to(self.device) for k, v in sd.items()},
                                              strict=True)
         actor = self.config.actor_rollout_ref.actor
-        self.expert_params = dict(b.expert.named_parameters())
-        self.opt = make_optimizer(self.expert_params.items(), actor.optim,
-                                  self.total_training_steps)
         self.ref_expert = (copy.deepcopy(b.expert).requires_grad_(False)
                            if actor.use_kl_loss else None)
+        if self.mesh is not None:
+            self._place()
+        self.expert_params = dict(b.expert.named_parameters())
+        # over FSDP the optimizer steps each rank's shards in place
+        self.opt = make_optimizer([(n, pm.local(p)) for n, p in self.expert_params.items()],
+                                  actor.optim, self.total_training_steps)
+
+    def _place(self):
+        """The reference's shard_params_fsdp of every tree: the frozen towers
+        and the WM held whole only inside the stage that uses them
+        (`_whole`), the expert through FSDP2's hooks on its two forward
+        methods; the groups the update reduces over."""
+        from torch.distributed.tensor import DTensor
+
+        b, mesh = self.bundle, self.mesh
+        for name in ("vla", "wm", "tokenizer", "lpips"):
+            pm.shard_params_fsdp(mesh, getattr(b, name), reshard_after_forward=False)
+        pm.shard_params_fsdp(mesh, b.expert)
+        if pm.is_sharded(b.expert):
+            from torch.distributed.fsdp import register_fsdp_forward_method
+
+            for method in ("predict_flow", "predict_std"):
+                register_fsdp_forward_method(b.expert, method)
+        self._sharded = {n for n, p in b.expert.named_parameters() if isinstance(p, DTensor)}
+        # the ranks that hold the same (tp, sp) coordinate split the batch
+        ranks = mesh.mesh
+        me = pd.rank()
+        for t in range(ranks.shape[2]):
+            for s_ in range(ranks.shape[3]):
+                members = ranks[:, :, t, s_].flatten().tolist()
+                g = torch.distributed.new_group(members)  # every rank makes every group
+                if me in members:
+                    self.data_group = g
+        self.dp_group = mesh["dp"].get_group()
+        self.fsdp_group = mesh["fsdp"].get_group()
+
+    def _whole(self, *names: str):
+        """Hold the named frozen trees whole (no-op unless FSDP-sharded)."""
+        return pm.gathered(*(getattr(self.bundle, n) for n in names))
 
     def _wm_gen_model(self) -> Decoder:
         """The WM the rollout decodes with: with weights_int8 an int8 copy,
@@ -301,18 +380,43 @@ class VLARFTGRPOTrainer:
         wm = self.bundle.wm
         if not self._use_wm_int8:
             return wm
-        src = tuple(p._version for p in wm.parameters())
+        src = tuple(pm.local(p)._version for p in wm.parameters())
         if self._wm_q is None or self._wm_q_src != src:
             cfg = dataclasses.replace(wm.cfg, weights_int8=True)
             with torch.device(self.device):
                 q = Decoder(cfg)
-            q.load_state_dict(quantize_decoder_params(wm.state_dict(), cfg), strict=True)
+            # the int8 copy is whole on every rank (its products are buffers)
+            q.load_state_dict(quantize_decoder_params(pm.full_state_dict(wm), cfg), strict=True)
             self._wm_q, self._wm_q_src = q.eval().requires_grad_(False), src
         return self._wm_q
 
     def _generator(self, step: int, stream: str, chunk: int = 0) -> torch.Generator:
-        seed = np.random.SeedSequence([self._seed + 1, step, STREAMS[stream], chunk])
+        key = [self._seed + 1, step, STREAMS[stream], chunk]
+        if stream in ("wm", "val") and self.data_index:
+            key.append(self.data_index)  # each rank's rows draw their own stream
+        seed = np.random.SeedSequence(key)
         return torch.Generator(device=self.device).manual_seed(int(seed.generate_state(1)[0]))
+
+    # ------------------------------------------------------------------ ranks
+    def _rows(self, x):
+        """This rank's (dp, fsdp) share of a global tensor's rows."""
+        return x if self.mesh is None else pm.shard_batch(self.mesh, x)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The data ranks' rows of a tensor, in rank order (the global rows)."""
+        return x if self.data_count == 1 else pd.all_gather(x, self.data_group)
+
+    def _sum_over_data(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of `t` over the data ranks (in place; `t` at one rank)."""
+        return t if self.data_count == 1 else pd.all_reduce(t, group=self.data_group)
+
+    def _mean_over_ranks(self, values: Dict[str, float]) -> Dict[str, float]:
+        if self.data_count == 1 or not values:
+            return values
+        keys = sorted(values)
+        t = torch.tensor([values[k] for k in keys], dtype=torch.float64, device=self.device)
+        t = self._sum_over_data(t) / self.data_count
+        return {k: float(v) for k, v in zip(keys, t.tolist())}
 
     def put_batch(self, batch_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch_np.items()}
@@ -322,7 +426,8 @@ class VLARFTGRPOTrainer:
     def encode(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         enc = {"input_ids": batch["input_ids"], "attention_mask": batch["attention_mask"],
                "labels": batch["labels"], "pixels": batch["pixel_values"]}
-        return flow_actor.encode_context(self.bundle.vla, enc)
+        with self._whole("vla"):
+            return flow_actor.encode_context(self.bundle.vla, enc)
 
     @torch.no_grad()
     def _chunked_logp(self, expert, hidden, x_chain, proprio, size: Optional[int]):
@@ -370,29 +475,69 @@ class VLARFTGRPOTrainer:
         return core_algos.compute_remax_outcome_advantage(grid, reward_baselines.float(),
                                                           torch.ones_like(grid))
 
-    def _update(self, stacked: Dict[str, torch.Tensor]) -> Dict[str, float]:
-        """One PPO mini-batch: gradients accumulated over its M micro-batches
-        (each divided by M, in f32), then one clipped, guarded step."""
+    def _update(self, data: Dict[str, torch.Tensor], idx: np.ndarray,
+                mask: np.ndarray) -> Dict[str, torch.Tensor]:
+        """One PPO mini-batch: M global micro-batches of the global rows
+        `data`; each data rank takes its slice of each, weighted by its share
+        w of the micro-batch's valid rows, so that the ranks' summed
+        gradients and w-weighted metrics are the whole micro-batch's (every
+        mean of the loss is over valid rows: the token-mean denominator is
+        rows x C*A; at one rank w = 1).  The f32 parameters' gradients
+        accumulate over the micro-batches (each loss divided by M); then one
+        clipped, guarded step on gradients summed over the ranks."""
         actor = self.config.actor_rollout_ref.actor
         expert = self.bundle.expert
-        names = list(self.expert_params)
-        params = [self.expert_params[n] for n in names]
-        M = stacked["x_chain"].shape[0]
-        g_acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        D, d = self.data_count, self.data_index
+        M, micro = idx.shape
+        per = micro // D
+        named = dict(expert.named_parameters())
+        for p in named.values():
+            p.grad = None
         per_micro = []
         for m in range(M):
-            mb = {k: v[m] for k, v in stacked.items()}
-            loss, metrics = flow_actor.policy_loss_fn(expert, mb["hidden"].detach(), mb, actor)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            for acc, g in zip(g_acc, grads):
-                if g is not None:
-                    acc.add_(g.float() / M)
-            per_micro.append({k: v.detach() for k, v in metrics.items()})
-        grad_norm = apply_updates_with_skip(self.opt, dict(zip(names, g_acc)), actor.grad_clip)
-        out = {k: torch.stack([m[k] for m in per_micro]).float().mean()
-               for k in per_micro[0]}
+            mine = slice(d * per, (d + 1) * per)
+            w = float(mask[m, mine].sum() / max(mask[m].sum(), 1.0))
+            it = torch.as_tensor(idx[m, mine], device=self.device)
+            mb = {k: v[it] for k, v in data.items()}
+            mb["mb_mask"] = torch.as_tensor(mask[m, mine], device=self.device)
+            loss, metrics = flow_actor.policy_loss_fn(
+                expert, mb["hidden"].detach(), mb, actor,
+                global_mean=lambda x, w=w: self._sum_over_data(x * w))
+            # FSDP and the all-reduces below average over the D ranks
+            (loss * (w * D / M)).backward()
+            per_micro.append({k: v.detach().float() * w for k, v in metrics.items()})
+        keys = list(per_micro[0])
+        table = torch.stack([torch.stack([row[k] for k in keys]) for row in per_micro])
+        table = self._sum_over_data(table)
+        grads = {}
+        for n, p in named.items():
+            g = p.grad
+            if n in self._sharded:  # reduce-scattered (averaged) over fsdp by FSDP2
+                g = g.to_local()
+                if self.mesh["dp"].size() > 1:
+                    g = pd.all_reduce(g, group=self.dp_group) / self.mesh["dp"].size()
+            else:
+                g = self._sum_over_data(g) / D
+            grads[n] = g
+            p.grad = None
+        grad_norm = apply_updates_with_skip(self.opt, grads, actor.grad_clip,
+                                            group_norm=lambda ns: self._group_norm(grads, ns))
+        out = {k: table[:, i].mean() for i, k in enumerate(keys)}
         out["actor/grad_norm"] = grad_norm
         return out
+
+    def _group_norm(self, grads: Dict[str, torch.Tensor], names) -> torch.Tensor:
+        """The norm of one module's whole gradient from this rank's shards
+        (summed over fsdp) and replicated leaves (counted once)."""
+        sq = lambda ns: sum((grads[n].float() ** 2).sum() for n in ns)
+        shards = [n for n in names if n in self._sharded]
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        if shards:
+            total = total + pd.all_reduce(sq(shards) + total, group=self.fsdp_group)
+        rest = [n for n in names if n not in self._sharded]
+        if rest:
+            total = total + sq(rest)
+        return torch.sqrt(total)
 
     def _ppo_update(self, actor_batch: Dict[str, torch.Tensor], gen: torch.Generator,
                     order: Optional[np.ndarray] = None) -> Dict[str, float]:
@@ -406,7 +551,11 @@ class VLARFTGRPOTrainer:
         data = {k: actor_batch[k] for k in select}
         total = data["x_chain"].shape[0]
         mini = actor.ppo_mini_batch_size
-        micro = min(actor.ppo_micro_batch_size_per_gpu, mini)
+        # a global micro-batch: ppo_micro_batch_size_per_gpu rows per data rank
+        micro = min(actor.ppo_micro_batch_size_per_gpu * self.data_count, mini)
+        if micro % self.data_count:
+            raise ValueError(f"a micro-batch of {micro} rows does not split over "
+                             f"{self.data_count} ranks")
         acc: Dict[str, list] = {}
         for epoch in range(actor.ppo_epochs):
             if order is not None:
@@ -424,12 +573,9 @@ class VLARFTGRPOTrainer:
                 if pad:
                     idx = np.concatenate([idx, np.repeat(idx[:1], pad)])
                     mask[-pad:] = 0.0
-                it = torch.as_tensor(idx, device=self.device)
-                mb = {k: v[it] for k, v in data.items()}
-                mb["mb_mask"] = torch.as_tensor(mask, device=self.device)
                 M = len(idx) // micro
-                stacked = {k: v.reshape(M, micro, *v.shape[1:]) for k, v in mb.items()}
-                for k, v in self._update(stacked).items():
+                out = self._update(data, idx.reshape(M, micro), mask.reshape(M, micro))
+                for k, v in out.items():
                     acc.setdefault(k, []).append(v)
         return reduce_metrics({k: [float(x) for x in vs] for k, vs in acc.items()})
 
@@ -444,7 +590,8 @@ class VLARFTGRPOTrainer:
         "rollout" (its result: predicted_actions and x_chain), with ReMax
         "base_noise" ((B, C, A), the baseline chain's start) or
         "base_actions" (its result), and "ppo_order" (the row order of the
-        PPO epoch), replacing the draws."""
+        PPO epoch), replacing the draws; all of them for the global rows
+        (over ranks each rank takes its own)."""
         cfg, b, dev = self.config, self.bundle, self.device
         pinned = pinned or {}
         actor = cfg.actor_rollout_ref.actor
@@ -460,8 +607,12 @@ class VLARFTGRPOTrainer:
         with timer("step", timing):
             batch = (batch_np if all(isinstance(v, torch.Tensor) for v in batch_np.values())
                      else self.put_batch(batch_np))
+            gt_global = batch["actions"]
+            B = gt_global.shape[0]  # the global batch's unique samples
+            batch = {k: self._rows(v) for k, v in batch.items()}  # this rank's samples
             gt_actions = batch["actions"]
-            B = gt_actions.shape[0]
+            B_l = gt_actions.shape[0]
+            rows = lambda x: self._rows(x.to(dev))  # this rank's rows of a global draw
             # 0 --- one frozen-VLM context encode per unique sample
             with timer("encode_context", timing):
                 hidden_unique = self.encode(batch)
@@ -469,15 +620,25 @@ class VLARFTGRPOTrainer:
             hidden = hidden_unique.repeat_interleave(n, 0)
             # 1 --- noise after repeating each sample n times
             gt_rep = gt_actions.repeat_interleave(n, 0)
-            noise_dict = pinned.get("noise") or sample_noisy_actions(
-                self._generator(step, "noise"), gt_rep, b.expert_cfg)
+            noise_dict = {k: rows(v) for k, v in (pinned.get("noise") or sample_noisy_actions(
+                self._generator(step, "noise"), gt_global.repeat_interleave(n, 0),
+                b.expert_cfg)).items()}
             proprio_rep = batch["proprio"].repeat_interleave(n, 0)
             actor_batch = {"hidden": hidden, "proprio": proprio_rep, "noise": noise_dict["noise"]}
             # 2 --- stochastic action rollout
             with timer("ac_rollout", timing):
-                out = pinned.get("rollout") or flow_actor.rollout_from_hidden(
-                    expert, self._generator(step, "roll"), hidden, noise_dict["noise"],
-                    proprio_rep, b.expert_cfg.num_flow_steps, eps=pinned.get("flow_eps"))
+                K = b.expert_cfg.num_flow_steps
+                eps = pinned.get("flow_eps")
+                if eps is None:  # the K steps' draws for the global rows
+                    g = self._generator(step, "roll")
+                    shape = (B * n,) + tuple(noise_dict["noise"].shape[1:])
+                    eps = torch.stack([torch.randn(shape, generator=g, dtype=torch.float32,
+                                                   device=dev) for _ in range(K)])
+                eps = self._rows(eps.to(dev).transpose(0, 1)).transpose(0, 1)
+                out = pinned.get("rollout")
+                out = ({k: rows(v) for k, v in out.items()} if out else
+                       flow_actor.rollout_from_hidden(expert, None, hidden, noise_dict["noise"],
+                                                      proprio_rep, K, eps=eps))
                 base_actions = None
                 if use_remax:
                     # the greedy baseline: the deterministic Euler chain per
@@ -488,10 +649,12 @@ class VLARFTGRPOTrainer:
                         if base_noise is None:
                             base_noise = sample_noisy_actions(
                                 self._generator(step, "noise", REMAX_BASELINE_CHUNK),
-                                gt_actions, b.expert_cfg)["noise"]
+                                gt_global, b.expert_cfg)["noise"]
                         base_actions = flow_actor.rollout_from_hidden(
-                            expert, None, hidden_unique, base_noise, batch["proprio"],
-                            b.expert_cfg.num_flow_steps, deterministic=True)["predicted_actions"]
+                            expert, None, hidden_unique, rows(base_noise), batch["proprio"],
+                            K, deterministic=True)["predicted_actions"]
+                    else:
+                        base_actions = rows(base_actions)
                 _sync(dev)
             actor_batch.update(out)
             actor_batch["gt_actions"] = gt_rep
@@ -513,7 +676,8 @@ class VLARFTGRPOTrainer:
                 with timer("ac_reward", timing):
                     token_level_rewards, r_metrics = ac_reward(
                         gt_rep, actor_batch["predicted_actions"], cfg.trainer.ac_reward_type)
-                    metrics.update({k: float(v) for k, v in r_metrics.items()})
+                    metrics.update(self._mean_over_ranks(
+                        {k: float(v) for k, v in r_metrics.items()}))
                     if use_remax:
                         base_rt, _ = ac_reward(gt_actions, base_actions,
                                                cfg.trainer.ac_reward_type)
@@ -524,38 +688,44 @@ class VLARFTGRPOTrainer:
                 # stripped after the reward
                 n_wm = n + 1 if use_remax else n
                 pa = actor_batch["predicted_actions"]
-                wm_actions = (torch.cat([pa.reshape(B, n, *pa.shape[1:]),
+                wm_actions = (torch.cat([pa.reshape(B_l, n, *pa.shape[1:]),
                                          base_actions[:, None].to(pa.dtype)], dim=1)
-                              .reshape(B * n_wm, *pa.shape[1:]) if use_remax else pa)
+                              .reshape(B_l * n_wm, *pa.shape[1:]) if use_remax else pa)
                 # 4 --- tokenize
-                with timer("process", timing):
+                with timer("process", timing), self._whole("tokenizer"):
                     wm_inputs = process_stage(b, self.action_ranges, batch["raw_pixel_values"],
                                               wm_actions, gt_actions, n_wm, use_gt_ac)
                     _sync(dev)
                 if cfg.trainer.reward_fn == "wm_logprob":
                     # one teacher-forced WM forward over the recorded future
                     # replaces the rollout and the detokenise / LPIPS reward
-                    with timer("wm_rollout", timing):
+                    with timer("wm_rollout", timing), self._whole("wm"):
                         token_level_rewards, r_metrics = wm_logprob_reward(
                             b.wm, b.proc_cfg, b.reward_cfg, wm_inputs["input_ids"],
                             b.roll_cfg.prompt_length)
                         _sync(dev)
                     with timer("adv", timing):
-                        metrics.update({k: float(v) for k, v in r_metrics.items()})
+                        metrics.update(self._mean_over_ranks(
+                            {k: float(v) for k, v in r_metrics.items()}))
                         # the msp path's metric families, for one schema
                         metrics.setdefault("critic/recon_loss/mean", 0.0)
                         metrics.setdefault("critic/perceptual_loss/mean", 0.0)
                 else:
                     # 5 --- WM rollout (+ the gt branch), chunked on group boundaries
-                    with timer("wm_rollout", timing):
-                        rows = wm_rows(b, wm_inputs, n_wm, use_gt_ac, gt_per_sample,
-                                       interleave_gt=b.roll_cfg.speculative_k == 0)
+                    with timer("wm_rollout", timing), self._whole(
+                            *(() if self._use_wm_int8 else ("wm",))):
+                        wrows = wm_rows(b, wm_inputs, n_wm, use_gt_ac, gt_per_sample,
+                                        interleave_gt=b.roll_cfg.speculative_k == 0)
                         wm_stats = {}
                         responses, gt_responses = wm_rollout_stage(
-                            b, self._wm_gen_model(), rows,
+                            b, self._wm_gen_model(), wrows,
                             int(roll.get("micro_batch_size", 16) or 16),
                             lambda ci: self._generator(step, "wm", ci), stats=wm_stats)
                         _sync(dev)
+                    keys = sorted(wm_stats)  # the global batch's counts
+                    tot = self._sum_over_data(torch.tensor(
+                        [float(wm_stats[k]) for k in keys], dtype=torch.float64, device=dev))
+                    wm_stats = dict(zip(keys, tot.tolist()))
                     metrics["wm_rollout/rows"] = float(wm_stats["rows"])
                     metrics["wm_rollout/calls"] = float(wm_stats["calls"])
                     if b.roll_cfg.speculative_k:
@@ -564,17 +734,23 @@ class VLARFTGRPOTrainer:
                         metrics["wm_rollout/acceptance_rate"] = (
                             wm_stats["accepted"] / max(wm_stats["proposed"], 1))
                     # 6 --- reward per chunk of tokenizer_micro_batch_size rows
-                    with timer("adv", timing):
+                    with timer("adv", timing), self._whole("tokenizer", "lpips"):
                         rw = int(cfg.processor.get("tokenizer_micro_batch_size", 8) or 8)
                         token_level_rewards, r_metrics = reward_stage(
                             b, wm_inputs, responses, gt_responses, n_wm, use_gt_ac,
                             gt_per_sample, rw)
                         _sync(dev)
-                        metrics.update(r_metrics)
+                        metrics.update(self._mean_over_ranks(r_metrics))
                 if use_remax:  # strip the baseline rows back out
-                    tl = token_level_rewards.reshape(B, n + 1, -1)
+                    tl = token_level_rewards.reshape(B_l, n + 1, -1)
                     baseline_scores = tl[:, -1].float().sum(-1)
-                    token_level_rewards = tl[:, :-1].reshape(B * n, -1)
+                    token_level_rewards = tl[:, :-1].reshape(B_l * n, -1)
+            # the global batch's rewards: a group's rows are on one rank,
+            # but the advantage estimators and the critic/* metrics read the
+            # whole batch
+            token_level_rewards = self._gather(token_level_rewards)
+            if baseline_scores is not None:
+                baseline_scores = self._gather(baseline_scores)
             # 7 --- advantage over the groups of n rollouts
             if use_remax:
                 advantages, returns = self.advantage_remax(
@@ -583,9 +759,10 @@ class VLARFTGRPOTrainer:
             else:
                 group_ids = torch.arange(B, device=dev).repeat_interleave(n)
                 advantages, returns = self.advantage(token_level_rewards, group_ids, B)
-            actor_batch["advantages"] = advantages
-            # 8 --- PPO update
+            # 8 --- PPO update over the global rows
             with timer("update_actor", timing):
+                actor_batch = {k: self._gather(v) for k, v in actor_batch.items()}
+                actor_batch["advantages"] = advantages
                 metrics.update(self._ppo_update(actor_batch, self._generator(step, "shuffle"),
                                                 pinned.get("ppo_order")))
                 _sync(dev)
@@ -602,8 +779,8 @@ class VLARFTGRPOTrainer:
             metrics.update({k: float(v) for k, v in stats.items()})
         metrics.update(timing_metrics(timing))
         metrics.update(compute_throughput_metrics(
-            timing, B * n, b.roll_cfg.num_frames, 1, step_flops=self._step_flops(B, n),
-            peak_flops=self._peak_flops()))
+            timing, B * n, b.roll_cfg.num_frames, self.data_count,
+            step_flops=self._step_flops(B, n), peak_flops=self._peak_flops()))
         return metrics
 
     def _peak_flops(self) -> float:
@@ -640,7 +817,7 @@ class VLARFTGRPOTrainer:
         counters; validation runs outside them)."""
         cfg = self.config
         logger = logger or Tracking(cfg.trainer.project_name, cfg.trainer.experiment_name,
-                                    cfg.trainer.logger)
+                                    cfg.trainer.logger if self.is_rank0 else [])
         self._load_checkpoint()
         if cfg.trainer.get("val_before_train", False):
             logger.log(self.validate(), self.global_steps)
@@ -673,21 +850,53 @@ class VLARFTGRPOTrainer:
         logger.finish()
 
     # ------------------------------------------------------------ checkpoints
-    def _save_checkpoint(self):
+    def _opt_names(self):
+        """{label: the parameter names of that optimizer group, in order}."""
+        return {label: [n for n in self.opt.names if self.opt.labels[n] == label]
+                for label in self.opt.groups}
+
+    @torch.no_grad()
+    def _save_checkpoint(self) -> Optional[str]:
+        """Write the full state (expert and optimizer moments gathered from
+        their shards; every rank takes part); only rank 0 writes.  Returns
+        the path on rank 0, None elsewhere."""
         dl_state = getattr(self, "_dl_ckpt_state", None) or self.dataset.state_dict()
-        state = {"expert": self.bundle.expert.state_dict(), "opt_state": self.opt.state_dict(),
+        opt_state = self.opt.state_dict()
+        if self._sharded:
+            params = self.expert_params
+            whole = lambda n, t: pm.whole_like(t, params[n]) if n in self._sharded else t
+            for label, names in self._opt_names().items():
+                st = opt_state[label]
+                st["mu"] = [whole(n, t) for n, t in zip(names, st["mu"])]
+                st["nu"] = [whole(n, t) for n, t in zip(names, st["nu"])]
+        state = {"expert": pm.full_state_dict(self.bundle.expert), "opt_state": opt_state,
                  "step": self.global_steps, "dataloader": dict(dl_state)}
-        return self.ckpt.save(self.global_steps, state)
+        path = self.ckpt.save(self.global_steps, state) if self.is_rank0 else None
+        if self.world > 1:
+            torch.distributed.barrier()
+        return path
 
     @torch.no_grad()
     def _load_checkpoint(self):
+        """Every rank reads the checkpoint and keeps its own shards."""
+        from torch.distributed.tensor import distribute_tensor
+
         if self.config.trainer.resume_mode == "disable":
             return
         step = self.ckpt.latest_step()
         if step is None:
             return
         state = self.ckpt.restore(step, map_location=self.device)
-        self.bundle.expert.load_state_dict(state["expert"], strict=True)
+        pm.load_full_state_dict(self.bundle.expert, state["expert"], strict=True)
+        if self._sharded:
+            params = self.expert_params
+            mine = lambda n, t: (distribute_tensor(
+                t.to(self.device), params[n].device_mesh, params[n].placements,
+                src_data_rank=None).to_local() if n in self._sharded else t)
+            for label, names in self._opt_names().items():
+                st = state["opt_state"][label]
+                st["mu"] = [mine(n, t) for n, t in zip(names, st["mu"])]
+                st["nu"] = [mine(n, t) for n, t in zip(names, st["nu"])]
         self.opt.load_state_dict(state["opt_state"])
         self.global_steps = int(state["step"])
         self.dataset.load_state_dict({k: int(v) for k, v in state["dataloader"].items()})
@@ -711,7 +920,8 @@ class VLARFTGRPOTrainer:
         for it in range(cfg.trainer.val_iters):
             p = pinned[it] if pinned else {}
             gen = lambda k: self._generator(0, "val", 4 * it + k)
-            batch = self.put_batch(self.val_dataset.next_batch())
+            batch = {k: self._rows(v) for k, v in
+                     self.put_batch(self.val_dataset.next_batch()).items()}
             hidden = self.encode(batch).repeat_interleave(n, 0)
             gt_rep = batch["actions"].repeat_interleave(n, 0)
             noise = p.get("noise")
@@ -720,30 +930,35 @@ class VLARFTGRPOTrainer:
             out = p.get("rollout") or flow_actor.rollout_from_hidden(
                 b.expert, gen(1), hidden, noise, batch["proprio"].repeat_interleave(n, 0),
                 b.expert_cfg.num_flow_steps)
-            wm_inputs = process_stage(b, self.action_ranges, batch["raw_pixel_values"],
-                                      out["predicted_actions"], batch["actions"], n, use_gt_ac)
+            with self._whole("tokenizer"):
+                wm_inputs = process_stage(b, self.action_ranges, batch["raw_pixel_values"],
+                                          out["predicted_actions"], batch["actions"], n,
+                                          use_gt_ac)
             prompt = wm_inputs["input_ids"][:, :rc.prompt_length]
             p0 = rc.prompt_length - pc.action_dim
-            pm = torch.arange(prompt.shape[0] // n, dtype=torch.int32,
-                              device=self.device).repeat_interleave(n)
+            prefix_map = torch.arange(prompt.shape[0] // n, dtype=torch.int32,
+                                      device=self.device).repeat_interleave(n)
             wm = self._wm_gen_model()
             rollout = lambda actions, g: generate_sequences(
                 wm, g, prompt[:, p0:], actions, rc, shared_prefix=prompt[::n, :p0],
-                prefix_map=pm)
-            responses = rollout(wm_inputs["action_ids"], gen(2))
-            gt_responses = rollout(wm_inputs["gt_action_ids"], gen(3)) if use_gt_ac else None
+                prefix_map=prefix_map)
+            with self._whole(*(() if self._use_wm_int8 else ("wm",))):
+                responses = rollout(wm_inputs["action_ids"], gen(2))
+                gt_responses = (rollout(wm_inputs["gt_action_ids"], gen(3)) if use_gt_ac
+                                else None)
             real = (None if use_gt_ac
                     else wm_inputs["pixels_w_ctx_unique"][:, 2:].repeat_interleave(n, 0))
-            reward, r_metrics = msp_reward(b.tokenizer, b.lpips, pc, b.reward_cfg, responses,
-                                           wm_inputs["ctx_tokens"], real_frames=real,
-                                           gt_responses=gt_responses)
-            scores += reward.float().sum(-1).tolist()
-            for k, v in r_metrics.items():
-                losses.setdefault(k, []).append(float(v))
-            img_dir = cfg.trainer.get("img_save_dir", None)
-            if img_dir and it == 0:
-                self._save_val_frames(img_dir, wm_inputs["ctx_tokens"][:1], responses,
-                                      gt_responses, real, float(reward[0].sum()))
+            with self._whole("tokenizer", "lpips"):
+                reward, r_metrics = msp_reward(b.tokenizer, b.lpips, pc, b.reward_cfg,
+                                               responses, wm_inputs["ctx_tokens"],
+                                               real_frames=real, gt_responses=gt_responses)
+                img_dir = cfg.trainer.get("img_save_dir", None)
+                if img_dir and it == 0 and self.is_rank0:
+                    self._save_val_frames(img_dir, wm_inputs["ctx_tokens"][:1], responses,
+                                          gt_responses, real, float(reward[0].sum()))
+            scores += self._gather(reward.float().sum(-1)).tolist()
+            for k, v in self._mean_over_ranks({k: float(v) for k, v in r_metrics.items()}).items():
+                losses.setdefault(k, []).append(v)
         return {"val/reward": float(np.mean(scores)),
                 "val/on_train_stream": float(self._val_on_train_stream),
                 **{f"val/{k}": float(np.mean(v)) for k, v in losses.items()}}

@@ -8,6 +8,15 @@ Usage (the reference's dotted overrides and defaults):
       [world_model_rollout.rollout.kv_layout=hd|heads] [--preset=libero|tiny] [--device=cpu]
 
 The device defaults to the card; `--device=cpu` runs the plain PyTorch path.
+
+Over ranks it runs under torchrun (or `python -m torch.distributed.run
+--nproc_per_node N -m vla_rft_tpu_torch.trainer.main_vla_rft_grpo ...`):
+the process group starts from torchrun's variables (NCCL on the card,
+gloo on the CPU, or `--backend=gloo|nccl`; ranks that share one card need
+gloo), `mesh={"dp": .., "fsdp": .., "tp": .., "sp": ..}` places the models
+(a mesh the world cannot hold raises), each rank runs on
+cuda:{LOCAL_RANK % device_count}, only rank 0 logs and writes checkpoints,
+every rank resumes from them, and the group is destroyed at exit.
 Every algorithm setting of the reference's trainer runs:
 algorithm.adv_estimator (grpo, rloo, reinforce_plus_plus[_baseline],
 remax), trainer.use_ac_reward, trainer.reward_fn (mae, mse, wm_logprob),
@@ -58,6 +67,7 @@ import sys
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import torch
 from torch import nn
 
 from vla_rft_tpu_torch import convert_weights as cw
@@ -65,6 +75,8 @@ from vla_rft_tpu_torch.config import Config, PolicyConfig, WMRewardConfig, vla_r
 from vla_rft_tpu_torch.convert import flax_to_torch
 from vla_rft_tpu_torch.data.rlds import RLDSConfig, RLDSDataset
 from vla_rft_tpu_torch.models.factory import policy_configs, wm_reward_configs
+from vla_rft_tpu_torch.parallel import distributed as pd
+from vla_rft_tpu_torch.parallel.mesh import load_full_state_dict
 from vla_rft_tpu_torch.trainer.grpo_trainer import VLARFTGRPOTrainer
 from vla_rft_tpu_torch.utils import weight_files as wf
 
@@ -82,7 +94,7 @@ def run(argv: Optional[List[str]] = None,
     before the first step, and the step hooks bracket every training_step
     (see VLARFTGRPOTrainer.fit)."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    preset, device = "libero", "cuda"
+    preset, device, backend = "libero", "cuda", None
     for a in list(argv):
         if a.startswith("--preset="):
             preset = a.split("=", 1)[1]
@@ -90,6 +102,18 @@ def run(argv: Optional[List[str]] = None,
         elif a.startswith("--device="):
             device = a.split("=", 1)[1]
             argv.remove(a)
+        elif a.startswith("--backend="):
+            backend = a.split("=", 1)[1]
+            argv.remove(a)
+    started = pd.initialize_distributed(backend, torch.device(device).type)
+    try:
+        return _run(argv, preset, device, on_start, on_step_start, on_step_end, tokenizer)
+    finally:
+        if started:
+            pd.shutdown()
+
+
+def _run(argv, preset, device, on_start, on_step_start, on_step_end, tokenizer):
     config = vla_rft_default_config().apply_overrides([a for a in argv if "=" in a])
     dataset = val_dataset = None
     if config.data.video.dataset_path:
@@ -98,7 +122,7 @@ def run(argv: Optional[List[str]] = None,
     trainer = VLARFTGRPOTrainer(config, preset=preset, device=device, dataset=dataset,
                                 val_dataset=val_dataset)
     trainer.pretrained = _maybe_load_pretrained(trainer, config)
-    for family, rec in trainer.pretrained.items():
+    for family, rec in trainer.pretrained.items() if trainer.is_rank0 else ():
         print(f"[load] {family}: {rec['tensors']} tensors, {rec['bytes']} bytes read in "
               f"{rec['seconds']:.2f} s")
     if on_start is not None:
@@ -162,11 +186,12 @@ def _nbytes(path: str, patterns=wf.WEIGHT_PATTERNS) -> int:
 def _load_into(module: nn.Module, tree: Dict[str, Any], which: str,
                keep: Tuple[str, ...] = ()) -> int:
     """Copy a converted Flax-layout tree into `module`'s parameters in place
-    (each cast to the parameter's dtype and device).  Every parameter must
-    be in the tree except those under a `keep` prefix, which keep their
-    values; a name the module lacks raises.  Returns the tensors copied."""
+    (each cast to the parameter's dtype and device; an FSDP-sharded one
+    takes its shard).  Every parameter must be in the tree except those
+    under a `keep` prefix, which keep their values; a name the module lacks
+    raises.  Returns the tensors copied."""
     sd = flax_to_torch(tree, which)
-    missing, unexpected = module.load_state_dict(sd, strict=False)
+    missing, unexpected = load_full_state_dict(module, sd, strict=False)
     bad = [k for k in missing if not k.startswith(keep)] if keep else list(missing)
     if bad or unexpected:
         raise RuntimeError(f"loading {which}: missing {bad[:8]} ({len(bad)}), unexpected "

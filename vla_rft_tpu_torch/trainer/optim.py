@@ -174,14 +174,18 @@ def make_optimizer(named_params, optim_cfg, total_training_steps: int) -> GroupO
 
 
 @torch.no_grad()
-def clip_grads_per_module(grads: Dict[str, torch.Tensor], max_norm: float):
+def clip_grads_per_module(grads: Dict[str, torch.Tensor], max_norm: float, group_norm=None):
     """Clip each top-level module's gradients to max_norm by their own
-    global norm (dp_actor._optimizer_step).  Returns (clipped grads, the
-    norm of the clipped groups together, whether every norm is finite)."""
+    global norm (dp_actor._optimizer_step).  `group_norm(names)` gives a
+    module's norm when the gradients are shards of a larger whole
+    (default: `global_norm` of the named gradients).  Returns (clipped
+    grads, the norm of the clipped groups together, whether every norm is
+    finite)."""
     groups: Dict[str, List[str]] = {}
     for n in grads:
         groups.setdefault(module_of(n), []).append(n)
-    norms = {g: global_norm([grads[n] for n in ns]) for g, ns in sorted(groups.items())}
+    group_norm = group_norm or (lambda ns: global_norm([grads[n] for n in ns]))
+    norms = {g: group_norm(ns) for g, ns in sorted(groups.items())}
     finite = torch.stack([torch.isfinite(v) for v in norms.values()]).all()
     scales = {g: torch.clamp(max_norm / torch.clamp(v, min=1e-12), max=1.0)
               for g, v in norms.items()}
@@ -191,11 +195,11 @@ def clip_grads_per_module(grads: Dict[str, torch.Tensor], max_norm: float):
 
 
 def apply_updates_with_skip(opt: GroupOptimizer, grads: Dict[str, torch.Tensor],
-                            max_norm: float) -> torch.Tensor:
+                            max_norm: float, group_norm=None) -> torch.Tensor:
     """Clip per module, then one optimizer step; when any group's gradient
     is non-finite the step is skipped (parameters and optimizer state
     unchanged) and the reported norm is NaN."""
-    clipped, total, finite = clip_grads_per_module(grads, max_norm)
+    clipped, total, finite = clip_grads_per_module(grads, max_norm, group_norm)
     if not bool(finite):
         return torch.full_like(total, float("nan"))
     opt.step(clipped)

@@ -150,12 +150,15 @@ def logp_from_hidden(expert: ActionExpert, hidden: torch.Tensor, x_chain: torch.
 
 
 def policy_loss_fn(expert: ActionExpert, hidden: torch.Tensor, batch: Dict[str, torch.Tensor],
-                   cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   cfg, global_mean=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The micro-batch loss (dp_actor.update_policy).  batch: x_chain,
     proprio, old_log_probs, advantages (B, C*A); optional mb_mask (rows the
     trainer repeated to fill a micro-batch, weight 0), flow /
     gt_noisy_actions / gt_timesteps (BC MSE), ref_log_probs (KL),
-    gt_actions / predicted_actions (l1 metric).  cfg: the actor group."""
+    gt_actions / predicted_actions (l1 metric).  cfg: the actor group.
+    `global_mean`, when this rank holds a slice of the micro-batch, maps a
+    mean over the slice's rows to the mean over the whole micro-batch's (the
+    MSE gate reads the whole micro-batch's ppo_kl, as in the reference)."""
     new_logp, entropy = _replay_logp(
         expert, hidden, batch["x_chain"], batch["proprio"], True,
         step_chunks=int(cfg.get("replay_step_chunks", 2) or 2),
@@ -194,7 +197,8 @@ def policy_loss_fn(expert: ActionExpert, hidden: torch.Tensor, batch: Dict[str, 
         metrics["actor/l1_loss"] = ((l1_rows * row_w).sum() / n_valid).detach()
     if cfg.get("use_mse_loss", False):
         # adaptive gate in [0, 1] from ppo_kl (dp_actor.py:465-489)
-        t = (ppo_kl.detach() - cfg.mse_kl_low) / (cfg.mse_kl_high - cfg.mse_kl_low)
+        kl = ppo_kl.detach() if global_mean is None else global_mean(ppo_kl.detach())
+        t = (kl - cfg.mse_kl_low) / (cfg.mse_kl_high - cfg.mse_kl_low)
         mse_coef = cfg.mse_loss_coef * torch.clamp(t, 0.0, 1.0)
         flow_pred = expert.predict_flow(hidden, batch["gt_noisy_actions"],
                                         batch["gt_timesteps"].float(), batch["proprio"])
