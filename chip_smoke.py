@@ -242,7 +242,19 @@ Phases, one JSON line each:
                   moved and every frozen one bit-identical, rank 0 alone
                   checkpointing, each rank's peak memory (the pair under
                   80 GiB), the 2-rank teacher-forced step within bounds of
-                  the 1-rank one; Qwen2.5-0.5B at full width on 2 x 1663 tokens over
+                  the 1-rank one (each rank digests its own shards of the
+                  frozen trees); text RL and SFT at Qwen2.5-0.5B width over
+                  fsdp = 2 (`_rank_text`): main_ppo.run's sampled grpo step
+                  with the value-head RM, 2 prompts x 16 at 142 tokens, remat
+                  (launches of #1 / #5 / #2 / #3 a rank, its share of the
+                  1-rank step's; the policy bit-identical across ranks
+                  after whole_like; the reference policy unmoved; against
+                  the 1-rank step from the checkpoint on the pair's rollout:
+                  log-probs, rewards, advantages and metrics within
+                  PAR_COMPARED's rule, the policy within 2 x the 1-rank
+                  step) and one text SFT step of 4 x 1663 (its loss within
+                  1e-3 of the 1-rank step's, 24 / 24 / 24 a rank); Qwen2.5-0.5B
+                  at full width on 2 x 1663 tokens over
                   sp = 2 (Ulysses, the sequence padded to 1664), tp = 2
                   and pp = 2 (12 layers a stage, 2 micro-batches): logits,
                   loss and (sp, pp) the gradient of the embedding output
@@ -4251,21 +4263,22 @@ TEXT_R_CUT = 142
 PPO_KL_TOL = 1e-6  # on-policy identity: first mini-batch ppo_kl, ref vs old log-probs
 
 
-def _ppo_expect(prompts: int, config, critic: bool, validate: bool) -> dict:
+def _ppo_expect(prompts: int, config, critic: bool, validate: bool, ranks: int = 1) -> dict:
     """Launches of one PPO step (or validate()) derived from its rows,
-    chunks and mini-batches: the rollout's prefill (#1) and R decode calls
-    (#5) per layer; per layer one #1 for each chunk of old and reference
-    log-probs; with a critic one #1 for its values; per mini-batch and
-    layer one #1, #2 and #3 for the actor update (and for the critic's),
-    and one more #1 when the layers are recomputed in the backward
-    (enable_gradient_checkpointing)."""
+    chunks and mini-batches, on each of `ranks` data ranks: the rollout's
+    prefill (#1) and R decode calls (#5) per layer; per layer one #1 for
+    each chunk of the rank's old and reference log-probs; with a critic one
+    #1 for its values; per global mini-batch (a rank takes its share of
+    each) and layer one #1, #2 and #3 for the actor update (and for the
+    critic's), and one more #1 when the layers are recomputed in the
+    backward (enable_gradient_checkpointing)."""
     L, R = 24, config.actor_rollout_ref.rollout.response_length
     roll, n = config.actor_rollout_ref.rollout, config.actor_rollout_ref.rollout.n
     if validate:
         return _text_expect(flash_fwd=L, decode_hd=L * R)
     rows = prompts * n
-    chunks = lambda c: -(-rows // c)
-    updates = chunks(config.actor_rollout_ref.actor.ppo_mini_batch_size) * (2 if critic else 1)
+    chunks = lambda c: -(-(rows // ranks) // c)
+    updates = -(-rows // config.actor_rollout_ref.actor.ppo_mini_batch_size) * (2 if critic else 1)
     fwd = (L + L * chunks(roll.log_prob_micro_batch_size_per_gpu)
            + L * chunks(config.actor_rollout_ref.ref.log_prob_micro_batch_size_per_gpu)
            + (L if critic else 0) + L * updates * (1 + _remat(config)))
@@ -4284,8 +4297,9 @@ def _drive_ppo(mods, fda, argv, written: dict, on_load=None) -> dict:
     also by the rows of each launch), each
     actor mini-batch's metrics, the first mini-batch itself and every
     chunk's log-probs; whether the loaded policy and reference policy are
-    bit-equal to `written`; the attention mask of each mini-batch's first
-    row; then on_load(trainer, record), when given, just after the load.
+    bit-equal to `written` (when given); the attention mask of each
+    mini-batch's first row; then on_load(trainer, record), when given,
+    just after the load.
     Returns the record (the trainer under "trainer")."""
     from vla_rft_tpu_torch.trainer import main_ppo, ppo_trainer
 
@@ -4308,9 +4322,10 @@ def _drive_ppo(mods, fda, argv, written: dict, on_load=None) -> dict:
         def load_actor(self, state_dict):
             super().load_actor(state_dict)
             rec["trainer"] = self
-            rec["loaded_bit_equal"] = all(
-                torch.equal(v.cpu(), written[k]) for m in (self.llm, self.ref)
-                for k, v in m.state_dict().items())
+            if written is not None:
+                rec["loaded_bit_equal"] = all(
+                    torch.equal(v.cpu(), written[k]) for m in (self.llm, self.ref)
+                    for k, v in m.state_dict().items())
             if self.critic is not None:  # its seeded initialisation
                 rec["critic_start"] = {k: v.clone() for k, v in self.critic.state_dict().items()}
             if on_load is not None:
@@ -4333,11 +4348,11 @@ def _drive_ppo(mods, fda, argv, written: dict, on_load=None) -> dict:
             rec["logp"]["ref" if model is self.ref else "policy"].append(lp.clone())
             return lp
 
-        def _actor_update(self, mb):
+        def _actor_update(self, mb, share=(1.0, 1.0)):
             if not rec["minibatches"]:
                 rec["first_mb"] = {k: v.clone() for k, v in mb.items()}
             rec.setdefault("first_rows", []).append(mb["attention_mask"][:1].clone())
-            m = super()._actor_update(mb)
+            m = super()._actor_update(mb, share)
             rec["minibatches"].append(m)
             return m
 
@@ -4585,7 +4600,7 @@ PRIME_DPO_BRANCH = ["reward_model.loss_type=dpo", "reward_model.bon_mode=bon_rm"
                     f"reward_model.lr={RM_RAISED_LR}"]
 
 
-def _rm_expect(prompts: int, config, rm: str) -> dict:
+def _rm_expect(prompts: int, config, rm: str, ranks: int = 1) -> dict:
     """Launches of one reward-model step, derived as `_ppo_expect` derives a
     grpo step's, plus the RM's: with the value-head RM ("value_head") one
     #1 per layer and log-prob chunk of its scores; with PRIME ("prime") one
@@ -4593,11 +4608,12 @@ def _rm_expect(prompts: int, config, rm: str) -> dict:
     reference's only at a rollout temperature other than 1 (at 1 they are
     the reference policy's, ref's chunks, already counted), and per update
     micro-batch (ppo_mini_batch_size rounded down to whole groups of n) and
-    layer one #1, one more with remat, one #2 and one #3."""
+    layer one #1, one more with remat, one #2 and one #3; each on each of
+    `ranks` data ranks, over its rows."""
     L, n = 24, config.actor_rollout_ref.rollout.n
-    rows = prompts * n
+    rows = prompts * n // ranks
     chunks = lambda c: -(-rows // c)
-    base = _ppo_expect(prompts, config, critic=False, validate=False)
+    base = _ppo_expect(prompts, config, critic=False, validate=False, ranks=ranks)
     aref = config.actor_rollout_ref
     rm_chunks = chunks(aref.rollout.log_prob_micro_batch_size_per_gpu)
     if rm == "value_head":
@@ -5009,7 +5025,7 @@ def _wait_ranks(procs, d: str, timeout: float, raise_on_fail: bool = True):
             p.kill()
             p.wait()
         log.close()
-    outs = []
+    outs, failed = [], []
     for r, (p, _) in enumerate(procs):
         path = os.path.join(d, f"out{r}.pt")
         if p.returncode == 0 and os.path.exists(path):
@@ -5017,10 +5033,11 @@ def _wait_ranks(procs, d: str, timeout: float, raise_on_fail: bool = True):
             continue
         with open(os.path.join(d, f"log{r}.txt")) as f:
             tail = f.read()[-4000:]
-        if raise_on_fail:
-            raise AssertionError(f"rank {r} of {d}: exit {p.returncode}\n{tail}")
+        failed.append(f"rank {r} of {d}: exit {p.returncode}\n{tail}")
         outs.append({"failed": f"exit {p.returncode}: "
                                f"{(tail.strip().splitlines() or [''])[-1][:200]}"})
+    if failed and raise_on_fail:  # every failed rank's tail: the first to fail may be any
+        raise AssertionError("\n".join(failed))
     return outs
 
 
@@ -5121,8 +5138,9 @@ def _par_grpo_argv(ckpt_dir: str) -> list:
 def _grpo_run(mods, argv, reward: str, save_expert=None, keep_start: bool = False,
               rank_chunks: int = 1) -> dict:
     """One step of main_vla_rft_grpo.run(argv) on this process's rank(s):
-    launches counted from 0 around the step, the frozen trees' digests
-    before and after, the expert's before and after (its whole state after
+    launches counted from 0 around the step, the digests of this rank's
+    own shards of the frozen trees before and after (gathering the whole
+    trees cost an fsdp 2 rank half a minute), the expert's before and after (its whole state after
     the step to the file `save_expert`; with `keep_start` its state before
     it too), peak memory, metrics.  Whole trees are gathered from their
     FSDP shards while the process group is up.  `rank_chunks` > 1 runs
@@ -5143,6 +5161,8 @@ def _grpo_run(mods, argv, reward: str, save_expert=None, keep_start: bool = Fals
 
     rec, held, frozen = {}, {}, ("vla", "wm", "tokenizer", "lpips")
     whole = lambda m: pm.full_state_dict(getattr(held["tr"].bundle, m))
+    own = lambda m: {k: pm.local(v) for k, v in getattr(held["tr"].bundle, m)
+                     .state_dict().items()}  # this rank's shards: no gather
 
     def on_start(tr):
         held["tr"] = tr
@@ -5150,7 +5170,7 @@ def _grpo_run(mods, argv, reward: str, save_expert=None, keep_start: bool = Fals
             tokenize = tr.bundle.tokenizer.tokenize
             tr.bundle.tokenizer.tokenize = lambda px: tuple(
                 torch.cat(p) for p in zip(*(tokenize(x) for x in px.chunk(rank_chunks))))
-        rec["frozen_before"] = {m: _digest(whole(m)) for m in frozen}
+        rec["frozen_before"] = {m: _digest(own(m)) for m in frozen}
         expert = whole("expert")
         rec["expert_before"] = _digest(expert)
         if keep_start:
@@ -5167,7 +5187,7 @@ def _grpo_run(mods, argv, reward: str, save_expert=None, keep_start: bool = Fals
         rec["metrics"] = {k: v for k, v in metrics.items() if not k.startswith("timing_s/")}
         rec["timing_s"] = {k[len("timing_s/"):]: v for k, v in metrics.items()
                            if k.startswith("timing_s/")}
-        rec["frozen_after"] = {m: _digest(whole(m)) for m in frozen}
+        rec["frozen_after"] = {m: _digest(own(m)) for m in frozen}
         expert = whole("expert")
         rec["expert_after"] = _digest(expert)
         if save_expert:
@@ -5232,6 +5252,7 @@ def _rank_qwen(payload: dict) -> dict:
 
     r, W = dist.get_rank(), dist.get_world_size()
     dev = torch.device("cuda:0")
+    torch.cuda.reset_peak_memory_stats()  # this function's own peak
     cfg = TransformerConfig.qwen25_0_5b()
     B, S = PAR_QWEN_BATCH, WM_SFT_LEN
     gen = torch.Generator(device=dev).manual_seed(PAR_QWEN_SEED)
@@ -5361,9 +5382,14 @@ def rank_main(task: str, d: str) -> int:
                 f.write(f"{op}={int(out[op])}\n")
     elif task == "grpo":  # main_vla_rft_grpo.run starts and ends its own group
         out = _rank_grpo(payload)
-    else:
-        pd.initialize_distributed("gloo", "cuda")
-        out = _rank_qwen(payload)
+    else:  # the Qwen2.5-0.5B pair: text RL, the sp / tp / pp routes, text SFT
+        from vla_rft_tpu_torch.parallel import mesh as pm
+
+        pd.initialize_distributed("gloo", "cuda")  # main_ppo.run then leaves it up
+        text = _rank_text(payload)
+        out = {**_rank_qwen(payload), "text": text,
+               "sft": _par_sft_step(_kernel_mods()[0], payload["sft_file"],
+                                    pm.MeshConfig(**payload["mesh"]))}
     torch.save(out, os.path.join(d, f"out{os.environ['RANK']}.pt"))
     pd.shutdown()
     return 0
@@ -5510,11 +5536,281 @@ def _parallel_grpo(mods, root: str, fsdp_ranks: int) -> dict:
     return out
 
 
+# text RL and text SFT over two ranks at Qwen2.5-0.5B width.  The pair's
+# main_ppo step: grpo with the value-head RM over the mixed prompts (a gsm8k
+# prompt and one that no rule scores, so that over random weights the
+# rewards and the advantages are not all 0), PAR_TEXT_PROMPTS x n = 16 rows
+# at TEXT_R_CUT tokens, remat, one mini-batch of all 32 rows (each rank
+# takes 16: the update's metrics are on-policy, so that the 1-rank
+# comparison does not see a second mini-batch's log-probs moved by another
+# first update), the raised lr (every bf16 parameter moves);
+# the SFT step: B 4 x 1663 of Qwen's vocabulary, SFT_TEXT_KV_LENS valid
+# tokens a row, labels on each row's second half
+PAR_TEXT_PROMPTS, PAR_SFT_SEED = 2, 31
+
+
+def _par_text_argv(ckpt: str, prompts: str) -> list:
+    return [f"actor_rollout_ref.model.ckpt_path={ckpt}", f"data.train_files={prompts}",
+            "trainer.total_training_steps=1", f"data.train_batch_size={PAR_TEXT_PROMPTS}",
+            f"actor_rollout_ref.rollout.response_length={TEXT_R_CUT}",
+            "actor_rollout_ref.model.enable_gradient_checkpointing=true",
+            f"actor_rollout_ref.actor.ppo_mini_batch_size={PAR_TEXT_PROMPTS * TEXT_N}",
+            f"actor_rollout_ref.actor.optim.lr={PPO_RAISED_LR}", "reward_model.enable=True"]
+
+
+def _par_sft_batch() -> dict:
+    rng = np.random.default_rng(PAR_SFT_SEED)
+    lens = np.asarray(SFT_TEXT_KV_LENS)[:, None]
+    pos = np.arange(WM_SFT_LEN)[None]
+    ids = rng.integers(0, TEXT_VOCAB, (len(SFT_TEXT_KV_LENS), WM_SFT_LEN)).astype(np.int32)
+    labels = np.where((pos < lens) & (pos >= lens // 2), ids, -100).astype(np.int32)
+    return {"input_ids": ids, "labels": labels, "attention_mask": (pos < lens).astype(np.int32)}
+
+
+def _par_sft_step(attention, llm_file=None, mesh=None) -> dict:
+    """One SFTTrainer step of Qwen2.5-0.5B (seed PAR_SFT_SEED) on
+    _par_sft_batch, over `mesh` (a MeshConfig; None: the world), at lr
+    PPO_RAISED_LR (Adam's first step moves a weight by about lr, above
+    bf16's round-off): the loss, the launches counted from 0 around the
+    step, seconds, peak memory.  Over ranks, rank 0 writes the decoder
+    after the step (gathered whole) to `llm_file`; at world 1 the decoder
+    before and after the step are `weights`."""
+    from vla_rft_tpu_torch.models.transformer import TransformerConfig
+    from vla_rft_tpu_torch.parallel import distributed as pd
+    from vla_rft_tpu_torch.parallel import mesh as pm
+    from vla_rft_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    tr = SFTTrainer(TransformerConfig.qwen25_0_5b(), lr=PPO_RAISED_LR, device="cuda",
+                    seed=PAR_SFT_SEED, mesh=mesh)
+    copy = lambda sd: {k: v.detach().clone() for k, v in sd.items()}
+    before = copy(tr.llm.state_dict()) if llm_file is None else None
+    batch = _par_sft_batch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(attention)  # the main path starts here
+    t = time.perf_counter()
+    loss = tr.training_step(batch)
+    torch.cuda.synchronize()
+    out = {"loss": loss, "launches": _counts(attention), "s": time.perf_counter() - t,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "sharded": pm.is_sharded(tr.llm), "data": [tr.ranks.index, tr.ranks.count]}
+    if llm_file is None:
+        out["weights"] = {"before": before, "after": copy(tr.llm.state_dict())}
+    else:
+        after = pm.full_state_dict(tr.llm)  # a collective: every rank gathers
+        if pd.rank() == 0:
+            torch.save({k: v.cpu() for k, v in after.items()}, llm_file)
+        del after
+    del tr, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _record_step(tr, seen: dict, rollout_file=None) -> None:
+    """Keep the step's global batch, rollout, token-level rewards and
+    advantages in `seen`; with `rollout_file`, write the batch and the
+    rollout there as soon as they are drawn (the 1-rank step's input)."""
+    adv, rollout, sample = tr._advantages, tr._rollout, tr.dataset.sample_batch
+
+    def drawn(b):
+        seen["batch"] = sample(b)
+        return seen["batch"]
+
+    def rolled(fn, prompts, gen, n=1):
+        out = rollout(fn, prompts, gen, n)
+        if fn == tr._gen and rollout_file:
+            part = rollout_file + ".part"
+            torch.save({"batch": seen["batch"],
+                        "rollout": {k: v.cpu() for k, v in out.items()}}, part)
+            os.replace(part, rollout_file)
+        return out
+
+    def kept(*a, **kw):
+        out = adv(*a, **kw)
+        seen["rewards"], seen["advantages"] = a[2].float().cpu(), out[0].float().cpu()
+        return out
+
+    tr._advantages, tr._rollout, tr.dataset.sample_batch = kept, rolled, drawn
+
+
+def _step_record(rec: dict, seen: dict) -> dict:
+    """What `_par_text_check` reads of one step of `_drive_ppo`'s record."""
+    (step,) = rec["steps"]
+    m = step["metrics"]
+    return {"metrics": {k: v for k, v in m.items() if not k.startswith("timing_s/")},
+            "timing_s": {k[9:]: v for k, v in m.items() if k.startswith("timing_s/")},
+            "launches": step["launches"], "step_s": step["s"],
+            "peak_mem_gib": step["peak_mem_gib"],
+            "old_logp": rec["logp"]["policy"][0].float().cpu(),
+            "ref_logp": rec["logp"]["ref"][0].float().cpu(),
+            "rewards": seen["rewards"], "advantages": seen["advantages"]}
+
+
+def _rank_text(payload: dict) -> dict:
+    """A rank's text-RL step (the process group is up, gloo, over
+    payload["mesh"]): main_ppo.run's one sampled step, taken once
+    payload["go_file"] exists (the run is built and loaded before), launches counted
+    from 0 around it, its log-probs, rewards, advantages and metrics, the
+    digests of this rank's shards of the reference policy before and after
+    it, the policy's whole digest after it (gathered with whole_like; rank
+    0 also writes it whole, and the step's global rollout and batch, for
+    the 1-rank step), peak memory."""
+    from vla_rft_tpu_torch.ops import fused_decode_attention as fda
+    from vla_rft_tpu_torch.parallel import mesh as pm
+
+    mods = _kernel_mods()
+    rank = int(os.environ["RANK"])
+    mesh = payload["mesh"]
+    own = lambda m: {k: pm.local(v) for k, v in m.state_dict().items()}
+    held, seen = {}, {}
+    t0 = time.perf_counter()
+
+    def on_load(tr, rec):
+        held["ref"] = _digest(own(tr.ref))
+        _record_step(tr, seen, payload["rollout_file"] if rank == 0 else None)
+        deadline = time.perf_counter() + 900.0
+        while not os.path.exists(payload["go_file"]):  # the card is the GRPO pairs' till then
+            if time.perf_counter() > deadline:
+                raise AssertionError("parallel text: no go from the phase")
+            time.sleep(0.2)
+        held["go"] = time.perf_counter() - t0
+
+    rec = _drive_ppo(mods, fda, payload["argv"] + [f"mesh.{k}={v}" for k, v in mesh.items()]
+                     + ["--backend=gloo"], None, on_load=on_load)
+    tr = rec.pop("trainer")
+    policy = pm.full_state_dict(tr.llm)  # a collective: both ranks gather
+    out = {**_step_record(rec, seen), "setup_s": held["go"],
+           "run_s": time.perf_counter() - t0,
+           "data": [tr.ranks.index, tr.ranks.count], "policy_digest": _digest(policy),
+           "ref_unmoved": _digest(own(tr.ref)) == held["ref"],
+           "sharded": {n: pm.is_sharded(x) for n, x in (("policy", tr.llm), ("ref", tr.ref),
+                                                        ("rm", tr.rm))}}
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in policy.items()}, payload["policy_file"])
+    del policy, tr, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _par_text_one_rank(mods, fda, argv: list, written: dict, rollout_file: str) -> dict:
+    """The pair's main_ppo step on this process alone (world 1), from the
+    same checkpoint on the pair's rollout and batch (`rollout_file`, all
+    its rows)."""
+    given = torch.load(rollout_file, weights_only=False)
+    g = {k: v.cuda() for k, v in given["rollout"].items()}
+    seen = {}
+
+    def on_load(tr, rec):
+        def rows(prompts, _gen):
+            if not torch.equal(prompts.to(torch.int32), g["prompts"]):
+                raise AssertionError("parallel text: the prompts are not the rollout's")
+            return {k: v.clone() for k, v in g.items()}
+
+        tr._gen, tr.dataset.sample_batch = rows, lambda b: given["batch"]
+        _record_step(tr, seen)
+
+    rec = _drive_ppo(mods, fda, argv, written, on_load)
+    tr = rec.pop("trainer")
+    out = {**_step_record(rec, seen), "loaded_bit_equal": rec["loaded_bit_equal"],
+           "policy": {k: v.detach().clone() for k, v in tr.llm.state_dict().items()}}
+    del tr, rec, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tensors_agree(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float) -> float:
+    """max|got - ref| <= WM_LOGIT_TOL x max|ref| + atol (PAR_COMPARED's rule
+    on a tensor), or raise; returns the max difference."""
+    d = (got.float() - ref.float()).abs().max().item()
+    if not d <= WM_LOGIT_TOL * ref.float().abs().max().item() + atol:
+        raise AssertionError(f"parallel text {name}: max|d| {d}, 1-rank max "
+                             f"{ref.float().abs().max().item()}")
+    return d
+
+
+def _par_text_check(ranks: list, one: dict, config, written: dict, policy_file: str,
+                    sft_file: str) -> dict:
+    """The pair against its bounds: (a) launches per rank = its share of
+    `_rm_expect`, the policy bit-identical across the ranks, the reference
+    policy unmoved, metrics finite, the peaks; against the 1-rank step on
+    the same rollout from the same weights (its launches `_rm_expect`'s
+    without the rollout's), the log-probs, rewards, advantages and
+    PAR_COMPARED's metrics within PAR_COMPARED's rule, the updated policy
+    within 2 x the 1-rank step (`_step_agreement`); (b) each rank's SFT
+    loss within SFT_LOSS_TOL of the 1-rank step's, 24 / 24 / 24 launches,
+    and the pair's updated decoder (`sft_file`) within 2 x the 1-rank
+    step."""
+    L, R = 24, config.actor_rollout_ref.rollout.response_length
+    expect = _rm_expect(PAR_TEXT_PROMPTS, config, "value_head", ranks=PAR_WORLD)
+    one_expect = _rm_expect(PAR_TEXT_PROMPTS, config, "value_head")
+    one_expect = {**one_expect, "flash_fwd": one_expect["flash_fwd"] - L,
+                  "decode_hd": one_expect["decode_hd"] - L * R}
+    if ranks[0]["text"]["policy_digest"] != ranks[1]["text"]["policy_digest"]:
+        raise AssertionError("parallel text: the ranks' policies differ after the step")
+    for r, rec in enumerate(ranks):
+        a = rec["text"]
+        if a["launches"] != expect:
+            raise AssertionError(f"parallel text rank {r}: launches {a['launches']}, expected "
+                                 f"{expect}")
+        if not (a["ref_unmoved"] and np.isfinite(list(a["metrics"].values())).all()
+                and all(a["sharded"].values())):
+            raise AssertionError(f"parallel text rank {r}: {a}")
+        sft = rec["sft"]
+        if sft["launches"] != {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L} or not (
+                abs(sft["loss"] - one["sft"]["loss"]) <= SFT_LOSS_TOL * abs(one["sft"]["loss"])):
+            raise AssertionError(f"parallel text sft rank {r}: {sft} vs 1 rank {one['sft']}")
+    if not one["loaded_bit_equal"] or one["launches"] != one_expect:
+        raise AssertionError(f"parallel text 1 rank: launches {one['launches']}, expected "
+                             f"{one_expect}")
+    peaks = [r["text"]["peak_mem_gib"] for r in ranks]
+    if not sum(peaks) < 80:
+        raise AssertionError(f"parallel text: peaks {peaks} GiB")
+    c = ranks[0]["text"]
+    diffs = {"old_logp": _tensors_agree("old_logp", c["old_logp"], one["old_logp"], 0.0),
+             "ref_logp": _tensors_agree("ref_logp", c["ref_logp"], one["ref_logp"], 0.0),
+             "rewards": _tensors_agree("rewards", c["rewards"], one["rewards"], 1e-4),
+             "advantages": _tensors_agree("advantages", c["advantages"], one["advantages"],
+                                          1e-4)}
+    if not one["rewards"].abs().max() > 0:
+        raise AssertionError("parallel text: the 1-rank rewards are all 0")
+    pairs = _metrics_agree("text fsdp2 vs 1 rank", c["metrics"], one["metrics"], WM_LOGIT_TOL,
+                           PAR_ATOL)
+    dev = lambda sd: {k: v.cuda().float() for k, v in sd.items()}
+    policy = dev(torch.load(policy_file, weights_only=True))
+    step = _step_agreement(policy, dev(one["policy"]), dev(written))
+    del policy
+    one_sft = one["sft"].pop("weights")
+    sft_step = _step_agreement(dev(torch.load(sft_file, weights_only=True)),
+                               dev(one_sft["after"]), dev(one_sft["before"]))
+    del one_sft
+    torch.cuda.empty_cache()
+    strip = lambda x: {k: v for k, v in x.items()
+                       if k not in ("policy", "sft") and not isinstance(v, torch.Tensor)}
+    return {"prompts": PAR_TEXT_PROMPTS, "rows": PAR_TEXT_PROMPTS * TEXT_N,
+            "response_length": R, "expected_launches_per_rank": expect,
+            "ranks": [strip(r["text"]) for r in ranks],
+            "policy_bit_identical_across_ranks": True, "reference_policy_unmoved": True,
+            "one_rank_on_the_pair_rollout": {**strip(one), "expected_launches": one_expect},
+            "vs_one_rank": {"max_abs_diff": diffs, "metrics": pairs, "policy": step},
+            "sft": {"ranks": [r["sft"] for r in ranks], "one_rank": one["sft"],
+                    "decoder_vs_one_rank": sft_step, "tolerance": SFT_LOSS_TOL},
+            "tolerance": {"tensors": f"max|d| <= {WM_LOGIT_TOL} max|1-rank| + 1e-4 (rewards, "
+                                     f"advantages) or + 0 (log-probs)",
+                          "metrics": f"|d| <= {WM_LOGIT_TOL} |1-rank| + {PAR_ATOL}",
+                          "policy_and_sft_decoder": f"max|d| <= 2 max|step| per leaf, share "
+                                                    f"of elements > 1e-3 max|step| apart <= "
+                                                    f"{PAR_STEP_SHARE}"}}
+
+
 def phase_parallel(mods) -> dict:
     """parallel/ on the card: the gloo probe, the GRPO step at libero width
     over dp = 2 and fsdp = 2 ranks sharing the card (_parallel_grpo), and
-    Qwen2.5-0.5B's Ulysses / TP / pipeline routes against its unsharded
-    route."""
+    the Qwen2.5-0.5B pair: text RL and text SFT over fsdp = 2 against the
+    1-rank steps (`_rank_text`, `_par_text_check`) and the Ulysses / TP /
+    pipeline routes against the unsharded route."""
     from vla_rft_tpu_torch.parallel import distributed as pd
 
     attention = mods[0]
@@ -5541,10 +5837,52 @@ def phase_parallel(mods) -> dict:
                                                    "all_to_all", "send", "recv")
                                      if op not in pd.GLOO_CUDA]})
 
+        # the Qwen2.5-0.5B pair (fsdp 2; dp 2 where gloo does not carry
+        # FSDP2's collectives): it starts here and builds and loads
+        # main_ppo's run beside the GRPO pairs, then (after them: the go
+        # file) takes its sampled step, whose rollout the 1-rank step here
+        # takes as soon as it is written, the sp / tp / pp routes, and one
+        # text SFT step (the 1-rank one after the pair)
+        from vla_rft_tpu_torch.config import vla_rft_default_config
+        from vla_rft_tpu_torch.ops import fused_decode_attention as fda
+
+        ckpt, _, written, _, _, _ = write_text_inputs(root)
+        mixed = os.path.join(root, "mixed.parquet")
+        _write_mixed_prompts(mixed)
+        text_argv = _par_text_argv(ckpt, mixed)
+        text_files = {k: os.path.join(root, f"text_{k[:-5]}.pt")
+                      for k in ("rollout_file", "policy_file", "go_file", "sft_file")}
+        pair = _start_ranks("qwen", PAR_WORLD, {
+            "argv": text_argv, **text_files,
+            "mesh": {"dp": 1, "fsdp": 2} if fsdp_ranks == 2 else {"dp": 2}}, root)
+
         grpo = _parallel_grpo(mods, root, fsdp_ranks)
 
-        # Qwen2.5-0.5B: sp / tp / pp against the unsharded route
-        qwen = _wait_ranks(*_start_ranks("qwen", PAR_WORLD, {}, root), 300.0)
+        t_pair = time.perf_counter()
+        open(text_files["go_file"], "w").close()
+        deadline = time.perf_counter() + 600.0
+        while not os.path.exists(text_files["rollout_file"]):
+            if time.perf_counter() > deadline or any(p.poll() is not None for p, _ in pair[0]):
+                _wait_ranks(*pair, 1.0)  # raises with the ranks' logs
+                raise AssertionError("parallel text: no rollout from the pair")
+            time.sleep(0.5)
+        t_one = time.perf_counter()
+        one_text = _par_text_one_rank(mods, fda, text_argv, written, text_files["rollout_file"])
+        one_s = time.perf_counter() - t_one
+        qwen = _wait_ranks(*pair, 600.0)
+        pair_s = time.perf_counter() - t_pair
+        one_text["sft"] = _par_sft_step(attention)  # alone: 30 GiB at its peak
+        text = _par_text_check(qwen, one_text,
+                               vla_rft_default_config().apply_overrides(text_argv), written,
+                               text_files["policy_file"], text_files["sft_file"])
+        text.update(mesh="fsdp2" if fsdp_ranks == 2 else "dp2", pair_s=pair_s, one_rank_s=one_s)
+        del one_text, written
+        r0 = text["ranks"][0]
+        print(f"[parallel] Qwen pair {pair_s:.1f} s: text step {r0['step_s']:.1f} s, "
+              f"{r0['peak_mem_gib']:.2f} GiB a rank; 1-rank steps {one_s:.1f} s; SFT loss "
+              f"{text['sft']['ranks'][0]['loss']:.6f} vs {text['sft']['one_rank']['loss']:.6f}, "
+              f"decoder {text['sft']['decoder_vs_one_rank']['share_apart']:.4f} apart",
+              flush=True)
         L = 24
         want = {"unsharded": (L, L, L), "sp": (L, L, L), "tp": (L, 0, 0), "pp": (L, L, L)}
         for r, q in enumerate(qwen):
@@ -5573,9 +5911,10 @@ def phase_parallel(mods) -> dict:
         _stop_ranks()
         shutil.rmtree(root, ignore_errors=True)
     out = {"phase": "parallel", "world": PAR_WORLD, "device_per_rank": "cuda:0 (LOCAL_RANK % 1)",
-           "backends": probe, "axes": axes, "grpo": grpo,
+           "backends": probe, "axes": axes, "grpo": grpo, "text": text,
            "qwen": {"batch": PAR_QWEN_BATCH, "seq": WM_SFT_LEN,
-                    "ranks": [{k: v for k, v in q.items()} for q in qwen],
+                    "ranks": [{k: v for k, v in q.items() if k not in ("text", "sft")}
+                              for q in qwen],
                     "tolerance": {"logits_and_input_grad_rel": SFT_GRAD_TOL,
                                   "loss_rel": SFT_LOSS_TOL}},
            "timed": timed}
@@ -5583,9 +5922,10 @@ def phase_parallel(mods) -> dict:
     return out
 
 
-def ppo_entries(ppo: dict, entry, bwd_src: str, rm: dict) -> list:
+def ppo_entries(ppo: dict, entry, bwd_src: str, rm: dict, par: dict) -> list:
     """The kernel line's rows of #2 and #3 at the PPO update's shape (PRIME's
-    RM update's micro-batches have it too)."""
+    RM update's micro-batches have it too), with the parallel phase's text
+    step's launches a rank."""
     t, n = ppo["update_shape_bwd"], ppo["grpo"]["launches"]
     S, kv = TEXT_PROMPT + TEXT_R, t["dq"]["kv_starts"]
     return [{**entry(f"{kernel}@ppo", bwd_src, f"vla_rft_tpu/ops/attention.py:{line}",
@@ -5598,8 +5938,13 @@ def ppo_entries(ppo: dict, entry, bwd_src: str, rm: dict) -> list:
                       f"({PRIME_PROMPTS} RM and {PRIME_PROMPTS} actor updates of 16 rows x 24 "
                       f"layers)",
              "gae_step_launches": ppo["gae"]["launches"][kernel],
-             **_rm_launches(rm, kernel)}
+             **_rm_launches(rm, kernel), **_par_text_launches(par, kernel)}
             for kernel, line, key in (("flash_bwd_dq", 175, "dq"), ("flash_bwd_dkv", 239, "dkv"))]
+
+
+def _par_text_launches(par: dict, kernel: str) -> dict:
+    """The parallel phase's text step's launches of `kernel`, a rank."""
+    return {"parallel_text_step_launches_per_rank": par["text"]["ranks"][0]["launches"][kernel]}
 
 
 def _rm_launches(rm: dict, kernel: str) -> dict:
@@ -5608,10 +5953,11 @@ def _rm_launches(rm: dict, kernel: str) -> dict:
             for k in ("prime", "value_head", "dpo")}
 
 
-def text_entries(text: dict, entry, flash_src: str, dec_src: str, ppo: dict, rm: dict) -> list:
-    """The kernel line's rows of the text_gen phase's shapes, with the ppo
-    and reward_models phases' launches of #1 and #5 (their update forwards
-    have the log-prob row's shape)."""
+def text_entries(text: dict, entry, flash_src: str, dec_src: str, ppo: dict, rm: dict,
+                 par: dict) -> list:
+    """The kernel line's rows of the text_gen phase's shapes, with the ppo,
+    reward_models and parallel phases' launches of #1 and #5 (their update
+    forwards have the log-prob row's shape)."""
     t, gen = text["timed"], text["main_generation"]
     ppo_n = {"ppo_grpo_step_launches": ppo["grpo"]["launches"]["flash_fwd"],
              "ppo_validate_launches": ppo["grpo"]["validate"]["launches"]["flash_fwd"]}
@@ -5633,8 +5979,9 @@ def text_entries(text: dict, entry, flash_src: str, dec_src: str, ppo: dict, rm:
                                  f"launches in a main_ppo grpo step (prefill, 16 + 32 "
                                  f"log-prob chunks of 16 / 8 rows, 16 update forwards) "
                                  f"and in validate(); reward_models_*: #1's launches in "
-                                 f"its steps (every shape)"), **ppo_n,
-         **_rm_launches(rm, "flash_fwd")},
+                                 f"its steps (every shape); parallel_text_*: a rank's in "
+                                 f"the parallel phase's text step"), **ppo_n,
+         **_rm_launches(rm, "flash_fwd"), **_par_text_launches(par, "flash_fwd")},
         {**entry("flash_fwd@text_logprob_b8", flash_src, "vla_rft_tpu/ops/attention.py:108",
                  rm["prime"]["launches"]["flash_fwd"], t["text_logprob_b8"]["max_abs_err_o"],
                  t["text_logprob_b8"]),
@@ -5654,7 +6001,7 @@ def text_entries(text: dict, entry, flash_src: str, dec_src: str, ppo: dict, rm:
                   f"ppo_grpo_step_launches: the main_ppo grpo step's rollout (the same), "
                   f"reward_models_*: its steps' rollouts",
          "ppo_grpo_step_launches": ppo["grpo"]["launches"]["decode_hd"],
-         **_rm_launches(rm, "decode_hd")},
+         **_rm_launches(rm, "decode_hd"), **_par_text_launches(par, "decode_hd")},
         {**entry("decode_shared_hd@text_b256", dec_src,
                  "vla_rft_tpu/ops/decode_attention_hd.py:226",
                  text["prefix_shared"]["launches"]["decode_shared_hd"],
@@ -5906,8 +6253,8 @@ def main() -> int:
          "shape": "B=10 Sq=1 Hq=Hkv=16 D=64 int8, 1379 keys; launches: wm_plain_heads "
                   "(2 rows, 2 frames)"},
         *fda_entries,
-        *text_entries(text, entry, flash_src, dec_src, ppo, rm),
-        *ppo_entries(ppo, entry, bwd_src, rm),
+        *text_entries(text, entry, flash_src, dec_src, ppo, rm, par),
+        *ppo_entries(ppo, entry, bwd_src, rm, par),
         *par_entries,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

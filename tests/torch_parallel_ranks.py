@@ -16,7 +16,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 
 
-def _free_port() -> int:
+def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -26,7 +26,7 @@ def spawn(world: int, suite: str, inputs: dict, timeout: float = 300.0, threads:
     """Run `suite` on `world` ranks; returns the list of per-rank results."""
     with tempfile.TemporaryDirectory() as d:
         torch.save(inputs, os.path.join(d, "in.pt"))
-        port = _free_port()
+        port = free_port()
         env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                    WORLD_SIZE=str(world), OMP_NUM_THREADS=str(threads),
                    PYTHONPATH=os.pathsep.join([ROOT, HERE, os.environ.get("PYTHONPATH", "")]))
@@ -56,7 +56,7 @@ def _main():
     torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "1")))
     from vla_rft_tpu_torch.parallel import distributed as pd
 
-    if suite != "cli":  # the CLI starts its own group
+    if suite not in ("cli", "text_cli"):  # the CLIs start their own group
         pd.initialize_distributed(device_type="cpu")
     inputs = torch.load(os.path.join(d, "in.pt"), weights_only=False)
     import torch_parallel_suites as suites

@@ -186,3 +186,167 @@ def cli(inp):
                 data=(tr.data_index, tr.data_count),
                 expert={k: v.clone() for k, v in tr.bundle.expert.state_dict().items()},
                 group_destroyed=not dist.is_initialized())
+
+
+# ------------------------------------------------------------- text RL, SFT
+class FixedBatch:
+    """A dataset whose every batch is `batch` (validate() draws from it)."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def sample_batch(self, b):
+        assert b == len(self.batch["input_ids"])
+        return self.batch
+
+
+def _rank_rows(tr, rollout):
+    """A `_gen` that hands this data rank its rows of the global `rollout`,
+    checking that they are the rows of the prompts it was given."""
+
+    def gen(prompts, _gen):
+        per = rollout["input_ids"].shape[0] // tr.ranks.count
+        sl = slice(tr.ranks.index * per, (tr.ranks.index + 1) * per)
+        assert torch.equal(prompts.to(torch.int32), rollout["prompts"][sl])
+        return {k: v[sl].clone() for k, v in rollout.items()}
+
+    return gen
+
+
+def _whole(module):
+    return None if module is None else {k: v.clone()
+                                        for k, v in pm.full_state_dict(module).items()}
+
+
+def ppo(inp):
+    """One PPOTrainer.training_step per case (name, mesh, FSDP size floor,
+    settings, batch key) from the parent's weights and batch, each rank's
+    rollout its rows of the parent's global one (a case named remat* with
+    the decoders' remat); with `validate`, the case's validate() on the
+    same rows.  A case whose step raises a
+    ValueError returns its message."""
+    import dataclasses
+    import functools
+
+    from text_rl_data import BASE, CFG, DigitTokenizer, toy_score
+    from vla_rft_tpu_torch.config import vla_rft_default_config
+    from vla_rft_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from vla_rft_tpu_torch.workers.reward_manager import NaiveRewardManager
+
+    out, shard = {}, pm.shard_params_fsdp
+    cfg_t = TransformerConfig(dtype=torch.float32, param_dtype=torch.float32, **CFG)
+    for name, mesh, min_size, settings, key in inp["cases"]:
+        cfg = vla_rft_default_config().apply_overrides(
+            [f"{k}={v}" for k, v in {**BASE, **inp["base"], **settings}.items()]
+            + [f"mesh.{k}={v}" for k, v in mesh.items()])
+        batch, rollouts = inp["batches"][key], inp["rollouts"][key]
+        pm.shard_params_fsdp = functools.partial(shard, min_size=min_size)
+        try:
+            tr = PPOTrainer(cfg, dataclasses.replace(cfg_t, remat=name.startswith("remat")),
+                            DigitTokenizer(), FixedBatch(batch),
+                            reward_manager=NaiveRewardManager(DigitTokenizer(),
+                                                              compute_score=toy_score),
+                            device="cpu")
+        finally:
+            pm.shard_params_fsdp = shard
+        tr.load_actor(inp["actor"])
+        if name in inp["ref"]:
+            pm.load_full_state_dict(tr.ref, inp["ref"][name])
+        for m, k in ((tr.critic, "critic"), (tr.rm, "rm")):
+            if m is not None:
+                pm.load_full_state_dict(m, inp[k])
+        tr._gen = _rank_rows(tr, rollouts["sample"])
+        tr._gen_greedy = _rank_rows(tr, rollouts["greedy"])
+        ref_start = _whole(tr.ref)
+        try:
+            metrics = tr.training_step(batch, torch.Generator().manual_seed(0))
+        except ValueError as e:
+            out[name] = {"error": str(e)}
+            continue
+        prime = tr.prime_rm
+        out[name] = dict(
+            metrics={k: v for k, v in metrics.items() if not k.startswith("timing_s/")},
+            actor=_whole(tr.llm), critic=_whole(tr.critic),
+            prime=None if prime is None else _whole(prime.model),
+            ref_unmoved=all(torch.equal(v, ref_start[k]) for k, v in _whole(tr.ref).items()),
+            data=(tr.ranks.index, tr.ranks.count),
+            sharded={m: pm.is_sharded(x) for m, x in (("llm", tr.llm), ("ref", tr.ref),
+                                                      ("critic", tr.critic), ("rm", tr.rm))
+                     if x is not None},
+            validate=tr.validate(torch.Generator().manual_seed(3)) if "validate" in key else None)
+    return out
+
+
+def sft(inp):
+    """SFTTrainer steps per case (name, mesh, FSDP size floor) from the
+    parent's decoder weights over its global batches: the losses and the
+    trained decoder."""
+    import functools
+
+    from vla_rft_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    out, shard = {}, pm.shard_params_fsdp
+    for name, mesh, min_size in inp["cases"]:
+        llm = decoder(inp["cfg"], inp["sd"])
+        pm.shard_params_fsdp = functools.partial(shard, min_size=min_size)
+        try:
+            tr = SFTTrainer(None, lr=inp["lr"], warmup_steps=inp["warmup"], llm=llm,
+                            mesh=pm.MeshConfig(**mesh))
+        finally:
+            pm.shard_params_fsdp = shard
+        losses = [tr.training_step(b) for b in inp["batches"]]
+        out[name] = dict(losses=losses, llm=_whole(tr.llm), sharded=pm.is_sharded(tr.llm),
+                         data=(tr.ranks.index, tr.ranks.count))
+    return out
+
+
+def text(inp):
+    """The ppo and sft suites in one start of the ranks."""
+    return {"ppo": ppo(inp["ppo"]), "sft": sft(inp["sft"])}
+
+
+def text_cli(inp):
+    """main_ppo.run and main_sft.run (sft.mode=text, then a VLA mode) under
+    the ranks' variables, with the Qwen config patched tiny; each run
+    starts and destroys the process group itself, on a port of its own
+    (a second group on one port's store does not start).  Returns what each
+    printed, the trained weights and the VLA mode's refusal."""
+    import contextlib
+    import io
+    import os
+
+    import transformers
+    from transformers import PreTrainedTokenizerFast
+
+    from text_rl_data import CFG
+    from vla_rft_tpu_torch.models import transformer as t_tf
+    from vla_rft_tpu_torch.trainer import main_ppo, main_sft
+
+    tiny = TransformerConfig(dtype=torch.float32, param_dtype=torch.float32, **CFG)
+    t_tf.TransformerConfig.qwen25_0_5b = staticmethod(lambda: tiny)
+    # AutoTokenizer gives PreTrainedTokenizerFast for sft_data's directory
+    transformers.AutoTokenizer = type("AutoTokenizer", (), {"from_pretrained": staticmethod(
+        lambda path, *a, **kw: PreTrainedTokenizerFast.from_pretrained(path, *a, **kw))})
+    out = {}
+    ports = iter(inp["ports"])  # a fresh store for each group the runs start
+    for name, fn, argv in (("ppo", main_ppo.run, inp["ppo"]), ("sft", main_sft.run, inp["sft"])):
+        os.environ["MASTER_PORT"] = str(next(ports))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = fn(argv)
+        tr = res if name == "ppo" else res.trainer
+        out[name] = dict(printed=buf.getvalue(), group_destroyed=not dist.is_initialized(),
+                         llm={k: v.clone() for k, v in tr.llm.state_dict().items()},
+                         data=(tr.ranks.index, tr.ranks.count), sharded=pm.is_sharded(tr.llm))
+        if name == "ppo":
+            out[name]["ref"] = {k: v.clone() for k, v in tr.ref.state_dict().items()}
+        else:
+            out[name]["losses"] = res.losses
+    os.environ["MASTER_PORT"] = str(next(ports))
+    try:
+        main_sft.run(inp["vla"])
+        out["vla_error"] = None
+    except ValueError as e:
+        out["vla_error"] = str(e)
+    out["vla_group_destroyed"] = not dist.is_initialized()
+    return out

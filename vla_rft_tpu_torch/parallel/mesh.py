@@ -18,13 +18,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from vla_rft_tpu_torch.parallel import distributed as pd
+from vla_rft_tpu_torch.trainer.optim import AdamW, clip_by_global_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +82,129 @@ def shard_batch(mesh, tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: shard_batch(mesh, v) for k, v in tree.items()}
     return take(tree)
+
+
+class DataRanks:
+    """The ranks that split a batch, as the trainers use them: this rank's
+    (dp, fsdp) share of a global batch (`index` of `count`), the group of
+    the ranks that hold the same (tp, sp) coordinate (tp and sp ranks
+    replicate rows, as in the reference's trainers), and the reductions a
+    step makes over it.  With no mesh (one process) every method is the
+    identity.  Building one is a collective: every rank of the world
+    builds it at the same point (torch.distributed.new_group).
+
+    A step follows one rule: each rank backpropagates its share of the
+    global loss times `count` (`backward`), so that FSDP2's reduce-scatter,
+    which averages over fsdp, and `summed_grads`' mean over the other data
+    ranks give the sum of the shares' gradients; `step` sums them, clips
+    them by the norm of the whole gradient and steps the optimizers."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.index, self.count = data_rank(mesh)
+        self.group = self.dp_group = self.fsdp_group = None
+        if mesh is None:
+            return
+        ranks, me = mesh.mesh, pd.rank()
+        for t in range(ranks.shape[2]):
+            for s in range(ranks.shape[3]):
+                members = ranks[:, :, t, s].flatten().tolist()
+                g = torch.distributed.new_group(members)  # every rank makes every group
+                if me in members:
+                    self.group = g
+        self.dp_group = mesh["dp"].get_group()
+        self.fsdp_group = mesh["fsdp"].get_group()
+
+    def rows(self, x):
+        """This rank's (dp, fsdp) share of a global tensor's (or dict's) rows."""
+        return x if self.mesh is None else shard_batch(self.mesh, x)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The data ranks' rows of a tensor, in rank order (the global rows)."""
+        return x if self.count == 1 else pd.all_gather(x, self.group)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of `t` over the data ranks (in place; `t` at one rank)."""
+        return t if self.count == 1 else pd.all_reduce(t, group=self.group)
+
+    def mean(self, values: Dict[str, float], device) -> Dict[str, float]:
+        """Each value's mean over the data ranks (reduced on `device`)."""
+        if self.count == 1 or not values:
+            return values
+        keys = sorted(values)
+        t = torch.tensor([values[k] for k in keys], dtype=torch.float64, device=device)
+        t = self.sum(t) / self.count
+        return {k: float(v) for k, v in zip(keys, t.tolist())}
+
+    def backward(self, share: torch.Tensor) -> None:
+        """Backpropagate this rank's share of a global loss (times `count`:
+        FSDP2 and `summed_grads` average over the ranks)."""
+        (share * self.count if self.count > 1 else share).backward()
+
+    def take_grads(self, params) -> List[torch.Tensor]:
+        """Each parameter's gradient as `backward` left it, this rank's shard
+        of a sharded one, zeros for a parameter the loss did not reach (as
+        `jax.value_and_grad` gives them); the `.grad`s are cleared."""
+        out = []
+        for p in params:
+            g = p.grad
+            out.append(torch.zeros_like(local(p)) if g is None else local(g))
+            p.grad = None
+        return out
+
+    def summed_grads(self, params, grads: Optional[List[torch.Tensor]] = None
+                     ) -> List[torch.Tensor]:
+        """The gradients of `params` summed over the data ranks: `grads` (as
+        `take_grads` gives them), or those `backward` left.  An FSDP shard
+        is already reduce-scattered (averaged) over fsdp and is averaged
+        over dp; a replicated leaf is averaged over every data rank."""
+        grads = self.take_grads(params) if grads is None else grads
+        out = []
+        for p, g in zip(params, grads):
+            if placement_dim(p) is None:
+                out.append(g if self.count == 1 else self.sum(g) / self.count)
+            else:
+                dp = self.mesh["dp"].size()
+                out.append(pd.all_reduce(g, group=self.dp_group) / dp if dp > 1 else g)
+        return out
+
+    def norm(self, grads: Sequence[torch.Tensor], params) -> torch.Tensor:
+        """The f32 global norm of a whole gradient held as this rank's
+        shards of `params`' sharded leaves (summed over fsdp) and their
+        replicated leaves (counted once)."""
+        sq = lambda gs: sum((g.float() * g.float()).sum() for g in gs)
+        sharded = [placement_dim(p) is not None for p in params]
+        shards = [g for g, s in zip(grads, sharded) if s]
+        rest = [g for g, s in zip(grads, sharded) if not s]
+        dev = (shards or rest)[0].device
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        if shards:
+            total = total + pd.all_reduce(sq(shards) + total, group=self.fsdp_group)
+        if rest:
+            total = total + sq(rest)
+        return torch.sqrt(total)
+
+    def step(self, params, opts: Sequence[AdamW], max_norm: float,
+             grads: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """One optimizer step: the gradients of `params` (`grads` as
+        `take_grads` gives them, or those `backward` left) summed over the
+        data ranks, clipped by the norm of the whole gradient (every
+        parameter's, frozen ones included, as the reference clips before
+        its `multi_transform`), then each of `opts` (AdamWs over some of
+        `params` or their local shards) steps its own.  Returns the norm
+        before clipping."""
+        grads = self.summed_grads(params, grads)
+        grads, norm = clip_by_global_norm(grads, max_norm, self.norm(grads, params))
+        by_memory = {_memory(local(p)): g for p, g in zip(params, grads)}
+        for opt in opts:
+            opt.step([by_memory[_memory(p)] for p in opt.params])
+        return norm
+
+
+def _memory(t: torch.Tensor) -> Tuple[int, int, Tuple[int, ...]]:
+    """Where a tensor's elements lie: a parameter and a view of its local
+    shard have one key."""
+    return t.untyped_storage().data_ptr(), t.storage_offset(), tuple(t.shape)
 
 
 def _fsdp_spec_for(shape: tuple, fsdp_size: int, min_size: int = 2**16) -> tuple:

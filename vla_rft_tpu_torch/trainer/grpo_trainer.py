@@ -84,7 +84,6 @@ speculative_k above 7 (config_check).
 """
 from __future__ import annotations
 
-import contextlib
 import copy
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence
@@ -288,7 +287,8 @@ class VLARFTGRPOTrainer:
         if self.world > 1 and self.device.type == "cuda" and self.device.index is None:
             self.device = pd.rank_device("cuda")
         self.mesh = pm.make_mesh(mesh_cfg, self.device.type) if self.world > 1 else None
-        self.data_index, self.data_count = pm.data_rank(self.mesh)
+        self.ranks = pm.DataRanks(self.mesh)
+        self.data_index, self.data_count = self.ranks.index, self.ranks.count
         self.is_rank0 = pd.rank() == 0
         self._sharded = set()  # the expert's FSDP-sharded parameter names
         self._seed = seed if seed is not None else config.trainer.get("seed", 0)
@@ -344,7 +344,7 @@ class VLARFTGRPOTrainer:
         """The reference's shard_params_fsdp of every tree: the frozen towers
         and the WM held whole only inside the stage that uses them
         (`_whole`), the expert through FSDP2's hooks on its two forward
-        methods; the groups the update reduces over."""
+        methods."""
         from torch.distributed.tensor import DTensor
 
         b, mesh = self.bundle, self.mesh
@@ -357,17 +357,6 @@ class VLARFTGRPOTrainer:
             for method in ("predict_flow", "predict_std"):
                 register_fsdp_forward_method(b.expert, method)
         self._sharded = {n for n, p in b.expert.named_parameters() if isinstance(p, DTensor)}
-        # the ranks that hold the same (tp, sp) coordinate split the batch
-        ranks = mesh.mesh
-        me = pd.rank()
-        for t in range(ranks.shape[2]):
-            for s_ in range(ranks.shape[3]):
-                members = ranks[:, :, t, s_].flatten().tolist()
-                g = torch.distributed.new_group(members)  # every rank makes every group
-                if me in members:
-                    self.data_group = g
-        self.dp_group = mesh["dp"].get_group()
-        self.fsdp_group = mesh["fsdp"].get_group()
 
     def _whole(self, *names: str):
         """Hold the named frozen trees whole (no-op unless FSDP-sharded)."""
@@ -400,23 +389,7 @@ class VLARFTGRPOTrainer:
     # ------------------------------------------------------------------ ranks
     def _rows(self, x):
         """This rank's (dp, fsdp) share of a global tensor's rows."""
-        return x if self.mesh is None else pm.shard_batch(self.mesh, x)
-
-    def _gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The data ranks' rows of a tensor, in rank order (the global rows)."""
-        return x if self.data_count == 1 else pd.all_gather(x, self.data_group)
-
-    def _sum_over_data(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of `t` over the data ranks (in place; `t` at one rank)."""
-        return t if self.data_count == 1 else pd.all_reduce(t, group=self.data_group)
-
-    def _mean_over_ranks(self, values: Dict[str, float]) -> Dict[str, float]:
-        if self.data_count == 1 or not values:
-            return values
-        keys = sorted(values)
-        t = torch.tensor([values[k] for k in keys], dtype=torch.float64, device=self.device)
-        t = self._sum_over_data(t) / self.data_count
-        return {k: float(v) for k, v in zip(keys, t.tolist())}
+        return self.ranks.rows(x)
 
     def put_batch(self, batch_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch_np.items()}
@@ -502,42 +475,21 @@ class VLARFTGRPOTrainer:
             mb["mb_mask"] = torch.as_tensor(mask[m, mine], device=self.device)
             loss, metrics = flow_actor.policy_loss_fn(
                 expert, mb["hidden"].detach(), mb, actor,
-                global_mean=lambda x, w=w: self._sum_over_data(x * w))
+                global_mean=lambda x, w=w: self.ranks.sum(x * w))
             # FSDP and the all-reduces below average over the D ranks
             (loss * (w * D / M)).backward()
             per_micro.append({k: v.detach().float() * w for k, v in metrics.items()})
         keys = list(per_micro[0])
         table = torch.stack([torch.stack([row[k] for k in keys]) for row in per_micro])
-        table = self._sum_over_data(table)
-        grads = {}
-        for n, p in named.items():
-            g = p.grad
-            if n in self._sharded:  # reduce-scattered (averaged) over fsdp by FSDP2
-                g = g.to_local()
-                if self.mesh["dp"].size() > 1:
-                    g = pd.all_reduce(g, group=self.dp_group) / self.mesh["dp"].size()
-            else:
-                g = self._sum_over_data(g) / D
-            grads[n] = g
-            p.grad = None
-        grad_norm = apply_updates_with_skip(self.opt, grads, actor.grad_clip,
-                                            group_norm=lambda ns: self._group_norm(grads, ns))
+        table = self.ranks.sum(table)
+        grads = dict(zip(named, self.ranks.summed_grads(list(named.values()))))
+        grad_norm = apply_updates_with_skip(
+            self.opt, grads, actor.grad_clip,
+            group_norm=lambda ns: self.ranks.norm([grads[n] for n in ns],
+                                                  [named[n] for n in ns]))
         out = {k: table[:, i].mean() for i, k in enumerate(keys)}
         out["actor/grad_norm"] = grad_norm
         return out
-
-    def _group_norm(self, grads: Dict[str, torch.Tensor], names) -> torch.Tensor:
-        """The norm of one module's whole gradient from this rank's shards
-        (summed over fsdp) and replicated leaves (counted once)."""
-        sq = lambda ns: sum((grads[n].float() ** 2).sum() for n in ns)
-        shards = [n for n in names if n in self._sharded]
-        total = torch.zeros((), dtype=torch.float32, device=self.device)
-        if shards:
-            total = total + pd.all_reduce(sq(shards) + total, group=self.fsdp_group)
-        rest = [n for n in names if n not in self._sharded]
-        if rest:
-            total = total + sq(rest)
-        return torch.sqrt(total)
 
     def _ppo_update(self, actor_batch: Dict[str, torch.Tensor], gen: torch.Generator,
                     order: Optional[np.ndarray] = None) -> Dict[str, float]:
@@ -676,8 +628,8 @@ class VLARFTGRPOTrainer:
                 with timer("ac_reward", timing):
                     token_level_rewards, r_metrics = ac_reward(
                         gt_rep, actor_batch["predicted_actions"], cfg.trainer.ac_reward_type)
-                    metrics.update(self._mean_over_ranks(
-                        {k: float(v) for k, v in r_metrics.items()}))
+                    metrics.update(self.ranks.mean(
+                        {k: float(v) for k, v in r_metrics.items()}, dev))
                     if use_remax:
                         base_rt, _ = ac_reward(gt_actions, base_actions,
                                                cfg.trainer.ac_reward_type)
@@ -705,8 +657,8 @@ class VLARFTGRPOTrainer:
                             b.roll_cfg.prompt_length)
                         _sync(dev)
                     with timer("adv", timing):
-                        metrics.update(self._mean_over_ranks(
-                            {k: float(v) for k, v in r_metrics.items()}))
+                        metrics.update(self.ranks.mean(
+                            {k: float(v) for k, v in r_metrics.items()}, dev))
                         # the msp path's metric families, for one schema
                         metrics.setdefault("critic/recon_loss/mean", 0.0)
                         metrics.setdefault("critic/perceptual_loss/mean", 0.0)
@@ -723,7 +675,7 @@ class VLARFTGRPOTrainer:
                             lambda ci: self._generator(step, "wm", ci), stats=wm_stats)
                         _sync(dev)
                     keys = sorted(wm_stats)  # the global batch's counts
-                    tot = self._sum_over_data(torch.tensor(
+                    tot = self.ranks.sum(torch.tensor(
                         [float(wm_stats[k]) for k in keys], dtype=torch.float64, device=dev))
                     wm_stats = dict(zip(keys, tot.tolist()))
                     metrics["wm_rollout/rows"] = float(wm_stats["rows"])
@@ -740,7 +692,7 @@ class VLARFTGRPOTrainer:
                             b, wm_inputs, responses, gt_responses, n_wm, use_gt_ac,
                             gt_per_sample, rw)
                         _sync(dev)
-                        metrics.update(self._mean_over_ranks(r_metrics))
+                        metrics.update(self.ranks.mean(r_metrics, dev))
                 if use_remax:  # strip the baseline rows back out
                     tl = token_level_rewards.reshape(B_l, n + 1, -1)
                     baseline_scores = tl[:, -1].float().sum(-1)
@@ -748,9 +700,9 @@ class VLARFTGRPOTrainer:
             # the global batch's rewards: a group's rows are on one rank,
             # but the advantage estimators and the critic/* metrics read the
             # whole batch
-            token_level_rewards = self._gather(token_level_rewards)
+            token_level_rewards = self.ranks.gather(token_level_rewards)
             if baseline_scores is not None:
-                baseline_scores = self._gather(baseline_scores)
+                baseline_scores = self.ranks.gather(baseline_scores)
             # 7 --- advantage over the groups of n rollouts
             if use_remax:
                 advantages, returns = self.advantage_remax(
@@ -761,7 +713,7 @@ class VLARFTGRPOTrainer:
                 advantages, returns = self.advantage(token_level_rewards, group_ids, B)
             # 8 --- PPO update over the global rows
             with timer("update_actor", timing):
-                actor_batch = {k: self._gather(v) for k, v in actor_batch.items()}
+                actor_batch = {k: self.ranks.gather(v) for k, v in actor_batch.items()}
                 actor_batch["advantages"] = advantages
                 metrics.update(self._ppo_update(actor_batch, self._generator(step, "shuffle"),
                                                 pinned.get("ppo_order")))
@@ -956,8 +908,9 @@ class VLARFTGRPOTrainer:
                 if img_dir and it == 0 and self.is_rank0:
                     self._save_val_frames(img_dir, wm_inputs["ctx_tokens"][:1], responses,
                                           gt_responses, real, float(reward[0].sum()))
-            scores += self._gather(reward.float().sum(-1)).tolist()
-            for k, v in self._mean_over_ranks({k: float(v) for k, v in r_metrics.items()}).items():
+            scores += self.ranks.gather(reward.float().sum(-1)).tolist()
+            for k, v in self.ranks.mean({k: float(v) for k, v in r_metrics.items()},
+                                        self.device).items():
                 losses.setdefault(k, []).append(v)
         return {"val/reward": float(np.mean(scores)),
                 "val/on_train_stream": float(self._val_on_train_stream),

@@ -27,7 +27,14 @@ bon_mode=none|bon_rm|bon_acc, beta_train, lr, update=after|before and
 algorithm.reward_dpo_coef / reward_gt_coef (5.0).
 
 The device defaults to the card; `--device=cpu` runs the plain PyTorch
-path.  actor_rollout_ref.model.enable_gradient_checkpointing turns on the
+path.  Over ranks it runs under torchrun (or `python -m torch.distributed.run
+--nproc_per_node N -m vla_rft_tpu_torch.trainer.main_ppo ...`): the process
+group starts from torchrun's variables (NCCL on the card, gloo on the CPU,
+or `--backend=gloo|nccl`; ranks that share one card need gloo), config.mesh
+(`mesh.dp=.. mesh.fsdp=..`) places the trees and splits the batch (a mesh
+the world cannot hold raises, at one process too), each rank runs on
+cuda:{LOCAL_RANK % device_count} and loads the checkpoint, only rank 0
+prints the step lines, and the group is destroyed at exit.  actor_rollout_ref.model.enable_gradient_checkpointing turns on the
 decoder's `remat` (policy, critic and PRIME's RM): at the config's sizes
 (mini-batches of 16 rows of 1095 + 568 tokens) the update does not fit an
 80 GB card without it.  The rollout pads and stops with the tokenizer's pad and EOS ids
@@ -48,23 +55,39 @@ from vla_rft_tpu_torch.convert import flax_to_torch
 from vla_rft_tpu_torch.convert_weights import convert_hf_decoder
 from vla_rft_tpu_torch.data.rlhf_dataset import RLHFDataset
 from vla_rft_tpu_torch.models.transformer import TransformerConfig
+from vla_rft_tpu_torch.parallel import distributed as pd
+from vla_rft_tpu_torch.trainer.config_check import resolve_mesh
 from vla_rft_tpu_torch.trainer.ppo_trainer import PPOTrainer
 from vla_rft_tpu_torch.utils.weight_files import load_dir
 from vla_rft_tpu_torch.workers.reward_manager import NaiveRewardManager
 
 
-def run(argv: Optional[List[str]] = None) -> None:
-    """Parse `--device=` and the dotted overrides, build the trainer, load
-    the weights, train."""
+def run(argv: Optional[List[str]] = None) -> PPOTrainer:
+    """Parse `--device=`, `--backend=` and the dotted overrides, start the
+    process group under torchrun, build the trainer, load the weights,
+    train; returns the trainer."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = "cuda"
+    device, backend = "cuda", None
     for a in list(argv):
         if a.startswith("--device="):
             device = a.split("=", 1)[1]
             argv.remove(a)
+        elif a.startswith("--backend="):
+            backend = a.split("=", 1)[1]
+            argv.remove(a)
+    dev = resolve_device(device)
+    started = pd.initialize_distributed(backend, dev.type)
+    try:
+        return _run(argv, dev)
+    finally:
+        if started:
+            pd.shutdown()
+
+
+def _run(argv: List[str], dev) -> PPOTrainer:
     overrides = [a for a in argv if "=" in a]
     config = vla_rft_default_config().apply_overrides(overrides)
-    dev = resolve_device(device)
+    resolve_mesh(config, pd.world_size())  # a mesh the world cannot hold raises first
 
     model_path = config.actor_rollout_ref.model.ckpt_path
     if not model_path:
@@ -94,6 +117,7 @@ def run(argv: Optional[List[str]] = None) -> None:
         trainer.load_actor(flax_to_torch(convert_hf_decoder(sd, llm_cfg), "decoder"))
         del sd
     trainer.fit()
+    return trainer
 
 
 if __name__ == "__main__":

@@ -31,6 +31,17 @@ Usage:
       data.train_files=train.parquet actor_rollout_ref.model.ckpt_path=<tokenizer dir>
 
 The device defaults to the card; `--device=cpu` runs the plain PyTorch path.
+
+`text` trains over ranks under torchrun (or `python -m torch.distributed.run
+--nproc_per_node N -m vla_rft_tpu_torch.trainer.main_sft sft.mode=text ...`),
+as the reference's does: the process group starts from torchrun's
+variables (NCCL on the card, gloo on the CPU, or `--backend=gloo|nccl`),
+config.mesh (default dp = the world; `mesh.fsdp=2` shards the decoder)
+splits each global batch over its data ranks (a mesh the world cannot hold
+raises, at one process too), only rank 0 prints, and the group is
+destroyed at exit.  The VLA modes refuse a world above 1: the reference's
+VLA SFT trainers build no mesh, and copies trained side by side would be
+no data-parallel run.
 """
 from __future__ import annotations
 
@@ -48,6 +59,8 @@ from vla_rft_tpu_torch.data.synthetic import SyntheticVLAConfig, SyntheticVLADat
 from vla_rft_tpu_torch.models.action_masks import IGNORE_INDEX
 from vla_rft_tpu_torch.models.factory import build_policy, wm_reward_configs
 from vla_rft_tpu_torch.models.transformer import TransformerConfig
+from vla_rft_tpu_torch.parallel import distributed as pd
+from vla_rft_tpu_torch.parallel.mesh import MeshConfig
 from vla_rft_tpu_torch.trainer.sft_trainer import (PrismaticAlignTrainer, SFTTrainer,
                                                    VLAAdapterSFTTrainer, VLAFlowSFTTrainer,
                                                    to_device)
@@ -86,7 +99,7 @@ def run(argv: Optional[List[str]] = None,
     the HF tokenizer that `text` and `vla_align` with sft.chat_json load
     from their configured path."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    preset, device = "libero", "cuda"
+    preset, device, backend = "libero", "cuda", None
     for a in list(argv):
         if a.startswith("--preset="):
             preset = a.split("=", 1)[1]
@@ -94,12 +107,27 @@ def run(argv: Optional[List[str]] = None,
         elif a.startswith("--device="):
             device = a.split("=", 1)[1]
             argv.remove(a)
+        elif a.startswith("--backend="):
+            backend = a.split("=", 1)[1]
+            argv.remove(a)
     config = vla_rft_default_config().apply_overrides([a for a in argv if "=" in a])
     mode = config.get("sft", {}).get("mode", "vla_flow")
-    steps = config.trainer.total_training_steps
     if mode not in MODES:
         raise SystemExit(f"unknown sft.mode {mode!r} (text | vla_flow | vla_adapter | vla_align)")
     dev = resolve_device(device)
+    started = pd.initialize_distributed(backend, dev.type)
+    try:
+        return _run(config, mode, preset, dev, on_start, on_step, tokenizer)
+    finally:
+        if started:
+            pd.shutdown()
+
+
+def _run(config, mode: str, preset: str, dev, on_start, on_step, tokenizer) -> SFTRun:
+    steps = config.trainer.total_training_steps
+    if mode != "text" and pd.world_size() > 1:
+        raise ValueError(f"sft.mode={mode} trains on one process (world size "
+                         f"{pd.world_size()}): only sft.mode=text trains over ranks")
     if mode == "text":
         trainer, step_fn = _text(config, dev, tokenizer)
         bundle = None
@@ -124,7 +152,9 @@ def run(argv: Optional[List[str]] = None,
         t0 = time.perf_counter()
         losses.append(step_fn())
         seconds = time.perf_counter() - t0
-        print(STEP_LINES[mode].format(step=step, loss=losses[-1], seconds=seconds), flush=True)
+        if pd.rank() == 0:
+            print(STEP_LINES[mode].format(step=step, loss=losses[-1], seconds=seconds),
+                  flush=True)
         if on_step is not None:
             on_step(step, losses[-1], seconds)
     return SFTRun(losses, trainer, bundle)
@@ -183,7 +213,8 @@ def _text(config, dev, tokenizer):
 
         tokenizer = AutoTokenizer.from_pretrained(model_path)
     trainer = SFTTrainer(TransformerConfig.qwen25_0_5b(),
-                         lr=config.actor_rollout_ref.actor.optim.lr, device=dev)
+                         lr=config.actor_rollout_ref.actor.optim.lr, device=dev,
+                         mesh=MeshConfig(**config.mesh.to_dict()))
     data = config.data
     dataset = SFTParquetDataset(
         data.get("train_files"), tokenizer,

@@ -42,14 +42,6 @@ import torch
 Schedule = Union[float, Callable[[int], float]]
 
 
-def grads_or_zeros(loss: torch.Tensor, params: Sequence[torch.nn.Parameter]) -> List[torch.Tensor]:
-    """d loss / d params; zeros for a parameter the loss does not reach (as
-    `jax.value_and_grad` gives them)."""
-    params = list(params)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-
-
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, an f32 scalar."""
     total = sum((g.float() * g.float()).sum() for g in grads)
@@ -57,11 +49,12 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Sequence[torch.Tensor],
-                        max_norm: float) -> Tuple[List[torch.Tensor], torch.Tensor]:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        norm: torch.Tensor) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """optax.clip_by_global_norm: (g / ||g||) * max_norm for every g when
-    ||g|| >= max_norm, else g unchanged.  Returns (grads, ||g||)."""
-    norm = global_norm(grads)
+    ||g|| >= max_norm, else g unchanged.  Returns (grads, ||g||).  `norm`
+    is ||g||, taken by the caller over the shards of a gradient that may
+    be held across ranks (`parallel/mesh.py::DataRanks.norm`)."""
     if bool(norm < max_norm):
         return list(grads), norm
     return [(g / norm.to(g.dtype)) * max_norm for g in grads], norm

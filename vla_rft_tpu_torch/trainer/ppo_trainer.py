@@ -35,9 +35,44 @@ Each stage ends in a device synchronize, so `timing_s/*` is what the stage
 took; the RM's stages are also timed on their own (`timing_s/rm_score`,
 and with PRIME `timing_s/rm_update`, and `timing_s/rm_ref_log_prob` when it
 runs, inside `timing_s/reward`).  Sampling draws from the caller's `torch.Generator`.
-The reference's mesh is not ported: `trainer.balance_batch` reorders rows
-over `torch.distributed`'s world size (1 when it is not initialised, where
-the reorder is a no-op, as the reference's is at dp x fsdp = 1).
+
+Over ranks (a process group is up) the step computes the numbers of the
+reference's SPMD program on the global batch.  config.mesh is resolved
+against the world (the reference's ValueError for a mesh the world cannot
+hold, at world 1 too); the data ranks are its (dp, fsdp) ranks, and tp /
+sp ranks replicate (`parallel/mesh.py::DataRanks`).
+
+  placement  the policy, the reference policy, the critic, the value-head
+             RM and PRIME's RM are placed by `shard_params_fsdp` (FSDP2 at
+             fsdp > 1), each with reshard_after_forward=False:
+             `compute_log_probs` reads the LM head through `Decoder.logits`
+             after the forward, outside FSDP2's hooks, so a trained tree
+             stays whole from its forward to the end of its backward
+  whole      the generation, the old / reference log-probs, the values and
+             the RM scores run inside `mesh.gathered`: one all-gather of
+             each tree per stage, none per decode call; only the updates
+             run sharded
+  rows       every rank draws the same global prompt batch and takes its
+             (dp, fsdp) share of the unique prompts (a batch the ranks
+             cannot split raises), repeated n times on the rank, so a group
+             stays whole there; `fit` and `validate` fold the rank's data
+             index into its sampling stream
+  gathered   after each per-row stage its rows are all-gathered, so every
+             rank holds the global rollout and computes the reward
+             manager's scores, KL in the reward, every estimator (gae's
+             whitening over the whole batch), prime_norm and
+             balance_batch (over dp x fsdp) from it
+  updates    the reference's global mini-batches (ppo_epochs x rows
+             i:i+mini of the balanced data); each rank takes its share of
+             one, its loss weighted so that the shares sum to the global
+             loss (token-mean by the mini-batch's valid tokens, the
+             seq-mean modes by its valid rows; the value loss by tokens),
+             the gradients summed over the data ranks, clipped by the norm
+             of the whole gradient, one AdamW step on every rank's shards;
+             PRIME's RM update likewise over its micro-batches of whole
+             groups; the actor/*, critic/*, prime/* and global_seqlen/*
+             metrics are the global batch's on every rank
+Only rank 0 logs.
 
 The value-head RM keeps its seeded initialisation (seed + 2), as the
 reference's: no entry point loads RM weights.  PRIME's RM starts as a copy
@@ -69,8 +104,11 @@ from vla_rft_tpu_torch.models.critic import CriticModel, compute_values
 from vla_rft_tpu_torch.models.factory import build_decoder, init_random_
 from vla_rft_tpu_torch.models.reward_model import SequenceRewardModel, compute_rm_score
 from vla_rft_tpu_torch.models.transformer import TransformerConfig
+from vla_rft_tpu_torch.parallel import distributed as pd
+from vla_rft_tpu_torch.parallel import mesh as pm
 from vla_rft_tpu_torch.trainer import core_algos, prime_core
-from vla_rft_tpu_torch.trainer.optim import AdamW, clip_by_global_norm, grads_or_zeros
+from vla_rft_tpu_torch.trainer.config_check import resolve_mesh
+from vla_rft_tpu_torch.trainer.optim import AdamW
 from vla_rft_tpu_torch.utils.reward_score import has_scorer
 from vla_rft_tpu_torch.utils.timers import timer, timing_metrics
 from vla_rft_tpu_torch.utils.tracking import Tracking, append_to_dict, reduce_metrics
@@ -84,12 +122,6 @@ def _sync(device: torch.device) -> None:
     """The end of a stage: wait for the device."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _world_size() -> int:
-    import torch.distributed as dist
-
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 class PPOTrainer:
@@ -107,7 +139,14 @@ class PPOTrainer:
         device="cuda",
     ):
         self.config = config
+        self.world = pd.world_size()
+        mesh_cfg = resolve_mesh(config, self.world)
         self.device = resolve_device(device)
+        if self.world > 1 and self.device.type == "cuda" and self.device.index is None:
+            self.device = pd.rank_device("cuda")
+        self.mesh = pm.make_mesh(mesh_cfg, self.device.type) if self.world > 1 else None
+        self.ranks = pm.DataRanks(self.mesh)
+        self.is_rank0 = pd.rank() == 0
         self.tokenizer = tokenizer
         self.dataset = dataset
         self.reward_manager = reward_manager or NaiveRewardManager(tokenizer)
@@ -131,55 +170,71 @@ class PPOTrainer:
 
         self.llm = build_decoder(llm_cfg, device=self.device, seed=seed)
         self.ref = copy.deepcopy(self.llm).requires_grad_(False).eval()
-        self.actor_params = list(self.llm.parameters())
-        self._init_actor_optimizer()
         self.critic = None
         if self.use_critic:
             with torch.device(self.device):
                 self.critic = CriticModel(critic_cfg or llm_cfg)
             init_random_(self.critic, seed + 1).train()
-            self.critic_params = list(self.critic.parameters())
-            self.critic_opt = AdamW(self.critic_params, config.critic.optim.get("lr", 1e-5))
         # the reward models: the value-head RM scores every row, rule scorers
         # keep precedence (verl's RewardModelWorker, naive manager); PRIME's RM
         # starts from the starting policy, its reference is the frozen
         # reference policy
         self.rm = self.prime_rm = None
-        if config.get_path("reward_model.enable", False):
+        rm_on = bool(config.get_path("reward_model.enable", False))
+        prime = rm_on and config.get_path("reward_model.rm_type", "value_head") == "prime"
+        prime_model = copy.deepcopy(self.llm) if prime else None
+        if rm_on and not prime:
+            with torch.device(self.device):
+                self.rm = SequenceRewardModel(rm_cfg or llm_cfg)
+            init_random_(self.rm, seed + 2).requires_grad_(False).eval()
+        for m in (self.llm, self.ref, self.critic, self.rm, prime_model):
+            if m is not None:
+                pm.shard_params_fsdp(self.mesh, m, reshard_after_forward=False)
+        self.actor_params = list(self.llm.parameters())
+        self._init_actor_optimizer()
+        if self.critic is not None:
+            self.critic_params = list(self.critic.parameters())
+            self.critic_opt = AdamW([pm.local(p) for p in self.critic_params],
+                                    config.critic.optim.get("lr", 1e-5))
+        if prime:
             rmc = config.reward_model
-            if rmc.get("rm_type", "value_head") == "prime":
-                self.prime_rm = PRIMERewardWorker(
-                    copy.deepcopy(self.llm), self.ref, PRIMERMConfig(
-                        response_length=self.roll_cfg.response_length,
-                        beta=rmc.get("beta_train", 0.05),
-                        granularity=rmc.get("prime_granularity", "token"),
-                        norm_mode=rmc.get("prime_norm", "batch_norm"),
-                        loss_type=rmc.get("loss_type", "ce"),
-                        bon_mode=rmc.get("bon_mode", "none"),
-                        lr=rmc.get("lr", 1e-6),
-                        n_samples=roll.n,
-                        score_micro_batch=roll.get("log_prob_micro_batch_size_per_gpu"),
-                        ref_micro_batch=config.actor_rollout_ref.ref.get(
-                            "log_prob_micro_batch_size_per_gpu"),
-                        update_micro_batch=config.actor_rollout_ref.actor.ppo_mini_batch_size))
-            else:
-                with torch.device(self.device):
-                    self.rm = SequenceRewardModel(rm_cfg or llm_cfg)
-                init_random_(self.rm, seed + 2).requires_grad_(False).eval()
+            self.prime_rm = PRIMERewardWorker(
+                prime_model, self.ref, PRIMERMConfig(
+                    response_length=self.roll_cfg.response_length,
+                    beta=rmc.get("beta_train", 0.05),
+                    granularity=rmc.get("prime_granularity", "token"),
+                    norm_mode=rmc.get("prime_norm", "batch_norm"),
+                    loss_type=rmc.get("loss_type", "ce"),
+                    bon_mode=rmc.get("bon_mode", "none"),
+                    lr=rmc.get("lr", 1e-6),
+                    n_samples=roll.n,
+                    score_micro_batch=roll.get("log_prob_micro_batch_size_per_gpu"),
+                    ref_micro_batch=config.actor_rollout_ref.ref.get(
+                        "log_prob_micro_batch_size_per_gpu"),
+                    update_micro_batch=config.actor_rollout_ref.actor.ppo_mini_batch_size),
+                ranks=self.ranks)
 
     def _init_actor_optimizer(self) -> None:
         optim = self.config.actor_rollout_ref.actor.optim
-        self.actor_opt = AdamW(self.actor_params, optim.get("lr", 1e-6),
+        self.actor_opt = AdamW([pm.local(p) for p in self.actor_params], optim.get("lr", 1e-6),
                                weight_decay=optim.get("weight_decay", 0.01))
+
+    def _generator(self, seed: int) -> torch.Generator:
+        """A sampling stream on the device: `seed` itself on the first data
+        rank, with the rank's data index folded in on the others."""
+        if self.ranks.index:
+            seed = int(np.random.SeedSequence([seed, self.ranks.index]).generate_state(1)[0])
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     @torch.no_grad()
     def load_actor(self, state_dict: Dict[str, torch.Tensor]) -> None:
-        """The policy's weights from a `Decoder` state dict.  The reference
-        policy gets its own copy of the same weights (never an alias of the
-        parameters the optimizer updates), and the optimizer starts afresh;
-        so does PRIME's RM, which starts from the policy."""
-        self.llm.load_state_dict(state_dict)
-        self.ref.load_state_dict(state_dict)
+        """The policy's weights from a `Decoder` state dict (on every rank,
+        into its placed trees).  The reference policy gets its own copy of
+        the same weights (never an alias of the parameters the optimizer
+        updates), and the optimizer starts afresh; so does PRIME's RM, which
+        starts from the policy."""
+        pm.load_full_state_dict(self.llm, state_dict)
+        pm.load_full_state_dict(self.ref, state_dict)
         self._init_actor_optimizer()
         if self.prime_rm is not None:
             self.prime_rm.load(state_dict)
@@ -194,33 +249,63 @@ class PPOTrainer:
         return generate_sequences(self.llm, gen, prompts,
                                   dataclasses.replace(self.roll_cfg, do_sample=False))
 
+    def _on_rows(self, fn, g: Dict[str, torch.Tensor], *models) -> torch.Tensor:
+        """fn(this rank's rows of the global rollout `g`) with `models` held
+        whole (one all-gather of each), its rows gathered over the data
+        ranks: the global (B, ...) result."""
+        with pm.gathered(*models):
+            return self.ranks.gather(fn(self.ranks.rows(g)))
+
     def _logp(self, model, g: Dict[str, torch.Tensor], chunk: Optional[int]) -> torch.Tensor:
         """Log-probs of the responses under `model`, `chunk` rows a call."""
-        B = g["input_ids"].shape[0]
-        chunk = chunk or B
-        return torch.cat([
-            compute_log_probs(model, g["input_ids"][i:i + chunk], g["attention_mask"][i:i + chunk],
-                              g["position_ids"][i:i + chunk], self.roll_cfg.response_length,
-                              self.roll_cfg.temperature)[0]
-            for i in range(0, B, chunk)])
+        def fn(g):
+            B = g["input_ids"].shape[0]
+            c = chunk or B
+            return torch.cat([
+                compute_log_probs(model, g["input_ids"][i:i + c], g["attention_mask"][i:i + c],
+                                  g["position_ids"][i:i + c], self.roll_cfg.response_length,
+                                  self.roll_cfg.temperature)[0]
+                for i in range(0, B, c)])
+
+        return self._on_rows(fn, g, model)
 
     @torch.no_grad()
     def _rm_score(self, g: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The value-head RM's (B, R) scores (each row's at its last valid
         token), in row chunks of rollout.log_prob_micro_batch_size_per_gpu
         (rows are independent: the reference's one call gives the same)."""
-        B = g["input_ids"].shape[0]
-        chunk = self.config.actor_rollout_ref.rollout.get("log_prob_micro_batch_size_per_gpu") or B
-        return torch.cat([
-            compute_rm_score(self.rm, g["input_ids"][i:i + chunk],
-                             g["attention_mask"][i:i + chunk], g["position_ids"][i:i + chunk],
-                             self.roll_cfg.response_length)
-            for i in range(0, B, chunk)])
+        def fn(g):
+            B = g["input_ids"].shape[0]
+            c = self.config.actor_rollout_ref.rollout.get("log_prob_micro_batch_size_per_gpu") or B
+            return torch.cat([
+                compute_rm_score(self.rm, g["input_ids"][i:i + c], g["attention_mask"][i:i + c],
+                                 g["position_ids"][i:i + c], self.roll_cfg.response_length)
+                for i in range(0, B, c)])
+
+        return self._on_rows(fn, g, self.rm)
 
     @torch.no_grad()
     def _values(self, g: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return compute_values(self.critic, g["input_ids"], g["attention_mask"],
-                              g["position_ids"], self.roll_cfg.response_length)
+        return self._on_rows(lambda g: compute_values(
+            self.critic, g["input_ids"], g["attention_mask"], g["position_ids"],
+            self.roll_cfg.response_length), g, self.critic)
+
+    def _share(self, mb: Dict[str, torch.Tensor]):
+        """This rank's rows of a global mini-batch and their shares of its
+        valid tokens and of its valid rows (1 and 1 at one rank)."""
+        mine = self.ranks.rows(mb)
+        if self.ranks.count == 1:
+            return mine, (1.0, 1.0)
+        m_g, m_l = mb["response_mask"].float(), mine["response_mask"].float()
+        tokens = float(m_l.sum()) / max(float(m_g.sum()), 1.0)
+        rows = float((m_l.sum(-1) > 0).sum()) / max(float((m_g.sum(-1) > 0).sum()), 1.0)
+        return mine, (tokens, rows)
+
+    def _summed(self, metrics: Dict[str, torch.Tensor], weights: Dict[str, float]):
+        """Each metric times its weight, summed over the data ranks."""
+        keys = list(metrics)
+        t = self.ranks.sum(torch.stack([metrics[k].float() * weights[k] for k in keys]))
+        return {k: float(v) for k, v in zip(keys, t.tolist())}
 
     def actor_loss(self, mb: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The PPO loss of a mini-batch: the policy-gradient loss minus
@@ -244,13 +329,23 @@ class PPOTrainer:
         return loss, {"actor/pg_loss": pg_loss.detach(), "actor/entropy": ent_loss.detach(),
                       "actor/pg_clipfrac": clipfrac, "actor/ppo_kl": ppo_kl.detach()}
 
-    def _actor_update(self, mb: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    def _actor_update(self, mb: Dict[str, torch.Tensor], share=(1.0, 1.0)) -> Dict[str, float]:
+        """One AdamW step on a mini-batch: `mb` is this rank's rows of it and
+        `share` their shares of its valid tokens and rows (`_share`).  The
+        loss and the metrics are weighted so that the ranks' sum is the
+        mini-batch's: pg_loss and entropy as loss_agg_mode divides (tokens
+        for token-mean, rows for the seq-mean modes), pg_clipfrac and
+        ppo_kl, token means, by tokens."""
+        a = self.config.actor_rollout_ref.actor
+        tokens, rows = share
+        w = tokens if a.loss_agg_mode == "token-mean" else rows
         loss, metrics = self.actor_loss(mb)
-        grads, norm = clip_by_global_norm(grads_or_zeros(loss, self.actor_params),
-                                          self.config.actor_rollout_ref.actor.grad_clip)
-        self.actor_opt.step(grads)
-        metrics["actor/grad_norm"] = norm  # before clipping
-        return {k: float(v) for k, v in metrics.items()}
+        self.ranks.backward(loss * w)
+        out = self._summed(metrics, {"actor/pg_loss": w, "actor/entropy": w,
+                                     "actor/pg_clipfrac": tokens, "actor/ppo_kl": tokens})
+        out["actor/grad_norm"] = float(self.ranks.step(self.actor_params, [self.actor_opt],
+                                                       a.grad_clip))  # before clipping
+        return out
 
     def critic_loss(self, mb: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         vpreds = compute_values(self.critic, mb["input_ids"], mb["attention_mask"],
@@ -260,14 +355,28 @@ class PPOTrainer:
             self.config.critic.get("cliprange_value", 0.5))
         return vf_loss, {"critic/vf_loss": vf_loss.detach(), "critic/vf_clipfrac": vf_clipfrac}
 
-    def _critic_update(self, mb: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    def _critic_update(self, mb: Dict[str, torch.Tensor], share=(1.0, 1.0)) -> Dict[str, float]:
+        """One AdamW step of the critic on this rank's rows of a mini-batch,
+        the value loss and its clip fraction (token means) weighted by the
+        rows' share of the valid tokens."""
+        tokens = share[0]
         loss, metrics = self.critic_loss(mb)
-        grads, _ = clip_by_global_norm(grads_or_zeros(loss, self.critic_params),
-                                       self.config.critic.get("grad_clip", 1.0))
-        self.critic_opt.step(grads)
-        return {k: float(v) for k, v in metrics.items()}
+        self.ranks.backward(loss * tokens)
+        out = self._summed(metrics, dict.fromkeys(metrics, tokens))
+        self.ranks.step(self.critic_params, [self.critic_opt],
+                        self.config.critic.get("grad_clip", 1.0))
+        return out
 
     # ---------------------------------------------------------------- step
+    def _rollout(self, fn, prompts: torch.Tensor, gen: torch.Generator,
+                 n: int = 1) -> Dict[str, torch.Tensor]:
+        """`fn` (`_gen` or `_gen_greedy`) on this rank's share of the global
+        unique `prompts`, each repeated `n` times on the rank, with the
+        policy held whole; the rollout's rows gathered over the data ranks."""
+        with pm.gathered(self.llm):
+            g = fn(self.ranks.rows(prompts).repeat_interleave(n, dim=0), gen)
+        return {k: self.ranks.gather(v) for k, v in g.items()}
+
     def _advantages(self, batch, gen, token_level_rewards, values, mask, B: int, n: int,
                     token_level_scores=None, prime_scores=None):
         algo = self.config.algorithm
@@ -293,8 +402,8 @@ class PPOTrainer:
                 token_level_rewards, mask, algo.gamma)
         if est == "remax":
             # the greedy rollout of each UNIQUE prompt, its score repeated n times
-            base = self._gen_greedy(
-                torch.as_tensor(np.asarray(batch["input_ids"]), device=self.device), gen)
+            base = self._rollout(self._gen_greedy, torch.as_tensor(
+                np.asarray(batch["input_ids"]), device=self.device), gen)
             bscores = self.reward_manager(
                 base["responses"].cpu().numpy(), base["response_mask"].cpu().numpy(),
                 list(batch["data_sources"]), list(batch["ground_truths"]))
@@ -359,6 +468,8 @@ class PPOTrainer:
         return scores, update()
 
     def training_step(self, batch: Dict[str, Any], gen: torch.Generator) -> Dict[str, float]:
+        """One PPO step on a global batch of prompts (every rank passes the
+        same batch; `gen` is this rank's sampling stream)."""
         cfg = self.config
         algo = cfg.algorithm
         n = cfg.actor_rollout_ref.rollout.n
@@ -369,9 +480,8 @@ class PPOTrainer:
         with timer("step", timing):
             prompts = torch.as_tensor(np.asarray(batch["input_ids"]), device=dev).to(torch.int32)
             B = prompts.shape[0]
-            prompts = prompts.repeat_interleave(n, dim=0)
             with timer("gen", timing):
-                g = self._gen(prompts, gen)
+                g = self._rollout(self._gen, prompts, gen, n)
                 _sync(dev)
 
             with timer("old_log_prob", timing):
@@ -418,19 +528,18 @@ class PPOTrainer:
                 data["values"] = values
             del g
 
-            if cfg.trainer.get("balance_batch", False):
-                # contiguous rank blocks with near-equal token sums
-                # (ray_trainer._balance_batch); a no-op on one process
+            if cfg.trainer.get("balance_batch", False) and self.ranks.count > 1:
+                # contiguous blocks of the dp x fsdp ranks with near-equal
+                # token sums (ray_trainer._balance_batch); a no-op at one
                 from vla_rft_tpu_torch.utils.seqlen_balancing import (
                     get_seqlen_balanced_partitions, log_seqlen_unbalance)
 
-                world = _world_size()
-                if world > 1:
-                    seqlens = data["attention_mask"].sum(-1).cpu().numpy().astype(int).tolist()
-                    parts = get_seqlen_balanced_partitions(seqlens, world, equal_size=True)
-                    order = torch.as_tensor([j for p in parts for j in p], device=dev)
-                    data = {k: v[order] for k, v in data.items()}
-                    metrics.update(log_seqlen_unbalance(seqlens, parts, "global_seqlen"))
+                seqlens = data["attention_mask"].sum(-1).cpu().numpy().astype(int).tolist()
+                parts = get_seqlen_balanced_partitions(seqlens, self.ranks.count,
+                                                       equal_size=True)
+                order = torch.as_tensor([j for p in parts for j in p], device=dev)
+                data = {k: v[order] for k, v in data.items()}
+                metrics.update(log_seqlen_unbalance(seqlens, parts, "global_seqlen"))
 
             actor_cfg = cfg.actor_rollout_ref.actor
             mini = actor_cfg.ppo_mini_batch_size
@@ -439,11 +548,11 @@ class PPOTrainer:
             with timer("update", timing):
                 for _ in range(actor_cfg.ppo_epochs):
                     for i in range(0, total, mini):
-                        mb = {k: v[i:i + mini] for k, v in data.items()}
+                        mb, share = self._share({k: v[i:i + mini] for k, v in data.items()})
                         if self.use_critic:
-                            append_to_dict(acc, self._critic_update(mb))
+                            append_to_dict(acc, self._critic_update(mb, share))
                         if cfg.trainer.critic_warmup <= self.global_steps:
-                            append_to_dict(acc, self._actor_update(mb))
+                            append_to_dict(acc, self._actor_update(mb, share))
                 _sync(dev)
             metrics.update(reduce_metrics(acc))
             metrics["critic/score/mean"] = float(token_level_scores.sum(-1).mean())
@@ -461,7 +570,8 @@ class PPOTrainer:
         each sampled val_kwargs.n times, scored by the rule scorers, and the
         bootstrap best / worst-of-n and majority-vote families per data
         source.  (The reference also reads a `val_dataset` attribute that
-        nothing sets; the port has none.)"""
+        nothing sets; the port has none.)  Over ranks each data rank samples
+        its share of the prompts and every rank scores the gathered rows."""
         from vla_rft_tpu_torch.trainer.metric_utils import (flatten_validation_metrics,
                                                             process_validation_metrics)
         from vla_rft_tpu_torch.utils.reward_score import compute_score_with_info, has_scorer
@@ -470,12 +580,12 @@ class PPOTrainer:
         vk = cfg.actor_rollout_ref.rollout.get("val_kwargs", None)
         n = int(vk.get("n", 1)) if vk is not None else 1
         if gen is None:
-            gen = torch.Generator(device=self.device).manual_seed(self._seed + 99)
+            gen = self._generator(self._seed + 99)
 
         batch = self.dataset.sample_batch(cfg.data.get("val_batch_size",
                                                        cfg.data.train_batch_size))
         prompts = torch.as_tensor(np.asarray(batch["input_ids"]), device=self.device)
-        g = self._gen(prompts.to(torch.int32).repeat_interleave(n, dim=0), gen)
+        g = self._rollout(self._gen, prompts.to(torch.int32), gen, n)
         resp = g["responses"].cpu().numpy()
         resp_mask = g["response_mask"].cpu().numpy()
 
@@ -499,11 +609,12 @@ class PPOTrainer:
 
     def fit(self, logger: Optional[Tracking] = None) -> None:
         """trainer.total_training_steps steps of data.train_batch_size
-        prompts, validating every trainer.test_freq steps."""
+        prompts, validating every trainer.test_freq steps; only rank 0
+        logs."""
         cfg = self.config
         logger = logger or Tracking(cfg.trainer.project_name, cfg.trainer.experiment_name,
-                                    cfg.trainer.logger)
-        gen = torch.Generator(device=self.device).manual_seed(self._seed + 7)
+                                    cfg.trainer.logger if self.is_rank0 else [])
+        gen = self._generator(self._seed + 7)
         test_freq = cfg.trainer.get("test_freq", -1)
         self.global_steps = 1
         while self.global_steps <= cfg.trainer.total_training_steps:

@@ -1,8 +1,9 @@
 """SFT trainers (port of vla_rft_tpu/trainer/sft_trainer.py).
 
 * `SFTTrainer`: masked next-token cross-entropy through a `Decoder`
-  (verl's FSDPSFTTrainer), clipped AdamW with an optional warmup.  The repo
-  trains its world model this way.
+  (verl's FSDPSFTTrainer), clipped AdamW with an optional warmup, over the
+  data ranks of `mesh` (the reference's default `MeshConfig()`: dp = the
+  world).  The repo trains its world model this way.
 * `VLAFlowSFTTrainer`: flow-matching behaviour cloning of the action expert
   over precomputed, frozen VLM contexts.
 * `VLAAdapterSFTTrainer`: the same loss with the gradient flowing through
@@ -15,7 +16,8 @@
 
 Each step is `compute_loss` -> `backward` (gradients of every parameter,
 frozen ones included, as `jax.value_and_grad` gives them) -> `update`
-(`clip_by_global_norm` over all gradients, then one `AdamW` per group; the
+(`parallel/mesh.py::DataRanks.step`: the sum over the data ranks, one
+clip by the global norm of all gradients, then one `AdamW` per group; the
 frozen group is left out).  On the card every attention layer of the
 decoder runs the flash forward (#1) and, in `backward`, the flash backward
 (#2, #3).  Random draws come from a `torch.Generator`; a caller that must
@@ -33,7 +35,9 @@ from vla_rft_tpu_torch.models.action_masks import IGNORE_INDEX
 from vla_rft_tpu_torch.models.factory import build_decoder
 from vla_rft_tpu_torch.models.transformer import Decoder, TransformerConfig
 from vla_rft_tpu_torch.ops.masked import logprobs_from_logits
-from vla_rft_tpu_torch.trainer.optim import AdamW, clip_by_global_norm, warmup_constant_schedule
+from vla_rft_tpu_torch.parallel import distributed as pd
+from vla_rft_tpu_torch.parallel import mesh as pm
+from vla_rft_tpu_torch.trainer.optim import AdamW, warmup_constant_schedule
 from vla_rft_tpu_torch.workers.flow_actor import encode_context
 
 
@@ -53,52 +57,81 @@ def flow_bc_loss(expert: ActionExpert, hidden: torch.Tensor, proprio: torch.Tens
 
 class _Trainer:
     """Shared step: loss -> gradients of `self.params` -> clip -> AdamW per
-    group.  Subclasses set `params` (every parameter the loss reads),
+    group, over the data ranks of `ranks` (one process unless a subclass
+    sets them).  Subclasses set `params` (every parameter the loss reads),
     `groups` (the AdamW of each trained group) and `grad_clip`."""
 
     params: List[nn.Parameter]
     groups: Sequence[AdamW]
     grad_clip: float
+    ranks: pm.DataRanks = pm.DataRanks(None)
 
     def backward(self, loss: torch.Tensor) -> List[torch.Tensor]:
-        """d loss / d params; a parameter the loss does not reach gets zeros."""
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        """d loss / d params (this rank's share of them: `DataRanks.backward`);
+        a parameter the loss does not reach gets zeros."""
+        self.ranks.backward(loss)
+        return self.ranks.take_grads(self.params)
 
     def update(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """Clip by the global norm of all gradients (frozen ones count), then
-        step each group; returns the norm before clipping."""
-        grads, norm = clip_by_global_norm(grads, self.grad_clip)
-        by_param = {id(p): g for p, g in zip(self.params, grads)}
-        for opt in self.groups:
-            opt.step([by_param[id(p)] for p in opt.params])
-        return norm
+        """Sum over the data ranks, clip by the global norm of all gradients
+        (frozen ones count), then step each group; returns the norm before
+        clipping."""
+        return self.ranks.step(self.params, self.groups, self.grad_clip, grads)
 
 
 class SFTTrainer(_Trainer):
-    """Masked next-token CE of a `Decoder` (labels -100 are ignored)."""
+    """Masked next-token CE of a `Decoder` (labels -100 are ignored).
+
+    `mesh` is a `parallel.mesh.MeshConfig` resolved against the world (its
+    ValueError for a mesh the world cannot hold); the decoder is placed by
+    `shard_params_fsdp` (FSDP2 at fsdp > 1).  Every rank passes the same
+    global batch and takes its (dp, fsdp) rows; its loss share is
+    -(lp . mask).sum() over the global label count, the gradients are
+    summed over the data ranks, clipped by the norm of the whole gradient
+    and stepped by one AdamW (`update`, `DataRanks.step`), and
+    `training_step` returns the global loss.  At one rank this is the
+    plain step."""
 
     def __init__(self, llm_cfg: TransformerConfig, lr=1e-5, weight_decay=0.01, grad_clip=1.0,
-                 warmup_steps=0, seed=0, *, device="cuda", llm: Optional[Decoder] = None):
-        self.llm = llm if llm is not None else build_decoder(llm_cfg, device=device, seed=seed)
+                 warmup_steps=0, seed=0, *, device="cuda", llm: Optional[Decoder] = None,
+                 mesh: Optional[pm.MeshConfig] = None):
+        world = pd.world_size()
+        mesh_cfg = (mesh or pm.MeshConfig()).resolve(world)
+        if llm is None:
+            device = torch.device(device)
+            if world > 1 and device.type == "cuda" and device.index is None:
+                device = pd.rank_device("cuda")
+            llm = build_decoder(llm_cfg, device=device, seed=seed)
+        self.llm = llm
         self.device = self.llm.embed_tokens.weight.device
+        self.mesh = pm.make_mesh(mesh_cfg, self.device.type) if world > 1 else None
+        self.ranks = pm.DataRanks(self.mesh)
+        pm.shard_params_fsdp(self.mesh, self.llm, reshard_after_forward=False)
         sched = warmup_constant_schedule(0.0, lr, warmup_steps) if warmup_steps else lr
         self.params = list(self.llm.parameters())
-        self.groups = [AdamW(self.params, sched, weight_decay=weight_decay)]
+        self.groups = [AdamW([pm.local(p) for p in self.params], sched,
+                             weight_decay=weight_decay)]
         self.grad_clip = grad_clip
 
-    def compute_loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def compute_loss(self, batch: Dict[str, torch.Tensor],
+                     label_count: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """-(lp . mask).sum() over `label_count` (the batch's own labels by
+        default)."""
         kv_lens = batch["attention_mask"].sum(-1).to(torch.int32)
         logits, _ = self.llm(batch["input_ids"], kv_lens=kv_lens)
         shift_logits, shift_labels = logits[:, :-1], batch["labels"][:, 1:]
         mask = (shift_labels != -100).float()
         lp = logprobs_from_logits(shift_logits, shift_labels.clamp_min(0))
-        return -(lp * mask).sum() / mask.sum().clamp_min(1)
+        if label_count is None:
+            label_count = mask.sum().clamp_min(1)
+        return -(lp * mask).sum() / label_count
 
     def training_step(self, batch: Dict[str, Any]) -> float:
-        loss = self.compute_loss(to_device(batch, self.device))
-        self.update(self.backward(loss))
-        return float(loss.detach())
+        batch = to_device(batch, self.device)
+        label_count = (batch["labels"][:, 1:] != -100).float().sum().clamp_min(1)
+        share = self.compute_loss(self.ranks.rows(batch), label_count)
+        self.update(self.backward(share))
+        return float(self.ranks.sum(share.detach().clone()))
 
 
 class VLAFlowSFTTrainer(_Trainer):

@@ -20,6 +20,15 @@ the DPO's group Q values and accs come from the micro-batch's own whole
 groups.  `prime_norm` divides by a max over the whole batch, so it is
 applied once the scoring chunks are joined.
 
+Over ranks (`ranks`, the trainer's `parallel/mesh.py::DataRanks`) every
+method takes the global rows and works on this rank's share of them, whole
+groups as the trainer lays them out: the scores are gathered before
+`prime_norm`; an update's micro-batches are the rank's own, each loss
+divided as the global batch divides, the gradient summed over the data
+ranks and clipped by the norm of the whole gradient, and the metrics
+summed over the ranks.  A forward without gradients holds the RM (or the
+reference) whole for the call (`mesh.gathered`); the update runs sharded.
+
 The reference log-probs do not depend on the RM's weights: a caller may
 compute them once a step and hand them to both the score and the update
 (`ref_log_probs`, which the reference's update accepts too).  The trainer
@@ -35,8 +44,9 @@ from typing import Dict, List, Optional
 import torch
 
 from vla_rft_tpu_torch.models.transformer import Decoder
+from vla_rft_tpu_torch.parallel import mesh as pm
 from vla_rft_tpu_torch.trainer import prime_core
-from vla_rft_tpu_torch.trainer.optim import AdamW, clip_by_global_norm, grads_or_zeros
+from vla_rft_tpu_torch.trainer.optim import AdamW
 from vla_rft_tpu_torch.workers.llm_rollout import compute_log_probs
 
 
@@ -61,27 +71,31 @@ class PRIMERMConfig:
 
 class PRIMERewardWorker:
     """The RM `model` (trained) and its reference `ref` (frozen; never an
-    alias of the trained weights), both `Decoder`s."""
+    alias of the trained weights), both `Decoder`s, placed by the caller;
+    `ranks` the data ranks (None: one process)."""
 
-    def __init__(self, model: Decoder, ref: Decoder, cfg: PRIMERMConfig):
+    def __init__(self, model: Decoder, ref: Decoder, cfg: PRIMERMConfig,
+                 ranks: Optional[pm.DataRanks] = None):
         if ref is model:
             raise ValueError("the PRIME reference must be a copy of its own")
         self.model = model.requires_grad_(True).train()
         self.ref = ref.requires_grad_(False).eval()
         self.cfg = cfg
+        self.ranks = ranks or pm.DataRanks(None)
         self.params = list(model.parameters())
         self.reset_optimizer()
 
     def reset_optimizer(self) -> None:
-        """optax.adamw(lr) with optax's default weight decay (1e-4), afresh."""
-        self.opt = AdamW(self.params, self.cfg.lr)
+        """optax.adamw(lr) with optax's default weight decay (1e-4), afresh
+        (over this rank's shards)."""
+        self.opt = AdamW([pm.local(p) for p in self.params], self.cfg.lr)
 
     @torch.no_grad()
     def load(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """The RM and its reference both from a `Decoder` state dict, and the
         optimizer afresh."""
-        self.model.load_state_dict(state_dict)
-        self.ref.load_state_dict(state_dict)
+        pm.load_full_state_dict(self.model, state_dict)
+        pm.load_full_state_dict(self.ref, state_dict)
         self.reset_optimizer()
 
     # ------------------------------------------------------------- scores
@@ -96,11 +110,18 @@ class PRIMERewardWorker:
             for i in range(0, B, chunk)])
 
     @torch.no_grad()
+    def _local_ref(self, input_ids, attention_mask, position_ids) -> torch.Tensor:
+        with pm.gathered(self.ref):
+            return self._log_probs(self.ref, input_ids, attention_mask, position_ids,
+                                   self.cfg.ref_micro_batch)
+
+    @torch.no_grad()
     def ref_log_probs(self, input_ids, attention_mask, position_ids) -> torch.Tensor:
         """(B, R) f32 log-probs of the responses under the frozen reference,
         `ref_micro_batch` rows a forward."""
-        return self._log_probs(self.ref, input_ids, attention_mask, position_ids,
-                               self.cfg.ref_micro_batch)
+        rows = self.ranks.rows
+        return self.ranks.gather(self._local_ref(rows(input_ids), rows(attention_mask),
+                                                 rows(position_ids)))
 
     def _token_scores(self, lp: torch.Tensor, ref: torch.Tensor,
                       attention_mask: torch.Tensor):
@@ -120,12 +141,13 @@ class PRIMERewardWorker:
                          ref_log_probs: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, R) f32 process scores, `prime_norm`ed over the whole batch; the
         RM's log-probs `score_micro_batch` rows a forward."""
-        lp = self._log_probs(self.model, input_ids, attention_mask, position_ids,
-                             self.cfg.score_micro_batch)
-        if ref_log_probs is None:
-            ref_log_probs = self.ref_log_probs(input_ids, attention_mask, position_ids)
-        scores, _ = self._token_scores(lp, ref_log_probs, attention_mask)
-        return prime_core.prime_norm(scores, self.cfg.norm_mode)
+        rows = self.ranks.rows
+        seqs = (rows(input_ids), rows(attention_mask), rows(position_ids))
+        with pm.gathered(self.model):
+            lp = self._log_probs(self.model, *seqs, self.cfg.score_micro_batch)
+        ref = self._local_ref(*seqs) if ref_log_probs is None else rows(ref_log_probs)
+        scores, _ = self._token_scores(lp, ref, seqs[1])
+        return prime_core.prime_norm(self.ranks.gather(scores), self.cfg.norm_mode)
 
     # ------------------------------------------------------------- update
     def _micro_batch(self, B: int) -> int:
@@ -157,24 +179,29 @@ class PRIMERewardWorker:
     def update_rm(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """One optimizer step on `batch` (input_ids, attention_mask,
         position_ids, acc, and optionally ref_log_probs): the gradient summed
-        in f32 over micro-batches of whole groups, clipped by its global norm
-        (grad_clip), one AdamW step.  Returns prime/rm_loss and prime/dpo_acc
-        of the weights before the step."""
+        in f32 over micro-batches of whole groups (of this rank's rows) and
+        over the data ranks, clipped by its global norm (grad_clip), one
+        AdamW step.  Returns prime/rm_loss and prime/dpo_acc of the weights
+        before the step."""
         B = batch["input_ids"].shape[0]
-        if B % self.cfg.n_samples:
-            raise ValueError(f"{B} rows are not whole groups of {self.cfg.n_samples}")
-        if batch.get("ref_log_probs") is None:
-            batch = {**batch, "ref_log_probs": self.ref_log_probs(
-                batch["input_ids"], batch["attention_mask"], batch["position_ids"])}
-        step = self._micro_batch(B)
+        keys = ("input_ids", "attention_mask", "position_ids", "acc", "ref_log_probs")
+        b = self.ranks.rows(batch["input_ids"]).shape[0]
+        if B % self.cfg.n_samples or b % self.cfg.n_samples:
+            raise ValueError(f"{B} rows ({b} on this rank) are not whole groups of "
+                             f"{self.cfg.n_samples}")
+        mine = {k: self.ranks.rows(batch[k]) for k in keys[:4]}
+        mine["ref_log_probs"] = (self._local_ref(*(mine[k] for k in keys[:3]))
+                                 if batch.get("ref_log_probs") is None
+                                 else self.ranks.rows(batch["ref_log_probs"]))
+        step = self._micro_batch(b)
         total: Optional[List[torch.Tensor]] = None
         loss_sum = acc_sum = 0.0
-        for i in range(0, B, step):
-            mb = {k: batch[k][i:i + step] for k in ("input_ids", "attention_mask",
-                                                    "position_ids", "acc", "ref_log_probs")}
+        for i in range(0, b, step):
+            mb = {k: mine[k][i:i + step] for k in keys}
             loss, dpo_acc = self._loss(mb, B)
-            grads = grads_or_zeros(loss, self.params)
+            self.ranks.backward(loss)
             with torch.no_grad():
+                grads = self.ranks.take_grads(self.params)
                 if total is None:
                     total = [g.float() for g in grads]
                 else:
@@ -183,6 +210,8 @@ class PRIMERewardWorker:
             loss_sum = loss_sum + loss.detach()
             acc_sum = acc_sum + dpo_acc
             del grads, loss
-        total, _ = clip_by_global_norm(total, self.cfg.grad_clip)
-        self.opt.step(total)
-        return {"prime/rm_loss": float(loss_sum), "prime/dpo_acc": float(acc_sum)}
+        self.ranks.step(self.params, [self.opt], self.cfg.grad_clip, total)
+        rm_loss, dpo_acc = self.ranks.sum(torch.stack([
+            torch.as_tensor(x, dtype=torch.float32, device=total[0].device).reshape(())
+            for x in (loss_sum, acc_sum)])).tolist()
+        return {"prime/rm_loss": rm_loss, "prime/dpo_acc": dpo_acc}
