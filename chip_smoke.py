@@ -111,6 +111,27 @@ Phases, one JSON line each:
   9. wm_kernel_vs_plain - the WM's kernel path and plain path fed the same
                   prompts and the kernel path's tokens of frame 0 must agree
                   on the logits of every call;
+     push       - the push pipeline (tools/rft_evidence.py in the port,
+                  trainer/rft_evidence.py) at the push preset's full widths,
+                  all f32: 96 seeded segments with the collector's keys,
+                  dtypes and shapes written by save_segments (the card has
+                  no MuJoCo), then `main` for tokenizer, wm and bc at 50
+                  steps each and rft at 2 steps of 8 samples x n = 8 with
+                  validate() before and after (2 batches each, the config's
+                  10 cut), --device cuda: each phase's s and peak memory;
+                  its launches of #1 / #2 / #3 / #4 / #5 exactly as derived
+                  from layers, steps and WM calls (push_expect); each loss
+                  finite, the mean of its last 10 steps below its first;
+                  RFT's every expert leaf moved, the VLM, WM and tokenizer
+                  bit-identical to their files, metrics finite; every file
+                  read back through load_tree and written again bit-equal.
+                  The flash, flash_bwd, decode and decode_heads phases hold
+                  the f32 instances the push models run (#1-#3 at head
+                  dims 32 and 64, the decode kernel over f32 caches) to
+                  their twins under `f32` (masked cases; the push shapes
+                  timed: 8 x 96 at 4/2 x 32, 32 x 96 for #2 / #3, 16 x 270
+                  at 2/2 x 64, the rollout's 64 rows over 8 prefixes of
+                  80), beside SDPA on the math backend in f32;
  10. grpo       - the GRPO training step through
                   trainer/main_vla_rft_grpo.run at the libero preset with
                   world_model_rollout.rollout.weights_int8=true, one step
@@ -141,7 +162,7 @@ Phases, one JSON line each:
                   decoding (k = 4, int8 weights on the module route: #4 24
                   x the rollout's calls, #8 / #9 0; verify calls, drafts
                   accepted, acceptance rate); then the greedy rollout with
-                  and without speculation (2 frames: the first token that
+                  and without speculation (1 frame: the first token that
                   differs, every verify chunk's logits vs the one-token
                   calls <= 5e-2) and one verify call of Sq = 5 whose 10 rows
                   stand at 10 offsets on the 'hd' and 'heads' layouts,
@@ -381,6 +402,8 @@ import torch.nn.functional as F
 # its bytes over the memory rate and its operations over the bf16 rate
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+# f32 outside the tensor cores: the rate of the f32 instances (FFMA only)
+F32_FLOP_PER_S = 67e12
 
 N_REQUESTS = 4
 O_TOL = 2e-2  # bf16 O (2^-8 relative) and bf16 P in the P.V product
@@ -430,6 +453,10 @@ SFT_TEXT_KV_LENS = [1663, 1211, 742, 205]
 F64_ROUTE_RATIO = 2.0
 
 WM_PREFIX = 1088  # shared prompt head: 1024 ctx tokens + the 64 dyn tokens of frame 0
+# grpo_variants' greedy rollouts with and without speculation: 1 frame (65
+# calls, some 63 of them verify calls on the speculative side), cut from 2
+# for the script's time; the spec step through the CLI keeps the preset's 8
+SPEC_GREEDY_FRAMES = 1
 # the configured WM call of 128 rows (rollout.micro_batch_size): a 64-sequence
 # step's policy rows (16 samples x n = 4) then their gt rows, in that order
 B128_PREFIX_MAP = [i // 4 % 16 for i in range(128)]
@@ -539,10 +566,11 @@ def host_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def bound(nbytes: int, flops: int) -> dict:
+def bound(nbytes: int, flops: int, flop_rate: float = BF16_FLOP_PER_S) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the bf16 rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    operations over the rate of their type (bf16 by default), whichever is
+    larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -563,11 +591,12 @@ def flash_work(q, k, kv_lens, kv_starts, q_offset, causal):
     """(bytes, flops) the function needs on these inputs: q read once, K/V
     read once at the key positions some query of the row attends to (masked
     positions are never needed), O and LSE written once; 4*D flops per
-    valid (query, key) pair."""
+    valid (query, key) pair.  Elements of q's size (bf16 or f32)."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    el = q.element_size()
     keys, pairs = attn_pairs(B, Sq, Sk, q.device, kv_lens, kv_starts, q_offset, causal)
-    io = 2 * B * Sq * Hq * D + 2 * 2 * keys * Hkv * D + 2 * B * Sq * Hq * D + 4 * B * Sq * Hq
+    io = el * B * Sq * Hq * D + el * 2 * keys * Hkv * D + el * B * Sq * Hq * D + 4 * B * Sq * Hq
     return io, 4 * D * pairs * Hq
 
 
@@ -579,10 +608,11 @@ def bwd_work(q, k, kv_lens, kv_starts, q_offset, causal):
     dK)."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    el = q.element_size()
     keys, pairs = attn_pairs(B, Sq, Sk, q.device, kv_lens, kv_starts, q_offset, causal)
-    rows_in = 2 * 2 * B * Sq * Hq * D + 2 * 4 * B * Sq * Hq + 2 * 2 * keys * Hkv * D
-    return {"dq": (rows_in + 2 * B * Sq * Hq * D, 6 * D * pairs * Hq),
-            "dkv": (rows_in + 2 * 2 * B * Sk * Hkv * D, 8 * D * pairs * Hq)}
+    rows_in = el * 2 * B * Sq * Hq * D + 2 * 4 * B * Sq * Hq + el * 2 * keys * Hkv * D
+    return {"dq": (rows_in + el * B * Sq * Hq * D, 6 * D * pairs * Hq),
+            "dkv": (rows_in + el * 2 * B * Sk * Hkv * D, 8 * D * pairs * Hq)}
 
 
 def _sdpa_yardstick(qt, kt, vt):
@@ -724,7 +754,7 @@ def phase_flash(attention) -> dict:
                                    SFT_TEXT_KV_LENS))}
     out = {"phase": "flash", "cases": results, "max_abs_err_o": err_o,
            "max_abs_err_lse": err_lse, "tolerance": {"o": O_TOL, "lse": LSE_TOL},
-           "timed": timed}
+           "timed": timed, "f32": phase_flash_f32(attention, backward=False)}
     emit(out)
     return out
 
@@ -851,10 +881,249 @@ def phase_flash_bwd(attention) -> dict:
                  ("sft_text", SFT_TEXT_BATCH, WM_SFT_LEN, 14, 2, SFT_TEXT_KV_LENS))}
     out = {"phase": "flash_bwd", "cases": results, "max_abs_err": err,
            "tolerance": f"max|d| <= {BWD_RTOL} * max|ref| + {BWD_ATOL} per gradient",
-           "timed": timed}
+           "timed": timed, "f32": phase_flash_f32(attention, backward=True)}
     emit(out)
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------ f32 instances (push preset)
+# The push preset's f32 models at their full widths (tools/rft_evidence.py's
+# defaults): the policy LLM's prefill, 8 rows of 32 text + 64 patch tokens
+# at 4 / 2 heads of 32 (BC takes 32 rows); the WM's training forward, 16
+# rows of 270 tokens at 2 / 2 heads of 64; its RFT rollout, 64 rows (8
+# prompts x n = 8) over 8 shared prefixes of 80 positions and own caches of
+# up to 191 (7 prompt-tail + 8 frames x 23).
+PUSH_POLICY_S, PUSH_POLICY_HEADS, PUSH_BC_BATCH = 96, (4, 2, 32), 32
+PUSH_WM_B, PUSH_WM_S, PUSH_WM_HEADS = 16, 270, (2, 2, 64)
+PUSH_ROWS, PUSH_PREFIXES, PUSH_PREFIX, PUSH_OWN = 64, 8, 80, 191
+# f32 instance vs its f32 twin: the same products summed in another order,
+# |d| <= F32_RTOL * max|ref| + F32_ATOL per output
+F32_RTOL, F32_ATOL = 1e-5, 1e-6
+
+
+def _f32_within(name: str, got, ref) -> float:
+    e = (got.float() - ref.float()).abs().max().item()
+    lim = F32_RTOL * ref.float().abs().max().item() + F32_ATOL
+    if not (e <= lim and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{name}: max|d| {e} > {lim}")
+    return e
+
+
+def _sdpa_math(qt, kt, vt, causal=True, mask=None):
+    """scaled_dot_product_attention in f32 on the math backend, as a closure
+    (the f32 instances' yardstick; the port never calls it)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def run():
+        with sdpa_kernel(SDPBackend.MATH):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=qt.shape[1] != kt.shape[1])
+    return run
+
+
+def _f32_flash_cases(attention, gen, backward: bool) -> tuple:
+    """The f32 instances of #1 (or #2 / #3) against their twin over the flash
+    phase's masks at D 32 (4 / 2 heads) and D 64 (2 / 2), causal and not."""
+    dev = torch.device("cuda")
+    masks = [("plain", 2, 96, 96, {}),
+             ("right_pad", 4, 96, 96, {"kv_lens": [96, 70, 33, 1]}),
+             ("left_pad", 4, 130, 130, {"kv_starts": [0, 7, 64, 129]}),
+             ("q_offset_chunk", 1, 40, 200, {"q_offset": [160]}),
+             ("fully_masked_row", 3, 96, 96, {"kv_lens": [96, 0, 50], "kv_starts": [0, 0, 10]}),
+             ("wm_train", 2, PUSH_WM_S, PUSH_WM_S, {})]
+    results, worst = [], 0.0
+    for Hq, Hkv, D in (PUSH_POLICY_HEADS, PUSH_WM_HEADS):
+        for name, B, Sq, Sk, kw in masks:
+            for causal in (True, False):
+                q, do = (torch.randn(B, Sq, Hq, D, generator=gen, device=dev) for _ in range(2))
+                k, v = (torch.randn(B, Sk, Hkv, D, generator=gen, device=dev) for _ in range(2))
+                args = {a: torch.tensor(x, dtype=torch.int32, device=dev) for a, x in kw.items()}
+                o, lse = attention.flash_fwd(q, k, v, causal=causal, **args)
+                tag = f"f32 {name} D={D} causal={causal}"
+                if backward:
+                    got = attention.flash_bwd(q, k, v, o, lse, do, causal=causal, **args)
+                    ref = attention.attention_bwd_plain(q, k, v, o, lse, do, causal=causal, **args)
+                    errs = {g: _f32_within(f"{tag} d{g}", a, r)
+                            for g, a, r in zip(("q", "k", "v"), got, ref)}
+                    if name == "fully_masked_row" and not all(bool((g[1] == 0).all()) for g in got):
+                        raise AssertionError(f"{tag}: a fully-masked row has gradients")
+                else:
+                    o_ref, lse_ref = attention.attention_plain(q, k, v, causal=causal,
+                                                               return_lse=True, **args)
+                    errs = {"o": _f32_within(f"{tag} O", o, o_ref),
+                            "lse": _f32_within(f"{tag} LSE", lse.clamp_min(-1e4),
+                                               lse_ref.clamp_min(-1e4))}
+                    if name == "fully_masked_row" and (o[1].abs().max().item() != 0.0 or
+                                                       not bool((lse[1] == attention.NEG_INF).all())):
+                        raise AssertionError(f"{tag}: the fully-masked row is not 0 / -1e30")
+                worst = max(worst, *errs.values())
+                results.append({"case": name, "D": D, "Hq": Hq, "Hkv": Hkv, "causal": causal,
+                                "max_abs_err": errs})
+    return results, worst
+
+
+def time_flash_f32(attention, gen, B, S, Hq, Hkv, D) -> dict:
+    """The f32 #1 at a push shape (causal, every key valid): against the twin,
+    three calls the same bits, then graph-replayed beside the twin, SDPA on
+    the math backend and the bound at the f32 rate."""
+    dev = torch.device("cuda")
+    q = torch.randn(B, S, Hq, D, generator=gen, device=dev)
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev) for _ in range(2))
+    rows = {"kv_lens": torch.full((B,), S, dtype=torch.int32, device=dev),
+            "kv_starts": torch.zeros(B, dtype=torch.int32, device=dev),
+            "q_offset": torch.zeros(B, dtype=torch.int32, device=dev)}
+    kern = lambda: attention.flash_fwd(q, k, v, causal=True, **rows)
+    twin = lambda: attention.attention_plain(q, k, v, causal=True, return_lse=True, **rows)
+    (o, lse), (o_ref, lse_ref) = kern(), twin()
+    e = _f32_within(f"f32 flash {B}x{S} D={D}", o, o_ref)
+    _f32_within(f"f32 flash {B}x{S} D={D} LSE", lse, lse_ref)
+    if not repeats_bit_for_bit(kern):
+        raise AssertionError(f"f32 flash {B}x{S} D={D}: three calls gave different bits")
+    nbytes, flops = flash_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"], True)
+    return {"B": B, "Sq": S, "Sk": S, "Hq": Hq, "Hkv": Hkv, "D": D, "dtype": "float32",
+            "causal": True, "max_abs_err_o": e, "repeats_bit_for_bit": True,
+            "kernel_ms": graph_ms(kern), "plain_ms": graph_ms(twin, 5),
+            "library_ms": graph_ms(_sdpa_math(*(x.transpose(1, 2) for x in (q, k, v)))),
+            **bound(nbytes, flops, F32_FLOP_PER_S)}
+
+
+def time_flash_bwd_f32(attention, gen, B, S, Hq, Hkv, D) -> dict:
+    """The f32 #2 and #3 at a push shape (causal, every key valid): against
+    the twin, three calls the same bits, graph-replayed beside the twin, the
+    autograd backward of SDPA on the math backend (forward + backward less
+    the forward) and the bound at the f32 rate."""
+    dev = torch.device("cuda")
+    q, do = (torch.randn(B, S, Hq, D, generator=gen, device=dev) for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev) for _ in range(2))
+    rows = {"kv_lens": torch.full((B,), S, dtype=torch.int32, device=dev),
+            "kv_starts": torch.zeros(B, dtype=torch.int32, device=dev),
+            "q_offset": torch.zeros(B, dtype=torch.int32, device=dev)}
+    kw = dict(causal=True, **rows)
+    o, lse = attention.flash_fwd(q, k, v, **kw)
+    delta = (do * o).sum(dim=-1)
+    got = attention.flash_bwd(q, k, v, o, lse, do, **kw)
+    ref = attention.attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    errs = {g: _f32_within(f"f32 flash_bwd {B}x{S} D={D} d{g}", a, r)
+            for g, a, r in zip(("q", "k", "v"), got, ref)}
+    dq = lambda: attention.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dkv = lambda: attention.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    for name, fn in (("dq", dq), ("dkv", dkv)):
+        if not repeats_bit_for_bit(fn):
+            raise AssertionError(f"f32 flash_bwd {name}: three calls gave different bits")
+    plain_ms = graph_ms(lambda: attention.attention_bwd_plain(q, k, v, o, lse, do, **kw), 3)
+    leaves = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+    sdpa = _sdpa_math(*leaves)
+    library_ms = graph_ms(lambda: torch.autograd.grad(sdpa(), leaves, do.transpose(1, 2))) \
+        - graph_ms(sdpa)
+    work = bwd_work(q, k, rows["kv_lens"], rows["kv_starts"], rows["q_offset"], True)
+    base = {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "dtype": "float32", "causal": True,
+            "plain_ms": plain_ms, "library_ms": library_ms, "repeats_bit_for_bit": True}
+    return {"dq": {**base, "max_abs_err": errs["q"], "kernel_ms": graph_ms(dq),
+                   **bound(*work["dq"], F32_FLOP_PER_S)},
+            "dkv": {**base, "max_abs_err": max(errs["k"], errs["v"]), "kernel_ms": graph_ms(dkv),
+                    **bound(*work["dkv"], F32_FLOP_PER_S)}}
+
+
+def phase_flash_f32(attention, backward: bool) -> dict:
+    """The f32 instances: #1 (or #2 / #3) over the masked cases, then timed at
+    the push preset's policy and WM shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(11 if backward else 10)
+    cases, worst = _f32_flash_cases(attention, gen, backward)
+    Hq, Hkv, D = PUSH_POLICY_HEADS
+    Wq, Wkv, WD = PUSH_WM_HEADS
+    if backward:
+        timed = {"push_f32_d32": time_flash_bwd_f32(attention, gen, PUSH_BC_BATCH,
+                                                    PUSH_POLICY_S, Hq, Hkv, D),
+                 "push_f32_d64": time_flash_bwd_f32(attention, gen, PUSH_WM_B, PUSH_WM_S,
+                                                    Wq, Wkv, WD)}
+    else:
+        timed = {"push_f32_d32": time_flash_f32(attention, gen, 8, PUSH_POLICY_S, Hq, Hkv, D),
+                 "push_f32_d64": time_flash_f32(attention, gen, PUSH_WM_B, PUSH_WM_S, Wq, Wkv,
+                                                WD)}
+    return {"cases": cases, "max_abs_err": worst,
+            "tolerance": f"|d| <= {F32_RTOL} * max|ref| + {F32_ATOL}", "timed": timed}
+
+
+def phase_decode_f32(dec, heads: bool) -> dict:
+    """The f32 instance of the decode kernel (#4 / #5, or #6 / #7 with
+    `heads`) over f32 caches and f32 q: push-shape windows, starts cut
+    short, Sq 1 and 7, GQA; then timed at the RFT rollout's call (64 rows
+    over 8 prefixes of 80, own caches at mid-rollout) and #5 over one cache
+    of the whole 271 positions."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    lay = ((lambda c, H: c.view(c.shape[0], c.shape[1], H, 64).transpose(1, 2).contiguous())
+           if heads else (lambda c, H: c))
+
+    def inputs(B, Sq, G, Hkv, own, starts, shared, n_prefix=PUSH_PREFIXES, Sr=PUSH_OWN + 1):
+        q = torch.randn(B, Sq, Hkv * G, 64, generator=gen, device=dev)
+        ck, cv = (lay(torch.randn(B, Sr, Hkv * 64, generator=gen, device=dev), Hkv)
+                  for _ in range(2))
+        own = torch.tensor(own, dtype=torch.int32, device=dev)
+        starts = torch.tensor(starts, dtype=torch.int32, device=dev)
+        if shared:
+            sck, scv = (lay(torch.randn(n_prefix, PUSH_PREFIX, Hkv * 64, generator=gen,
+                                        device=dev), Hkv) for _ in range(2))
+            pm = (torch.arange(B, device=dev, dtype=torch.int32) * n_prefix) // B
+            kv_lens = PUSH_PREFIX + own
+            kw = dict(shared_len=PUSH_PREFIX, kv_lens=kv_lens, q_offset=kv_lens - Sq,
+                      shared_starts=starts)
+            return (lambda: dec.decode_shared_kernel(q, ck, cv, sck, scv, pm, **kw),
+                    lambda: dec.decode_shared_plain(q, ck, cv, sck, scv, pm, **kw),
+                    (q, None if heads else dec.shared_kv(ck, cv, sck, scv, pm, PUSH_PREFIX, 64,
+                                                         torch.float32), kv_lens))
+        kw = dict(kv_lens=own, q_offset=own - Sq, kv_starts=starts)
+        return (lambda: dec.decode_kernel(q, ck, cv, **kw),
+                lambda: dec.decode_plain(q, ck, cv, **kw),
+                (q, None if heads else tuple(c.view(B, Sr, Hkv, 64) for c in (ck, cv)), own))
+
+    cases = [("shared_sq1", dict(B=8, Sq=1, G=1, Hkv=2, own=[1, 8, 30, 100, 191, 64, 2, 150],
+                                 starts=[0, 3, 0, 79, 80, 0, 1, 0], shared=True)),
+             ("shared_sq7", dict(B=8, Sq=7, G=1, Hkv=2, own=[7, 30, 191, 100, 8, 64, 9, 150],
+                                 starts=[0, 0, 5, 0, 85, 0, 0, 0], shared=True)),
+             ("shared_gqa", dict(B=4, Sq=1, G=2, Hkv=2, own=[1, 50, 191, 90],
+                                 starts=[0, 0, 0, 40], shared=True, n_prefix=2)),
+             ("plain_sq1", dict(B=4, Sq=1, G=1, Hkv=2, own=[271, 1, 90, 200],
+                                starts=[0, 0, 10, 199], shared=False, Sr=272)),
+             ("plain_sq7", dict(B=4, Sq=7, G=4, Hkv=2, own=[271, 7, 90, 200],
+                                starts=[0, 0, 85, 0], shared=False, Sr=272))]
+    results, err = [], {"shared": 0.0, "plain": 0.0}
+    for name, case in cases:
+        kern, twin, _ = inputs(**case)
+        e = _f32_within(f"f32 decode {name}", kern(), twin())
+        key = "shared" if case["shared"] else "plain"
+        err[key] = max(err[key], e)
+        results.append({"case": name, "max_abs_err": e})
+    out = {"cases": results, "max_abs_err": err,
+           "tolerance": f"|d| <= {F32_RTOL} * max|ref| + {F32_ATOL}"}
+    if heads:  # #6 / #7 are on no push path: checked, not timed
+        return out
+    mid = 7 + 4 * 23  # own positions at frame 4 of 8
+    timed = {}
+    for key, case in (("shared", dict(B=PUSH_ROWS, Sq=1, G=1, Hkv=2, own=[mid] * PUSH_ROWS,
+                                      starts=[0] * PUSH_ROWS, shared=True)),
+                      ("plain", dict(B=PUSH_ROWS, Sq=1, G=1, Hkv=2,
+                                     own=[PUSH_PREFIX + mid] * PUSH_ROWS,
+                                     starts=[0] * PUSH_ROWS, shared=False, Sr=272))):
+        kern, twin, (q, (k_all, v_all), kv_lens) = inputs(**case)
+        e = _f32_within(f"f32 decode timed {key}", kern(), twin())
+        if not repeats_bit_for_bit(kern):
+            raise AssertionError(f"f32 decode timed {key}: three calls gave different bits")
+        B, keys = case["B"], int(kv_lens[0])
+        # every needed K/V position read once (a prefix once per prefix), q and O
+        positions = B * case["own"][0] + (PUSH_PREFIXES * PUSH_PREFIX if case["shared"] else 0)
+        nbytes = positions * 2 * 2 * 64 * 4 + 2 * B * 2 * 64 * 4
+        flops = 4 * 64 * B * 2 * keys
+        # SDPA over the row's valid keys, gathered and concatenated already
+        qt, kt, vt = (x[:, :keys].transpose(1, 2).contiguous() for x in (q, k_all, v_all))
+        timed[key] = {"B": B, "Sq": 1, "Hq": 2, "Hkv": 2, "D": 64, "keys_per_row": keys,
+                      "dtype": "float32", "max_abs_err": e, "repeats_bit_for_bit": True,
+                      "kernel_ms": graph_ms(kern), "plain_ms": graph_ms(twin, 10),
+                      "library_ms": graph_ms(_sdpa_math(qt, kt, vt, causal=False)),
+                      **bound(nbytes, flops, F32_FLOP_PER_S)}
+    return {**out, "timed": timed}
 
 
 def policy_kernel_vs_plain(bundle, batch, noise) -> dict:
@@ -1363,7 +1632,8 @@ def phase_decode(dec, heads: bool = False) -> dict:
     if not heads:
         timed["spec5"] = _time_spec5(dec, gen, B, uniform, mid)
     out = {"phase": "decode_heads" if heads else "decode", "cases": results, "max_abs_err": err,
-           "tolerance": f"|dO| <= {DEC_RTOL} * |O| + {DEC_ATOL}", "timed": timed}
+           "tolerance": f"|dO| <= {DEC_RTOL} * |O| + {DEC_ATOL}", "timed": timed,
+           "f32": phase_decode_f32(dec, heads)}
     emit(out)
     return out
 
@@ -2065,15 +2335,15 @@ class _Recorder:
 
 
 def _spec_vs_plain(wm_q, roll, rows, k: int) -> dict:
-    """The greedy rollout (2 frames) of `rows` with speculation (k drafts)
-    and without, both on the module route (fused_layers off): each row's
+    """The greedy rollout (SPEC_GREEDY_FRAMES frames) of `rows` with
+    speculation (k drafts) and without, both on the module route (fused_layers off): each row's
     first token where they differ, if any, and every verify chunk's logits
     against the plain rollout's one-token calls at the same positions, as
     far as the chunk's tokens are the plain rollout's and lie before its
     row's first difference."""
     from vla_rft_tpu_torch.workers.wm_rollout import generate_sequences
 
-    Fn, V, A = 2, roll.interact_max_tokens, roll.action_dim
+    Fn, V, A = SPEC_GREEDY_FRAMES, roll.interact_max_tokens, roll.action_dim
     cfg = dataclasses.replace(roll, do_sample=False, num_frames=Fn,
                               response_length=Fn * (V + A), fused_layers=False)
     pm = torch.as_tensor(rows.prefix_map, dtype=torch.int32, device="cuda")
@@ -2232,7 +2502,7 @@ def phase_grpo_variants(mods) -> dict:
                  #4 24 x the rollout's calls; the verify calls, drafts
                  accepted and acceptance rate.
     Then on the spec run's int8 WM: the greedy rollout with and without
-    speculation (2 frames; every verify chunk's logits against the
+    speculation (1 frame; every verify chunk's logits against the
     one-token calls) and one per-row verify call on both layouts, kernel
     route vs plain."""
     import glob
@@ -5922,6 +6192,200 @@ def phase_parallel(mods) -> dict:
     return out
 
 
+# ------------------------------------------------------------- push pipeline
+PUSH_SEGMENTS = 96
+# trainer/rft_evidence.py's phases at the push preset's full widths, step
+# counts cut: (phase, its flags); every other flag the tool's default
+PUSH_RUNS = (("tokenizer", ["--tok-steps", "50"]), ("wm", ["--wm-steps", "50"]),
+             ("bc", ["--bc-steps", "50"]), ("rft", ["--rft-steps", "2"]))
+PUSH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_shared_hd", "decode_hd")
+PUSH_VAL_ITERS = 2  # validate()'s batches in the push phase (the config's 10, cut)
+
+
+def push_segments(n: int = PUSH_SEGMENTS, seed: int = 0) -> dict:
+    """Segments with the collector's keys, dtypes and shapes (the card has no
+    MuJoCo): a square on a plain background that each frame's action moves,
+    64 px policy views of frame 0, expert chunks beside the executed ones,
+    and the collector's noise scales (some rows clean)."""
+    rng = np.random.default_rng(seed)
+    T, A = 8, 7
+    actions = rng.uniform(-1, 1, (n, T, A)).astype(np.float32)
+    frames = np.empty((n, T + 1, 32, 32, 3), np.uint8)
+    bg = rng.integers(0, 200, (n, 3))
+    pos = rng.uniform(8, 24, (n, 2))
+    for t in range(T + 1):
+        if t:
+            pos = np.clip(pos + 2.0 * actions[:, t - 1, :2], 4, 28)
+        frames[:, t] = bg[:, None, None, :]
+        for i, (y, x) in enumerate(pos.astype(int)):
+            frames[i, t, y - 3:y + 3, x - 3:x + 3] = (255, 40, 40)
+    return {
+        "policy_pixels": frames[:, 0].repeat(2, axis=1).repeat(2, axis=2),
+        "proprio": rng.normal(0, 0.1, (n, 8)).astype(np.float32),
+        "actions": actions,
+        "raw_pixel_values": frames,
+        "sim_states": rng.normal(0, 0.1, (n, 15)).astype(np.float32),
+        "expert_actions": np.clip(actions + rng.normal(0, 0.05, actions.shape), -1, 1)
+        .astype(np.float32),
+        "noise_scale": np.asarray([(0.0, 0.0, 0.25, 0.5, 1.0)[i % 5] for i in range(n)],
+                                  np.float32),
+        "task_id": (np.arange(n) % 3).astype(np.int32),
+        "success": rng.uniform(size=n) < 0.5,
+    }
+
+
+def push_expect(name: str, args, cfg, bundle) -> dict:
+    """The launches of #1-#5 a phase of trainer/rft_evidence.py makes, from
+    its steps and the models' layers: the WM trains with #1 / #2 / #3 in
+    each of its layers (and validates with #1 over 8 batches at each
+    print block); BC the policy LLM's layers likewise (one validation batch);
+    RFT encodes with the LLM (#1) and rolls the WM once per step and per
+    validation batch: a shared-prefix prefill (#1) and 1 + frames x (visual
+    tokens + 1) cached calls of #4 per layer.  #1's launches also by head
+    dim under "flash_fwd_by_head_dim": the policy LLM's and the WM's."""
+    L_pol, L_wm = bundle.vla_cfg.llm.num_layers, bundle.wm_cfg.num_layers
+    D_pol, D_wm = bundle.vla_cfg.llm.hd, bundle.wm_cfg.hd
+    out = dict.fromkeys(PUSH_KERNELS, 0)
+    by_d = {}
+    k = 25  # the tool's steps per print block
+    if name in ("wm", "bc"):
+        steps = getattr(args, f"{name}_steps")
+        blocks = max(1, steps // k)
+        evals = sum(1 for b in range(blocks) if b % 8 == 0 or b == blocks - 1)
+        L, D, val_batches = (L_wm, D_wm, 8) if name == "wm" else (L_pol, D_pol, 1)
+        out.update(flash_fwd=L * (blocks * k + val_batches * evals),
+                   flash_bwd_dq=L * blocks * k, flash_bwd_dkv=L * blocks * k)
+        by_d[D] = out["flash_fwd"]
+    elif name == "rft":
+        steps = args.rft_steps
+        validations = 1 + len({s for s in range(1, steps + 1) if s % 20 == 0 or s == steps})
+        rollouts = steps + validations * cfg.trainer.val_iters
+        roll = bundle.roll_cfg
+        calls = 1 + roll.num_frames * (roll.interact_max_tokens + 1)
+        out.update(flash_fwd=(L_pol + L_wm) * rollouts,
+                   decode_shared_hd=L_wm * calls * rollouts)
+        by_d.update({D_pol: L_pol * rollouts, D_wm: L_wm * rollouts})
+    out["flash_fwd_by_head_dim"] = by_d
+    return out
+
+
+def _file_round_trip(rfe, path: str, like, which: str) -> None:
+    """A file of the tool's layout read through load_tree and written back
+    gives the same leaves bit for bit."""
+    from vla_rft_tpu_torch.convert import flax_leaves, torch_to_flax
+
+    sd = rfe.load_tree(path, like, which)
+    back = flax_leaves(torch_to_flax(sd, which, like))
+    with np.load(path) as z:
+        for i, (p, a) in enumerate(back):
+            ref = z[f"p{i}"]
+            if ref.dtype != a.dtype or not np.array_equal(ref, a):
+                raise AssertionError(f"{path}: leaf p{i} ({'/'.join(p)}) not bit-equal after "
+                                     f"load_tree")
+
+
+def phase_push(attention, dec) -> dict:
+    """The push pipeline on the card through trainer/rft_evidence.py's main:
+    tokenizer, wm, bc and rft with --device cuda at the push preset's full
+    widths on seeded segments, each phase's launches of #1-#5 exactly as
+    derived, its seconds and peak memory, its losses falling, its files
+    bit-equal through load_tree; RFT moves only the expert."""
+    from vla_rft_tpu_torch.data.push_data import save_segments
+    from vla_rft_tpu_torch.trainer import rft_evidence as rfe
+
+    work = tempfile.mkdtemp(prefix="push_")
+    make_config = rfe.make_config
+    # The one cut the tool's CLI cannot express, made by patching
+    # rfe.make_config for the phase (undone in `finally`): validate() over
+    # PUSH_VAL_ITERS batches instead of the config's 10, for the script's
+    # time (each batch is one more WM rollout).  push_expect reads the
+    # patched config through build_push_bundle below.
+    rfe.make_config = lambda args: make_config(args).apply_overrides(
+        [f"trainer.val_iters={PUSH_VAL_ITERS}"])
+    try:
+        save_segments(os.path.join(work, "segments.npz"), push_segments())
+        common = ["--workdir", work, "--device", "cuda"]
+        args = rfe.parse_args(["bc", *common, *[f for _, fl in PUSH_RUNS for f in fl]])
+        cfg, like = rfe.build_push_bundle(args)
+        phases = {}
+        for name, flags in PUSH_RUNS:
+            attention.launches = attention.bwd_dq_launches = attention.bwd_dkv_launches = 0
+            attention.launches_by_head_dim.clear()
+            dec.shared_launches = dec.plain_launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = rfe.main([name, *common, *flags])[name]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = {"flash_fwd": attention.launches, "flash_bwd_dq": attention.bwd_dq_launches,
+                   "flash_bwd_dkv": attention.bwd_dkv_launches,
+                   "decode_shared_hd": dec.shared_launches, "decode_hd": dec.plain_launches}
+            by_d = dict(attention.launches_by_head_dim)  # #1's, counted where it launches
+            want = push_expect(name, args, cfg, like)
+            want_by_d = want.pop("flash_fwd_by_head_dim")
+            if any(got[k] != want[k] for k in PUSH_KERNELS) or by_d != want_by_d:
+                raise AssertionError(f"push {name}: launches {got}, #1 by head dim {by_d}; "
+                                     f"derived {want}, {want_by_d}")
+            rec = {"seconds": seconds, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "launches": got, "flash_fwd_by_head_dim": by_d, "derived": want}
+            if "losses" in res:
+                losses = np.asarray(res["losses"])
+                first, last10 = float(losses[0]), float(losses[-10:].mean())
+                if not (np.isfinite(losses).all() and last10 < first):
+                    raise AssertionError(f"push {name}: losses {first} -> last 10 {last10}")
+                rec.update(steps=len(losses), loss_first=first, loss_last10=last10)
+            phases[name] = rec
+            emit({"phase": "push", "step": name, **rec})
+            if name == "rft":
+                trainer = res.pop("trainer")
+                rec["metrics"] = {k: float(v) for k, v in res["metrics"][-1].items()
+                                  if isinstance(v, (int, float, np.floating))}
+                rec["curve"] = res["curve"]
+                bad = {k: v for m in res["metrics"] for k, v in m.items()
+                       if isinstance(v, (float, np.floating)) and not np.isfinite(v)}
+                if bad:
+                    raise AssertionError(f"push rft: non-finite metrics {bad}")
+                b = trainer.bundle
+                files = {"vla": "bc_vla.npz", "wm": "wm.npz", "tokenizer": "tokenizer.npz"}
+                for fam, f in files.items():  # the frozen trees: bit-identical to their files
+                    sd = rfe.load_tree(os.path.join(work, f), getattr(b, fam), fam)
+                    moved = [n for n, p in getattr(b, fam).state_dict().items()
+                             if not torch.equal(p, sd[n])]
+                    if moved:
+                        raise AssertionError(f"push rft: frozen {fam} moved: {moved[:3]}")
+                start = rfe.load_tree(os.path.join(work, "bc_expert.npz"), b.expert, "expert")
+                still = [n for n, p in b.expert.named_parameters() if torch.equal(p, start[n])]
+                if still:
+                    raise AssertionError(f"push rft: expert leaves did not move: {still[:5]}")
+                saved = rfe.load_tree(os.path.join(work, "rft_expert.npz"), b.expert, "expert")
+                if not all(torch.equal(p, saved[n]) for n, p in b.expert.state_dict().items()):
+                    raise AssertionError("push rft: rft_expert.npz differs from the expert")
+                rec["expert_leaves_moved"] = len(start)
+                del trainer, b
+        for f, fam in (("tokenizer.npz", "tokenizer"), ("wm.npz", "wm"), ("wm_final.npz", "wm"),
+                       ("bc_vla.npz", "vla"), ("bc_expert.npz", "expert"),
+                       ("rft_expert.npz", "expert")):
+            _file_round_trip(rfe, os.path.join(work, f), getattr(like, fam), fam)
+    finally:
+        rfe.make_config = make_config
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"phase": "push", "segments": PUSH_SEGMENTS, "runs": phases,
+           "files_round_trip": 6, "launches": {k: sum(p["launches"][k] for p in phases.values())
+                                                 for k in PUSH_KERNELS}}
+    # #1's launches by head dim as counted in the runs (the rft run launches
+    # both: the policy's D 32 and the WM's D 64); #2 / #3 run at one head
+    # dim a run: D 32 in bc (the policy), D 64 in wm
+    fwd_by_d = {d: sum(p["flash_fwd_by_head_dim"].get(d, 0) for p in phases.values())
+                for d in (32, 64)}
+    out["launches_by_head_dim"] = {
+        "flash_fwd_d32": fwd_by_d[32], "flash_fwd_d64": fwd_by_d[64],
+        "bwd_d32": phases["bc"]["launches"]["flash_bwd_dq"],
+        "bwd_d64": phases["wm"]["launches"]["flash_bwd_dq"]}
+    emit(out)
+    return out
+
+
 def ppo_entries(ppo: dict, entry, bwd_src: str, rm: dict, par: dict) -> list:
     """The kernel line's rows of #2 and #3 at the PPO update's shape (PRIME's
     RM update's micro-batches have it too), with the parallel phase's text
@@ -6078,6 +6542,8 @@ def main() -> int:
     wm_launches = wm["json"]["run"]["launches"]
     del wm  # frees the WM reward models before the training phases
     torch.cuda.empty_cache()
+    push = timed("push", phase_push, attention, dec)
+    torch.cuda.empty_cache()
     grpo = timed("grpo", phase_grpo, mods)
     torch.cuda.empty_cache()
     grpo_heads = timed("grpo_heads", phase_grpo_heads, mods)
@@ -6192,6 +6658,39 @@ def main() -> int:
             e["grpo_rlds_launches_per_step"] = rlds_n[key]
             e["parallel_launches_per_rank"] = par_n[key]
             e["parallel_fsdp2_launches_per_rank"] = par_fsdp_n and par_fsdp_n[key]
+    push_n = push["launches_by_head_dim"]
+    push_shape = {
+        "d32": f"the push policy LLM: 4/2 heads of 32, f32, causal; timed at #1's B=8 "
+               f"S={PUSH_POLICY_S} (RFT encode), #2/#3's B={PUSH_BC_BATCH} (BC); launches: the "
+               f"push phase's bc and rft runs",
+        "d64": f"the push WM: 2/2 heads of 64, f32, causal; timed at B={PUSH_WM_B} "
+               f"S={PUSH_WM_S} (WM training); launches: the push phase's wm run (#1 also the "
+               f"rft run's prefills of 8 x {PUSH_PREFIX})"}
+    f32_src = "vla_rft_tpu_torch/csrc/flash_f32.cuh"
+    push_entries = [
+        *({**entry(f"flash_fwd@push_f32_{d}", f32_src, "vla_rft_tpu/ops/attention.py:108",
+                   push_n[f"flash_fwd_{d}"], flash["f32"]["max_abs_err"],
+                   flash["f32"]["timed"][f"push_f32_{d}"]), "shape": push_shape[d]}
+          for d in ("d32", "d64")),
+        *({**entry(f"{kernel}@push_f32_{d}", f32_src, f"vla_rft_tpu/ops/attention.py:{line}",
+                   push_n[f"bwd_{d}"], flash_bwd["f32"]["timed"][f"push_f32_{d}"][key]
+                   ["max_abs_err"], flash_bwd["f32"]["timed"][f"push_f32_{d}"][key]),
+           "shape": push_shape[d]}
+          for kernel, line, key in (("flash_bwd_dq", 175, "dq"), ("flash_bwd_dkv", 239, "dkv"))
+          for d in ("d32", "d64")),
+        {**entry("decode_shared_hd@push_f32", dec_src,
+                 "vla_rft_tpu/ops/decode_attention_hd.py:226",
+                 push["launches"]["decode_shared_hd"], decode["f32"]["max_abs_err"]["shared"],
+                 decode["f32"]["timed"]["shared"]),
+         "shape": f"B={PUSH_ROWS} Sq=1 Hq=Hkv=2 D=64 f32, {PUSH_PREFIXES} prefixes of "
+                  f"{PUSH_PREFIX} + {7 + 4 * 23} own (frame 4 of 8); launches: the push "
+                  f"phase's rft run"},
+        {**entry("decode_hd@push_f32", dec_src, "vla_rft_tpu/ops/decode_attention_hd.py:272",
+                 push["launches"]["decode_hd"], decode["f32"]["max_abs_err"]["plain"],
+                 decode["f32"]["timed"]["plain"]),
+         "shape": f"B={PUSH_ROWS} Sq=1 Hq=Hkv=2 D=64 f32, {PUSH_PREFIX + 7 + 4 * 23} keys in "
+                  f"one cache: the unshared route; the push path shares its prefixes"},
+    ]
     emit({"kernels": [
         {**entry("flash_fwd", flash_src, "vla_rft_tpu/ops/attention.py:108",
                  serving["main_path_launches"], flash["timed"]["serving"]["max_abs_err_o"],
@@ -6256,6 +6755,7 @@ def main() -> int:
         *text_entries(text, entry, flash_src, dec_src, ppo, rm, par),
         *ppo_entries(ppo, entry, bwd_src, rm, par),
         *par_entries,
+        *push_entries,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -20,7 +20,8 @@ decode kernels (#6/#7) take the decode tolerance and equal #4/#5 bit for
 bit on the same numbers; the cache-writing decode (#10) writes rows
 bit-equal to its twin's, and its O gets the decode tolerance in bf16 and
 1e-5 (relative and absolute) in f32, the same f32 arithmetic in another
-order.
+order.  The f32 instances of #1-#5 (the push preset's) get max|d| <= 1e-5
+max|ref| + 1e-6 per output and gradient, for the same reason.
 """
 import dataclasses
 
@@ -102,8 +103,13 @@ def test_flash_kernel_repeats_bit_for_bit(cuda_device, D):
 @pytest.mark.cuda
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     q = torch.zeros(1, 8, 4, 64, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="bfloat16"):
-        tattn.flash_fwd(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tattn.flash_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="bfloat16 or float32 like q"):
+        tattn.flash_fwd(q, q.float(), q.float())
+    with pytest.raises(ValueError, match="head dim"):  # f32 takes D 32 and 64 only
+        tattn.flash_fwd(q.float()[..., :16].contiguous(), q.float()[..., :16].contiguous(),
+                        q.float()[..., :16].contiguous())
     with pytest.raises(ValueError, match="head dim"):
         tattn.flash_fwd(q[..., :32].contiguous(), q[..., :32].contiguous(),
                         q[..., :32].contiguous())
@@ -1162,16 +1168,93 @@ def test_safetensors_reader_loads_a_bf16_shard_onto_the_card(cuda_device, tmp_pa
                            v.reshape(-1).view(torch.uint8)), k
 
 
-@pytest.mark.cuda
-def test_push_preset_on_the_card_raises_at_build_time(cuda_device):
-    """`push` (f32, heads of 32) has no kernel variants on the card: the
-    build refuses before making a module, naming what is missing."""
-    from vla_rft_tpu_torch.config import vla_rft_default_config
-    from vla_rft_tpu_torch.models.factory import build_models, build_policy
+# ------------------------------------------- f32 instances (push preset)
+# The f32 instances of #1-#5 (the push preset's f32 models) against their f32
+# twins: the same products summed in another order, |d| <= 1e-5 max|ref| +
+# 1e-6 per output and gradient.
+F32_TOL = (1e-5, 1e-6)
+PUSH_FLASH = [
+    # (B, S, Hq, Hkv, D, per-row kwargs): the policy LLM's prefill (8 x 96,
+    # 4 / 2 heads of 32), BC's 32 rows, the WM's training rows (16 x 270, 2 / 2
+    # of 64) and its prefill of 8 prefixes of 80, masked variants
+    (8, 96, 4, 2, 32, {}),
+    (32, 96, 4, 2, 32, {"kv_lens": [96] * 31 + [40]}),
+    (16, 270, 2, 2, 64, {}),
+    (8, 80, 2, 2, 64, {"kv_starts": [0, 0, 3, 0, 0, 79, 0, 0]}),
+    (3, 130, 4, 2, 32, {"q_offset": [0, 5, 9], "kv_lens": [130, 0, 77]}),
+]
 
-    before = torch.cuda.memory_allocated()
-    with pytest.raises(NotImplementedError, match=r"'push'.*flash kernel #1.*decode"):
-        build_models(vla_rft_default_config(), "push", device="cuda")
-    with pytest.raises(NotImplementedError, match="'push'"):
-        build_policy("push", device="cuda")
-    assert torch.cuda.memory_allocated() == before
+
+def _f32_close(got, ref):
+    tol = F32_TOL[0] * ref.float().abs().max().item() + F32_TOL[1]
+    assert got.dtype == torch.float32 and (got - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,kw", PUSH_FLASH)
+def test_f32_flash_kernels_match_twins_at_push_shapes(cuda_device, B, S, Hq, Hkv, D, kw, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(B + S)
+    q, do = (torch.randn(B, S, Hq, D, generator=gen, device=cuda_device) for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=cuda_device) for _ in range(2))
+    rows = {a: torch.tensor(x, device=cuda_device) for a, x in kw.items()}
+    o, lse = tattn.flash_fwd(q, k, v, causal=causal, **rows)
+    o_ref, lse_ref = tattn.attention_plain(q, k, v, causal=causal, return_lse=True, **rows)
+    _f32_close(o, o_ref)
+    _f32_close(lse.clamp_min(-1e4), lse_ref.clamp_min(-1e4))
+    got = tattn.flash_bwd(q, k, v, o, lse, do, causal=causal, **rows)
+    for g, r in zip(got, tattn.attention_bwd_plain(q, k, v, o, lse, do, causal=causal, **rows)):
+        _f32_close(g, r)
+    again = tattn.flash_bwd(q, k, v, o, lse, do, causal=causal, **rows)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(tattn.flash_fwd(q, k, v, causal=causal, **rows)[0], o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+def test_f32_decode_kernels_match_twins_at_push_shapes(cuda_device, shared):
+    """#4 over the RFT rollout's call (64 rows over 8 prefixes of 80, own
+    caches at several lengths, Sq 1) and #5 over one cache, f32 throughout."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    B, P, Sr, Hkv = 64, 8, 192, 2
+    rn = lambda *s: torch.randn(*s, generator=gen, device=cuda_device)
+    q, ck, cv = rn(B, 1, Hkv, 64), rn(B, Sr, Hkv * 64), rn(B, Sr, Hkv * 64)
+    own = torch.tensor([1 + (29 * i) % Sr for i in range(B)], device=cuda_device)
+    if shared:
+        sck, scv = rn(P, 80, Hkv * 64), rn(P, 80, Hkv * 64)
+        pm = torch.arange(B, device=cuda_device) // (B // P)
+        kw = dict(shared_len=80, kv_lens=80 + own, q_offset=79 + own,
+                  shared_starts=torch.tensor([i % 5 for i in range(B)], device=cuda_device))
+        got = tdec.decode_shared_kernel(q, ck, cv, sck, scv, pm, **kw)
+        ref = tdec.decode_shared_plain(q, ck, cv, sck, scv, pm, **kw)
+    else:
+        kw = dict(kv_lens=own, q_offset=own - 1, kv_starts=torch.zeros_like(own))
+        got, ref = tdec.decode_kernel(q, ck, cv, **kw), tdec.decode_plain(q, ck, cv, **kw)
+    _f32_close(got, ref)
+    with pytest.raises(ValueError, match="f32 without scales"):
+        tdec.decode_kernel(q, ck.bfloat16(), cv.bfloat16(), kv_lens=own, q_offset=own - 1)
+
+
+@pytest.mark.cuda
+def test_push_preset_builds_on_the_card_and_launches_the_f32_kernels(cuda_device):
+    """`push` builds on the card; its policy's context forward launches #1
+    once per LLM layer and agrees with the plain route."""
+    from vla_rft_tpu_torch.config import vla_rft_default_config
+    from vla_rft_tpu_torch.data.push_data import build_push_prompt
+    from vla_rft_tpu_torch.models.factory import build_models
+    from vla_rft_tpu_torch.workers.flow_actor import encode_context
+
+    b = build_models(vla_rft_default_config(), "push", device="cuda")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ids, attn, labels = (torch.as_tensor(x, device=cuda_device).repeat(8, 1)
+                         for x in build_push_prompt(32, 8))
+    batch = {"input_ids": ids, "attention_mask": attn, "labels": labels,
+             "pixels": torch.rand(8, 64, 64, 6, generator=gen, device=cuda_device)}
+    tattn.launches = 0
+    with torch.no_grad():
+        hidden = encode_context(b.vla, batch)
+        assert tattn.launches == b.vla_cfg.llm.num_layers
+        b.vla.language_model.attn_impl = "plain"
+        plain = encode_context(b.vla, batch)
+    assert hidden.dtype == torch.float32 and torch.isfinite(hidden).all()
+    assert (hidden - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()

@@ -2,8 +2,8 @@
 port, against the JAX package, on the CPU.
 
 * The port's `push` preset builds the reference's shapes (every Flax leaf
-  of `build_models(..., "push")` loads strictly) and refuses a CUDA device
-  at build time.
+  of `build_models(..., "push")` loads strictly); on a CUDA device it runs
+  the f32 instances of the kernels (tests/test_torch_cuda.py).
 * `data/push_data.py` (the prompt row and the resize),
   `eval/mujoco_push_env.py` (observations for the same task, seed and
   actions: images bit-equal, states within 1e-6) and `eval/libero_eval.py`
@@ -103,16 +103,6 @@ def test_push_preset_matches_the_reference(j_push_bundle):
           "world_model_rollout.model.size_overrides.num_layers=6"]
     b = build_models(vla_rft_default_config().apply_overrides(PUSH + ov), "push", device="cpu")
     assert (b.wm_cfg.hidden_size, b.wm_cfg.num_layers) == (256, 6)
-
-
-def test_push_on_a_card_raises_at_build_time(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    cfg = vla_rft_default_config().apply_overrides(PUSH)
-    for build in (lambda: build_models(cfg, "push", device="cuda"),
-                  lambda: build_policy("push", device="cuda"),
-                  lambda: build_policy_fn(preset="push", device="cuda")):
-        with pytest.raises(NotImplementedError, match=r"'push'.*flash kernel #1.*decode"):
-            build()
 
 
 def test_push_policy_fn_serves_push_views():

@@ -22,6 +22,13 @@ port's module: "vla" (`models.prismatic.OpenVLA`), "expert"
   convolutions are NCHW);
 * LayerNorm / GroupNorm `scale` and Embed `embedding` become `weight`;
 * the VAE blocks keep their Flax names (`down_blocks_0.resnets_1.conv1`).
+
+`torch_to_flax(state_dict, which, module)` is its exact inverse: the
+module says what a state dict does not hold (which 2-D `weight` is an
+embedding, which 1-D one a norm's `scale`, the head splits of the
+multi-axis projections, which `blocks` were scanned).  `flax_leaves`
+flattens a nested tree in the order of `jax.tree_util.tree_flatten` (sorted
+keys at each level), the order of the tools' `p0..pN` files.
 """
 from __future__ import annotations
 
@@ -92,3 +99,112 @@ def flax_to_torch(tree: Dict[str, Any], which: str) -> Dict[str, torch.Tensor]:
         ]
         renamed[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(v))
     return renamed
+
+
+# ---------------------------------------------------------------- inverse
+def flax_leaves(tree, prefix=()):
+    """[(path, leaf)] of a nested dict in jax.tree_util.tree_flatten's order:
+    the keys of each dict sorted, depth first."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict) or hasattr(v, "items"):
+            out += flax_leaves(v, prefix + (k,))
+        else:
+            out.append((prefix + (k,), v))
+    return out
+
+
+def _layouts(module) -> Dict[str, tuple]:
+    """{module name: (kind, head dim, multi-axis names)} for every module of
+    `module` whose parameters do not map by name alone."""
+    from vla_rft_tpu_torch.models import dit, transformer, vae, vit
+    from vla_rft_tpu_torch.models.layers import Conv, Dense, Embed, GroupNorm, LayerNorm
+
+    out = {}
+    for name, m in module.named_modules():
+        if isinstance(m, vit.ViTBlock):
+            out[name] = ("heads", m.cfg.hidden_size // m.cfg.num_heads, ("q", "k", "v"), ("proj",))
+        elif isinstance(m, dit.CrossAttention):
+            out[name] = ("heads", m.cfg.hidden_size // m.cfg.num_heads,
+                         ("v_proj", "l_proj", "values_l_proj"), ("out_v_proj",))
+        elif isinstance(m, vae.CrossAttentionBlock2D):
+            out[name] = ("heads", m.q_proj.weight.shape[0] // m.num_heads,
+                         ("q_proj", "k_proj", "v_proj"), ("out_proj",))
+        elif isinstance(m, transformer.Attention):
+            out[name] = ("heads", m.cfg.hd, ("q_proj", "k_proj", "v_proj"), ("o_proj",))
+        elif isinstance(m, (Dense, Conv, vit.PatchEmbed)):
+            out[name] = ("kernel",)
+        elif isinstance(m, (LayerNorm, GroupNorm)):
+            out[name] = ("scale",)
+        elif isinstance(m, Embed):
+            out[name] = ("embedding",)
+        elif isinstance(m, dit.DiTSingleTokenActionOneCtx):
+            out[name] = ("unscanned",)  # its blocks_{i} were never stacked
+    return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def torch_to_flax(state_dict: Dict[str, torch.Tensor], which: str, module) -> Dict[str, Any]:
+    """The exact inverse of `flax_to_torch`: the port's state dict of `module`
+    (one of `WHICH`) -> the Flax tree {"params": ...} of numpy arrays, with
+    the scanned layers stacked again (bf16 leaves come back as f32)."""
+    if which not in WHICH:
+        raise ValueError(f"which must be one of {WHICH}, got {which!r}")
+    lay = _layouts(module)
+    flat: Dict[tuple, Any] = {}
+    for key, t in state_dict.items():
+        parts = key.split(".")
+        owner, leaf = ".".join(parts[:-1]), parts[-1]
+        arr = _to_numpy(t)
+        kind = lay.get(owner, ("plain",))
+        parent = lay.get(".".join(parts[:-2]), ("plain",))
+        if kind[0] in ("kernel",) and leaf == "weight":
+            attn = parent if parent[0] == "heads" else None
+            name = parts[-2]
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+            elif attn and name in attn[2]:  # (H*hd, in) -> (in, H, hd)
+                arr = arr.T.reshape(arr.shape[1], -1, attn[1])
+            elif attn and name in attn[3]:  # (out, H*hd) -> (H, hd, out)
+                arr = arr.T.reshape(-1, attn[1], arr.shape[0])
+            else:
+                arr = arr.T
+            leaf = "kernel"
+        elif kind[0] == "kernel" and leaf == "bias" and parent[0] == "heads" \
+                and parts[-2] in parent[2]:
+            arr = arr.reshape(-1, parent[1])
+        elif kind[0] in ("scale", "embedding") and leaf == "weight":
+            leaf = kind[0]
+        path = parts[:-1] + [leaf]
+        # a ModuleList index: scanned (stacked on a leading axis) unless its
+        # owner never scanned its blocks (the DiT's blocks_{i})
+        for i, p in enumerate(path[:-1]):
+            if p in _STACKED and path[i + 1].isdigit():
+                if lay.get(".".join(parts[:i]), ("plain",))[0] == "unscanned":
+                    path = path[:i] + [f"{p}_{path[i + 1]}"] + path[i + 2:]
+                else:
+                    path = path[:i + 1] + ["#" + path[i + 1]] + path[i + 2:]
+                break
+        flat[tuple(path)] = arr
+    tree: Dict[str, Any] = {}
+    stacked: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for path, arr in flat.items():
+        idx = next((i for i, p in enumerate(path) if p.startswith("#")), None)
+        if idx is None:
+            _put(tree, path, arr)
+        else:
+            stacked.setdefault(path[:idx] + path[idx + 1:], {})[int(path[idx][1:])] = arr
+    for path, layers in stacked.items():
+        _put(tree, path, np.stack([layers[i] for i in range(len(layers))]))
+    return {"params": tree}
+
+
+def _put(tree: Dict[str, Any], path, value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value

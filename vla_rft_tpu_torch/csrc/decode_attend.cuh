@@ -1,5 +1,7 @@
 // Split-cache decode attention for Hopper (sm_90a): small query blocks
-// (Sq <= 8) against int8 or bf16 K/V, in either KV-cache layout.  Included
+// (Sq <= 8) against int8 or bf16 K/V with bf16 q, or f32 K/V with f32 q
+// (a simpler kernel of its own, decode_f32_kernel below), in either
+// KV-cache layout.  Included
 // by decode_hd.cu (the head-dense layout, kernels #4 / #5) and
 // decode_heads.cu (the head-blocked layout, kernels #6 / #7); each of those
 // files is one library with its own C entry point.
@@ -83,7 +85,8 @@
 // head) with one dependent load chain per lane, took 0.0377 ms at B = 10).
 //
 // Interface: decode_attend::run<HEADS> launches on the given stream, never
-// synchronises, and returns cudaGetLastError().
+// synchronises, and returns cudaGetLastError(); its cache_type is 0 for
+// bf16, 1 for int8 with scales, 2 for f32 (q and O then f32 too).
 
 #pragma once
 
@@ -721,6 +724,145 @@ cudaError_t launch_rows(const Args& a, int splits, int slots, cudaStream_t strea
              : launch<T, SHARED, HEADS, 4>(a, splits, slots, stream);
 }
 
+// ---- the f32 instance: an f32 cache (the compute dtype of an f32 model,
+// the push preset's world model) and f32 q / O.  Same function as above
+// with no dequantisation: the keys of row b are the prefix row's positions
+// [0, shared_len) and then its own, valid for query i when kv_starts[b] <= p
+// < kv_lens[b] and p <= q_offset[b] + i; f32 scores and online softmax with
+// bounded exp, P kept in f32, every product an f32 FFMA (no tensor cores),
+// so it meets the f32 twin to rounding.  A simple design: one block of 4
+// warps per (batch row, kv head) reads the row's valid keys in 32-key tiles
+// into shared memory (rows padded to D + 1 floats, prefix and own positions
+// alike), warp w owning query rows w, w + 4, ... of the row's G * Sq (lane
+// j scores key j of the tile, the warp's shuffles give the row max and
+// broadcast p, lane l accumulates output columns l and l + 32).  No
+// chunks, no split, no cluster: the plan's (chunk_rows, slots, splits) are
+// not read.  Bound on an H100: the K/V bytes, as for the int8 and bf16
+// instances; at the push WM's decode (64 rows over 8 prefixes of 64
+// positions, own caches of up to 191, 2 kv heads) about 7 MB.
+constexpr int F32_TK = 32;                  // keys of a tile
+constexpr int F32_ROWS = MAX_NQ / NWARPS;   // query rows of a warp, at most
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+struct ArgsF32 {
+  const float* q;        // (B, Sq, Hq, D)
+  float* o;              // (B, Sq, Hq, D)
+  const float* k_own;    // (B, Sr, Hkv*D) or (B, Hkv, Sr, D)
+  const float* v_own;
+  const float* k_sh;     // (B_u, Sp, Hkv*D) or (B_u, Hkv, Sp, D), SHARED only
+  const float* v_sh;
+  const int* prefix_map;
+  const int* kv_lens;
+  const int* q_offset;
+  const int* kv_starts;
+  int B, Sq, Hq, Hkv, Sr, Sp, shared_len;
+  float scale;
+};
+
+// grid (B, Hkv).
+template <bool SHARED, bool HEADS>
+__global__ void __launch_bounds__(NTHREADS) decode_f32_kernel(ArgsF32 a) {
+  __shared__ float q_s[MAX_NQ][D + 1];
+  __shared__ float k_s[F32_TK][D + 1], v_s[F32_TK][D + 1];
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int G = a.Hq / a.Hkv, nq = G * a.Sq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int base = SHARED ? a.shared_len : 0;  // absolute position of own slot 0
+  const int pm = SHARED ? a.prefix_map[b] : 0;
+  const int q_off = a.q_offset[b];
+  const int lo = max(a.kv_starts[b], 0);
+  const int hi = min(min(a.kv_lens[b], base + a.Sr), q_off + a.Sq);  // past the last valid key
+  // query row r of the block: head h * G + r / Sq, query r % Sq
+  for (int idx = threadIdx.x; idx < nq * D; idx += NTHREADS) {
+    const int r = idx / D, d = idx % D;
+    const int gq = r / a.Sq, i = r % a.Sq;
+    q_s[r][d] = a.q[((static_cast<int64_t>(b) * a.Sq + i) * a.Hq + h * G + gq) * D + d];
+  }
+  float m[F32_ROWS], l[F32_ROWS], acc0[F32_ROWS], acc1[F32_ROWS];
+#pragma unroll
+  for (int rr = 0; rr < F32_ROWS; ++rr) m[rr] = NEG_INF, l[rr] = acc0[rr] = acc1[rr] = 0.0f;
+  const int t_begin = lo / F32_TK, t_end = hi > lo ? (hi + F32_TK - 1) / F32_TK : t_begin;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int p0 = t * F32_TK;
+    __syncthreads();  // q_s is staged, and the previous tile is done with
+    for (int idx = threadIdx.x; idx < F32_TK * D; idx += NTHREADS) {
+      const int jj = idx / D, d = idx % D, p = p0 + jj;
+      float kv = 0.0f, vv = 0.0f;
+      if (p >= lo && p < hi) {
+        const int64_t off = p < base ? kv_offset<HEADS>(pm, h, p, a.Sp, a.Hkv)
+                                     : kv_offset<HEADS>(b, h, p - base, a.Sr, a.Hkv);
+        const float* kb = p < base ? a.k_sh : a.k_own;
+        const float* vb = p < base ? a.v_sh : a.v_own;
+        kv = kb[off + d];
+        vv = vb[off + d];
+      }
+      k_s[jj][d] = kv;
+      v_s[jj][d] = vv;
+    }
+    __syncthreads();
+    const int p = p0 + lane;
+#pragma unroll
+    for (int rr = 0; rr < F32_ROWS; ++rr) {
+      const int r = warp + NWARPS * rr;
+      if (r < nq) {  // warp-uniform
+        const bool ok = p >= lo && p < hi && p <= q_off + r % a.Sq;
+        float s = NEG_INF;
+        if (ok) {
+          float d_acc = 0.0f;
+#pragma unroll
+          for (int d = 0; d < D; ++d) d_acc = fmaf(q_s[r][d], k_s[lane][d], d_acc);
+          s = d_acc * a.scale;
+        }
+        const float m_new = fmaxf(m[rr], warp_max(s));
+        const float alpha = expf(fmaxf(m[rr] - m_new, -80.0f));
+        const float pv = ok ? expf(fmaxf(s - m_new, -80.0f)) : 0.0f;
+        m[rr] = m_new;
+        l[rr] = l[rr] * alpha + pv;
+        float o0 = acc0[rr] * alpha, o1 = acc1[rr] * alpha;
+#pragma unroll 8
+        for (int j = 0; j < F32_TK; ++j) {
+          const float pj = __shfl_sync(0xffffffffu, pv, j);
+          o0 = fmaf(pj, v_s[j][lane], o0);
+          o1 = fmaf(pj, v_s[j][lane + 32], o1);
+        }
+        acc0[rr] = o0;
+        acc1[rr] = o1;
+      }
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < F32_ROWS; ++rr) {
+    const int r = warp + NWARPS * rr;
+    if (r < nq) {
+      const float lt = warp_sum(l[rr]);
+      const int gq = r / a.Sq, i = r % a.Sq;
+      float* orow = a.o + ((static_cast<int64_t>(b) * a.Sq + i) * a.Hq + h * G + gq) * D;
+      orow[lane] = lt == 0.0f ? 0.0f : acc0[rr] / lt;
+      orow[lane + 32] = lt == 0.0f ? 0.0f : acc1[rr] / lt;
+    }
+  }
+}
+
+template <bool SHARED, bool HEADS>
+cudaError_t launch_f32(const ArgsF32& a, cudaStream_t stream) {
+  decode_f32_kernel<SHARED, HEADS><<<dim3(a.B, a.Hkv), NTHREADS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Cache types of the C entry points' `cache_type`.
+constexpr int CACHE_BF16 = 0, CACHE_INT8 = 1, CACHE_F32 = 2;
+
 // The body of both C entry points; HEADS picks the layout.  The plan
 // (chunk_rows, slots, splits) is the wrapper's (decode_plan in
 // ops/decode_attention_hd.py): slots must cover every chunk.
@@ -729,13 +871,36 @@ int run(const void* q, void* o, const void* k_own, const void* v_own, const void
         const void* vs_own, const void* k_sh, const void* v_sh, const void* ks_sh,
         const void* vs_sh, const void* prefix_map, const void* kv_lens, const void* q_offset,
         const void* kv_starts, int B, int Sq, int Hq, int Hkv, int head_dim, int Sr, int Sp,
-        int shared_len, int int8_cache, int shared, float scale, int n_prefix, int chunk_rows,
+        int shared_len, int cache_type, int shared, float scale, int n_prefix, int chunk_rows,
         int slots, int splits, void* stream) {
   if (head_dim != D || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || B <= 0 ||
       chunk_rows < 1 || chunk_rows * (Hq / Hkv) * Sq > MAX_NQ || splits < 1 ||
       splits > MAX_SPLITS || slots < 1 || (shared && (B > MAX_ROWS || n_prefix < 1 ||
       n_prefix > MAX_ROWS)) || (!shared && chunk_rows != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cache_type == CACHE_F32) {
+    ArgsF32 f;
+    f.q = static_cast<const float*>(q);
+    f.o = static_cast<float*>(o);
+    f.k_own = static_cast<const float*>(k_own);
+    f.v_own = static_cast<const float*>(v_own);
+    f.k_sh = static_cast<const float*>(k_sh);
+    f.v_sh = static_cast<const float*>(v_sh);
+    f.prefix_map = static_cast<const int*>(prefix_map);
+    f.kv_lens = static_cast<const int*>(kv_lens);
+    f.q_offset = static_cast<const int*>(q_offset);
+    f.kv_starts = static_cast<const int*>(kv_starts);
+    f.B = B;
+    f.Sq = Sq;
+    f.Hq = Hq;
+    f.Hkv = Hkv;
+    f.Sr = Sr;
+    f.Sp = Sp;
+    f.shared_len = shared ? shared_len : 0;
+    f.scale = scale;
+    return static_cast<int>(shared ? launch_f32<true, HEADS>(f, s) : launch_f32<false, HEADS>(f, s));
   }
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
@@ -762,9 +927,8 @@ int run(const void* q, void* o, const void* k_own, const void* v_own, const void
   a.n_prefix = shared ? n_prefix : 0;
   a.chunk_rows = chunk_rows;
   a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (int8_cache) {
+  if (cache_type == CACHE_INT8) {
     err = shared ? launch_rows<int8_t, true, HEADS>(a, splits, slots, s)
                  : launch_rows<int8_t, false, HEADS>(a, splits, slots, s);
   } else {

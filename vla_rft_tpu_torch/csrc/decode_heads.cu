@@ -19,8 +19,9 @@
 //        -Xcompiler -fPIC -o libdecode_heads.so decode_heads.cu
 // Interface: plain C (decode_heads), loaded with ctypes; it launches on the
 // given stream with the wrapper's plan (n_prefix, chunk_rows, slots,
-// splits: decode_plan in ops/decode_attention_hd.py), never synchronises,
-// and returns cudaGetLastError().
+// splits: decode_plan in ops/decode_attention_hd.py; cache_type 0 bf16, 1
+// int8, 2 f32 with f32 q and O), never synchronises, and returns
+// cudaGetLastError().
 
 #include "decode_attend.cuh"
 
@@ -29,11 +30,11 @@ extern "C" int decode_heads(const void* q, void* o, const void* k_own, const voi
                             const void* v_sh, const void* ks_sh, const void* vs_sh,
                             const void* prefix_map, const void* kv_lens, const void* q_offset,
                             const void* kv_starts, int B, int Sq, int Hq, int Hkv, int head_dim,
-                            int Sr, int Sp, int shared_len, int int8_cache, int shared,
+                            int Sr, int Sp, int shared_len, int cache_type, int shared,
                             float scale, int n_prefix, int chunk_rows, int slots,
                             int splits, void* stream) {
   return decode_attend::run<true>(q, o, k_own, v_own, ks_own, vs_own, k_sh, v_sh, ks_sh, vs_sh,
                                   prefix_map, kv_lens, q_offset, kv_starts, B, Sq, Hq, Hkv,
-                                  head_dim, Sr, Sp, shared_len, int8_cache, shared, scale,
+                                  head_dim, Sr, Sp, shared_len, cache_type, shared, scale,
                                   n_prefix, chunk_rows, slots, splits, stream);
 }

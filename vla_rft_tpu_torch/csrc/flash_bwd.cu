@@ -102,14 +102,17 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_bwd.so flash_bwd.cu
 // Interface: plain C (flash_bwd_setup, flash_bwd_dq_bf16,
-// flash_bwd_dkv_bf16), loaded with ctypes; each launch function launches on
-// the given stream, never synchronises, and returns cudaGetLastError().
+// flash_bwd_dkv_bf16, and the f32 instances at D 32 / 64 of
+// csrc/flash_f32.cuh, flash_bwd_dq_f32 and flash_bwd_dkv_f32), loaded with
+// ctypes; each launch function launches on the given stream, never
+// synchronises, and returns cudaGetLastError().
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_f32.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -875,6 +878,42 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
                           Sq, Sk, Hq, Hkv, scale, causal, splits, s);
   } else {
     err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The f32 instances (csrc/flash_f32.cuh): f32 in, f32 dq / dk / dv out, D 32
+// or 64; #3's f32 instance takes no split (one block per 32-key tile).
+extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                                const void* lse, const void* delta, void* dq,
+                                const void* kv_lens, const void* q_offset,
+                                const void* kv_starts, int B, int Sq, int Sk, int Hq, int Hkv,
+                                int D, float scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 32) {
+    err = flash_f32::dq_d<32>(q, k, v, dout, lse, delta, dq, kv_lens, q_offset, kv_starts, B,
+                              Sq, Sk, Hq, Hkv, scale, causal, s);
+  } else if (D == 64) {
+    err = flash_f32::dq_d<64>(q, k, v, dout, lse, delta, dq, kv_lens, q_offset, kv_starts, B,
+                              Sq, Sk, Hq, Hkv, scale, causal, s);
+  }
+  return static_cast<int>(err);
+}
+
+extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, void* dk, void* dv,
+                                 const void* kv_lens, const void* q_offset,
+                                 const void* kv_starts, int B, int Sq, int Sk, int Hq, int Hkv,
+                                 int D, float scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 32) {
+    err = flash_f32::dkv_d<32>(q, k, v, dout, lse, delta, dk, dv, kv_lens, q_offset, kv_starts,
+                               B, Sq, Sk, Hq, Hkv, scale, causal, s);
+  } else if (D == 64) {
+    err = flash_f32::dkv_d<64>(q, k, v, dout, lse, delta, dk, dv, kv_lens, q_offset, kv_starts,
+                               B, Sq, Sk, Hq, Hkv, scale, causal, s);
   }
   return static_cast<int>(err);
 }

@@ -56,14 +56,17 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_fwd.so flash_fwd.cu
-// Interface: plain C (flash_fwd_setup, flash_fwd_bf16), loaded with ctypes;
-// flash_fwd_bf16 launches on the given stream, never synchronises, and
-// returns cudaGetLastError().
+// Interface: plain C (flash_fwd_setup, flash_fwd_bf16, flash_fwd_f32),
+// loaded with ctypes; the launches run on the given stream, never
+// synchronise, and return cudaGetLastError().  flash_fwd_f32 is the f32
+// instance at D 32 / 64 (csrc/flash_f32.cuh, for the push preset's f32
+// models).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_f32.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -328,6 +331,23 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
   } else if (D == 128) {
     err = launch<128>(q, k, v, o, lse, kv_lens, q_offset, kv_starts, B, Sq, Sk, Hq, Hkv, scale,
                       causal, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The f32 instance (csrc/flash_f32.cuh): f32 q/k/v -> f32 O and LSE, D 32 or 64.
+extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                             const void* kv_lens, const void* q_offset, const void* kv_starts,
+                             int B, int Sq, int Sk, int Hq, int Hkv, int D, float scale,
+                             int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 32) {
+    err = flash_f32::fwd_d<32>(q, k, v, o, lse, kv_lens, q_offset, kv_starts, B, Sq, Sk, Hq,
+                               Hkv, scale, causal, s);
+  } else if (D == 64) {
+    err = flash_f32::fwd_d<64>(q, k, v, o, lse, kv_lens, q_offset, kv_starts, B, Sq, Sk, Hq,
+                               Hkv, scale, causal, s);
   }
   return static_cast<int>(err);
 }

@@ -20,9 +20,12 @@ Port of vla_rft_tpu/models/factory.py:
   64 / 3 / 4, a WM 128 / 512 / 4 layers / 2 heads, a tokenizer of
   (16, 32, 32) channels with a 4 x 4 dyn grid, all f32.
 
-'tiny' and 'push' run on the CPU: their f32 compute and narrow heads are
-outside what the port's kernels take, and building 'push' on a CUDA device
-raises (`CPU_PRESETS`).
+Every preset builds on either device.  On the card 'push' runs the f32
+instances of the kernels (the flash kernels #1-#3 at head dims 32 and 64,
+the decode kernels #4 / #5 over its f32 cache); 'tiny' builds there too,
+but its WM's heads of 16 and its policy LLM's of 8 are outside every
+instance (ops/attention.py's F32_HEAD_DIMS, the decode kernels' D = 64), so
+its attention raises on a CUDA device and it runs on the CPU.
 
 Both make the modules directly on the target device and fill them with
 seeded random weights there (the convention of the reference's
@@ -52,19 +55,6 @@ from vla_rft_tpu_torch.workers.reward import RewardConfig
 from vla_rft_tpu_torch.workers.wm_rollout import WMRolloutConfig
 
 PRESETS = ("libero", "tiny", "push")
-# presets with no kernel variants on the card: what each would need
-CPU_PRESETS = {
-    "push": "f32 and head-dim-32 variants of the flash kernel #1 (csrc/flash_fwd.cu, the "
-            "policy's Qwen stand-in: 4 / 2 heads of 32) and f32 variants of the decode "
-            "kernels #4 / #5 (csrc/decode_hd.cu, the f32 world model)",
-}
-
-
-def _refuse_on_card(preset: str, dev: torch.device) -> None:
-    if dev.type == "cuda" and preset in CPU_PRESETS:
-        raise NotImplementedError(
-            f"preset {preset!r} runs on the CPU only (device='cpu'): the port has no "
-            f"{CPU_PRESETS[preset]}")
 
 
 @dataclasses.dataclass
@@ -153,7 +143,6 @@ def build_policy(preset: str = "libero", config: PolicyConfig = PolicyConfig(), 
     out of the update, as the reference's optax labels do)."""
     dev = resolve_device(device)
     vla_cfg, expert_cfg, seq_len, image_size = policy_configs(preset, config)
-    _refuse_on_card(preset, dev)
     with torch.device(dev):
         vla = OpenVLA(vla_cfg)
         expert = ActionExpert(expert_cfg)
@@ -268,7 +257,6 @@ def build_wm_reward(preset: str = "libero", config: WMRewardConfig = WMRewardCon
     dev = resolve_device(device)
     wm_cfg, tok_cfg, proc_cfg, roll_cfg, reward_cfg, image_size, lpips_dtype = (
         wm_reward_configs(preset, config, tiny_data))
-    _refuse_on_card(preset, dev)
     if wm_overrides:
         wm_cfg = dataclasses.replace(wm_cfg, **wm_overrides)
     with torch.device(dev):

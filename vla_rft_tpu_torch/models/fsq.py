@@ -44,10 +44,20 @@ class FSQ:
         return torch.tanh(z + shift) * half_l - offset
 
     def quantize(self, z: torch.Tensor) -> torch.Tensor:
-        """Rounded codes normalised to [-1, 1] (no gradient path: the port
-        runs FSQ only at inference)."""
+        """Rounded codes normalised to [-1, 1], for inference (no gradient
+        path; `quantize_ste` is the training form)."""
         rounded = torch.round(self.bound(z.float()))
         return (rounded / self._t(self.levels // 2, z)).to(z.dtype)
+
+    def quantize_ste(self, z: torch.Tensor) -> torch.Tensor:
+        """The reference's `quantize` with its straight-through gradient:
+        the forward value is bound(z) + (round(bound(z)) - bound(z)) (the
+        reference's expression, kept for its rounding), the gradient flows
+        through `bound` as if the round were the identity.  Used by
+        `CompressiveVQModelFSQ.recon_train`."""
+        bounded = self.bound(z.float())
+        quantized = bounded + (torch.round(bounded) - bounded).detach()
+        return (quantized / self._t(self.levels // 2, z)).to(z.dtype)
 
     def codes_to_indices(self, zhat: torch.Tensor) -> torch.Tensor:
         """Normalised codes (..., d) -> flat indices (...), int32."""

@@ -135,3 +135,30 @@ class CompressiveVQModelFSQ(nn.Module):
         context_dec, cond_feats = self.ctx_decode(indices_c)
         dec = self.detokenize_dyn(indices_d, cond_feats)
         return torch.cat([context_dec[:, None], dec], dim=1)
+
+    def recon_train(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """The differentiable reconstruction the tokenizer trains on (the
+        reference's `recon_train`): the dataflow of tokenize + detokenize,
+        but carrying FSQ's straight-through codes instead of integer
+        indices, so the gradient reaches both encoders.
+
+        pixel_values (B, T, H, W, C) -> recon (B, T, H, W, C): frame 0 the
+        decoded context, frames 1: the conditional dynamics decoded with the
+        context decoder's feature pyramid."""
+        B, T = pixel_values.shape[:2]
+        cfg = self.cfg
+        ctx = _nchw(pixel_values[:, 0])
+        fut = _nchw(pixel_values[:, 1:].reshape(B * (T - 1), *pixel_values.shape[2:]))
+        h, cond_feats = self.encoder(ctx, return_features=True)
+        h = self.quant_conv(h)
+        d = self.cond_encoder(fut, self._repeat_feats(cond_feats, T - 1))
+        d = self.quant_linear(_patchify(_nhwc(d), cfg.patch_size))
+        quant_c = self.quantize.quantize_ste(_nhwc(h))  # (B, ch, cw, L)
+        quant_d = self.dynamics_quantize.quantize_ste(d)  # (B*(T-1), Nd, L)
+        context_dec, dec_feats = self.decoder(self.post_quant_conv(_nchw(quant_c.to(cfg.dtype))),
+                                              return_features=True)
+        quant2_d = _depatchify(self.post_quant_linear(quant_d.to(cfg.dtype)), cfg.ctx_res[0],
+                               cfg.ctx_res[1], cfg.patch_size, cfg.latent_channels)
+        dec = _nhwc(self.cond_decoder(_nchw(quant2_d), self._repeat_feats(dec_feats, T - 1)))
+        dec = dec.reshape(B, T - 1, *dec.shape[1:])
+        return torch.cat([_nhwc(context_dec)[:, None], dec], dim=1)

@@ -9,14 +9,18 @@ q[:, 0], for chunked prefill); optional causal masking.
   scores, bounded softmax, fully-masked rows give 0.  It runs for CPU
   tensors, and on the card it is the twin the kernel is checked against.
 * `flash_fwd` wraps the CUDA kernel in `csrc/flash_fwd.cu` (the port of the
-  Pallas `_fwd_kernel`): bf16 q/k/v -> bf16 O and f32 LSE, launched on the
-  current stream without synchronising.  It counts its launches in the
-  module-level `launches`, and by the batch's rows in `launches_by_rows`.
+  Pallas `_fwd_kernel`): bf16 q/k/v -> bf16 O and f32 LSE at D 64 / 128, or
+  the f32 instance (`csrc/flash_f32.cuh`, for the f32 push models) f32
+  q/k/v -> f32 O and LSE at D 32 / 64, launched on the current stream
+  without synchronising.  It counts its launches in the
+  module-level `launches`, by the batch's rows in `launches_by_rows` and
+  by the head dim in `launches_by_head_dim`.
 * `attention_bwd_plain` is the backward's twin: the explicit formula of the
   Pallas `_dq_kernel` / `_dkv_kernel` (p recomputed from the LSE with the
   bounded exp, dS = p (dP - delta) scale), in f32.
 * `flash_bwd_dq` / `flash_bwd_dkv` wrap the CUDA kernels in
-  `csrc/flash_bwd.cu` (ports of `_dq_kernel` and `_dkv_kernel`), counted in
+  `csrc/flash_bwd.cu` (ports of `_dq_kernel` and `_dkv_kernel`; bf16 at D
+  64 / 128, or their f32 instances at D 32 / 64), counted in
   `bwd_dq_launches` / `bwd_dkv_launches`; `flash_bwd` computes delta and
   launches both.  `dkv_plan` is #3's launch plan: its 64-key tiles and the
   blocks (one cluster) that share each tile's (query head, query tile)
@@ -45,15 +49,18 @@ from vla_rft_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e30
 
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (64, 128)  # the bf16 instances
+F32_HEAD_DIMS = (32, 64)  # the f32 instances (the push preset's policy LLM and WM)
 TILE = 64  # queries or keys of a kernel tile
 H100_SMS = 132  # #3's plan is made for the device's SM count; this when none is given
 DKV_MAX_SPLITS = 4  # blocks per key tile of #3: one cluster
 
 # kernel launches since the count was last set to 0 (read by chip_smoke.py):
 # the forward (#1), the backward's dQ (#2) and dK/dV (#3); #1's also by rows
+# and by head dim
 launches = 0
 launches_by_rows = {}  # B -> #1 launches with q of B rows
+launches_by_head_dim = {}  # D -> #1 launches at head dim D
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
 
@@ -177,11 +184,12 @@ def _load():
     global _lib
     if _lib is None:
         lib = cuda_build.load("flash_fwd")
-        fn = lib.flash_fwd_bf16
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = lib.flash_fwd_setup.restype = ctypes.c_int
+        for fn in (lib.flash_fwd_bf16, lib.flash_fwd_f32):
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+        lib.flash_fwd_setup.restype = ctypes.c_int
         lib.flash_fwd_setup.argtypes = []
         _lib = lib
     return _lib
@@ -209,8 +217,11 @@ def _load_bwd():
         lib.flash_bwd_dq_bf16.argtypes = [ctypes.c_void_p] * 10 + tail + [ctypes.c_void_p]
         lib.flash_bwd_dkv_bf16.argtypes = ([ctypes.c_void_p] * 11 + tail
                                            + [ctypes.c_int, ctypes.c_void_p])
+        lib.flash_bwd_dq_f32.argtypes = [ctypes.c_void_p] * 10 + tail + [ctypes.c_void_p]
+        lib.flash_bwd_dkv_f32.argtypes = [ctypes.c_void_p] * 11 + tail + [ctypes.c_void_p]
         lib.flash_bwd_setup.argtypes = []
-        for fn in (lib.flash_bwd_dq_bf16, lib.flash_bwd_dkv_bf16, lib.flash_bwd_setup):
+        for fn in (lib.flash_bwd_dq_bf16, lib.flash_bwd_dkv_bf16, lib.flash_bwd_dq_f32,
+                   lib.flash_bwd_dkv_f32, lib.flash_bwd_setup):
             fn.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
@@ -275,12 +286,13 @@ def _row_arg(x, B: int, default: int, device) -> torch.Tensor:
 
 def _check(fn: str, q, k, v, extra=()):
     """Raise unless q/k/v (and the `extra` (name, tensor) pairs, shaped like
-    q) are what the kernels take; returns (B, Sq, Sk, Hq, Hkv, D)."""
+    q) are what the kernels take: all bf16 with D in SUPPORTED_HEAD_DIMS, or
+    all f32 with D in F32_HEAD_DIMS; returns (B, Sq, Sk, Hq, Hkv, D)."""
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if not t.is_cuda:
             raise ValueError(f"{fn}: {name} must be a CUDA tensor")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{fn}: {name} must be bfloat16, got {t.dtype}")
+        if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != q.dtype:
+            raise ValueError(f"{fn}: {name} must be bfloat16 or float32 like q, got {t.dtype}")
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be a contiguous 4-D tensor")
         if t.device != q.device:
@@ -294,8 +306,9 @@ def _check(fn: str, q, k, v, extra=()):
     Sk, Hkv = k.shape[1], k.shape[2]
     if Hq % Hkv:
         raise ValueError(f"{fn}: Hq={Hq} is not a multiple of Hkv={Hkv}")
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{fn}: head dim {D} not in {SUPPORTED_HEAD_DIMS}")
+    dims = SUPPORTED_HEAD_DIMS if q.dtype == torch.bfloat16 else F32_HEAD_DIMS
+    if D not in dims:
+        raise ValueError(f"{fn}: head dim {D} not in {dims} for {q.dtype}")
     if min(B, Sq, Sk) == 0:
         raise ValueError(f"{fn}: empty input")
     return B, Sq, Sk, Hq, Hkv, D
@@ -328,8 +341,9 @@ def flash_fwd(
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA flash forward.  q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D),
-    bf16, contiguous, on one CUDA device, D in {64, 128}.  Returns O
-    (B, Sq, Hq, D) bf16 and LSE (B, Sq, Hq) f32; does not synchronise."""
+    contiguous, on one CUDA device: bf16 with D in {64, 128}, or f32 with D
+    in {32, 64}.  Returns O (B, Sq, Hq, D) in q's dtype and LSE (B, Sq, Hq)
+    f32; does not synchronise."""
     global launches
     B, Sq, Sk, Hq, Hkv, D = _check("flash_fwd", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -343,7 +357,8 @@ def flash_fwd(
     o = torch.empty_like(q)
     lse = torch.empty((B, Sq, Hq), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.flash_fwd_bf16(
+    launch = lib.flash_fwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_fwd_f32
+    rc = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         kl.data_ptr(), qo.data_ptr(), ks.data_ptr(),
         B, Sq, Sk, Hq, Hkv, D, float(scale), int(bool(causal)), stream,
@@ -352,14 +367,16 @@ def flash_fwd(
         raise RuntimeError(f"flash_fwd: kernel launch failed with CUDA error {rc}")
     launches += 1
     launches_by_rows[B] = launches_by_rows.get(B, 0) + 1
+    launches_by_head_dim[D] = launches_by_head_dim.get(D, 0) + 1
     return o, lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False, kv_lens=None,
                  q_offset=None, kv_starts=None, scale: Optional[float] = None) -> torch.Tensor:
-    """Launch kernel #2: dq (B, Sq, Hq, D) bf16 from bf16 q, k, v, dO and the
-    f32 forward LSE and delta = sum_D dO * O, both (B, Sq, Hq); q/k/v/dO on
-    16-byte boundaries.  The plan is `dq_plan`'s."""
+    """Launch kernel #2: dq (B, Sq, Hq, D) from q, k, v, dO (all bf16, or all
+    f32: the f32 instance) and the f32 forward LSE and delta = sum_D dO * O,
+    both (B, Sq, Hq); q/k/v/dO on 16-byte boundaries.  The bf16 plan is
+    `dq_plan`'s; the f32 instance takes one block per 32-query tile."""
     global bwd_dq_launches
     B, Sq, Sk, Hq, Hkv, D = _check("flash_bwd_dq", q, k, v, (("do", do),))
     _check_rows_f32("flash_bwd_dq", q, (("lse", lse), ("delta", delta)))
@@ -370,7 +387,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False, kv_lens=None,
     kl, qo, ks = _rows(B, Sk, q.device, kv_lens, q_offset, kv_starts)
     lib, _ = _bwd_device_lib(q.device)
     dq = torch.empty_like(q)
-    rc = lib.flash_bwd_dq_bf16(
+    launch = lib.flash_bwd_dq_bf16 if q.dtype == torch.bfloat16 else lib.flash_bwd_dq_f32
+    rc = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), kl.data_ptr(), qo.data_ptr(), ks.data_ptr(),
         B, Sq, Sk, Hq, Hkv, D, float(scale), int(bool(causal)),
@@ -385,9 +403,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False, kv_lens=None,
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False, kv_lens=None,
                   q_offset=None, kv_starts=None,
                   scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel #3: dk, dv (B, Sk, Hkv, D) bf16, each summed over the
-    query heads of its kv group; inputs as `flash_bwd_dq`, q/k/v/dO on
-    16-byte boundaries.  The plan is `dkv_plan`'s."""
+    """Launch kernel #3: dk, dv (B, Sk, Hkv, D) in k's dtype, each summed
+    over the query heads of its kv group; inputs as `flash_bwd_dq`, q/k/v/dO
+    on 16-byte boundaries.  The bf16 plan is `dkv_plan`'s; the f32 instance
+    takes one block per 32-key tile."""
     global bwd_dkv_launches
     B, Sq, Sk, Hq, Hkv, D = _check("flash_bwd_dkv", q, k, v, (("do", do),))
     _check_rows_f32("flash_bwd_dkv", q, (("lse", lse), ("delta", delta)))
@@ -397,14 +416,15 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False, kv_lens=None
     scale = D ** -0.5 if scale is None else scale
     kl, qo, ks = _rows(B, Sk, q.device, kv_lens, q_offset, kv_starts)
     lib, sms = _bwd_device_lib(q.device)
-    plan = dkv_plan(B, Sk, Hq, Hkv, sms)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = lib.flash_bwd_dkv_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), kl.data_ptr(), qo.data_ptr(),
-        ks.data_ptr(), B, Sq, Sk, Hq, Hkv, D, float(scale), int(bool(causal)), plan["splits"],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), kl.data_ptr(), qo.data_ptr(),
+            ks.data_ptr(), B, Sq, Sk, Hq, Hkv, D, float(scale), int(bool(causal)))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        rc = lib.flash_bwd_dkv_bf16(*ptrs, dkv_plan(B, Sk, Hq, Hkv, sms)["splits"], stream)
+    else:
+        rc = lib.flash_bwd_dkv_f32(*ptrs, stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkv: kernel launch failed with CUDA error {rc}")
     bwd_dkv_launches += 1
@@ -415,7 +435,8 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool = False, kv_lens=None, q_offs
               kv_starts=None, scale: Optional[float] = None):
     """The flash backward on the card: delta = sum_D dO * O in f32 (a torch
     reduction, as the reference computes it outside Pallas), then kernels #2
-    and #3.  Returns dq, dk, dv in bf16; does not synchronise."""
+    and #3.  Returns dq, dk, dv in the inputs' dtype (bf16, or f32 from the
+    f32 instances); does not synchronise."""
     _check("flash_bwd", q, k, v, (("o", o), ("do", do)))
     delta = (do.float() * o.float()).sum(dim=-1)
     kw = dict(causal=causal, kv_lens=kv_lens, q_offset=q_offset, kv_starts=kv_starts,

@@ -96,7 +96,8 @@ def decode_shared_kernel(q, ck, cv, sck, scv, prefix_map, *, shared_len: int, kv
                          q_offset, shared_starts=None, scales: Optional[Tuple] = None,
                          shared_scales: Optional[Tuple] = None) -> torch.Tensor:
     """Launch kernel #6 (split cache); same arguments as `decode_shared_plain`,
-    all on one CUDA device, q bf16 with D = 64 and Sq <= 8.  Per-row
+    all on one CUDA device, q bf16 (int8 or bf16 caches) or f32 (f32
+    caches) with D = 64 and Sq <= 8.  Per-row
     arguments are (B,) integer tensors.  prefix_map must index rows of the
     shared cache (not checked: that would synchronise)."""
     global shared_heads_launches

@@ -19,7 +19,9 @@ p is a TPU trick and is not ported.
 * `decode_shared_plain` / `decode_plain` are those twins in PyTorch; they
   run for CPU tensors, and on the card the kernels are checked against them.
 * `decode_shared_kernel` / `decode_kernel` launch csrc/decode_hd.cu (one
-  source, a template flag for the shared segment) and count their launches
+  source, a template flag for the shared segment; bf16 q over an int8 or
+  bf16 cache, or f32 q over an f32 cache, the push preset's f32 world
+  model, through a simpler f32 kernel that takes no plan) and count their launches
   in `shared_launches` / `plain_launches`.  `_launch` checks and launches
   for both cache layouts: ops/decode_attention.py (kernels #6 / #7 over
   the 'heads' layout, csrc/decode_heads.cu) goes through it too.
@@ -191,7 +193,11 @@ def _check_cache(name, c, s, q, layout):
         raise ValueError(f"decode kernel: {name} must be a contiguous {want} tensor with "
                          f"D = {q.shape[-1]}, got {tuple(c.shape)}")
     rows, S, Hkv = dims
-    if c.dtype == torch.int8:
+    if q.dtype == torch.float32:
+        if c.dtype != torch.float32 or s is not None:
+            raise ValueError(f"decode kernel: with f32 q, {name} must be f32 without scales "
+                             f"(bf16 q takes int8 or bf16 caches), got {c.dtype}")
+    elif c.dtype == torch.int8:
         if s is None:
             raise ValueError(f"decode kernel: int8 {name} needs its scales")
         if (s.dtype != torch.bfloat16 or s.shape != (rows, Hkv, S)
@@ -211,15 +217,15 @@ def _launch(q, ck, cv, scales, shared, prefix_map, shared_len, kv_lens, q_offset
     """Check the arguments and launch the decode kernel of `layout` (#4 / #5
     for "hd", #6 / #7 for "heads"); `shared` is (sck, scv, ssk, ssv) or
     None."""
-    if q.dtype != torch.bfloat16 or q.dim() != 4 or not q.is_contiguous():
-        raise ValueError("decode kernel: q must be a contiguous 4-D bf16 CUDA tensor")
+    if q.dtype not in (torch.bfloat16, torch.float32) or q.dim() != 4 or not q.is_contiguous():
+        raise ValueError("decode kernel: q must be a contiguous 4-D bf16 or f32 CUDA tensor")
     B, Sq, Hq, D = q.shape
     if D != HEAD_DIM:
         raise ValueError(f"decode kernel: head dim {D} != {HEAD_DIM}")
     if not 1 <= Sq <= MAX_SQ:
         raise ValueError(f"decode kernel: {Sq} query positions, the kernel takes 1..{MAX_SQ}")
     if not q.is_cuda:
-        raise ValueError("decode kernel: q must be a contiguous 4-D bf16 CUDA tensor")
+        raise ValueError("decode kernel: q must be a contiguous 4-D bf16 or f32 CUDA tensor")
     if q.data_ptr() % 16:
         raise ValueError("decode kernel: q must start on a 16-byte boundary")
     sk, sv = scales if scales is not None else (None, None)
@@ -251,8 +257,13 @@ def _launch(q, ck, cv, scales, shared, prefix_map, shared_len, kv_lens, q_offset
                    ssv.data_ptr() if int8 else null, pm.data_ptr())
     else:
         sh_ptrs, Sp, n_prefix = (null,) * 5, 0, 0
-    plan = decode_plan(B, Sq, Hq // Hkv, Hkv, Sr, shared is not None, n_prefix, int(shared_len),
-                       _device_sms(dev))
+    if ck.dtype == torch.float32:  # the f32 kernel: one block per (row, kv head), no plan
+        plan = {"chunk_rows": 1, "slots": B, "splits": 1}
+        cache_type = 2
+    else:
+        plan = decode_plan(B, Sq, Hq // Hkv, Hkv, Sr, shared is not None, n_prefix,
+                           int(shared_len), _device_sms(dev))
+        cache_type = int(int8)
     kl = _row_arg(kv_lens, B, 0, dev)
     qo = _row_arg(q_offset, B, 0, dev)
     ks = _row_arg(kv_starts, B, 0, dev)
@@ -262,7 +273,7 @@ def _launch(q, ck, cv, scales, shared, prefix_map, shared_len, kv_lens, q_offset
         q.data_ptr(), o.data_ptr(), ck.data_ptr(), cv.data_ptr(),
         sk.data_ptr() if int8 else null, sv.data_ptr() if int8 else null, *sh_ptrs,
         kl.data_ptr(), qo.data_ptr(), ks.data_ptr(),
-        B, Sq, Hq, Hkv, D, Sr, Sp, int(shared_len), int(int8), int(shared is not None),
+        B, Sq, Hq, Hkv, D, Sr, Sp, int(shared_len), cache_type, int(shared is not None),
         float(D ** -0.5), n_prefix, plan["chunk_rows"], plan["slots"], plan["splits"],
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -275,7 +286,8 @@ def decode_shared_kernel(q, ck, cv, sck, scv, prefix_map, *, shared_len: int, kv
                          q_offset, shared_starts=None, scales: Optional[Tuple] = None,
                          shared_scales: Optional[Tuple] = None) -> torch.Tensor:
     """Launch kernel #4 (split cache); same arguments as `decode_shared_plain`,
-    all on one CUDA device, q bf16 with D = 64 and Sq <= 8.  Per-row
+    all on one CUDA device, q bf16 (int8 or bf16 caches) or f32 (f32
+    caches) with D = 64 and Sq <= 8.  Per-row
     arguments are (B,) integer tensors.  prefix_map must index rows of the
     shared cache (not checked: that would synchronise)."""
     global shared_launches

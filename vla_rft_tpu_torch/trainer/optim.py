@@ -18,8 +18,8 @@ module reproduces those steps on lists of torch parameters:
   torch.optim.AdamW's default decay is 1e-2.  Moments stay in the
   parameter's dtype (bf16 for the libero Qwen), as optax keeps them; there
   is no f32 master copy, because the reference has none.
-* `warmup_constant_schedule`: optax's, evaluated at the update count (the
-  first update uses count 0).
+* `warmup_constant_schedule` and `warmup_cosine_decay_schedule`: optax's,
+  evaluated at the update count (the first update uses count 0).
 * Frozen groups (`optax.set_to_zero`) are parameters left out of every
   `AdamW`: they get gradients (for the norm) and never change.
 
@@ -37,6 +37,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 Schedule = Union[float, Callable[[int], float]]
@@ -69,6 +70,28 @@ def warmup_constant_schedule(init_value: float, peak_value: float,
         if count >= warmup_steps:
             return peak_value
         return (init_value - peak_value) * (1.0 - count / warmup_steps) + peak_value
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0
+                                 ) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule, in f32 as optax computes it: linear
+    from init_value to peak_value over warmup_steps updates, then a cosine
+    from peak_value to end_value over the remaining decay_steps -
+    warmup_steps, then end_value."""
+    f32 = np.float32
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    span = decay_steps - warmup_steps
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = f32(1) - f32(max(count, 0)) / f32(warmup_steps)
+            return float(f32(init_value - peak_value) * frac + f32(peak_value))
+        c = f32(min(count - warmup_steps, span))
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(span)))
+        return float(f32(peak_value) * (f32(1 - alpha) * cosine + f32(alpha)))
 
     return schedule
 
